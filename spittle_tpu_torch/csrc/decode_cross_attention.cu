@@ -1,0 +1,177 @@
+// Decode-time cross-attention for Hopper (sm_90a): up to 8 query rows per
+// (batch, head) against the whole encoder K/V in the decode layout
+// [B, H, Dh, Tk] (time minor), bf16.
+//
+// Replaces the TPU kernel spittle_tpu/ops/attention.py:
+// decode_cross_attention (body _decode_cross_kernel). q arrives
+// pre-scaled by Dh^-0.5.
+//
+// What bounds it on an H100: memory. Each call streams B*H*Dh*Tk*2*2
+// bytes of K and V (61 MB at B=8, H=20, Tk=1500) for only 4*R*Dh flops
+// per (b, h, t): with R <= 8 that is under 2 flops per byte, so the bound
+// is the 3.35 TB/s of device memory.
+//
+// Design: one block per (batch, head), as on the TPU. The block reads K
+// and V exactly once each, coalesced along time: in the score pass each
+// thread takes pairs of time steps and walks Dh (bf16x2 loads, neighbouring
+// threads on neighbouring addresses); in the PV pass each warp owns 8 of
+// the 64 head-dim rows of V and its lanes stride along time. The [R, Tk]
+// f32 score rows live in dynamic shared memory between the passes, where
+// the softmax runs over t < kv_len only (the real 1500, no padding). P is
+// rounded to bf16 for the PV sum, where the TPU kernel casts p to v's
+// dtype, and 1/l is applied at the end. With B*H = 160 blocks on 132 SMs
+// the card is under-occupied; a split-T (flash-decoding) second pass is
+// later work.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kD = 64;
+constexpr int kMaxR = 8;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+__global__ void __launch_bounds__(kThreads)
+    decode_cross_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        __nv_bfloat16* __restrict__ o, int H, int R, int Tk,
+                        int kv_len, int ldp, long long qsb, long long qsh,
+                        long long qsr, long long osb, long long osh,
+                        long long osr) {
+  extern __shared__ float ps[];  // [R, ldp] scores, then probabilities
+  __shared__ float qsm[kMaxR * kD];
+  __shared__ float red[kMaxR][kWarps];
+  __shared__ float rmax[kMaxR], rsum[kMaxR];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const __nv_bfloat16* kb = k + static_cast<size_t>(bh) * kD * Tk;
+  const __nv_bfloat16* vb = v + static_cast<size_t>(bh) * kD * Tk;
+  q += b * qsb + h * qsh;
+  o += b * osb + h * osh;
+
+  for (int i = tid; i < R * kD; i += kThreads)
+    qsm[i] = __bfloat162float(q[(i / kD) * qsr + (i % kD)]);
+  __syncthreads();
+
+  // Scores: s[r, t] = sum_d q[r, d] * k[d, t], two time steps per thread.
+  const int npairs = (kv_len + 1) / 2;
+  for (int tp = tid; tp < npairs; tp += kThreads) {
+    const int t = 2 * tp;
+    float a0[kMaxR], a1[kMaxR];
+#pragma unroll
+    for (int r = 0; r < kMaxR; ++r) a0[r] = a1[r] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < kD; ++d) {
+      const float2 kk = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(kb + d * Tk + t));
+#pragma unroll
+      for (int r = 0; r < kMaxR; ++r) {
+        if (r < R) {
+          const float qv = qsm[r * kD + d];
+          a0[r] = fmaf(qv, kk.x, a0[r]);
+          a1[r] = fmaf(qv, kk.y, a1[r]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kMaxR; ++r) {
+      if (r < R) {
+        ps[r * ldp + t] = a0[r];
+        if (t + 1 < kv_len) ps[r * ldp + t + 1] = a1[r];
+      }
+    }
+  }
+  __syncthreads();
+
+  // Row max over the real kv_len columns.
+  for (int r = 0; r < R; ++r) {
+    float mx = -INFINITY;
+    for (int t = tid; t < kv_len; t += kThreads) mx = fmaxf(mx, ps[r * ldp + t]);
+    mx = spt::warp_max(mx);
+    if (lane == 0) red[r][warp] = mx;
+  }
+  __syncthreads();
+  if (tid < R) {
+    float mx = red[tid][0];
+    for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, red[tid][w]);
+    rmax[tid] = mx;
+  }
+  __syncthreads();
+
+  // p = exp(s - m): l sums the f32 p, the PV pass reads p rounded to bf16.
+  for (int r = 0; r < R; ++r) {
+    const float m = rmax[r];
+    float sm = 0.f;
+    for (int t = tid; t < kv_len; t += kThreads) {
+      const float p = expf(ps[r * ldp + t] - m);
+      sm += p;
+      ps[r * ldp + t] = __bfloat162float(__float2bfloat16_rn(p));
+    }
+    sm = spt::warp_sum(sm);
+    if (lane == 0) red[r][warp] = sm;
+  }
+  __syncthreads();
+  if (tid < R) {
+    float sm = 0.f;
+    for (int w = 0; w < kWarps; ++w) sm += red[tid][w];
+    rsum[tid] = sm;
+  }
+  __syncthreads();
+
+  // o[r, d] = sum_t p[r, t] * v[d, t] / l[r]; warp w owns d = w, w+8, ...
+  for (int d = warp; d < kD; d += kWarps) {
+    const __nv_bfloat16* vrow = vb + d * Tk;
+    float acc[kMaxR];
+#pragma unroll
+    for (int r = 0; r < kMaxR; ++r) acc[r] = 0.f;
+    for (int tp = lane; tp < npairs; tp += 32) {
+      const int t = 2 * tp;
+      const float2 vv = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(vrow + t));
+      const bool second = t + 1 < kv_len;
+#pragma unroll
+      for (int r = 0; r < kMaxR; ++r) {
+        if (r < R) {
+          acc[r] = fmaf(ps[r * ldp + t], vv.x, acc[r]);
+          if (second) acc[r] = fmaf(ps[r * ldp + t + 1], vv.y, acc[r]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kMaxR; ++r) {
+      if (r < R) {
+        const float s = spt::warp_sum(acc[r]);
+        if (lane == 0) o[r * osr + d] = __float2bfloat16_rn(s / rsum[r]);
+      }
+    }
+  }
+}
+
+}  // namespace
+
+// q: [B, H, R, Dh] bf16 with strides (qsb, qsh, qsr, 1); k, v contiguous
+// [B, H, Dh, Tk] bf16 with Tk even; o: [B, H, R, Dh] bf16 with strides
+// (osb, osh, osr, 1). Dynamic shared memory: R * ldp floats.
+SPT_API int spt_decode_cross_attention(const void* q, const void* k,
+                                       const void* v, void* o, int B, int H,
+                                       int R, int Tk, int kv_len,
+                                       long long qsb, long long qsh,
+                                       long long qsr, long long osb,
+                                       long long osh, long long osr,
+                                       void* stream) {
+  const int ldp = (kv_len + 1) & ~1;
+  const size_t smem = static_cast<size_t>(R) * ldp * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_cross_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  decode_cross_kernel<<<B * H, kThreads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H,
+      R, Tk, kv_len, ldp, qsb, qsh, qsr, osb, osh, osr);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,242 @@
+"""Greedy Whisper decoding with whisper.cpp's logits rules (port of
+spittle_tpu/models/whisper/decode.py: DecodeOptions, sot_sequence,
+_static_suppress_mask, _process_logits, the temperature-0 greedy loop and
+the no_speech_prob / avg_logprob summaries).
+
+The loop is eager Python over device tensors of static shape (the token
+buffer, the KV cache and the per-row state never change shape), so a later
+change can capture one step in a CUDA graph. It stops when every row has
+finished or the budget is spent.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from .config import WhisperConfig
+from .model import decode_step, decoder_prefill, precompute_cross_kv
+
+NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeOptions:
+    task: str = "transcribe"  # or "translate"
+    language: Optional[str] = None  # None -> auto-detect
+    timestamps: bool = True
+    max_initial_timestamp: float = 1.0  # seconds
+    suppress_blank: bool = True
+    suppress_tokens: Tuple[int, ...] = ()  # always-suppressed token ids
+    space_token: Optional[int] = None  # id of " " for blank suppression
+    max_tokens: int = 0  # decode budget; 0 -> n_text_ctx
+    temperature: float = 0.0  # only 0 (argmax) is ported
+
+
+def sot_sequence(
+    cfg: WhisperConfig,
+    lang_token: Optional[int] = None,
+    task: str = "transcribe",
+    timestamps: bool = True,
+) -> Tuple[int, ...]:
+    """[sot, language, task, (notimestamps)] for multilingual models,
+    [sot, (notimestamps)] for English-only."""
+    seq = [cfg.sot]
+    if cfg.multilingual:
+        seq.append(lang_token if lang_token is not None else cfg.lang_begin)
+        seq.append(cfg.translate if task == "translate" else cfg.transcribe)
+    if not timestamps:
+        seq.append(cfg.no_timestamps)
+    return tuple(seq)
+
+
+def _static_suppress_mask(
+    cfg: WhisperConfig, opts: DecodeOptions, audio_ctx: int = 0
+) -> np.ndarray:
+    """Additive [V] mask of always-suppressed tokens. audio_ctx: encoder
+    positions present; timestamps past the encoded audio are suppressed."""
+    mask = np.zeros(cfg.n_vocab, np.float32)
+    always = [cfg.sot, cfg.sot_prev, cfg.sot_lm, cfg.no_speech,
+              cfg.translate, cfg.transcribe]
+    always.extend(range(cfg.lang_begin, cfg.lang_begin + cfg.n_langs))
+    for t in always:
+        mask[t] = NEG_INF
+    for t in opts.suppress_tokens:
+        mask[t] = NEG_INF
+    if opts.timestamps:
+        mask[cfg.no_timestamps] = NEG_INF
+        if audio_ctx:
+            mask[cfg.timestamp_begin + audio_ctx + 1:] = NEG_INF
+    else:
+        mask[cfg.timestamp_begin:] = NEG_INF
+    return mask
+
+
+def _process_logits(
+    logits: torch.Tensor,  # [B, V] float32
+    *,
+    cfg: WhisperConfig,
+    opts: DecodeOptions,
+    static_mask: torch.Tensor,  # [V]
+    pos: int,  # index being sampled
+    sample_begin: int,
+    last_tok: torch.Tensor,  # [B]
+    penult_tok: torch.Tensor,  # [B]
+    ts_floor: torch.Tensor,  # [B] minimum allowed timestamp token
+) -> torch.Tensor:
+    ts_begin = cfg.timestamp_begin
+    vocab_idx = torch.arange(cfg.n_vocab, device=logits.device)
+    is_ts = vocab_idx >= ts_begin
+
+    logits = logits + static_mask[None]
+
+    at_begin = pos == sample_begin
+    if at_begin and opts.suppress_blank and opts.space_token is not None:
+        blank = (vocab_idx == opts.space_token) | (vocab_idx == cfg.eot)
+        logits = torch.where(blank[None], NEG_INF, logits)
+
+    if opts.timestamps:
+        last_is_ts = last_tok >= ts_begin
+        # penultimate_was_timestamp is True while fewer than two tokens
+        # have been sampled (OpenAI ApplyTimestampRules).
+        penult_is_ts = (penult_tok >= ts_begin) | (pos - sample_begin < 2)
+        started = pos > sample_begin
+        no_ts_now = last_is_ts & penult_is_ts & started
+        force_ts = last_is_ts & ~penult_is_ts & started
+        logits = torch.where(no_ts_now[:, None] & is_ts[None], NEG_INF, logits)
+        text_not_eot = (~is_ts) & (vocab_idx != cfg.eot)
+        logits = torch.where(force_ts[:, None] & text_not_eot[None], NEG_INF,
+                             logits)
+        # Non-decreasing timestamps.
+        below_floor = is_ts[None] & (vocab_idx[None] < ts_floor[:, None])
+        logits = torch.where(below_floor, NEG_INF, logits)
+        if at_begin:
+            # The first sampled token must be a timestamp, within the
+            # initial-timestamp bound.
+            logits = torch.where(~is_ts[None], NEG_INF, logits)
+            if opts.max_initial_timestamp is not None:
+                max_init = ts_begin + int(round(opts.max_initial_timestamp / 0.02))
+                logits = torch.where((vocab_idx > max_init)[None] & is_ts[None],
+                                     NEG_INF, logits)
+        # Sample a timestamp when the total timestamp probability beats the
+        # best text token (the sum-probability rule).
+        lsm = torch.log_softmax(logits, dim=-1)
+        ts_logprob = torch.logsumexp(torch.where(is_ts[None], lsm, NEG_INF),
+                                     dim=-1)
+        max_text = torch.where(is_ts[None], NEG_INF, lsm).amax(dim=-1)
+        force = ts_logprob > max_text
+        logits = torch.where(force[:, None] & ~is_ts[None], NEG_INF, logits)
+    return logits
+
+
+def _prefix(cfg: WhisperConfig, opts: DecodeOptions, b: int,
+            lang_tokens: Optional[torch.Tensor],
+            prompt_tokens: Sequence[int], device) -> Tuple[torch.Tensor, int]:
+    """[B, P] prompt + SOT sequence (int64) and the SOT's position."""
+    if opts.language is not None and lang_tokens is None and cfg.multilingual:
+        from .tokenizer import LANGUAGES, LANGUAGES_V3
+
+        langs = LANGUAGES_V3 if cfg.n_langs == 100 else LANGUAGES
+        lang_tokens = torch.full((b,), cfg.lang_begin + langs.index(opts.language),
+                                 dtype=torch.int64)
+    sot_seq = list(sot_sequence(cfg, lang_token=0, task=opts.task,
+                                timestamps=opts.timestamps))
+    prompt_prefix = [cfg.sot_prev, *prompt_tokens] if prompt_tokens else []
+    sot_pos = len(prompt_prefix)
+    prefix = torch.tensor(prompt_prefix + sot_seq, dtype=torch.int64)
+    prefix = prefix[None].repeat(b, 1)
+    if cfg.multilingual:
+        if lang_tokens is None:
+            lang_tokens = torch.full((b,), cfg.lang_begin, dtype=torch.int64)
+        prefix[:, sot_pos + 1] = lang_tokens.to(torch.int64).cpu()
+    return prefix.to(device), sot_pos
+
+
+@torch.inference_mode()
+def greedy_decode(
+    params,
+    xa: torch.Tensor,
+    cfg: WhisperConfig,
+    opts: DecodeOptions = DecodeOptions(),
+    lang_tokens: Optional[torch.Tensor] = None,
+    prompt_tokens: Sequence[int] = (),
+) -> Dict[str, Any]:
+    """Greedy-decode a batch of encoded windows xa [B, T, D].
+
+    Returns "tokens" [B, L] (prefix + generated, EOT-padded, on xa's
+    device), "sample_begin", "avg_logprob" [B], "no_speech_prob" [B] and
+    "steps" (decode steps run after the prefill)."""
+    if opts.temperature != 0.0:
+        raise NotImplementedError(
+            "temperature sampling is not ported yet (ROADMAP queue 1, item 7)"
+        )
+    b, dev = xa.shape[0], xa.device
+    prefix, sot_pos = _prefix(cfg, opts, b, lang_tokens, prompt_tokens, dev)
+    prefix_len = prefix.shape[1]
+    # opts.max_tokens is the decode budget: the buffer holds prefix +
+    # budget, clamped to the model's text context.
+    max_len = min(cfg.n_text_ctx, prefix_len + (opts.max_tokens or cfg.n_text_ctx))
+    ctx = min(cfg.n_text_ctx, -(-max_len // 32) * 32)
+    audio_ctx = xa.shape[1]
+    cross_kv = precompute_cross_kv(params, xa, cfg)
+    static_mask = torch.from_numpy(
+        _static_suppress_mask(cfg, opts, audio_ctx=audio_ctx)
+    ).to(dev)
+    all_logits, cache = decoder_prefill(params, prefix, cross_kv, cfg, ctx)
+
+    ts_begin = cfg.timestamp_begin
+    tokens = torch.full((b, max_len), cfg.eot, dtype=torch.int64, device=dev)
+    tokens[:, :prefix_len] = prefix
+    cur_logits = all_logits[:, -1].to(torch.float32)
+    finished = torch.zeros(b, dtype=torch.bool, device=dev)
+    # ts_begin - 1: "no timestamp sampled yet" (bans nothing).
+    ts_floor = torch.full((b,), ts_begin - 1, dtype=torch.int64, device=dev)
+    sum_logprob = torch.zeros(b, dtype=torch.float32, device=dev)
+    length = torch.zeros(b, dtype=torch.int64, device=dev)
+    steps = 0
+    pos = prefix_len
+    while pos < max_len:
+        last = tokens[:, pos - 1]
+        penult = tokens[:, max(pos - 2, 0)]
+        logits = _process_logits(
+            cur_logits, cfg=cfg, opts=opts, static_mask=static_mask, pos=pos,
+            sample_begin=prefix_len, last_tok=last, penult_tok=penult,
+            ts_floor=ts_floor,
+        )
+        next_tok = torch.argmax(logits, dim=-1)
+        step_lp = torch.log_softmax(logits, dim=-1).gather(
+            1, next_tok[:, None])[:, 0]
+        next_tok = torch.where(finished, cfg.eot, next_tok)
+        newly = ~finished
+        sum_logprob = sum_logprob + torch.where(newly, step_lp, 0.0)
+        length = length + newly.to(torch.int64)
+        tokens[:, pos] = next_tok
+        # A pair-closing timestamp may be equalled by the next opener
+        # (floor = ts); an opening one must be strictly exceeded (ts + 1).
+        is_ts = next_tok >= ts_begin
+        last_is_ts = last >= ts_begin
+        first_ts = ts_floor < ts_begin
+        new_floor = torch.where(last_is_ts | first_ts, next_tok + 1, next_tok)
+        ts_floor = torch.where(is_ts & newly, new_floor, ts_floor)
+        finished = finished | (next_tok == cfg.eot)
+        pos += 1
+        if pos >= max_len or bool(finished.all()):
+            break
+        cur_logits = decode_step(params, next_tok, pos - 1, cache, cross_kv,
+                                 cfg, audio_ctx=audio_ctx)
+        steps += 1
+
+    no_speech_prob = torch.softmax(all_logits[:, sot_pos].to(torch.float32),
+                                   dim=-1)[:, cfg.no_speech]
+    avg_logprob = sum_logprob / torch.clamp(length, min=1).to(torch.float32)
+    return {
+        "tokens": tokens,
+        "sample_begin": prefix_len,
+        "avg_logprob": avg_logprob,
+        "no_speech_prob": no_speech_prob,
+        "length": length,
+        "steps": steps,
+    }

@@ -1,0 +1,289 @@
+"""Whisper encoder-decoder forward passes in PyTorch (port of
+spittle_tpu/models/whisper/model.py).
+
+Parameters are the reference's tree as nested dicts of tensors: every
+per-layer weight carries a leading [L] axis (see weights.py). Weights
+default to bf16 with f32 layer norms and logits; layer norms compute in
+f32.
+
+Layouts:
+- encoder activations [B, T, D]; attention heads are strided views of the
+  packed [B, T, H*Dh] projections (K1 reads them in place);
+- cross-attention K/V in the decode layout [L, B, H, Dh, T] (time minor),
+  the layout K4 streams;
+- the decoder self-attention cache is ctx-major [L, 2, B, H, ctx, Dh] and
+  is written in place one column per step, then attended (the reference
+  attends its fresh column in registers before a bulk write; both compute
+  the same function).
+
+Only the plain (bf16/f32) cross-K/V path of the turbo decoder is ported;
+the int8/int4/W8A8 cross-attention branches raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from spittle_tpu_torch.ops.attention import (
+    decode_cross_attention,
+    multihead_attention,
+)
+from spittle_tpu_torch.ops.quant import mm, mm_bias
+
+from .config import WhisperConfig
+
+Params = Dict[str, Any]
+_NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Small building blocks
+# ---------------------------------------------------------------------------
+
+
+def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """LayerNorm in f32 (eps 1e-5), cast back to x's dtype."""
+    x32 = x.to(torch.float32)
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, correction=0)
+    out = (x32 - mean) * torch.rsqrt(var + 1e-5)
+    return (out * g + b).to(x.dtype)
+
+
+def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
+    """[B, T, H*Dh] -> [B, H, T, Dh] (a view)."""
+    b, t, d = x.shape
+    return x.view(b, t, n_head, d // n_head).permute(0, 2, 1, 3)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, T, Dh] -> [B, T, H*Dh] (free when x views a [B, T, H, Dh]
+    buffer, as the attention kernels return)."""
+    b, h, t, dh = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b, t, h * dh)
+
+
+def sinusoidal_positions(length: int, channels: int) -> np.ndarray:
+    """Whisper encoder positional embedding (log-spaced sinusoids)."""
+    log_timescale = np.log(10000.0) / (channels // 2 - 1)
+    inv = np.exp(-log_timescale * np.arange(channels // 2))
+    scaled = np.arange(length)[:, None] * inv[None, :]
+    return np.concatenate([np.sin(scaled), np.cos(scaled)], axis=1).astype(
+        np.float32
+    )
+
+
+def layer_params(blocks: Params, layer: int) -> Params:
+    """Layer `layer` of a stacked block tree (quantized dicts included)."""
+    return {
+        k: layer_params(v, layer) if isinstance(v, dict) else v[layer]
+        for k, v in blocks.items()
+    }
+
+
+def n_layers(blocks: Params) -> int:
+    leaf = blocks["attn_ln_g"]
+    return leaf.shape[0]
+
+
+# ---------------------------------------------------------------------------
+# Encoder
+# ---------------------------------------------------------------------------
+
+
+def _attn_full(x, blk, n_head: int, causal: bool):
+    """Self-attention over a full sequence. q and k carry Whisper's split
+    Dh^-0.25 scaling (folded into the projection epilogue)."""
+    scale = (x.shape[-1] // n_head) ** -0.25
+    q = mm_bias(x, blk["wq"], blk["bq"], out_scale=scale)
+    k = mm_bias(x, blk["wk"], out_scale=scale)
+    v = mm_bias(x, blk["wv"], blk["bv"])
+    o = multihead_attention(
+        _split_heads(q, n_head), _split_heads(k, n_head),
+        _split_heads(v, n_head), causal=causal,
+    )
+    return mm_bias(_merge_heads(o), blk["wo"], blk["bo"])
+
+
+def _mlp(x, blk):
+    h = mm_bias(x, blk["fc1_w"], blk["fc1_b"], act="gelu")
+    return mm_bias(h, blk["fc2_w"], blk["fc2_b"])
+
+
+def encoder_block_body(h: torch.Tensor, blk, n_head: int) -> torch.Tensor:
+    """One encoder block (pre-LN attention + MLP residuals)."""
+    h = h + _attn_full(layer_norm(h, blk["attn_ln_g"], blk["attn_ln_b"]),
+                       blk, n_head, causal=False)
+    xn = layer_norm(h, blk["mlp_ln_g"], blk["mlp_ln_b"])
+    return h + _mlp(xn, blk)
+
+
+def _encoder_stem(enc, mel: torch.Tensor, cfg: WhisperConfig) -> torch.Tensor:
+    """Conv stem + positions: mel [B, n_mels, frames] -> [B, T, D]."""
+    w1 = enc["conv1_w"]
+    x = F.conv1d(mel.to(w1.dtype), w1, stride=1, padding=1)
+    x = F.gelu(x + enc["conv1_b"][None, :, None])
+    x = F.conv1d(x, enc["conv2_w"], stride=2, padding=1)
+    x = F.gelu(x + enc["conv2_b"][None, :, None])
+    x = x.transpose(1, 2)  # [B, T, D]
+    pos = torch.from_numpy(
+        sinusoidal_positions(cfg.n_audio_ctx, cfg.n_audio_state)
+    ).to(device=x.device, dtype=x.dtype)
+    # A mel shorter than the full window encodes with the FIRST T positions.
+    return x + pos[None, : x.shape[1]]
+
+
+def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig) -> torch.Tensor:
+    """mel [B, n_mels, 3000] -> audio features [B, 1500, D]."""
+    enc = params["encoder"]
+    x = _encoder_stem(enc, mel, cfg)
+    blocks = enc["blocks"]
+    for layer in range(n_layers(blocks)):
+        x = encoder_block_body(x, layer_params(blocks, layer), cfg.n_audio_head)
+    return layer_norm(x, enc["ln_g"], enc["ln_b"])
+
+
+# ---------------------------------------------------------------------------
+# Decoder
+# ---------------------------------------------------------------------------
+
+
+def precompute_cross_kv(params: Params, xa: torch.Tensor, cfg: WhisperConfig):
+    """Per-layer cross-attention K/V from the encoder output, each
+    [L, B, H, Dh, T]: the decode layout (time minor) that K4 streams."""
+    blocks = params["decoder"]["blocks"]
+    h = cfg.n_text_head
+    ks, vs = [], []
+    for layer in range(n_layers(blocks)):
+        blk = layer_params(blocks, layer)
+        ks.append(_split_heads(mm(xa, blk["cross_wk"]), h).transpose(-1, -2))
+        vs.append(_split_heads(mm(xa, blk["cross_wv"]) + blk["cross_bv"], h)
+                  .transpose(-1, -2))
+    return torch.stack(ks), torch.stack(vs)
+
+
+def init_kv_cache(cfg: WhisperConfig, batch: int, dtype=torch.float32,
+                  ctx: int = 0, device="cpu") -> torch.Tensor:
+    """Self-attention cache [L, 2, B, H, ctx, Dh], zeros (ctx-major)."""
+    shape = (
+        cfg.n_text_layer, 2, batch, cfg.n_text_head, ctx or cfg.n_text_ctx,
+        cfg.n_text_state // cfg.n_text_head,
+    )
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def _cross_attention(cq, ck, cv, dh: int, kv_len: int = 0):
+    """Cross-attention core for the decode and prefill paths.
+
+    cq: [B, H, q, Dh]; ck/cv: [B, H, Dh, T] in the decode layout.
+    kv_len: real length of K/V (0 = all of T)."""
+    if isinstance(ck, dict):
+        raise NotImplementedError(
+            "quantized cross-K/V (int8/int4/w8a8) is not ported yet "
+            "(ROADMAP queue 1, item 6)"
+        )
+    kvl = kv_len or ck.shape[-1]
+    # K4 for decode-sized queries, on shape alone as the reference's
+    # use_decode_cross_kernel decides; its wrapper raises on CUDA for what
+    # the kernel does not take.
+    if cq.shape[2] <= 8 and dh in (64, 128):
+        return decode_cross_attention(cq * (dh ** -0.5), ck, cv, kv_len=kvl)
+    cscores = torch.matmul((cq * (dh ** -0.25)).float(),
+                           (ck * (dh ** -0.25)).float())
+    if kvl < ck.shape[-1]:
+        cmask = torch.arange(ck.shape[-1], device=ck.device) < kvl
+        cscores = torch.where(cmask, cscores, _NEG_INF)
+    cprobs = torch.softmax(cscores, dim=-1)
+    return torch.matmul(cprobs.to(cv.dtype), cv.transpose(-1, -2))
+
+
+def _proj_qkv(h, blk, n_head: int, scale: float):
+    """Self-attention projections: h [B, P, D] -> q, k, v [B, H, P, Dh];
+    q and k pre-scaled by Dh^-0.25 (Whisper's split scaling)."""
+    xn = layer_norm(h, blk["attn_ln_g"], blk["attn_ln_b"])
+    q = _split_heads(mm(xn, blk["wq"]) + blk["bq"], n_head) * scale
+    k = _split_heads(mm(xn, blk["wk"]), n_head) * scale
+    v = _split_heads(mm(xn, blk["wv"]) + blk["bv"], n_head)
+    return q, k, v
+
+
+def _layer_rest(h, o, blk, ck, cv, n_head: int, cross_kv_len: int):
+    """Post-self-attention remainder of a decoder layer: output projection
+    and residual, cross-attention, MLP."""
+    h = h + mm(_merge_heads(o), blk["wo"]) + blk["bo"]
+    xn = layer_norm(h, blk["cross_ln_g"], blk["cross_ln_b"])
+    dh = xn.shape[-1] // n_head
+    cq = _split_heads(mm(xn, blk["cross_wq"]) + blk["cross_bq"], n_head)
+    co = _cross_attention(cq, ck, cv, dh, kv_len=cross_kv_len)
+    h = h + mm(_merge_heads(co), blk["cross_wo"]) + blk["cross_bo"]
+    return h + _mlp(layer_norm(h, blk["mlp_ln_g"], blk["mlp_ln_b"]), blk)
+
+
+def _cache_attend(q, cache_l, pos: int):
+    """q [B, H, 1, Dh] over cache columns 0..pos of cache_l
+    [2, B, H, ctx, Dh]: f32 scores, masked softmax, PV in the cache dtype."""
+    k_all, v_all = cache_l[0], cache_l[1]
+    scores = torch.matmul(q.float(), k_all.float().transpose(-1, -2))
+    col = torch.arange(k_all.shape[-2], device=q.device)
+    scores = torch.where(col <= pos, scores, _NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v_all.dtype)
+    return torch.matmul(probs, v_all)
+
+
+def logits_from_hidden(params: Params, h: torch.Tensor) -> torch.Tensor:
+    dec = params["decoder"]
+    h = layer_norm(h, dec["ln_g"], dec["ln_b"])
+    return (h @ dec["tok_emb"].T.to(h.dtype)).to(torch.float32)
+
+
+def decode_step(params: Params, tokens: torch.Tensor, pos: int,
+                kv_cache: torch.Tensor, cross_kv, cfg: WhisperConfig,
+                audio_ctx: int = 0) -> torch.Tensor:
+    """One K=1 decode step (the semantics of the reference's
+    decode_step_tmajor): embeds `tokens` [B] at position `pos`, writes each
+    layer's new K/V column into kv_cache [L, 2, B, H, ctx, Dh] IN PLACE,
+    attends over columns 0..pos, and returns logits [B, V] (f32)."""
+    dec = params["decoder"]
+    x = dec["tok_emb"][tokens][:, None, :]
+    x = (x + dec["pos_emb"][pos][None, None]).to(dec["tok_emb"].dtype)
+    n_head = cfg.n_text_head
+    scale = (x.shape[-1] // n_head) ** -0.25
+    blocks = dec["blocks"]
+    for layer in range(n_layers(blocks)):
+        blk = layer_params(blocks, layer)
+        q, k_new, v_new = _proj_qkv(x, blk, n_head, scale)
+        kv_cache[layer, 0, :, :, pos, :].copy_(k_new[:, :, 0])
+        kv_cache[layer, 1, :, :, pos, :].copy_(v_new[:, :, 0])
+        o = _cache_attend(q, kv_cache[layer], pos)
+        x = _layer_rest(x, o, blk, cross_kv[0][layer], cross_kv[1][layer],
+                        n_head, audio_ctx or cfg.n_audio_ctx)
+    return logits_from_hidden(params, x)[:, 0]
+
+
+def decoder_prefill(params: Params, tokens: torch.Tensor, cross_kv,
+                    cfg: WhisperConfig, ctx: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher-forced prefix pass: tokens [B, P] -> (logits [B, P, V] f32,
+    cache [L, 2, B, H, ctx, Dh] holding positions 0..P-1, K pre-scaled)."""
+    dec = params["decoder"]
+    b, p = tokens.shape
+    h = cfg.n_text_head
+    x = (dec["tok_emb"][tokens] + dec["pos_emb"][None, :p]).to(
+        dec["tok_emb"].dtype
+    )
+    scale = (cfg.n_text_state // h) ** -0.25
+    cache = init_kv_cache(cfg, b, dtype=x.dtype, ctx=ctx, device=x.device)
+    blocks = dec["blocks"]
+    for layer in range(n_layers(blocks)):
+        blk = layer_params(blocks, layer)
+        q, k, v = _proj_qkv(x, blk, h, scale)
+        o = multihead_attention(q, k, v, causal=True)
+        cache[layer, 0, :, :, :p].copy_(k)
+        cache[layer, 1, :, :, :p].copy_(v)
+        x = _layer_rest(x, o, blk, cross_kv[0][layer], cross_kv[1][layer],
+                        h, 0)
+    return logits_from_hidden(params, x), cache

@@ -1,0 +1,140 @@
+"""Card-only tests: the port's CUDA kernels (K1, K2, K4) against their
+plain PyTorch versions on CUDA tensors, and the engine's main path on a
+small config with every kernel counter moving.
+
+The kernels have no CPU mode, so every test here carries the `cuda`
+marker and skips without a card; whether a card is present is decided in
+the `cuda` fixture, never at import. This file imports no JAX, so it also
+runs where JAX is absent:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from spittle_tpu_torch.ops import attention as att
+from spittle_tpu_torch.ops.quant import quantize_weight_w8a8
+from spittle_tpu_torch.ops.w8a8_gemm import w8a8_gemm, w8a8_gemm_plain
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(rng, shape, dev, dtype=torch.bfloat16, scale=1.0):
+    a = rng.standard_normal(shape).astype(np.float32) * scale
+    return torch.from_numpy(a).to(dev, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n,bias,act,out_scale", [
+    (300, 256, 384, False, "none", 1.0),
+    (257, 512, 128, True, "gelu", 1.0),
+    (1000, 1280, 1280, True, "none", 0.125 ** 0.5),
+])
+def test_w8a8_kernel_matches_plain(cuda, dtype, m, k, n, bias, act, out_scale):
+    rng = np.random.default_rng(0)
+    x = _randn(rng, (m, k), cuda, dtype)
+    q = quantize_weight_w8a8(_randn(rng, (k, n), cuda, torch.float32, 0.05))
+    b = _randn(rng, (n,), cuda, dtype) if bias else None
+    got = w8a8_gemm(x, q["qw8"], q["scale"], bias=b, act=act,
+                    out_scale=out_scale)
+    want = w8a8_gemm_plain(x, q["qw8"], q["scale"], bias=b, act=act,
+                           out_scale=out_scale)
+    torch.cuda.synchronize()
+    # Same int8 bytes and exact int32 sums on both sides; the f32 epilogue
+    # may differ by an f32 ulp (erf implementations), i.e. at most one
+    # output ulp after rounding: 2**-7 relative in bf16, 1e-5 in f32.
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=1e-5)
+
+
+@pytest.mark.parametrize("t,kv_len,causal", [
+    (300, 290, False), (1500, 1500, False), (200, 200, True),
+])
+def test_fullkv_kernel_matches_plain(cuda, t, kv_len, causal):
+    rng = np.random.default_rng(1)
+    b, h, d = 2, 3, 64
+    # Heads as strided views of packed [B, T, H*D] projections, as the
+    # encoder passes them.
+    packed = [_randn(rng, (b, t, h * d), cuda, scale=d ** -0.25)
+              for _ in range(3)]
+    q, k, v = (p.view(b, t, h, d).permute(0, 2, 1, 3) for p in packed)
+    got = att.flash_attention_fullkv(q, k, v, causal=causal, kv_len=kv_len)
+    want = att.flash_attention_fullkv_plain(q, k, v, causal=causal,
+                                            kv_len=kv_len)
+    torch.cuda.synchronize()
+    # bf16 P is rounded against the running max in the kernel and the
+    # final max in the plain version: ~1 bf16 ulp per weight, averaged,
+    # then one bf16 rounding of the output (outputs ~0.02, at most ~1 for
+    # the first causal rows). A wrong rescale or kv_len mask moves outputs
+    # by ~1e-2.
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=2e-3)
+
+
+def test_f32_at_kernel_shapes_raises(cuda):
+    """On the card a tensor launches the kernel or raises: f32 at shapes
+    that the dispatch sends to K1 or K4 raises and never falls back to
+    plain ops. The engine defaults to bf16 on the card."""
+    from spittle_tpu_torch.engine.whisper_engine import WhisperEngine
+    from spittle_tpu_torch.models.whisper import model as tmod
+
+    q = torch.zeros((1, 2, 256, 64), device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        att.multihead_attention(q, q, q)
+    qd = torch.zeros((1, 2, 1, 64), device=cuda)
+    kd = torch.zeros((1, 2, 64, 256), device=cuda)
+    with pytest.raises(TypeError, match="bf16"):
+        tmod._cross_attention(qd, kd, kd, 64)
+    assert WhisperEngine(device="cuda").dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("r", [1, 3, 8])
+@pytest.mark.parametrize("tk,kv_len", [(300, 257), (1500, 1500)])
+def test_decode_cross_kernel_matches_plain(cuda, r, tk, kv_len):
+    rng = np.random.default_rng(2)
+    b, h, d = 2, 3, 64
+    q = _randn(rng, (b, h, r, d), cuda, scale=d ** -0.5)
+    k = _randn(rng, (b, h, d, tk), cuda)
+    v = _randn(rng, (b, h, d, tk), cuda)
+    got = att.decode_cross_attention(q, k, v, kv_len=kv_len)
+    want = att.decode_cross_attention_plain(q, k, v, kv_len=kv_len)
+    torch.cuda.synchronize()
+    # Same bf16-rounded P; only the f32 summation order differs, then one
+    # bf16 rounding of the output.
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=2e-3)
+
+
+def test_engine_main_path_runs_every_kernel(cuda):
+    from spittle_tpu_torch.engine.base import TranscribeParams
+    from spittle_tpu_torch.engine.whisper_engine import WhisperEngine
+
+    eng = WhisperEngine(device="cuda", dtype=torch.bfloat16,
+                        quantize_encoder=True, wire="mulaw")
+    eng.load_model("random:tiny")
+    rng = np.random.default_rng(3)
+    audio = [(rng.standard_normal(16000 * 30) * 3000).astype(np.int16)
+             for _ in range(2)]
+    p = TranscribeParams(language="en", parallel_windows=True,
+                         condition_on_previous_text=False,
+                         temperatures=(0.0,), max_tokens=8)
+    for fn in (att.flash_attention_fullkv, w8a8_gemm,
+               att.decode_cross_attention):
+        fn.launches = 0
+    results = list(eng.transcribe_stream([audio, audio], p,
+                                         overlap_fetch=True))
+    assert len(results) == 2 and all(len(r) == 2 for r in results)
+    layers = eng.cfg.n_audio_layer
+    assert att.flash_attention_fullkv.launches == 2 * layers
+    assert w8a8_gemm.launches == 2 * 6 * layers
+    steps = sum(eng.last_decode_steps)
+    assert att.decode_cross_attention.launches == eng.cfg.n_text_layer * (
+        2 + steps)
