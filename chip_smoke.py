@@ -8,20 +8,32 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. Environment: torch and CUDA versions, the card's name and power limit
    (nvidia-smi), and the build time of the kernels (built from
    spittle_tpu_torch/csrc on first use).
-2. Kernels against their plain PyTorch versions at the large-v3-turbo
-   main-path shapes with B=8 windows: K1 encoder attention, K2 W8A8 GEMM
-   (the six GEMMs of one encoder layer), K4 decode cross-attention. Each
-   prints its max error and tolerance, its time from CUDA events, the
+2. Kernels against their plain PyTorch versions at the main-path
+   shapes with B=8 windows: K1 encoder attention, K2 W8A8 GEMM (the six
+   GEMMs of one encoder layer), K4 decode cross-attention (bf16 K/V), K3
+   and K6 decode cross-attention over int8 and packed int4 K/V (R = 1, 3,
+   4, and once at B=56, bench.py's large-v3 batch). Each prints its max
+   error and tolerance, its time (`ms`: device time per launch from a
+   CUDA graph of launches replayed between CUDA events; `call_ms`: eager
+   calls between CUDA events, the host's per-call cost included), the
    plain version's time, a library yardstick the port never calls, and
-   the bound from the H100 data-sheet peaks.
+   the bound from the H100 data-sheet peaks. Then the weight-only int8
+   decoder products of one decode step (plain matmuls, no kernel of
+   their own), beside the same products on bf16 weights.
 3. The trained tiny checkpoint (tests/data/trained_tiny) through the
    engine on the card must reproduce its golden greedy tokens.
-4. End to end: WhisperEngine(device="cuda", bf16, W8A8 encoder, mu-law
-   wire) on random:large-v3-turbo (numpy-seeded weights, seed 0) runs a
-   warm-up batch, then transcribe_stream(overlap_fetch=True) over 2
-   batches of 8 30 s int16 windows (max_tokens 96, temperature 0,
-   language "en"), with the launch counters set to 0 just before and read
-   just after, and checked against the counts the path predicts.
+4. End to end, each path with the launch counters set to 0 just before
+   and read just after, and checked against the counts the path
+   predicts; every path runs a warm-up batch first, then
+   transcribe_stream(overlap_fetch=True) over batches of 8 30 s int16
+   windows (max_tokens 96, temperature 0, language "en"), numpy-seeded
+   weights (seed 0), W8A8 encoder and mu-law wire:
+   a. turbo leg: random:large-v3-turbo, bf16 decoder, 2 batches (K1, K2,
+      K4);
+   b. large-v3 leg: random:large-v3, int8 decoder, int8 cross-K/V and
+      int8 self-cache, 2 batches (K1, K2, K3);
+   c. int4 variant: random:large-v3-turbo with quantize_decoder="int4"
+      and the int8 self-cache, 1 batch (K1, K2, K6).
 
 The last two lines are a JSON object of per-kernel numbers and
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and
@@ -30,6 +42,7 @@ prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -45,23 +58,72 @@ PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
 SEED, N_BATCHES, BATCH = 0, 2, 8
+LV3_BATCH = 56  # bench.py's large-v3 batch, for the K3/K6 timing
 REPO = os.path.dirname(os.path.abspath(__file__))
 TINY = os.path.join(REPO, "tests", "data", "trained_tiny")
 
 
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device ms per call from CUDA events around `iters` calls."""
-    for _ in range(warmup):
-        fn()
+def _kernels():
+    """Every kernel wrapper with a launch counter."""
+    from spittle_tpu_torch.ops import attention as att
+    from spittle_tpu_torch.ops.w8a8_gemm import w8a8_gemm
+
+    return (att.flash_attention_fullkv, w8a8_gemm, att.decode_cross_attention,
+            att.decode_cross_attention_q8, att.decode_cross_attention_q4)
+
+
+def _cycle(fn):
+    return list(fn) if isinstance(fn, (list, tuple)) else [fn]
+
+
+def call_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean ms per eager call from CUDA events around `iters` calls: the
+    device time, or the host's per-call cost where that is longer. `fn`
+    is a callable, or a list of callables taken in turn."""
+    fns = _cycle(fn)
+    for i in range(warmup):
+        fns[i % len(fns)]()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for i in range(iters):
+        fns[i % len(fns)]()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device ms per call: `iters` calls captured in one CUDA graph
+    and replayed between CUDA events, so the host's per-call cost (Python
+    checks, allocation, the ctypes launch) is not in the number. `fn` is a
+    callable, or a list of callables on separate input sets taken in turn,
+    so that the sets together exceed the 50 MB L2 and every call reads
+    cold data, as a decode step does."""
+    fns = _cycle(fn)
+    for i in range(max(warmup, len(fns))):
+        fns[i % len(fns)]()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def n_cold_sets(set_bytes: float) -> int:
+    """Input sets whose sum exceeds the 50 MB L2 at least twice over."""
+    return 1 + int(100e6 // set_bytes)
 
 
 def bound(flops: float, flop_rate: float, nbytes: float):
@@ -106,19 +168,20 @@ def kernel_phase(dev, rng):
     # P's rounding against the running max and one output rounding; a
     # wrong rescale or ragged-tile mask moves them by far more.
     check("K1", err, 1e-2 * want.float().abs().max().item())
-    ms = time_ms(lambda: att.flash_attention_fullkv(q, k, v, kv_len=t), 20)
+    kernel = lambda: att.flash_attention_fullkv(q, k, v, kv_len=t)  # noqa: E731
+    ms, eager_ms = time_ms(kernel, 20), call_ms(kernel, 20)
     plain_ms = time_ms(
         lambda: att.flash_attention_fullkv_plain(q, k, v, kv_len=t), 3, 1)
     lib_ms = time_ms(
         lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0), 20)
     bms, by = bound(4.0 * b * h * t * t * d, PEAK_BF16_FLOPS, 4 * b * h * t * d * 2)
-    print(f"  ms {ms:.4f}  plain_ms {plain_ms:.4f}  "
+    print(f"  ms {ms:.4f} (eager call_ms {eager_ms:.4f})  plain_ms {plain_ms:.4f}  "
           f"library_ms (F.scaled_dot_product_attention) {lib_ms:.4f}  "
           f"bound_ms {bms:.4f} ({by})")
     rows.append(dict(name="flash_attention_fullkv", route="cuda",
                      source="spittle_tpu_torch/csrc/fullkv_attention.cu",
                      replaces="spittle_tpu/ops/attention.py:206",
-                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                     max_abs_err=err, ms=ms, call_ms=eager_ms, plain_ms=plain_ms,
                      bound_ms=bms, bound_by=by, library_ms=lib_ms,
                      library="F.scaled_dot_product_attention"))
     del packed, q, k, v, got, want
@@ -141,7 +204,7 @@ def kernel_phase(dev, rng):
         ("fc2 5120x1280 +bias", x4, (5120, 1280), 1280, "none", 1.0),
     ]
     print("K2 w8a8_gemm, one encoder layer's six GEMMs at M=12000, bf16:")
-    tot = dict(err=0.0, ms=0.0, plain=0.0, lib=0.0, ops=0.0, nbytes=0.0)
+    tot = dict(err=0.0, ms=0.0, eager=0.0, plain=0.0, lib=0.0, ops=0.0, nbytes=0.0)
     lib_ok = True
     for label, x, shape, bn, act, s in calls:
         qw = ws[shape]
@@ -155,7 +218,7 @@ def kernel_phase(dev, rng):
         err = ((got.float() - want.float()).abs()
                - 2.0 ** -7 * want.float().abs()).max().item()
         check(f"K2 {label} (excess over 1 bf16 ulp)", max(err, 0.0), 1e-5)
-        ms = time_ms(run, 20)
+        ms, eager_ms = time_ms(run, 20), call_ms(run, 20)
         plain_ms = time_ms(lambda: w8a8_gemm_plain(
             x, qw["qw8"], qw["scale"], bias=bb, act=act, out_scale=s), 2, 1)
         kk, n = shape
@@ -170,47 +233,58 @@ def kernel_phase(dev, rng):
         ops = 2.0 * m * kk * n
         nbytes = m * kk * 2 + kk * n + n * 4 + (0 if bn is None else n * 2) + m * n * 2
         bms, by = bound(ops, PEAK_INT8_OPS, nbytes)
-        print(f"  {label}: ms {ms:.4f}  plain_ms {plain_ms:.4f}  "
+        print(f"  {label}: ms {ms:.4f} (eager call_ms {eager_ms:.4f})  "
+              f"plain_ms {plain_ms:.4f}  "
               f"library_ms (torch._int_mm, dot alone) "
               f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'}  "
               f"bound_ms {bms:.4f} ({by})")
         tot["err"] = max(tot["err"], (got.float() - want.float()).abs().max().item())
         tot["ms"] += ms
+        tot["eager"] += eager_ms
         tot["plain"] += plain_ms
         tot["lib"] = None if (lib_ms is None or tot["lib"] is None) else tot["lib"] + lib_ms
         tot["ops"] += ops
         tot["nbytes"] += nbytes
     bms, by = bound(tot["ops"], PEAK_INT8_OPS, tot["nbytes"])
-    print(f"  layer total: ms {tot['ms']:.4f}  bound_ms {bms:.4f} ({by})")
+    print(f"  layer total: ms {tot['ms']:.4f} (eager call_ms {tot['eager']:.4f})  "
+          f"bound_ms {bms:.4f} ({by})")
     rows.append(dict(name="w8a8_gemm", route="cuda",
                      source="spittle_tpu_torch/csrc/w8a8_gemm.cu",
                      replaces="spittle_tpu/ops/w8a8_gemm.py:84",
                      work="one encoder layer: 4 x (1280x1280), fc1, fc2 at M=12000",
-                     max_abs_err=tot["err"], ms=tot["ms"], plain_ms=tot["plain"],
+                     max_abs_err=tot["err"], ms=tot["ms"], call_ms=tot["eager"],
+                     plain_ms=tot["plain"],
                      bound_ms=bms, bound_by=by, library_ms=tot["lib"],
                      library="torch._int_mm, the int8 dot alone"))
     del x1, x4, ws
 
-    # K4: decode cross-attention, time-minor K/V.
-    kt = randn(rng, (b, h, d, t), dev)
-    vt = randn(rng, (b, h, d, t), dev)
-    print("K4 decode_cross_attention k,v [8,20,64,1500] bf16:")
+    # K4: decode cross-attention, time-minor K/V; enough K/V sets that
+    # every timed call reads cold data.
+    kvs = [(randn(rng, (b, h, d, t), dev), randn(rng, (b, h, d, t), dev))
+           for _ in range(n_cold_sets(2 * b * h * d * t * 2))]
+    print(f"K4 decode_cross_attention k,v [8,20,64,1500] bf16 ({len(kvs)} "
+          "input sets):")
     # Query rows: 1 in a decode step, 3 in the main path's prefill
     # ([sot, language, task]), 4 in a prefill without timestamps.
     for r in (1, 3, 4):
         qd = randn(rng, (b, h, r, d), dev, scale=d ** -0.5)
+        kt, vt = kvs[0]
         got = att.decode_cross_attention(qd, kt, vt, kv_len=t)
         want = att.decode_cross_attention_plain(qd, kt, vt, kv_len=t)
         err = (got.float() - want.float()).abs().max().item()
         check(f"K4 R={r}", err, 2e-3 + 1e-2 * want.float().abs().max().item())
-        ms = time_ms(lambda: att.decode_cross_attention(qd, kt, vt, kv_len=t), 100)
-        plain_ms = time_ms(
-            lambda: att.decode_cross_attention_plain(qd, kt, vt, kv_len=t), 10)
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qd, kt.transpose(-1, -2), vt.transpose(-1, -2), scale=1.0), 100)
+        kernel = [lambda kt=kt, vt=vt: att.decode_cross_attention(
+            qd, kt, vt, kv_len=t) for kt, vt in kvs]
+        ms, eager_ms = time_ms(kernel, 100), call_ms(kernel, 100)
+        plain_ms = time_ms([lambda kt=kt, vt=vt: att.decode_cross_attention_plain(
+            qd, kt, vt, kv_len=t) for kt, vt in kvs], 10)
+        lib_ms = time_ms([lambda kt=kt, vt=vt: F.scaled_dot_product_attention(
+            qd, kt.transpose(-1, -2), vt.transpose(-1, -2), scale=1.0)
+            for kt, vt in kvs], 100)
         bms, by = bound(4.0 * b * h * r * t * d, PEAK_BF16_FLOPS,
                         2 * b * h * d * t * 2 + 2 * b * h * r * d * 2)
-        print(f"  R={r}: ms {ms:.4f}  plain_ms {plain_ms:.4f}  "
+        print(f"  R={r}: ms {ms:.4f} (eager call_ms {eager_ms:.4f})  "
+              f"plain_ms {plain_ms:.4f}  "
               f"library_ms (F.scaled_dot_product_attention) {lib_ms:.4f}  "
               f"bound_ms {bms:.4f} ({by})")
         if r == 1:
@@ -218,10 +292,124 @@ def kernel_phase(dev, rng):
                              source="spittle_tpu_torch/csrc/decode_cross_attention.cu",
                              replaces="spittle_tpu/ops/attention.py:723",
                              work="q [8,20,1,64] (a decode step)",
-                             max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                             max_abs_err=err, ms=ms, call_ms=eager_ms,
+                             plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                             library_ms=lib_ms,
                              library="F.scaled_dot_product_attention"))
+    del kvs
+    rows += quant_cross_phase(dev)
+    weight_only_phase(dev, rng)
     return rows
+
+
+def quant_cross_phase(dev):
+    """K3 and K6 against their plain versions at B=8 (R = 1, 3, 4) and
+    B=56 (R = 1). Inputs come from a seeded generator on the card."""
+    from spittle_tpu_torch.ops import attention as att
+    from spittle_tpu_torch.ops.quant import (
+        dequantize_kv, dequantize_kv_int4, quantize_kv, quantize_kv_int4,
+    )
+
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    h, t, d = 20, 1500, 64
+    rows = []
+    specs = (  # (K#, bits, wrapper, plain, quantizer, dequantizer, key, line)
+        ("K3", 8, att.decode_cross_attention_q8,
+         att.decode_cross_attention_q8_plain, quantize_kv, dequantize_kv,
+         "qw", 795),
+        ("K6", 4, att.decode_cross_attention_q4,
+         att.decode_cross_attention_q4_plain, quantize_kv_int4,
+         dequantize_kv_int4, "qw4", 876),
+    )
+    for kname, bits, fn, plain, quant, dequant, key, line in specs:
+        stored = d if bits == 8 else d // 2
+        print(f"{kname} {fn.__name__} K/V {bits}-bit [B,20,{stored},1500] "
+              f"+ f32 scales:")
+        row = None
+        for b, rs in ((8, (1, 3, 4)), (LV3_BATCH, (1,))):
+            kv_bytes = 2 * b * h * stored * t + 2 * b * h * t * 4
+
+            def make_set():
+                """(qK, ks, qV, vs) and the yardstick's bf16 K/V,
+                dequantized and laid out for SDPA beforehand (not timed)."""
+                qkv = [quant(torch.randn((b, h, d, t), generator=gen, device=dev))
+                       for _ in range(2)]
+                deq = tuple(dequant(x).transpose(-1, -2).contiguous() for x in qkv)
+                return (qkv[0][key], qkv[0]["scale"], qkv[1][key],
+                        qkv[1]["scale"]), deq
+
+            sets = [make_set() for _ in range(n_cold_sets(kv_bytes))]
+            for r in rs:
+                qd = (torch.randn((b, h, r, d), generator=gen, device=dev)
+                      * d ** -0.5).to(torch.bfloat16)
+                got = fn(qd, *sets[0][0], kv_len=t)
+                want = plain(qd, *sets[0][0], kv_len=t)
+                err = (got.float() - want.float()).abs().max().item()
+                # K4's tolerance: the kernel rounds bf16(p * vs) against
+                # its 256-position chunk's max, the plain version against
+                # the row max (a bf16 half-ulp per weight, averaged), then
+                # one bf16 rounding of the output.
+                check(f"{kname} B={b} R={r}", err,
+                      2e-3 + 1e-2 * want.float().abs().max().item())
+                kernel = [lambda kv=kv: fn(qd, *kv, kv_len=t) for kv, _ in sets]
+                ms, eager_ms = time_ms(kernel, 100), call_ms(kernel, 100)
+                plain_ms = time_ms([lambda kv=kv: plain(qd, *kv, kv_len=t)
+                                    for kv, _ in sets], 5, 1)
+                lib_ms = time_ms([lambda kd=kd, vd=vd: F.scaled_dot_product_attention(
+                    qd, kd, vd, scale=1.0) for _, (kd, vd) in sets], 100)
+                nbytes = kv_bytes + 2 * b * h * r * d * 2
+                bms, by = bound(4.0 * b * h * r * t * d, PEAK_BF16_FLOPS, nbytes)
+                print(f"  B={b} R={r} ({len(sets)} input sets): ms {ms:.4f} "
+                      f"(eager call_ms {eager_ms:.4f})  plain_ms {plain_ms:.4f}  "
+                      f"library_ms (F.scaled_dot_product_attention on bf16 "
+                      f"K/V dequantized beforehand) {lib_ms:.4f}  "
+                      f"bound_ms {bms:.4f} ({by})")
+                if b == 8 and r == 1:
+                    row = dict(
+                        name=fn.__name__, route="cuda",
+                        source="spittle_tpu_torch/csrc/decode_cross_attention_q.cu",
+                        replaces=f"spittle_tpu/ops/attention.py:{line}",
+                        work="q [8,20,1,64] (a decode step)",
+                        max_abs_err=err, ms=ms, call_ms=eager_ms,
+                        plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                        library_ms=lib_ms,
+                        library="F.scaled_dot_product_attention on bf16 K/V "
+                                "dequantized beforehand")
+                elif b == LV3_BATCH:
+                    row.update(ms_b56=ms, plain_ms_b56=plain_ms,
+                               bound_ms_b56=bms, library_ms_b56=lib_ms,
+                               max_abs_err=max(row["max_abs_err"], err))
+                else:
+                    row["max_abs_err"] = max(row["max_abs_err"], err)
+            del sets, kernel
+            torch.cuda.empty_cache()
+        rows.append(row)
+    return rows
+
+
+def weight_only_phase(dev, rng):
+    """One decode step's weight-only int8 decoder products at large-v3
+    width and B=8 (8 per layer: wq, wk, wv, wo, cross_wq, cross_wo, fc1,
+    fc2), beside the same products on bf16 weights. They are plain
+    matmuls in the reference's order, as XLA ran them there."""
+    from spittle_tpu_torch.ops.quant import WHISPER_DECODER_QUANT_KEYS, mm, quantize_weight
+
+    d = 1280
+    shapes = {k: (d, 4 * d) if k == "fc1_w" else (4 * d, d) if k == "fc2_w" else (d, d)
+              for k in WHISPER_DECODER_QUANT_KEYS}
+    w = {k: randn(rng, s, dev, scale=s[0] ** -0.5) for k, s in shapes.items()}
+    qw = {k: quantize_weight(v) for k, v in w.items()}
+    x = {k: randn(rng, (BATCH, 1, s[0]), dev) for k, s in shapes.items()}
+    int8_ms = time_ms(lambda: [mm(x[k], qw[k]) for k in shapes], 50)
+    bf16_ms = time_ms(lambda: [mm(x[k], w[k]) for k in shapes], 50)
+    nbytes = sum(a * b for a, b in shapes.values())
+    print(f"decoder weight-only int8 products, one layer at B={BATCH} "
+          f"({len(shapes)} products, {nbytes / 2**20:.1f} MiB of int8 weights): "
+          f"ms {int8_ms:.4f} (x 32 layers = {32 * int8_ms:.3f} ms per step); "
+          f"bf16 weights ms {bf16_ms:.4f}; int8 bytes alone bound_ms "
+          f"{nbytes / PEAK_BYTES * 1e3:.4f}")
 
 
 def tone_utterance(word_ids):
@@ -264,21 +452,24 @@ def golden_phase():
         raise AssertionError(f"golden tokens differ for {bad}")
 
 
-def e2e_phase(seed: int, n_batches: int, batch: int):
+def e2e_phase(label: str, model: str, engine_opts: dict, n_batches: int,
+              batch: int, seed: int, predict):
+    """One end-to-end path: load, warm up, then n_batches batches through
+    transcribe_stream(overlap_fetch=True) with every launch counter set to
+    0 just before and read just after. predict(cfg, steps) gives the
+    launch count each kernel must show. Returns the counts."""
     from spittle_tpu_torch.engine.base import TranscribeParams
     from spittle_tpu_torch.engine.whisper_engine import WhisperEngine
-    from spittle_tpu_torch.ops import attention as att
-    from spittle_tpu_torch.ops.w8a8_gemm import w8a8_gemm
 
     t0 = time.perf_counter()
     eng = WhisperEngine(device="cuda", dtype=torch.bfloat16,
-                        quantize_encoder=True, wire="mulaw")
-    eng.load_model("random:large-v3-turbo", seed=seed)
+                        quantize_encoder=True, wire="mulaw", **engine_opts)
+    eng.load_model(model, seed=seed)
     torch.cuda.synchronize()
     cfg = eng.cfg
-    print(f"e2e: random:large-v3-turbo (d={cfg.n_audio_state}, "
-          f"{cfg.n_audio_layer}+{cfg.n_text_layer} layers) loaded in "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"e2e {label}: {model} (d={cfg.n_audio_state}, "
+          f"{cfg.n_audio_layer}+{cfg.n_text_layer} layers) {engine_opts} "
+          f"loaded in {time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(seed + 1)
     sr, n = 16000, 30 * 16000
@@ -303,7 +494,7 @@ def e2e_phase(seed: int, n_batches: int, batch: int):
     eng.stage_seconds.clear()
     eng.last_decode_steps.clear()
     torch.cuda.reset_peak_memory_stats()
-    kernels = (att.flash_attention_fullkv, w8a8_gemm, att.decode_cross_attention)
+    kernels = _kernels()
     for fn in kernels:
         fn.launches = 0
     torch.cuda.synchronize()
@@ -315,12 +506,14 @@ def e2e_phase(seed: int, n_batches: int, batch: int):
 
     audio_s = n_batches * batch * 30.0
     steps = list(eng.last_decode_steps)
-    print(f"e2e: {n_batches} batches x {batch} x 30 s in {wall:.3f} s: "
+    print(f"e2e {label}: {n_batches} batches x {batch} x 30 s in {wall:.3f} s: "
           f"sustained RTFx {audio_s / wall:.1f}")
-    print(f"e2e: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    print("e2e: stage seconds " + json.dumps(
+    print(f"e2e {label}: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"e2e {label}: stage seconds " + json.dumps(
         {k: round(v, 4) for k, v in eng.stage_seconds.items()}))
-    print(f"e2e: decode steps per batch {steps}; launches {json.dumps(launches)}")
+    print(f"e2e {label}: decode steps per batch {steps}; "
+          f"launches {json.dumps(launches)}")
 
     # Output checks: one result per window, tokens inside the vocabulary.
     assert len(results) == n_batches
@@ -328,17 +521,29 @@ def e2e_phase(seed: int, n_batches: int, batch: int):
         assert len(res) == batch
         for r in res:
             assert all(0 <= tok < cfg.n_vocab for tok in r.tokens)
-    want = {
-        "flash_attention_fullkv": n_batches * cfg.n_audio_layer,
-        "w8a8_gemm": n_batches * 6 * cfg.n_audio_layer,
-        "decode_cross_attention": cfg.n_text_layer * (n_batches + sum(steps)),
-    }
+    want = predict(cfg, steps)
     if launches != want:
-        raise AssertionError(f"launch counts {launches} != predicted {want}")
-    for name, cnt in launches.items():
-        if cnt == 0:
-            raise AssertionError(f"{name} was never launched on the main path")
+        raise AssertionError(f"{label}: launch counts {launches} != predicted {want}")
+    del eng, results
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
+
+
+def _predict(k4=0, k3=0, k6=0):
+    """Launch counts of one path: K1 once and K2 six times per encoder
+    layer and batch; each cross-attention kernel once per decoder layer
+    for the prefill and for every step."""
+    def predict(cfg, steps):
+        dec = cfg.n_text_layer * (len(steps) + sum(steps))
+        return {
+            "flash_attention_fullkv": len(steps) * cfg.n_audio_layer,
+            "w8a8_gemm": len(steps) * 6 * cfg.n_audio_layer,
+            "decode_cross_attention": dec * k4,
+            "decode_cross_attention_q8": dec * k3,
+            "decode_cross_attention_q4": dec * k6,
+        }
+    return predict
 
 
 def main() -> int:
@@ -349,6 +554,7 @@ def main() -> int:
     from spittle_tpu_torch.device import resolve_device
     from spittle_tpu_torch.ops import _build
 
+    start = time.perf_counter()
     dev = resolve_device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -362,12 +568,39 @@ def main() -> int:
     print(f"kernels built/loaded in {time.perf_counter() - t0:.2f} s "
           f"(nvcc build {_build.build_seconds or 0.0:.2f} s)")
 
+    t0 = time.perf_counter()
     rows = kernel_phase(dev, np.random.default_rng(SEED))
     torch.cuda.empty_cache()
+    print(f"phase kernels: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     golden_phase()
-    launches = e2e_phase(SEED, N_BATCHES, BATCH)
+    print(f"phase goldens: {time.perf_counter() - t0:.1f} s")
+    # Each kernel's launches come from the path that runs it: K1, K2 and
+    # K4 from the turbo leg, K3 from the large-v3 leg, K6 from the int4
+    # variant; every path also checks that the others stayed at 0.
+    paths = (
+        ("turbo leg", "random:large-v3-turbo", {}, N_BATCHES, _predict(k4=1),
+         ("flash_attention_fullkv", "w8a8_gemm", "decode_cross_attention")),
+        ("large-v3 leg", "random:large-v3",
+         dict(quantize_decoder="int8", quantize_cache=True), N_BATCHES,
+         _predict(k3=1), ("decode_cross_attention_q8",)),
+        ("int4 variant", "random:large-v3-turbo",
+         dict(quantize_decoder="int4", quantize_cache=True), 1,
+         _predict(k6=1), ("decode_cross_attention_q4",)),
+    )
+    launches, by_path = {}, {}
+    for label, model, opts, n_batches, predict, owned in paths:
+        t0 = time.perf_counter()
+        counts = e2e_phase(label, model, opts, n_batches, BATCH, SEED, predict)
+        print(f"phase e2e {label}: {time.perf_counter() - t0:.1f} s")
+        by_path[label] = counts
+        launches.update({name: counts[name] for name in owned})
     for row in rows:
         row["launches"] = launches[row["name"]]
+        row["launches_by_path"] = {k: v[row["name"]] for k, v in by_path.items()}
+        if row["launches"] == 0:
+            raise AssertionError(f"{row['name']} was never launched on its path")
+    print(f"chip_smoke total: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,16 @@
 """Whisper engine: batched long-form transcription on the card (port of
 spittle_tpu/engine/whisper_engine.py, parallel-windows path).
 
-What this slice carries: `random:<config>` and spittle .npz models, the
-mu-law or int16 PCM wire, the W8A8 encoder, the bf16/f32 decoder with
-greedy temperature-0 decoding, parallel 30 s windows with overlap-stitch,
-`transcribe_batch` and the pipelined `transcribe_stream` (prefetch thread,
-overlap_fetch). Everything else raises NotImplementedError pointing at
-ROADMAP.md: the sequential seek path, temperature ladders longer than one
-rung, language detection, beam search, speculative decoding, word
-timestamps, a reduced audio context, quantized cross-K/V, and the
-GGML/safetensors loaders. The quantized decoder and self-cache of the
-large-v3 leg have no constructor option yet.
+What the port carries: `random:<config>` and spittle .npz models, the
+mu-law or int16 PCM wire, the W8A8 encoder, the bf16/f32 decoder or the
+weight-only int8 decoder with int8 or int4 cross-K/V (quantize_decoder)
+and an int8 self-cache (quantize_cache), greedy temperature-0 decoding,
+parallel 30 s windows with overlap-stitch, `transcribe_batch` and the
+pipelined `transcribe_stream` (prefetch thread, overlap_fetch). Everything
+else raises NotImplementedError pointing at ROADMAP.md: the sequential
+seek path, temperature ladders longer than one rung, language detection,
+beam search, speculative decoding, word timestamps, a reduced audio
+context, the "w8a8" decoder, and the GGML/safetensors loaders.
 
 The engine runs on the card by default (device="cuda") and raises when
 there is none; the CPU is used only when the caller passes device="cpu".
@@ -43,7 +43,10 @@ from spittle_tpu_torch.models.whisper.weights import (
     random_params,
 )
 from spittle_tpu_torch.ops import full_f32
-from spittle_tpu_torch.ops.quant import quantize_whisper_encoder_w8a8
+from spittle_tpu_torch.ops.quant import (
+    quantize_whisper_decoder,
+    quantize_whisper_encoder_w8a8,
+)
 
 from .base import Segment, TranscribeParams, TranscriptionResult
 
@@ -97,6 +100,8 @@ class WhisperEngine:
         device="cuda",
         dtype: Optional[torch.dtype] = None,
         quantize_encoder: bool = False,
+        quantize_decoder=False,
+        quantize_cache: bool = False,
         wire: str = "auto",
     ):
         """device: "cuda" (default; raises without a card) or "cpu".
@@ -105,6 +110,11 @@ class WhisperEngine:
         f32 on the CPU. An f32 model whose attention shapes reach a kernel
         raises on the card.
         quantize_encoder: W8A8 int8 encoder GEMMs (kernel K2 on the card).
+        quantize_decoder: False, True or "int8", or "int4": weight-only
+        int8 decoder block weights, and cross-attention K/V quantized to
+        int8 (K3 on the card) or int4 packed two per byte (K6). "w8a8"
+        is not ported yet and raises NotImplementedError.
+        quantize_cache: int8 self-attention cache, one scale per position.
         wire: "auto" ships the input's own PCM dtype host->device; "mulaw"
         ships 8-bit mu-law codes, decoded on the device."""
         self.device = resolve_device(device)
@@ -113,7 +123,18 @@ class WhisperEngine:
         if dtype is None:
             dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
         self.dtype = dtype
+        if quantize_decoder is True:
+            quantize_decoder = "int8"
+        if quantize_decoder == "w8a8":
+            raise _not_ported('quantize_decoder="w8a8" (int8 x int8 '
+                              'cross-attention)')
+        if quantize_decoder not in (False, "int8", "int4"):
+            raise ValueError(
+                "quantize_decoder must be False, True/'int8', 'int4' or "
+                f"'w8a8', got {quantize_decoder!r}")
         self.quantize_encoder = quantize_encoder
+        self.quantize_decoder = quantize_decoder
+        self.quantize_cache = quantize_cache
         self.wire = wire
         self.cfg: Optional[WhisperConfig] = None
         self.params = None
@@ -147,6 +168,9 @@ class WhisperEngine:
             self.tokenizer = WhisperTokenizer(self.cfg, vocab)
         else:
             raise _not_ported("GGML and safetensors loading")
+        # The reference's order: the decoder first, then the encoder.
+        if self.quantize_decoder:
+            self.params = quantize_whisper_decoder(self.params)
         if self.quantize_encoder:
             self.params = quantize_whisper_encoder_w8a8(self.params)
         space = self.tokenizer.encode(" ")
@@ -185,6 +209,9 @@ class WhisperEngine:
             language=params.language,
             space_token=self._space_token,
             max_tokens=params.max_tokens or self.cfg.n_text_ctx // 2,
+            quant_kv=bool(self.quantize_decoder),
+            quant_kv_bits=4 if self.quantize_decoder == "int4" else 8,
+            quant_cache=self.quantize_cache,
         )
 
     def _base_prompt(self, params: TranscribeParams) -> Tuple[int, ...]:

@@ -17,8 +17,15 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from spittle_tpu_torch.ops.quant import quantize_kv, quantize_kv_int4
+
 from .config import WhisperConfig
-from .model import decode_step, decoder_prefill, precompute_cross_kv
+from .model import (
+    decode_step,
+    decoder_prefill,
+    precompute_cross_kv,
+    precompute_cross_kv_quant,
+)
 
 NEG_INF = -1e30
 
@@ -34,6 +41,18 @@ class DecodeOptions:
     space_token: Optional[int] = None  # id of " " for blank suppression
     max_tokens: int = 0  # decode budget; 0 -> n_text_ctx
     temperature: float = 0.0  # only 0 (argmax) is ported
+    # Quantized cross-attention K/V, int8 (K3 on the card) or int4 packed
+    # two per byte (K6); quant_kv_bits is read only when quant_kv is set.
+    quant_kv: bool = False
+    quant_kv_bits: int = 8
+    # int8 self-attention cache, one scale per position.
+    quant_cache: bool = False
+
+    def __post_init__(self):
+        # Only 4 or 8: the reference reads any other width as int4.
+        if self.quant_kv_bits not in (4, 8):
+            raise ValueError(
+                f"quant_kv_bits must be 4 or 8, got {self.quant_kv_bits!r}")
 
 
 def sot_sequence(
@@ -181,11 +200,18 @@ def greedy_decode(
     max_len = min(cfg.n_text_ctx, prefix_len + (opts.max_tokens or cfg.n_text_ctx))
     ctx = min(cfg.n_text_ctx, -(-max_len // 32) * 32)
     audio_ctx = xa.shape[1]
-    cross_kv = precompute_cross_kv(params, xa, cfg)
+    if opts.quant_kv:
+        # Fused per-layer projection and quantization: the full bf16
+        # cross-K/V pair never exists.
+        quant = quantize_kv if opts.quant_kv_bits == 8 else quantize_kv_int4
+        cross_kv = precompute_cross_kv_quant(params, xa, cfg, quant)
+    else:
+        cross_kv = precompute_cross_kv(params, xa, cfg)
     static_mask = torch.from_numpy(
         _static_suppress_mask(cfg, opts, audio_ctx=audio_ctx)
     ).to(dev)
-    all_logits, cache = decoder_prefill(params, prefix, cross_kv, cfg, ctx)
+    all_logits, cache = decoder_prefill(params, prefix, cross_kv, cfg, ctx,
+                                        quant_cache=opts.quant_cache)
 
     ts_begin = cfg.timestamp_begin
     tokens = torch.full((b, max_len), cfg.eot, dtype=torch.int64, device=dev)

@@ -16,8 +16,10 @@ Layouts:
   attends its fresh column in registers before a bulk write; both compute
   the same function).
 
-Only the plain (bf16/f32) cross-K/V path of the turbo decoder is ported;
-the int8/int4/W8A8 cross-attention branches raise NotImplementedError.
+Quantized forms (the large-v3 leg): cross-K/V as int8 dicts {"qw" [L, B,
+H, Dh, T], "scale" [L, B, H, T]} (K3 on the card) or packed int4 {"qw4"
+[L, B, H, Dh/2, T], "scale"} (K6), and an int8 self-cache {"qw" [L, 2, B,
+H, ctx, Dh], "scale" [L, 2, B, H, ctx]}, one f32 scale per position.
 """
 
 from __future__ import annotations
@@ -30,9 +32,17 @@ import torch.nn.functional as F
 
 from spittle_tpu_torch.ops.attention import (
     decode_cross_attention,
+    decode_cross_attention_q4,
+    decode_cross_attention_q8,
     multihead_attention,
 )
-from spittle_tpu_torch.ops.quant import mm, mm_bias
+from spittle_tpu_torch.ops.quant import (
+    is_quant_kv4,
+    mm,
+    mm_bias,
+    quantize_kv_t,
+    unpack_kv_int4,
+)
 
 from .config import WhisperConfig
 
@@ -77,12 +87,11 @@ def sinusoidal_positions(length: int, channels: int) -> np.ndarray:
     )
 
 
-def layer_params(blocks: Params, layer: int) -> Params:
-    """Layer `layer` of a stacked block tree (quantized dicts included)."""
-    return {
-        k: layer_params(v, layer) if isinstance(v, dict) else v[layer]
-        for k, v in blocks.items()
-    }
+def layer_params(blocks, layer: int):
+    """Layer `layer` of a stacked block tree, quantized dict or tensor."""
+    if isinstance(blocks, dict):
+        return {k: layer_params(v, layer) for k, v in blocks.items()}
+    return blocks[layer]
 
 
 def n_layers(blocks: Params) -> int:
@@ -166,26 +175,81 @@ def precompute_cross_kv(params: Params, xa: torch.Tensor, cfg: WhisperConfig):
     return torch.stack(ks), torch.stack(vs)
 
 
+def precompute_cross_kv_quant(params: Params, xa: torch.Tensor,
+                              cfg: WhisperConfig, quant):
+    """precompute_cross_kv fused with K/V quantization, one layer at a
+    time (the reference's fused precompute_cross_kv_q8): only one layer's
+    bf16/f32 intermediates are ever live. quant is quantize_kv (int8:
+    {"qw" int8 [L, B, H, Dh, T], "scale" f32 [L, B, H, T]}) or
+    quantize_kv_int4 ({"qw4" int8 [L, B, H, Dh/2, T], "scale"}). Returns
+    the K dict and the V dict."""
+    blocks = params["decoder"]["blocks"]
+    h = cfg.n_text_head
+    n = n_layers(blocks)
+    out = None
+    for layer in range(n):
+        blk = layer_params(blocks, layer)
+        k = _split_heads(mm(xa, blk["cross_wk"]), h).transpose(-1, -2)
+        v = _split_heads(mm(xa, blk["cross_wv"]) + blk["cross_bv"], h
+                         ).transpose(-1, -2)
+        qkv = (quant(k), quant(v))
+        if out is None:
+            out = [{key: a.new_empty((n, *a.shape)) for key, a in q.items()}
+                   for q in qkv]
+        for dst, src in zip(out, qkv):
+            for key, a in src.items():
+                dst[key][layer].copy_(a)
+    return out[0], out[1]
+
+
 def init_kv_cache(cfg: WhisperConfig, batch: int, dtype=torch.float32,
-                  ctx: int = 0, device="cpu") -> torch.Tensor:
-    """Self-attention cache [L, 2, B, H, ctx, Dh], zeros (ctx-major)."""
+                  ctx: int = 0, device="cpu", quant: bool = False):
+    """Self-attention cache [L, 2, B, H, ctx, Dh], zeros (ctx-major).
+    quant: the int8 dict {"qw" int8 zeros, "scale" f32 ones [L, 2, B, H,
+    ctx]}; columns are quantized as they are written."""
     shape = (
         cfg.n_text_layer, 2, batch, cfg.n_text_head, ctx or cfg.n_text_ctx,
         cfg.n_text_state // cfg.n_text_head,
     )
+    if quant:
+        return {"qw": torch.zeros(shape, dtype=torch.int8, device=device),
+                "scale": torch.ones(shape[:5], dtype=torch.float32,
+                                    device=device)}
     return torch.zeros(shape, dtype=dtype, device=device)
+
+
+def _cross_attention_quant(cq, ck, cv, dh: int, kv_len: int):
+    """Cross-attention over int8 or packed int4 K/V dicts (qw/qw4 [B, H,
+    Dh or Dh/2, T], scale [B, H, T]). K3 or K6 for decode-sized queries,
+    on shape alone; otherwise the reference's plain int8 math."""
+    int4 = is_quant_kv4(ck)
+    key = "qw4" if int4 else "qw"
+    kvl = kv_len or ck[key].shape[-1]
+    if cq.shape[2] <= 8 and dh in (64, 128):
+        kernel = decode_cross_attention_q4 if int4 else decode_cross_attention_q8
+        return kernel(cq * (dh ** -0.5), ck[key], ck["scale"], cv[key],
+                      cv["scale"], kv_len=kvl)
+    qk, qv = ck[key], cv[key]
+    if int4:
+        qk, qv = unpack_kv_int4(qk), unpack_kv_int4(qv)
+    scores = torch.matmul((cq * (dh ** -0.5)).float(), qk.float()) \
+        * ck["scale"][:, :, None, :]
+    if kvl < qk.shape[-1]:
+        cmask = torch.arange(qk.shape[-1], device=qk.device) < kvl
+        scores = torch.where(cmask, scores, _NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.matmul((probs * cv["scale"][:, :, None, :]).to(cq.dtype),
+                        qv.to(cq.dtype).transpose(-1, -2))
 
 
 def _cross_attention(cq, ck, cv, dh: int, kv_len: int = 0):
     """Cross-attention core for the decode and prefill paths.
 
-    cq: [B, H, q, Dh]; ck/cv: [B, H, Dh, T] in the decode layout.
+    cq: [B, H, q, Dh]; ck/cv: [B, H, Dh, T] in the decode layout, or
+    quantized dicts (see _cross_attention_quant).
     kv_len: real length of K/V (0 = all of T)."""
     if isinstance(ck, dict):
-        raise NotImplementedError(
-            "quantized cross-K/V (int8/int4/w8a8) is not ported yet "
-            "(ROADMAP queue 1, item 6)"
-        )
+        return _cross_attention_quant(cq, ck, cv, dh, kv_len)
     kvl = kv_len or ck.shape[-1]
     # K4 for decode-sized queries, on shape alone as the reference's
     # use_decode_cross_kernel decides; its wrapper raises on CUDA for what
@@ -223,9 +287,36 @@ def _layer_rest(h, o, blk, ck, cv, n_head: int, cross_kv_len: int):
     return h + _mlp(layer_norm(h, blk["mlp_ln_g"], blk["mlp_ln_b"]), blk)
 
 
+def _cache_write(cache, layer: int, k, v, start: int) -> None:
+    """Write k/v [B, H, P, Dh] into cache columns start..start+P-1 of
+    `layer`, in place; an int8 cache quantizes each column over Dh
+    (quantize_kv_t)."""
+    p = k.shape[2]
+    if isinstance(cache, dict):
+        q8 = quantize_kv_t(torch.stack([k, v]))
+        cache["qw"][layer, :, :, :, start:start + p].copy_(q8["qw"])
+        cache["scale"][layer, :, :, :, start:start + p].copy_(q8["scale"])
+        return
+    cache[layer, 0, :, :, start:start + p].copy_(k)
+    cache[layer, 1, :, :, start:start + p].copy_(v)
+
+
 def _cache_attend(q, cache_l, pos: int):
     """q [B, H, 1, Dh] over cache columns 0..pos of cache_l
-    [2, B, H, ctx, Dh]: f32 scores, masked softmax, PV in the cache dtype."""
+    [2, B, H, ctx, Dh]: f32 scores, masked softmax, PV in the cache dtype.
+    An int8 cache_l {"qw", "scale" [2, B, H, ctx]} scores (q . qK) * ks
+    and takes ((p * vs) in q's dtype) . qV: the scales factor out of both
+    products exactly."""
+    if isinstance(cache_l, dict):
+        qk, qv = cache_l["qw"][0], cache_l["qw"][1]
+        ks, vs = cache_l["scale"][0], cache_l["scale"][1]
+        scores = torch.matmul(q.float(), qk.float().transpose(-1, -2)) \
+            * ks[:, :, None, :]
+        col = torch.arange(qk.shape[-2], device=q.device)
+        scores = torch.where(col <= pos, scores, _NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        return torch.matmul((probs * vs[:, :, None, :]).to(q.dtype),
+                            qv.to(q.dtype))
     k_all, v_all = cache_l[0], cache_l[1]
     scores = torch.matmul(q.float(), k_all.float().transpose(-1, -2))
     col = torch.arange(k_all.shape[-2], device=q.device)
@@ -245,8 +336,9 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
                 audio_ctx: int = 0) -> torch.Tensor:
     """One K=1 decode step (the semantics of the reference's
     decode_step_tmajor): embeds `tokens` [B] at position `pos`, writes each
-    layer's new K/V column into kv_cache [L, 2, B, H, ctx, Dh] IN PLACE,
-    attends over columns 0..pos, and returns logits [B, V] (f32)."""
+    layer's new K/V column into kv_cache [L, 2, B, H, ctx, Dh] (or the
+    int8 dict) IN PLACE, attends over columns 0..pos, and returns logits
+    [B, V] (f32)."""
     dec = params["decoder"]
     x = dec["tok_emb"][tokens][:, None, :]
     x = (x + dec["pos_emb"][pos][None, None]).to(dec["tok_emb"].dtype)
@@ -256,19 +348,21 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
     for layer in range(n_layers(blocks)):
         blk = layer_params(blocks, layer)
         q, k_new, v_new = _proj_qkv(x, blk, n_head, scale)
-        kv_cache[layer, 0, :, :, pos, :].copy_(k_new[:, :, 0])
-        kv_cache[layer, 1, :, :, pos, :].copy_(v_new[:, :, 0])
-        o = _cache_attend(q, kv_cache[layer], pos)
-        x = _layer_rest(x, o, blk, cross_kv[0][layer], cross_kv[1][layer],
-                        n_head, audio_ctx or cfg.n_audio_ctx)
+        _cache_write(kv_cache, layer, k_new, v_new, pos)
+        o = _cache_attend(q, layer_params(kv_cache, layer), pos)
+        x = _layer_rest(x, o, blk, layer_params(cross_kv[0], layer),
+                        layer_params(cross_kv[1], layer), n_head,
+                        audio_ctx or cfg.n_audio_ctx)
     return logits_from_hidden(params, x)[:, 0]
 
 
 def decoder_prefill(params: Params, tokens: torch.Tensor, cross_kv,
-                    cfg: WhisperConfig, ctx: int
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+                    cfg: WhisperConfig, ctx: int, quant_cache: bool = False
+                    ) -> Tuple[torch.Tensor, Any]:
     """Teacher-forced prefix pass: tokens [B, P] -> (logits [B, P, V] f32,
-    cache [L, 2, B, H, ctx, Dh] holding positions 0..P-1, K pre-scaled)."""
+    cache [L, 2, B, H, ctx, Dh] holding positions 0..P-1, K pre-scaled).
+    quant_cache: the int8 dict cache, each prefix column quantized over
+    Dh; the prefix's own attention uses the unquantized K/V."""
     dec = params["decoder"]
     b, p = tokens.shape
     h = cfg.n_text_head
@@ -276,14 +370,14 @@ def decoder_prefill(params: Params, tokens: torch.Tensor, cross_kv,
         dec["tok_emb"].dtype
     )
     scale = (cfg.n_text_state // h) ** -0.25
-    cache = init_kv_cache(cfg, b, dtype=x.dtype, ctx=ctx, device=x.device)
+    cache = init_kv_cache(cfg, b, dtype=x.dtype, ctx=ctx, device=x.device,
+                          quant=quant_cache)
     blocks = dec["blocks"]
     for layer in range(n_layers(blocks)):
         blk = layer_params(blocks, layer)
         q, k, v = _proj_qkv(x, blk, h, scale)
         o = multihead_attention(q, k, v, causal=True)
-        cache[layer, 0, :, :, :p].copy_(k)
-        cache[layer, 1, :, :, :p].copy_(v)
-        x = _layer_rest(x, o, blk, cross_kv[0][layer], cross_kv[1][layer],
-                        h, 0)
+        _cache_write(cache, layer, k, v, 0)
+        x = _layer_rest(x, o, blk, layer_params(cross_kv[0], layer),
+                        layer_params(cross_kv[1], layer), h, 0)
     return logits_from_hidden(params, x), cache

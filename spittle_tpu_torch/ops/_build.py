@@ -41,6 +41,8 @@ SIGNATURES = {
     "spt_w8a8_quantize_rows": [_P, _P, _P, _I, _I, _I, _P],
     "spt_w8a8_gemm": [_P] * 6 + [_I] * 5 + [_P],
     "spt_decode_cross_attention": [_P, _P, _P, _P] + [_I] * 5 + [_L] * 6 + [_P],
+    "spt_decode_cross_attention_q8": [_P] * 7 + [_I] * 5 + [_L] * 6 + [_P],
+    "spt_decode_cross_attention_q4": [_P] * 7 + [_I] * 5 + [_L] * 6 + [_P],
 }
 
 _lock = threading.Lock()

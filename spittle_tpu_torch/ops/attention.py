@@ -1,5 +1,5 @@
-"""Attention ops: the port's kernels K1 and K4 with their plain versions
-(port of spittle_tpu/ops/attention.py).
+"""Attention ops: the port's kernels K1, K3, K4 and K6 with their plain
+versions (port of spittle_tpu/ops/attention.py).
 
 - attention_reference: plain attention (the reference's XLA form).
 - flash_attention_fullkv (K1, csrc/fullkv_attention.cu): encoder
@@ -7,6 +7,10 @@
 - decode_cross_attention (K4, csrc/decode_cross_attention.cu): <= 8 query
   rows against the whole K/V in the decode layout [B, H, Dh, Tk]; replaces
   the Pallas `decode_cross_attention`.
+- decode_cross_attention_q8 (K3) and decode_cross_attention_q4 (K6),
+  csrc/decode_cross_attention_q.cu: the same over int8 K/V, or int4 K/V
+  packed two per byte, with one f32 scale per position; replace the
+  Pallas `decode_cross_attention_q8` and `decode_cross_attention_q4`.
 - multihead_attention: the dispatcher.
 
 A kernel wrapper takes its plain version for tensors on the CPU only; on a
@@ -147,6 +151,37 @@ def decode_cross_attention_plain(q, k, v,
     return (o / l).to(q.dtype)
 
 
+def _check_decode_cross(name, q, kv, scales, rows, kv_dtype, kv_len):
+    """Checks shared by K4, K3 and K6 on CUDA: q [B, H, R<=8, 64] bf16
+    with its head dim contiguous; kv = (k, v), each contiguous
+    [B, H, rows, Tk] of kv_dtype; scales = (ks, vs), each contiguous f32
+    [B, H, Tk], or () for bf16 K/V. Returns kv_len (Tk when None)."""
+    b, h, r, d = q.shape
+    tk = kv[0].shape[3]
+    kv_len = tk if kv_len is None else kv_len
+    if d != 64 or not 1 <= r <= 8:
+        raise ValueError(f"{name}: needs Dh=64 and 1..8 rows, got {tuple(q.shape)}")
+    if any(t.shape != (b, h, rows, tk) for t in kv):
+        raise ValueError(f"{name}: K/V must be [{b}, {h}, {rows}, Tk], got "
+                         f"{[tuple(t.shape) for t in kv]}")
+    if any(t.shape != (b, h, tk) for t in scales):
+        raise ValueError(f"{name}: scales must be [{b}, {h}, {tk}]")
+    if not 1 <= kv_len <= tk:
+        raise ValueError(f"{name}: kv_len={kv_len} not in [1, {tk}]")
+    operands = [("q", q, torch.bfloat16)]
+    operands += [(label, t, kv_dtype) for label, t in zip("kv", kv)]
+    operands += [(f"{label} scale", t, torch.float32)
+                 for label, t in zip("kv", scales)]
+    for label, t, dtype in operands:
+        if t.dtype != dtype or t.device != q.device:
+            raise TypeError(f"{name}: {label} must be {dtype} on {q.device}, "
+                            f"got {t.dtype} on {t.device} (the kernel has no "
+                            "other form; run the model in bf16)")
+    if q.stride(-1) != 1 or not all(t.is_contiguous() for t in (*kv, *scales)):
+        raise ValueError(f"{name}: q's head dim, K/V and scales must be contiguous")
+    return kv_len
+
+
 def decode_cross_attention(q, k, v,
                            kv_len: Optional[int] = None) -> torch.Tensor:
     """q [B, H, R<=8, 64] (head dim contiguous); k/v contiguous
@@ -156,20 +191,10 @@ def decode_cross_attention(q, k, v,
         return decode_cross_attention_plain(q, k, v, kv_len)
     b, h, r, d = q.shape
     tk = k.shape[3]
-    kv_len = tk if kv_len is None else kv_len
-    if d != 64 or not 1 <= r <= 8:
-        raise ValueError(f"decode_cross_attention: needs Dh=64 and 1..8 rows, got {tuple(q.shape)}")
-    if k.shape != (b, h, d, tk) or v.shape != k.shape:
-        raise ValueError("decode_cross_attention: q/k/v shapes disagree")
-    if tk % 2 or not 1 <= kv_len <= tk:
-        raise ValueError(f"decode_cross_attention: Tk={tk} must be even, kv_len={kv_len} in [1, Tk]")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16 or t.device != q.device:
-            raise TypeError(f"decode_cross_attention: {name} must be bf16 on "
-                            f"{q.device}, got {t.dtype} (the kernel has no "
-                            "other form; run the model in bf16)")
-    if q.stride(-1) != 1 or not (k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("decode_cross_attention: q's head dim and k/v must be contiguous")
+    kv_len = _check_decode_cross("decode_cross_attention", q, (k, v), (), d,
+                                 torch.bfloat16, kv_len)
+    if tk % 2:
+        raise ValueError(f"decode_cross_attention: Tk={tk} must be even")
     if r * ((kv_len + 1) & ~1) * 4 > 200 * 1024:
         raise ValueError("decode_cross_attention: score rows exceed shared memory")
     out = torch.empty((b, r, h, d), dtype=q.dtype, device=q.device)
@@ -185,3 +210,93 @@ def decode_cross_attention(q, k, v,
 
 
 decode_cross_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3 and K6: decode cross-attention over int8 and packed int4 K/V
+# ---------------------------------------------------------------------------
+
+
+# Time positions per block of K3/K6 (kChunk in the source).
+_QUANT_CHUNK = 256
+
+
+def decode_cross_attention_q8_plain(q, qk, ks, qv, vs,
+                                    kv_len: Optional[int] = None) -> torch.Tensor:
+    """Plain K3. q [B, H, R, D] pre-scaled by D^-0.5; qk/qv int8
+    [B, H, D, Tk]; ks/vs f32 [B, H, Tk]. The TPU kernel's function:
+    s = (q . qK) * ks, masked to t < kv_len before the max, p = exp(s - m),
+    o = ((p * vs) rounded to bf16) . qV / l."""
+    tk = qk.shape[3]
+    kv_len = tk if kv_len is None else kv_len
+    s = torch.matmul(q.float(), qk[..., :kv_len].float()) * ks[..., None, :kv_len]
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1, keepdim=True)
+    pv = (p * vs[..., None, :kv_len]).to(torch.bfloat16).float()
+    o = torch.matmul(pv, qv[..., :kv_len].float().transpose(-1, -2))
+    return (o / l).to(q.dtype)
+
+
+def decode_cross_attention_q4_plain(q, qk, ks, qv, vs,
+                                    kv_len: Optional[int] = None) -> torch.Tensor:
+    """Plain K6: K3 on K/V packed two int4 values per byte, qk/qv int8
+    [B, H, D/2, Tk] (ops/quant.py:quantize_kv_int4)."""
+    from .quant import unpack_kv_int4
+
+    return decode_cross_attention_q8_plain(q, unpack_kv_int4(qk), ks,
+                                           unpack_kv_int4(qv), vs, kv_len)
+
+
+def _launch_decode_cross_quant(name, entry, q, qk, ks, qv, vs, kv_len, rows):
+    """Checks and launch shared by K3 and K6 (rows: stored K/V rows, 64
+    for int8 and 32 for packed int4). Returns the [B, H, R, 64] result
+    as a view of a [B, R, H, 64] buffer."""
+    b, h, r, d = q.shape
+    tk = qk.shape[3]
+    kv_len = _check_decode_cross(name, q, (qk, qv), (ks, vs), rows, torch.int8,
+                                 kv_len)
+    chunks = -(-kv_len // _QUANT_CHUNK)
+    part = torch.empty((b * h, chunks, r, d + 2), dtype=torch.float32,
+                       device=q.device)
+    out = torch.empty((b, r, h, d), dtype=q.dtype, device=q.device)
+    lib = _build.load_library()
+    _build.check(getattr(lib, entry)(
+        q.data_ptr(), qk.data_ptr(), ks.data_ptr(), qv.data_ptr(),
+        vs.data_ptr(), part.data_ptr(), out.data_ptr(),
+        b, h, r, tk, kv_len, *q.stride()[:3],
+        out.stride(0), out.stride(2), out.stride(1),
+        _build.stream_ptr(q.device),
+    ), entry)
+    return out.permute(0, 2, 1, 3)
+
+
+def decode_cross_attention_q8(q, qk, ks, qv, vs,
+                              kv_len: Optional[int] = None) -> torch.Tensor:
+    """K3. q [B, H, R<=8, 64] bf16 pre-scaled by Dh^-0.5 (head dim
+    contiguous); qk/qv int8 [B, H, 64, Tk] and ks/vs f32 [B, H, Tk],
+    contiguous, any Tk -> [B, H, R, 64]."""
+    if q.device.type == "cpu":
+        return decode_cross_attention_q8_plain(q, qk, ks, qv, vs, kv_len)
+    out = _launch_decode_cross_quant(
+        "decode_cross_attention_q8", "spt_decode_cross_attention_q8",
+        q, qk, ks, qv, vs, kv_len, q.shape[3])
+    decode_cross_attention_q8.launches += 1
+    return out
+
+
+decode_cross_attention_q8.launches = 0
+
+
+def decode_cross_attention_q4(q, qk, ks, qv, vs,
+                              kv_len: Optional[int] = None) -> torch.Tensor:
+    """K6. As K3 with qk/qv the packed int4 [B, H, 32, Tk]."""
+    if q.device.type == "cpu":
+        return decode_cross_attention_q4_plain(q, qk, ks, qv, vs, kv_len)
+    out = _launch_decode_cross_quant(
+        "decode_cross_attention_q4", "spt_decode_cross_attention_q4",
+        q, qk, ks, qv, vs, kv_len, q.shape[3] // 2)
+    decode_cross_attention_q4.launches += 1
+    return out
+
+
+decode_cross_attention_q4.launches = 0

@@ -78,6 +78,41 @@ def test_stream_on_trained_tiny_matches_goldens_and_reference(goldens, wire):
     assert _as_dicts(got) == _as_dicts(ref)
 
 
+@pytest.mark.parametrize("quantize_decoder", ["int8", "int4"])
+def test_quantized_leg_on_trained_tiny_matches_reference(goldens, quantize_decoder):
+    """bench.py's large-v3 leg options (W8A8 encoder, quantized decoder and
+    cross-K/V, int8 self-cache, mu-law wire) through transcribe_stream:
+    tokens, text and segments equal to the JAX engine with the same
+    options. Held against the JAX engine, not the goldens: quantization
+    may move tokens away from the goldens in both packages alike."""
+    cases = goldens["cases"]
+    audio = [tcc.utterance(c["word_ids"])[0] for c in cases]
+    batches = [audio[:4], audio[4:]]
+    opts = dict(quantize_encoder=True, quantize_decoder=quantize_decoder,
+                quantize_cache=True, wire="mulaw")
+    port = WhisperEngine(device="cpu", **opts)
+    port.load_model(NPZ)
+    got = [r for b in port.transcribe_stream(batches, _stream_params(TranscribeParams),
+                                             overlap_fetch=True) for r in b]
+    ref_eng = JaxEngine(**opts)
+    ref_eng.load_model(NPZ)
+    ref = [r for b in ref_eng.transcribe_stream(batches, _stream_params(JParams),
+                                                overlap_fetch=True) for r in b]
+    assert _as_dicts(got) == _as_dicts(ref)
+    assert any(r.tokens for r in got)  # the windows decoded something
+
+
+@pytest.mark.parametrize("value,exc", [
+    ("w8a8", NotImplementedError),
+    ("int2", ValueError),
+    (8, ValueError),
+])
+def test_quantize_decoder_option_checks(value, exc):
+    with pytest.raises(exc, match="ROADMAP" if exc is NotImplementedError
+                       else "quantize_decoder"):
+        WhisperEngine(device="cpu", quantize_decoder=value)
+
+
 def test_long_audio_overlap_stitch_matches_reference(goldens):
     """Two utterances back to back (60 s) decode as overlapping windows;
     plan, parse and stitch must give the reference engine's result."""

@@ -1,0 +1,82 @@
+"""Mutation check of the card tests of K3 and K6 (decode cross-attention
+over int8 and packed int4 K/V): each case breaks the kernel in a copy of
+the package under a temporary directory, where the copy builds its own
+kernel library, and the card tests of tests/test_torch_kernels_cuda.py
+must then fail on the kernel's values. Each edit names the exact text it
+replaces, so a case fails loudly once the source no longer holds it.
+
+The kernels have no CPU mode, so every case carries the `cuda` marker and
+skips without a card:
+
+    python -m pytest --noconftest -m cuda -s tests/test_torch_kernel_mutations.py
+"""
+
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+REPO = Path(__file__).resolve().parents[1]
+SRC = "spittle_tpu_torch/csrc/decode_cross_attention_q.cu"
+WRAPPER = "spittle_tpu_torch/ops/attention.py"
+CARD_TESTS = "tests/test_torch_kernels_cuda.py"
+
+# name -> (pytest -k selection in CARD_TESTS, [(file, old text, new text)])
+MUTATIONS = {
+    # Pad columns enter the row max and are zeroed only after it: the
+    # blocks cover Tk instead of kv_len, and p is masked after exp.
+    "mask_after_max": ("quant_kernel_matches and 1300", [
+        (SRC, "const int t1 = min(t0 + kChunk, kv_len);",
+         "const int t1 = min(t0 + kChunk, Tk);"),
+        (SRC, "const int nchunks = (kv_len + kChunk - 1) / kChunk;",
+         "const int nchunks = (Tk + kChunk - 1) / kChunk;"),
+        (SRC, "const float p = live ? expf(s[r] - rmax[r]) : 0.f;",
+         "const float p = (live && t0 + tid < kv_len) ? expf(s[r] - rmax[r]) : 0.f;"),
+        (WRAPPER, "chunks = -(-kv_len // _QUANT_CHUNK)",
+         "chunks = -(-tk // _QUANT_CHUNK)"),
+    ]),
+    # Nibbles shifted as unsigned values: 0..15, no sign extension.
+    "nibble_unsigned": ("quant_kernel_matches and int4", [
+        (SRC, "static_cast<int>(b << 28) >> 28", "static_cast<int>((b << 28) >> 28)"),
+        (SRC, "static_cast<int>(b << 24) >> 28", "static_cast<int>((b << 24) >> 28)"),
+    ]),
+}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("name", list(MUTATIONS))
+def test_card_tests_fail_on_mutant(cuda, tmp_path, name):
+    select, edits = MUTATIONS[name]
+    shutil.copytree(REPO / "spittle_tpu_torch", tmp_path / "spittle_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    (tmp_path / "tests").mkdir()
+    shutil.copy(REPO / CARD_TESTS, tmp_path / CARD_TESTS)
+    for rel, old, new in edits:
+        path = tmp_path / rel
+        text = path.read_text()
+        assert old in text, f"{name}: {old!r} is no longer in {rel}"
+        path.write_text(text.replace(old, new))
+    res = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-m", "cuda", "-q", "-x",
+         "-p", "no:cacheprovider", CARD_TESTS, "-k", select],
+        cwd=tmp_path, capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(tmp_path)})
+    detail = [ln.strip() for ln in res.stdout.splitlines()
+              if "Greatest absolute difference" in ln or "Mismatched elements" in ln]
+    print(f"{name}: card tests exit {res.returncode}; " + "; ".join(detail[:2]))
+    # Exit 1 with a value mismatch: the mutant built, ran and was caught.
+    # A build or collection error would fail for another reason.
+    assert res.returncode == 1 and "Tensor-likes are not close" in res.stdout, \
+        res.stdout[-4000:] + res.stderr[-2000:]

@@ -1,6 +1,7 @@
-"""Card-only tests: the port's CUDA kernels (K1, K2, K4) against their
-plain PyTorch versions on CUDA tensors, and the engine's main path on a
-small config with every kernel counter moving.
+"""Card-only tests: the port's CUDA kernels (K1, K2, K3, K4, K6) against
+their plain PyTorch versions on CUDA tensors, and the engine's main paths
+(bf16 decoder; int8 and int4 decoders) on a small config with every
+kernel counter moving.
 
 The kernels have no CPU mode, so every test here carries the `cuda`
 marker and skips without a card; whether a card is present is decided in
@@ -15,7 +16,11 @@ import pytest
 import torch
 
 from spittle_tpu_torch.ops import attention as att
-from spittle_tpu_torch.ops.quant import quantize_weight_w8a8
+from spittle_tpu_torch.ops.quant import (
+    quantize_kv,
+    quantize_kv_int4,
+    quantize_weight_w8a8,
+)
 from spittle_tpu_torch.ops.w8a8_gemm import w8a8_gemm, w8a8_gemm_plain
 
 pytestmark = pytest.mark.cuda
@@ -138,3 +143,93 @@ def test_engine_main_path_runs_every_kernel(cuda):
     steps = sum(eng.last_decode_steps)
     assert att.decode_cross_attention.launches == eng.cfg.n_text_layer * (
         2 + steps)
+
+
+def _quant_kv(rng, b, h, tk, kv_len, bits, dev):
+    """K/V [B, H, 64, Tk] quantized as the decoder quantizes them, with the
+    columns from kv_len on replaced by pad: random codes and scale 1.0, so
+    a pad column that reached the row max would swamp the real ones."""
+    kv = _randn(rng, (b, h, 64, tk), dev, torch.float32)
+    q = quantize_kv(kv) if bits == 8 else quantize_kv_int4(kv)
+    key = "qw" if bits == 8 else "qw4"
+    qw, scale = q[key], q["scale"]
+    if kv_len < tk:
+        pad = torch.from_numpy(rng.integers(-128, 128, size=qw[..., kv_len:].shape,
+                                            dtype=np.int8)).to(dev)
+        qw[..., kv_len:] = pad
+        scale[..., kv_len:] = 1.0
+    return qw.contiguous(), scale.contiguous()
+
+
+_QUANT_KERNELS = {
+    8: (att.decode_cross_attention_q8, att.decode_cross_attention_q8_plain),
+    4: (att.decode_cross_attention_q4, att.decode_cross_attention_q4_plain),
+}
+
+
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("r", [1, 3, 4, 8])
+@pytest.mark.parametrize("tk,kv_len", [(1500, 1500), (1500, 1300),
+                                       (1536, 1536), (1536, 1500)])
+def test_decode_cross_quant_kernel_matches_plain(cuda, bits, b, r, tk, kv_len):
+    rng = np.random.default_rng(4 + r)
+    h = 20
+    q = _randn(rng, (b, h, r, 64), cuda, scale=64 ** -0.5)
+    qk, ks = _quant_kv(rng, b, h, tk, kv_len, bits, cuda)
+    qv, vs = _quant_kv(rng, b, h, tk, kv_len, bits, cuda)
+    kernel, plain = _QUANT_KERNELS[bits]
+    got = kernel(q, qk, ks, qv, vs, kv_len=kv_len)
+    want = plain(q, qk, ks, qv, vs, kv_len=kv_len)
+    torch.cuda.synchronize()
+    # The kernel rounds bf16(p * vs) with p scaled by its 256-position
+    # chunk's max and rescales the chunk sums after; the plain version
+    # rounds with the global max. That moves each weight by up to a bf16
+    # half-ulp (2**-9 relative), averaged over the sum, then one bf16
+    # rounding of the output: K4's tolerance. A pad column in the max, or
+    # nibbles read without sign extension, move outputs by far more.
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=2e-3)
+
+
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+def test_decode_cross_quant_wrapper_raises(cuda, bits):
+    rng = np.random.default_rng(9)
+    kernel, _ = _QUANT_KERNELS[bits]
+    qk, ks = _quant_kv(rng, 1, 2, 300, 300, bits, cuda)
+    q = _randn(rng, (1, 2, 1, 64), cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        kernel(q.float(), qk, ks, qk, ks)
+    with pytest.raises(TypeError, match="int8"):
+        kernel(q, qk.float(), ks, qk, ks)
+    with pytest.raises(ValueError, match="1..8 rows"):
+        kernel(_randn(rng, (1, 2, 9, 64), cuda), qk, ks, qk, ks)
+    assert kernel(q, qk, ks, qk, ks).shape == (1, 2, 1, 64)
+
+
+@pytest.mark.parametrize("quantize_decoder", ["int8", "int4"])
+def test_engine_quantized_decoder_runs_its_kernel(cuda, quantize_decoder):
+    from spittle_tpu_torch.engine.base import TranscribeParams
+    from spittle_tpu_torch.engine.whisper_engine import WhisperEngine
+
+    eng = WhisperEngine(device="cuda", dtype=torch.bfloat16,
+                        quantize_encoder=True, quantize_decoder=quantize_decoder,
+                        quantize_cache=True, wire="mulaw")
+    eng.load_model("random:tiny")
+    rng = np.random.default_rng(3)
+    audio = [(rng.standard_normal(16000 * 30) * 3000).astype(np.int16)
+             for _ in range(2)]
+    p = TranscribeParams(language="en", parallel_windows=True,
+                         condition_on_previous_text=False,
+                         temperatures=(0.0,), max_tokens=8)
+    kernels = (att.decode_cross_attention, att.decode_cross_attention_q8,
+               att.decode_cross_attention_q4)
+    for fn in kernels:
+        fn.launches = 0
+    results = list(eng.transcribe_stream([audio, audio], p,
+                                         overlap_fetch=True))
+    assert len(results) == 2 and all(len(r) == 2 for r in results)
+    want = eng.cfg.n_text_layer * (2 + sum(eng.last_decode_steps))
+    used = (att.decode_cross_attention_q8 if quantize_decoder == "int8"
+            else att.decode_cross_attention_q4)
+    assert {fn.__name__: fn.launches for fn in kernels} == {
+        fn.__name__: (want if fn is used else 0) for fn in kernels}
