@@ -12,7 +12,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    shapes with B=8 windows: K1 encoder attention, K2 W8A8 GEMM (the six
    GEMMs of one encoder layer), K4 decode cross-attention (bf16 K/V), K3
    and K6 decode cross-attention over int8 and packed int4 K/V (R = 1, 3,
-   4, and once at B=56, bench.py's large-v3 batch). Each prints its max
+   4, and once at B=56, bench.py's large-v3 batch), and the
+   encoder-attention forms K7 (int8 products), K8 (packed heads), K9
+   (head pairs) and K10 (pipelined) at [8, 20, 1500, 64], each also with
+   kv_len 1300 and K8/K9 causal. Each prints its max
    error and tolerance, its time (`ms`: device time per launch from a
    CUDA graph of launches replayed between CUDA events; `call_ms`: eager
    calls between CUDA events, the host's per-call cost included), the
@@ -32,7 +35,10 @@ Phases, each printing its own lines; any failure exits non-zero:
       K4);
    b. large-v3 leg: random:large-v3, int8 decoder, int8 cross-K/V and
       int8 self-cache, 2 batches (K1, K2, K3);
-   c. int4 variant: random:large-v3-turbo with quantize_decoder="int4"
+   c. the encoder-attention forms: the turbo leg's engine (its weights
+      drawn once) with encoder_attention set to "q8", "packed", "pair"
+      and "pipe" in turn, 1 batch each (K7, K8, K9, K10 in place of K1);
+   d. int4 variant: random:large-v3-turbo with quantize_decoder="int4"
       and the int8 self-cache, 1 batch (K1, K2, K6).
 
 The last two lines are a JSON object of per-kernel numbers and
@@ -69,7 +75,18 @@ def _kernels():
     from spittle_tpu_torch.ops.w8a8_gemm import w8a8_gemm
 
     return (att.flash_attention_fullkv, w8a8_gemm, att.decode_cross_attention,
-            att.decode_cross_attention_q8, att.decode_cross_attention_q4)
+            att.decode_cross_attention_q8, att.decode_cross_attention_q4,
+            *_form_kernels().values())
+
+
+def _form_kernels():
+    """encoder_attention form -> the wrapper of the kernel it runs."""
+    from spittle_tpu_torch.ops import attention as att
+
+    return {"q8": att.flash_attention_fullkv_q8,
+            "packed": att.flash_attention_fullkv_packed,
+            "pair": att.flash_attention_fullkv_packed_pair,
+            "pipe": att.flash_attention_fullkv_pipe}
 
 
 def _cycle(fn):
@@ -185,6 +202,7 @@ def kernel_phase(dev, rng):
                      bound_ms=bms, bound_by=by, library_ms=lib_ms,
                      library="F.scaled_dot_product_attention"))
     del packed, q, k, v, got, want
+    rows += encoder_forms_phase(dev, rng)
 
     # K2: the six W8A8 GEMMs of one encoder layer at M = 8 * 1500.
     m = b * t
@@ -299,6 +317,79 @@ def kernel_phase(dev, rng):
     del kvs
     rows += quant_cross_phase(dev)
     weight_only_phase(dev, rng)
+    return rows
+
+
+def encoder_forms_phase(dev, rng):
+    """K7-K10 against their plain versions at [8, 20, 1500, 64] bf16:
+    packed [B, T, H*64] projections (K8, K9) and their strided head views
+    (K7, K10), kv_len 1500 and 1300, causal for K8 and K9. K8, K9 and K10
+    run K1's arithmetic, so they must also give K1's output bit for bit."""
+    from spittle_tpu_torch.ops import attention as att
+
+    F = torch.nn.functional
+    b, h, t, d = 8, 20, 1500, 64
+    packed = [randn(rng, (b, t, h * d), dev, scale=d ** -0.25) for _ in range(3)]
+    heads = [att.split_heads(x, h) for x in packed]
+    specs = (  # (K#, form, line of the TPU kernel, plain version, source)
+        ("K7", "q8", 407, att.flash_attention_fullkv_q8_plain,
+         "fullkv_attention_q8.cu"),
+        ("K8", "packed", 478, att.flash_attention_fullkv_packed_plain,
+         "fullkv_attention.cu"),
+        ("K9", "pair", 573, att.flash_attention_fullkv_packed_plain,
+         "fullkv_attention.cu"),
+        ("K10", "pipe", 289, att.flash_attention_fullkv_plain,
+         "fullkv_attention_pipe.cu"),
+    )
+    rows = []
+    for kname, form, line, plain, src in specs:
+        fn = _form_kernels()[form]
+        on_packed = form in ("packed", "pair")
+        args = tuple(packed) + (h,) if on_packed else tuple(heads)
+        print(f"{kname} {fn.__name__} [8,20,1500,64] bf16 "
+              f"({'packed [8,1500,1280]' if on_packed else 'strided head views'}):")
+        cases = [(1500, False), (1300, False)] + ([(1500, True)] if on_packed else [])
+        err_max = 0.0
+        for kv_len, causal in cases:
+            kw = dict(kv_len=kv_len, causal=causal) if on_packed else dict(kv_len=kv_len)
+            got = fn(*args, **kw)
+            want = plain(*args, **kw)
+            err = (got.float() - want.float()).abs().max().item()
+            big = want.float().abs().max().item()
+            label = f"{kname} kv_len={kv_len}{' causal' if causal else ''}"
+            if form == "q8":
+                # One bf16 ulp of the largest output, plus one P code moved
+                # by one (where exp's last bit differs): at most mp/l.
+                step = att.q8_code_step(*heads, kv_len).max().item()
+                check(label, err, 2.0 ** -7 * big + step)
+            else:
+                # K1's tolerance, and K1's bits.
+                check(label, err, 1e-2 * big)
+                k1 = att.flash_attention_fullkv(*heads, causal=causal, kv_len=kv_len)
+                same = torch.equal(got, att.merge_heads(k1) if on_packed else k1)
+                print(f"  {label}: bit-identical to K1: {same}")
+                if not same:
+                    raise AssertionError(f"{label}: differs from K1's output")
+            err_max = max(err_max, err)
+            del got, want
+        kernel = lambda: fn(*args, kv_len=t)  # noqa: E731
+        ms, eager_ms = time_ms(kernel, 20), call_ms(kernel, 20)
+        plain_ms = time_ms(lambda: plain(*args, kv_len=t), 3, 1)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(*heads, scale=1.0), 20)
+        rate = PEAK_INT8_OPS if form == "q8" else PEAK_BF16_FLOPS
+        bms, by = bound(4.0 * b * h * t * t * d, rate, 4 * b * h * t * d * 2)
+        lib = "F.scaled_dot_product_attention on the same bf16 q, k, v"
+        if form == "q8":
+            lib += " (no library call computes the int8 function)"
+        print(f"  ms {ms:.4f} (eager call_ms {eager_ms:.4f})  plain_ms {plain_ms:.4f}  "
+              f"library_ms ({lib}) {lib_ms:.4f}  bound_ms {bms:.4f} ({by})")
+        rows.append(dict(name=fn.__name__, route="cuda",
+                         source=f"spittle_tpu_torch/csrc/{src}",
+                         replaces=f"spittle_tpu/ops/attention.py:{line}",
+                         max_abs_err=err_max, ms=ms, call_ms=eager_ms,
+                         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         library_ms=lib_ms, library=lib))
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -452,13 +543,8 @@ def golden_phase():
         raise AssertionError(f"golden tokens differ for {bad}")
 
 
-def e2e_phase(label: str, model: str, engine_opts: dict, n_batches: int,
-              batch: int, seed: int, predict):
-    """One end-to-end path: load, warm up, then n_batches batches through
-    transcribe_stream(overlap_fetch=True) with every launch counter set to
-    0 just before and read just after. predict(cfg, steps) gives the
-    launch count each kernel must show. Returns the counts."""
-    from spittle_tpu_torch.engine.base import TranscribeParams
+def load_engine(model: str, engine_opts: dict, seed: int):
+    """A W8A8-encoder, mu-law, bf16 engine with `model` loaded."""
     from spittle_tpu_torch.engine.whisper_engine import WhisperEngine
 
     t0 = time.perf_counter()
@@ -467,10 +553,22 @@ def e2e_phase(label: str, model: str, engine_opts: dict, n_batches: int,
     eng.load_model(model, seed=seed)
     torch.cuda.synchronize()
     cfg = eng.cfg
-    print(f"e2e {label}: {model} (d={cfg.n_audio_state}, "
+    print(f"engine: {model} (d={cfg.n_audio_state}, "
           f"{cfg.n_audio_layer}+{cfg.n_text_layer} layers) {engine_opts} "
           f"loaded in {time.perf_counter() - t0:.1f} s")
+    return eng
 
+
+def e2e_phase(label: str, eng, n_batches: int, batch: int, seed: int, predict):
+    """One end-to-end path on a loaded engine: warm up, then n_batches
+    batches through transcribe_stream(overlap_fetch=True) with every
+    launch counter set to 0 just before and read just after.
+    predict(cfg, steps) gives the launch count each kernel must show.
+    Returns the counts."""
+    from spittle_tpu_torch.engine.base import TranscribeParams
+
+    cfg = eng.cfg
+    print(f"e2e {label}: encoder_attention={eng.encoder_attention!r}")
     rng = np.random.default_rng(seed + 1)
     sr, n = 16000, 30 * 16000
     tt = np.arange(n) / sr
@@ -524,25 +622,28 @@ def e2e_phase(label: str, model: str, engine_opts: dict, n_batches: int,
     want = predict(cfg, steps)
     if launches != want:
         raise AssertionError(f"{label}: launch counts {launches} != predicted {want}")
-    del eng, results
-    gc.collect()
-    torch.cuda.empty_cache()
+    del results
     return launches
 
 
-def _predict(k4=0, k3=0, k6=0):
-    """Launch counts of one path: K1 once and K2 six times per encoder
-    layer and batch; each cross-attention kernel once per decoder layer
-    for the prefill and for every step."""
+def _predict(k4=0, k3=0, k6=0, form="fullkv"):
+    """Launch counts of one path: the encoder-attention form's kernel (K1
+    under "fullkv") once and K2 six times per encoder layer and batch;
+    each cross-attention kernel once per decoder layer for the prefill and
+    for every step; every other kernel 0."""
     def predict(cfg, steps):
+        enc = {fn.__name__: 0 for fn in _kernels()}
+        attn = ("flash_attention_fullkv" if form == "fullkv"
+                else _form_kernels()[form].__name__)
         dec = cfg.n_text_layer * (len(steps) + sum(steps))
-        return {
-            "flash_attention_fullkv": len(steps) * cfg.n_audio_layer,
+        enc.update({
+            attn: len(steps) * cfg.n_audio_layer,
             "w8a8_gemm": len(steps) * 6 * cfg.n_audio_layer,
             "decode_cross_attention": dec * k4,
             "decode_cross_attention_q8": dec * k3,
             "decode_cross_attention_q4": dec * k6,
-        }
+        })
+        return enc
     return predict
 
 
@@ -576,25 +677,39 @@ def main() -> int:
     golden_phase()
     print(f"phase goldens: {time.perf_counter() - t0:.1f} s")
     # Each kernel's launches come from the path that runs it: K1, K2 and
-    # K4 from the turbo leg, K3 from the large-v3 leg, K6 from the int4
-    # variant; every path also checks that the others stayed at 0.
+    # K4 from the turbo leg, K7-K10 from the turbo engine under each
+    # encoder-attention form, K3 from the large-v3 leg, K6 from the int4
+    # variant; every path also checks that the others stayed at 0. The
+    # form paths reuse the turbo leg's engine and weights.
     paths = (
-        ("turbo leg", "random:large-v3-turbo", {}, N_BATCHES, _predict(k4=1),
-         ("flash_attention_fullkv", "w8a8_gemm", "decode_cross_attention")),
+        ("turbo leg", "random:large-v3-turbo", {}, "fullkv", N_BATCHES,
+         _predict(k4=1), ("flash_attention_fullkv", "w8a8_gemm",
+                          "decode_cross_attention")),
+        *((f"turbo {form}", "random:large-v3-turbo", {}, form, 1,
+           _predict(k4=1, form=form), (fn.__name__,))
+          for form, fn in _form_kernels().items()),
         ("large-v3 leg", "random:large-v3",
-         dict(quantize_decoder="int8", quantize_cache=True), N_BATCHES,
-         _predict(k3=1), ("decode_cross_attention_q8",)),
+         dict(quantize_decoder="int8", quantize_cache=True), "fullkv",
+         N_BATCHES, _predict(k3=1), ("decode_cross_attention_q8",)),
         ("int4 variant", "random:large-v3-turbo",
-         dict(quantize_decoder="int4", quantize_cache=True), 1,
+         dict(quantize_decoder="int4", quantize_cache=True), "fullkv", 1,
          _predict(k6=1), ("decode_cross_attention_q4",)),
     )
     launches, by_path = {}, {}
-    for label, model, opts, n_batches, predict, owned in paths:
+    eng, loaded = None, None
+    for label, model, opts, form, n_batches, predict, owned in paths:
         t0 = time.perf_counter()
-        counts = e2e_phase(label, model, opts, n_batches, BATCH, SEED, predict)
+        if loaded != (model, opts):
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+            eng, loaded = load_engine(model, opts, SEED), (model, opts)
+        eng.encoder_attention = form
+        counts = e2e_phase(label, eng, n_batches, BATCH, SEED, predict)
         print(f"phase e2e {label}: {time.perf_counter() - t0:.1f} s")
         by_path[label] = counts
         launches.update({name: counts[name] for name in owned})
+    del eng
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["launches_by_path"] = {k: v[row["name"]] for k, v in by_path.items()}

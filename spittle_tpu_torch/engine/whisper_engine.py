@@ -4,7 +4,8 @@ spittle_tpu/engine/whisper_engine.py, parallel-windows path).
 What the port carries: `random:<config>` and spittle .npz models, the
 mu-law or int16 PCM wire, the W8A8 encoder, the bf16/f32 decoder or the
 weight-only int8 decoder with int8 or int4 cross-K/V (quantize_decoder)
-and an int8 self-cache (quantize_cache), greedy temperature-0 decoding,
+and an int8 self-cache (quantize_cache), the encoder-attention forms
+(encoder_attention), greedy temperature-0 decoding,
 parallel 30 s windows with overlap-stitch, `transcribe_batch` and the
 pipelined `transcribe_stream` (prefetch thread, overlap_fetch). Everything
 else raises NotImplementedError pointing at ROADMAP.md: the sequential
@@ -43,6 +44,7 @@ from spittle_tpu_torch.models.whisper.weights import (
     random_params,
 )
 from spittle_tpu_torch.ops import full_f32
+from spittle_tpu_torch.ops.attention import check_encoder_attention
 from spittle_tpu_torch.ops.quant import (
     quantize_whisper_decoder,
     quantize_whisper_encoder_w8a8,
@@ -103,6 +105,7 @@ class WhisperEngine:
         quantize_decoder=False,
         quantize_cache: bool = False,
         wire: str = "auto",
+        encoder_attention: str = "fullkv",
     ):
         """device: "cuda" (default; raises without a card) or "cpu".
         dtype: compute dtype of the weights (layer norms stay f32); by
@@ -116,8 +119,16 @@ class WhisperEngine:
         is not ported yet and raises NotImplementedError.
         quantize_cache: int8 self-attention cache, one scale per position.
         wire: "auto" ships the input's own PCM dtype host->device; "mulaw"
-        ships 8-bit mu-law codes, decoded on the device."""
+        ships 8-bit mu-law codes, decoded on the device.
+        encoder_attention: the encoder self-attention form, which the
+        reference takes from the environment: "fullkv" (K1 on the card),
+        "q8" (int8 products, K7; SPITTLE_ATTN_Q8=1), "packed" (K8;
+        SPITTLE_PACKED_ATTENTION=1), "pair" (K9;
+        SPITTLE_PACKED_ATTENTION=pair) or "pipe" (K10; SPITTLE_ATTN_PIPE=1).
+        Anything else raises ValueError. It may be changed between
+        batches."""
         self.device = resolve_device(device)
+        self.encoder_attention = encoder_attention
         if wire not in ("auto", "mulaw"):
             raise ValueError(f"wire must be 'auto' or 'mulaw', got {wire!r}")
         if dtype is None:
@@ -179,6 +190,14 @@ class WhisperEngine:
     @property
     def is_loaded(self) -> bool:
         return self.params is not None
+
+    @property
+    def encoder_attention(self) -> str:
+        return self._encoder_attention
+
+    @encoder_attention.setter
+    def encoder_attention(self, form: str) -> None:
+        self._encoder_attention = check_encoder_attention(form)
 
     # -- helpers ---------------------------------------------------------
 
@@ -291,7 +310,7 @@ class WhisperEngine:
     def _frontend(self, windows: torch.Tensor) -> torch.Tensor:
         """windows [B, samples] wire PCM on the device -> encoder output."""
         mel = log_mel_spectrogram(_pcm_f32(windows), n_mels=self.cfg.n_mels)
-        return encode(self.params, mel, self.cfg)
+        return encode(self.params, mel, self.cfg, self.encoder_attention)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

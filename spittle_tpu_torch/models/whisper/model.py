@@ -8,7 +8,8 @@ f32.
 
 Layouts:
 - encoder activations [B, T, D]; attention heads are strided views of the
-  packed [B, T, H*Dh] projections (K1 reads them in place);
+  packed [B, T, H*Dh] projections (K1, K7 and K10 read them in place),
+  or the packed tensors themselves (K8, K9);
 - cross-attention K/V in the decode layout [L, B, H, Dh, T] (time minor),
   the layout K4 streams;
 - the decoder self-attention cache is ctx-major [L, 2, B, H, ctx, Dh] and
@@ -34,7 +35,10 @@ from spittle_tpu_torch.ops.attention import (
     decode_cross_attention,
     decode_cross_attention_q4,
     decode_cross_attention_q8,
+    merge_heads,
     multihead_attention,
+    multihead_attention_packed,
+    split_heads,
 )
 from spittle_tpu_torch.ops.quant import (
     is_quant_kv4,
@@ -64,19 +68,6 @@ def layer_norm(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor) -> torch.Tenso
     return (out * g + b).to(x.dtype)
 
 
-def _split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
-    """[B, T, H*Dh] -> [B, H, T, Dh] (a view)."""
-    b, t, d = x.shape
-    return x.view(b, t, n_head, d // n_head).permute(0, 2, 1, 3)
-
-
-def _merge_heads(x: torch.Tensor) -> torch.Tensor:
-    """[B, H, T, Dh] -> [B, T, H*Dh] (free when x views a [B, T, H, Dh]
-    buffer, as the attention kernels return)."""
-    b, h, t, dh = x.shape
-    return x.permute(0, 2, 1, 3).reshape(b, t, h * dh)
-
-
 def sinusoidal_positions(length: int, channels: int) -> np.ndarray:
     """Whisper encoder positional embedding (log-spaced sinusoids)."""
     log_timescale = np.log(10000.0) / (channels // 2 - 1)
@@ -104,18 +95,17 @@ def n_layers(blocks: Params) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _attn_full(x, blk, n_head: int, causal: bool):
+def _attn_full(x, blk, n_head: int, causal: bool, attention: str = "fullkv"):
     """Self-attention over a full sequence. q and k carry Whisper's split
-    Dh^-0.25 scaling (folded into the projection epilogue)."""
+    Dh^-0.25 scaling (folded into the projection epilogue). attention: the
+    encoder-attention form (ops.attention.ENCODER_ATTENTION_FORMS)."""
     scale = (x.shape[-1] // n_head) ** -0.25
     q = mm_bias(x, blk["wq"], blk["bq"], out_scale=scale)
     k = mm_bias(x, blk["wk"], out_scale=scale)
     v = mm_bias(x, blk["wv"], blk["bv"])
-    o = multihead_attention(
-        _split_heads(q, n_head), _split_heads(k, n_head),
-        _split_heads(v, n_head), causal=causal,
-    )
-    return mm_bias(_merge_heads(o), blk["wo"], blk["bo"])
+    o = multihead_attention_packed(q, k, v, n_head, causal=causal,
+                                   form=attention)
+    return mm_bias(o, blk["wo"], blk["bo"])
 
 
 def _mlp(x, blk):
@@ -123,10 +113,11 @@ def _mlp(x, blk):
     return mm_bias(h, blk["fc2_w"], blk["fc2_b"])
 
 
-def encoder_block_body(h: torch.Tensor, blk, n_head: int) -> torch.Tensor:
+def encoder_block_body(h: torch.Tensor, blk, n_head: int,
+                       attention: str = "fullkv") -> torch.Tensor:
     """One encoder block (pre-LN attention + MLP residuals)."""
     h = h + _attn_full(layer_norm(h, blk["attn_ln_g"], blk["attn_ln_b"]),
-                       blk, n_head, causal=False)
+                       blk, n_head, causal=False, attention=attention)
     xn = layer_norm(h, blk["mlp_ln_g"], blk["mlp_ln_b"])
     return h + _mlp(xn, blk)
 
@@ -146,13 +137,17 @@ def _encoder_stem(enc, mel: torch.Tensor, cfg: WhisperConfig) -> torch.Tensor:
     return x + pos[None, : x.shape[1]]
 
 
-def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig) -> torch.Tensor:
-    """mel [B, n_mels, 3000] -> audio features [B, 1500, D]."""
+def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
+           attention: str = "fullkv") -> torch.Tensor:
+    """mel [B, n_mels, 3000] -> audio features [B, 1500, D]. attention:
+    the encoder-attention form, one of ops.attention.ENCODER_ATTENTION_FORMS
+    (the reference reads it from the environment)."""
     enc = params["encoder"]
     x = _encoder_stem(enc, mel, cfg)
     blocks = enc["blocks"]
     for layer in range(n_layers(blocks)):
-        x = encoder_block_body(x, layer_params(blocks, layer), cfg.n_audio_head)
+        x = encoder_block_body(x, layer_params(blocks, layer), cfg.n_audio_head,
+                               attention)
     return layer_norm(x, enc["ln_g"], enc["ln_b"])
 
 
@@ -169,8 +164,8 @@ def precompute_cross_kv(params: Params, xa: torch.Tensor, cfg: WhisperConfig):
     ks, vs = [], []
     for layer in range(n_layers(blocks)):
         blk = layer_params(blocks, layer)
-        ks.append(_split_heads(mm(xa, blk["cross_wk"]), h).transpose(-1, -2))
-        vs.append(_split_heads(mm(xa, blk["cross_wv"]) + blk["cross_bv"], h)
+        ks.append(split_heads(mm(xa, blk["cross_wk"]), h).transpose(-1, -2))
+        vs.append(split_heads(mm(xa, blk["cross_wv"]) + blk["cross_bv"], h)
                   .transpose(-1, -2))
     return torch.stack(ks), torch.stack(vs)
 
@@ -189,8 +184,8 @@ def precompute_cross_kv_quant(params: Params, xa: torch.Tensor,
     out = None
     for layer in range(n):
         blk = layer_params(blocks, layer)
-        k = _split_heads(mm(xa, blk["cross_wk"]), h).transpose(-1, -2)
-        v = _split_heads(mm(xa, blk["cross_wv"]) + blk["cross_bv"], h
+        k = split_heads(mm(xa, blk["cross_wk"]), h).transpose(-1, -2)
+        v = split_heads(mm(xa, blk["cross_wv"]) + blk["cross_bv"], h
                          ).transpose(-1, -2)
         qkv = (quant(k), quant(v))
         if out is None:
@@ -269,21 +264,21 @@ def _proj_qkv(h, blk, n_head: int, scale: float):
     """Self-attention projections: h [B, P, D] -> q, k, v [B, H, P, Dh];
     q and k pre-scaled by Dh^-0.25 (Whisper's split scaling)."""
     xn = layer_norm(h, blk["attn_ln_g"], blk["attn_ln_b"])
-    q = _split_heads(mm(xn, blk["wq"]) + blk["bq"], n_head) * scale
-    k = _split_heads(mm(xn, blk["wk"]), n_head) * scale
-    v = _split_heads(mm(xn, blk["wv"]) + blk["bv"], n_head)
+    q = split_heads(mm(xn, blk["wq"]) + blk["bq"], n_head) * scale
+    k = split_heads(mm(xn, blk["wk"]), n_head) * scale
+    v = split_heads(mm(xn, blk["wv"]) + blk["bv"], n_head)
     return q, k, v
 
 
 def _layer_rest(h, o, blk, ck, cv, n_head: int, cross_kv_len: int):
     """Post-self-attention remainder of a decoder layer: output projection
     and residual, cross-attention, MLP."""
-    h = h + mm(_merge_heads(o), blk["wo"]) + blk["bo"]
+    h = h + mm(merge_heads(o), blk["wo"]) + blk["bo"]
     xn = layer_norm(h, blk["cross_ln_g"], blk["cross_ln_b"])
     dh = xn.shape[-1] // n_head
-    cq = _split_heads(mm(xn, blk["cross_wq"]) + blk["cross_bq"], n_head)
+    cq = split_heads(mm(xn, blk["cross_wq"]) + blk["cross_bq"], n_head)
     co = _cross_attention(cq, ck, cv, dh, kv_len=cross_kv_len)
-    h = h + mm(_merge_heads(co), blk["cross_wo"]) + blk["cross_bo"]
+    h = h + mm(merge_heads(co), blk["cross_wo"]) + blk["cross_bo"]
     return h + _mlp(layer_norm(h, blk["mlp_ln_g"], blk["mlp_ln_b"]), blk)
 
 

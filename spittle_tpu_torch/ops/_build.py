@@ -8,8 +8,9 @@ own nvcc process, all started together, then one link.
 - The library lands in build/spittle_tpu_torch/ at the root of the
   checkout (ignored by git), named by a hash of the sources and flags, so
   an edited source rebuilds and an unchanged one loads the cached .so.
-- Never --use_fast_math: the W8A8 kernel's true division and rintf
-  round-half-even must match the reference's quantization byte for byte.
+- Never --use_fast_math: the W8A8 and int8-attention kernels' true
+  divisions and rintf round-half-even must match the reference's
+  quantization byte for byte.
 - Every C entry returns cudaGetLastError(); `check` raises on non-zero.
 """
 
@@ -38,6 +39,11 @@ _L = ctypes.c_longlong
 # C entry -> argtypes (pointers and the stream as c_void_p).
 SIGNATURES = {
     "spt_fullkv_attention": [_P, _P, _P, _P] + [_I] * 6 + [_L] * 12 + [_P],
+    "spt_fullkv_attention_packed": [_P] * 4 + [_I] * 6 + [_P],
+    "spt_fullkv_attention_packed_pair": [_P] * 4 + [_I] * 6 + [_P],
+    "spt_fullkv_attention_pipe": [_P] * 4 + [_I] * 5 + [_L] * 12 + [_P],
+    "spt_fullkv_q8_quantize": [_P, _L, _L, _L] + [_I] * 4 + [_P, _P, _I, _P],
+    "spt_fullkv_attention_q8": [_P] * 7 + [_I] * 7 + [_L] * 3 + [_P],
     "spt_w8a8_quantize_rows": [_P, _P, _P, _I, _I, _I, _P],
     "spt_w8a8_gemm": [_P] * 6 + [_I] * 5 + [_P],
     "spt_decode_cross_attention": [_P, _P, _P, _P] + [_I] * 5 + [_L] * 6 + [_P],

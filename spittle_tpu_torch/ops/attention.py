@@ -1,9 +1,16 @@
-"""Attention ops: the port's kernels K1, K3, K4 and K6 with their plain
-versions (port of spittle_tpu/ops/attention.py).
+"""Attention ops: the port's kernels K1, K3, K4 and K6–K10 with their
+plain versions (port of spittle_tpu/ops/attention.py).
 
 - attention_reference: plain attention (the reference's XLA form).
 - flash_attention_fullkv (K1, csrc/fullkv_attention.cu): encoder
   self-attention; replaces the Pallas `flash_attention_fullkv`.
+- The encoder-attention forms, each replacing the Pallas kernel of the
+  same name: flash_attention_fullkv_packed (K8) and
+  flash_attention_fullkv_packed_pair (K9), K1's body on the packed
+  [B, T, H*Dh] projections (csrc/fullkv_attention.cu);
+  flash_attention_fullkv_pipe (K10, csrc/fullkv_attention_pipe.cu), K1
+  software-pipelined; flash_attention_fullkv_q8 (K7,
+  csrc/fullkv_attention_q8.cu), both products int8.
 - decode_cross_attention (K4, csrc/decode_cross_attention.cu): <= 8 query
   rows against the whole K/V in the decode layout [B, H, Dh, Tk]; replaces
   the Pallas `decode_cross_attention`.
@@ -11,7 +18,9 @@ versions (port of spittle_tpu/ops/attention.py).
   csrc/decode_cross_attention_q.cu: the same over int8 K/V, or int4 K/V
   packed two per byte, with one f32 scale per position; replace the
   Pallas `decode_cross_attention_q8` and `decode_cross_attention_q4`.
-- multihead_attention: the dispatcher.
+- multihead_attention_packed and multihead_attention: the dispatchers.
+  They pick a kernel from the shapes and the encoder-attention form, an
+  argument (ENCODER_ATTENTION_FORMS), never the environment.
 
 A kernel wrapper takes its plain version for tensors on the CPU only; on a
 CUDA tensor it launches the kernel or raises. Each wrapper counts its
@@ -27,6 +36,37 @@ import torch
 from . import _build
 
 _NEG_INF = -1e30
+
+# The encoder-attention forms and the reference's environment settings
+# they stand for: "fullkv" none (K1), "q8" SPITTLE_ATTN_Q8=1 (K7),
+# "packed" SPITTLE_PACKED_ATTENTION=1 (K8), "pair"
+# SPITTLE_PACKED_ATTENTION=pair (K9), "pipe" SPITTLE_ATTN_PIPE=1 (K10).
+# The reference checks the packed settings first, then q8, then pipe;
+# the port takes one form at a time.
+ENCODER_ATTENTION_FORMS = ("fullkv", "q8", "packed", "pair", "pipe")
+# The reference's full-KV kernels take K/V up to this length; longer goes
+# to its tiled flash kernel (K5, not ported: the port keeps K1 there).
+_FULLKV_MAX_KV = 4096
+
+
+def check_encoder_attention(form: str) -> str:
+    if form not in ENCODER_ATTENTION_FORMS:
+        raise ValueError(f"encoder_attention must be one of "
+                         f"{ENCODER_ATTENTION_FORMS}, got {form!r}")
+    return form
+
+
+def split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
+    """[B, T, H*Dh] -> [B, H, T, Dh] (a view)."""
+    b, t, d = x.shape
+    return x.view(b, t, n_head, d // n_head).permute(0, 2, 1, 3)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, T, Dh] -> [B, T, H*Dh] (free when x views a [B, T, H, Dh]
+    buffer, as the attention kernels return)."""
+    b, h, t, dh = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b, t, h * dh)
 
 
 def attention_reference(q, k, v, causal: bool = False,
@@ -84,6 +124,26 @@ def _check_attn_operand(name, t, d):
                          "and the data 16-byte aligned")
 
 
+def _check_split_qkv(name, q, k, v, kv_len):
+    """Checks shared by K1, K7 and K10 on CUDA: q [B, H, Tq, 64] and k/v
+    [B, H, Tk, 64], bf16 on one device, head dim contiguous. Returns
+    kv_len (Tk when None)."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    kv_len = tk if kv_len is None else kv_len
+    if d != 64:
+        raise ValueError(f"{name}: head dim {d} != 64")
+    if k.shape != (b, h, tk, d) or v.shape != k.shape:
+        raise ValueError(f"{name}: q/k/v shapes disagree")
+    if not 1 <= kv_len <= tk:
+        raise ValueError(f"{name}: kv_len {kv_len} not in [1, {tk}]")
+    for label, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name}: operands on different devices")
+        _check_attn_operand(label, t, d)
+    return kv_len
+
+
 def flash_attention_fullkv(q, k, v, causal: bool = False,
                            kv_len: Optional[int] = None) -> torch.Tensor:
     """q [B, H, Tq, 64], k/v [B, H, Tk, 64] (strided views allowed, head dim
@@ -91,24 +151,13 @@ def flash_attention_fullkv(q, k, v, causal: bool = False,
     [B, Tq, H, 64] buffer, so merging heads afterwards copies nothing."""
     if q.device.type == "cpu":
         return flash_attention_fullkv_plain(q, k, v, causal, kv_len)
+    kv_len = _check_split_qkv("flash_attention_fullkv", q, k, v, kv_len)
     b, h, tq, d = q.shape
-    tk = k.shape[2]
-    kv_len = tk if kv_len is None else kv_len
-    if d != 64:
-        raise ValueError(f"flash_attention_fullkv: head dim {d} != 64")
-    if k.shape != (b, h, tk, d) or v.shape != k.shape:
-        raise ValueError("flash_attention_fullkv: q/k/v shapes disagree")
-    if not 1 <= kv_len <= tk:
-        raise ValueError(f"flash_attention_fullkv: kv_len {kv_len} not in [1, {tk}]")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device:
-            raise ValueError("flash_attention_fullkv: operands on different devices")
-        _check_attn_operand(name, t, d)
     out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     lib = _build.load_library()
     _build.check(lib.spt_fullkv_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, h, tq, tk, kv_len, int(causal),
+        b, h, tq, k.shape[2], kv_len, int(causal),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         out.stride(0), out.stride(2), out.stride(1),
         _build.stream_ptr(q.device),
@@ -120,17 +169,280 @@ def flash_attention_fullkv(q, k, v, causal: bool = False,
 flash_attention_fullkv.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# K10: K1 software-pipelined (non-causal)
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_fullkv_pipe(q, k, v,
+                                kv_len: Optional[int] = None) -> torch.Tensor:
+    """K10: K1's function for a non-causal call, shapes and result as
+    flash_attention_fullkv's. Its plain version is K1's: the two compute
+    the same function (the reference's pipelined kernel reorders the
+    schedule, not the arithmetic)."""
+    if q.device.type == "cpu":
+        return flash_attention_fullkv_plain(q, k, v, False, kv_len)
+    kv_len = _check_split_qkv("flash_attention_fullkv_pipe", q, k, v, kv_len)
+    b, h, tq, d = q.shape
+    out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    lib = _build.load_library()
+    _build.check(lib.spt_fullkv_attention_pipe(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, h, tq, k.shape[2], kv_len,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        out.stride(0), out.stride(2), out.stride(1),
+        _build.stream_ptr(q.device),
+    ), "spt_fullkv_attention_pipe")
+    flash_attention_fullkv_pipe.launches += 1
+    return out.permute(0, 2, 1, 3)
+
+
+flash_attention_fullkv_pipe.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K7: int8-dot encoder attention (non-causal)
+# ---------------------------------------------------------------------------
+
+
+def _q8_probs(q, k, v, kv_len: int):
+    """K7's first steps in the reference's arithmetic, on the K that its
+    dispatcher hands the TPU kernel: padded with zero rows to a multiple
+    of 128. Those rows score exactly 0, so 0 enters the unmasked row max
+    when Tk % 128 != 0 (q's pad rows are dropped and change nothing).
+    q, k and v are quantized per row over Dh by the reference's
+    _quantize_rows_i8 rule, which is quantize_kv_t's. Returns p =
+    exp(s - m) masked to col < kv_len, V's codes and V's scales."""
+    from .quant import quantize_kv_t
+
+    tk = k.shape[2]
+    q8, k8, v8 = (quantize_kv_t(x) for x in (q, k, v))
+    # int8 codes as f32: every product and partial sum is an integer below
+    # 2**24, so this is the int32 dot, exactly.
+    s = torch.matmul(q8["qw"].float(), k8["qw"].float().transpose(-1, -2))
+    s = s * q8["scale"][..., :, None] * k8["scale"][..., None, :]
+    m = s.amax(dim=-1, keepdim=True)
+    if tk % 128:
+        m = torch.clamp_min(m, 0.0)
+    p = torch.exp(s - m)
+    if kv_len < tk:
+        p = p * (torch.arange(tk, device=q.device) < kv_len)
+    return p, v8["qw"], v8["scale"]
+
+
+def flash_attention_fullkv_q8_plain(q, k, v,
+                                    kv_len: Optional[int] = None) -> torch.Tensor:
+    """Plain K7: the reference's arithmetic step by step. q/k/v
+    [B, H, T, D] (q and k pre-scaled) -> [B, H, Tq, D] in q's dtype."""
+    from .quant import _scale
+
+    kv_len = k.shape[2] if kv_len is None else kv_len
+    p, v8, vs = _q8_probs(q, k, v, kv_len)
+    l = p.sum(dim=-1, keepdim=True)
+    pv = p * vs[..., None, :]
+    sp = _scale(pv.amax(dim=-1, keepdim=True), 127.0)
+    p8 = torch.round(pv / sp)
+    # f64: the int32 sums may pass 2**24; one rounding to f32 after, as
+    # the reference's o_i32.astype(f32).
+    o = torch.matmul(p8.double(), v8.double()).float()
+    return ((o * sp) / l).to(q.dtype)
+
+
+def q8_code_step(q, k, v, kv_len: Optional[int] = None) -> torch.Tensor:
+    """Per query row [B, H, Tq]: mp/l, the most that one of K7's P codes
+    moved by one shifts that row's outputs (|v8| <= 127 times sp = mp/127,
+    over l). Two computations of K7 whose exp differs in the last bit
+    differ by this step where p*vs/sp lands on a rounding boundary;
+    comparisons of K7 allow one per row."""
+    kv_len = k.shape[2] if kv_len is None else kv_len
+    p, _, vs = _q8_probs(q, k, v, kv_len)
+    return (p * vs[..., None, :]).amax(dim=-1) / p.sum(dim=-1)
+
+
+def flash_attention_fullkv_q8(q, k, v,
+                              kv_len: Optional[int] = None) -> torch.Tensor:
+    """K7: int8-dot full-KV attention, non-causal. q [B, H, Tq, 64], k/v
+    [B, H, Tk, 64] bf16 (strided views allowed, head dim contiguous) ->
+    [B, H, Tq, 64], on CUDA a view of a [B, Tq, H, 64] buffer. The
+    function is flash_attention_fullkv_q8_plain's; on the card the wrapper
+    quantizes q, k and v (three launches of the K7 source's row quantizer,
+    V written transposed) before the attention launch, as the reference's
+    function quantizes before its kernel."""
+    if q.device.type == "cpu":
+        return flash_attention_fullkv_q8_plain(q, k, v, kv_len)
+    kv_len = _check_split_qkv("flash_attention_fullkv_q8", q, k, v, kv_len)
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    tpad = -(-tk // 64) * 64
+    dev = q.device
+    q8 = torch.empty((b, h, tq, d), dtype=torch.int8, device=dev)
+    k8 = torch.empty((b, h, tk, d), dtype=torch.int8, device=dev)
+    v8t = torch.empty((b, h, d, tpad), dtype=torch.int8, device=dev)
+    qs, ks, vs = (torch.empty((b, h, t), dtype=torch.float32, device=dev)
+                  for t in (tq, tk, tk))
+    out = torch.empty((b, tq, h, d), dtype=q.dtype, device=dev)
+    lib = _build.load_library()
+    stream = _build.stream_ptr(dev)
+    for x, x8, scale, transposed in ((q, q8, qs, 0), (k, k8, ks, 0),
+                                     (v, v8t, vs, 1)):
+        _build.check(lib.spt_fullkv_q8_quantize(
+            x.data_ptr(), *x.stride()[:3], b, h, x.shape[2], tpad,
+            x8.data_ptr(), scale.data_ptr(), transposed, stream,
+        ), "spt_fullkv_q8_quantize")
+    _build.check(lib.spt_fullkv_attention_q8(
+        q8.data_ptr(), qs.data_ptr(), k8.data_ptr(), ks.data_ptr(),
+        v8t.data_ptr(), vs.data_ptr(), out.data_ptr(),
+        b, h, tq, tk, tpad, kv_len, int(tk % 128 != 0),
+        out.stride(0), out.stride(2), out.stride(1), stream,
+    ), "spt_fullkv_attention_q8")
+    flash_attention_fullkv_q8.launches += 1
+    return out.permute(0, 2, 1, 3)
+
+
+flash_attention_fullkv_q8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K8 and K9: K1 on the packed [B, T, H*Dh] projections
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_fullkv_packed_plain(q, k, v, n_head: int,
+                                        causal: bool = False,
+                                        kv_len: Optional[int] = None
+                                        ) -> torch.Tensor:
+    """Plain K8 and K9 (one function, two kernels): K1's per head of the
+    packed q [B, Tq, H*Dh] and k/v [B, Tk, H*Dh] -> [B, Tq, H*Dh]."""
+    o = flash_attention_fullkv_plain(
+        split_heads(q, n_head), split_heads(k, n_head),
+        split_heads(v, n_head), causal, kv_len)
+    return merge_heads(o)
+
+
+def _launch_packed(name, entry, q, k, v, n_head, causal, kv_len,
+                   heads_per_block):
+    """Checks and launch shared by K8 and K9: contiguous bf16 q [B, Tq,
+    H*64] and k/v [B, Tk, H*64] on one device -> a new [B, Tq, H*64]."""
+    b, tq, hd = q.shape
+    tk = k.shape[1]
+    kv_len = tk if kv_len is None else kv_len
+    if hd != 64 * n_head:
+        raise ValueError(f"{name}: head dim {hd // n_head} != 64")
+    if n_head % heads_per_block:
+        raise ValueError(f"{name}: needs an even head count, got {n_head}")
+    if k.shape != (b, tk, hd) or v.shape != k.shape:
+        raise ValueError(f"{name}: q/k/v shapes disagree")
+    if not 1 <= kv_len <= tk:
+        raise ValueError(f"{name}: kv_len {kv_len} not in [1, {tk}]")
+    for label, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name}: operands on different devices")
+        _check_attn_operand(label, t, hd)
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be a contiguous "
+                             "[B, T, H*64] tensor")
+    out = torch.empty_like(q)
+    lib = _build.load_library()
+    _build.check(getattr(lib, entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, n_head, tq, tk, kv_len, int(causal), _build.stream_ptr(q.device),
+    ), entry)
+    return out
+
+
+def flash_attention_fullkv_packed(q, k, v, n_head: int, causal: bool = False,
+                                  kv_len: Optional[int] = None) -> torch.Tensor:
+    """K8: K1 per head, reading and writing the packed layout. q [B, Tq,
+    H*64], k/v [B, Tk, H*64], contiguous bf16 on CUDA -> [B, Tq, H*64]."""
+    if q.device.type == "cpu":
+        return flash_attention_fullkv_packed_plain(q, k, v, n_head, causal, kv_len)
+    out = _launch_packed("flash_attention_fullkv_packed",
+                         "spt_fullkv_attention_packed", q, k, v, n_head,
+                         causal, kv_len, 1)
+    flash_attention_fullkv_packed.launches += 1
+    return out
+
+
+flash_attention_fullkv_packed.launches = 0
+
+
+def flash_attention_fullkv_packed_pair(q, k, v, n_head: int,
+                                       causal: bool = False,
+                                       kv_len: Optional[int] = None
+                                       ) -> torch.Tensor:
+    """K9: K8 with two adjacent heads per block; n_head must be even."""
+    if q.device.type == "cpu":
+        return flash_attention_fullkv_packed_plain(q, k, v, n_head, causal, kv_len)
+    out = _launch_packed("flash_attention_fullkv_packed_pair",
+                         "spt_fullkv_attention_packed_pair", q, k, v, n_head,
+                         causal, kv_len, 2)
+    flash_attention_fullkv_packed_pair.launches += 1
+    return out
+
+
+flash_attention_fullkv_packed_pair.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The dispatchers
+# ---------------------------------------------------------------------------
+
+
+def _block_q(tq: int) -> int:
+    """The reference's q block for its full-KV kernels, which its K10
+    gate reads."""
+    if tq % 768 == 0 or tq > 1024:
+        return 768
+    return 512 if tq >= 512 else 128
+
+
 def multihead_attention(q, k, v, causal: bool = False,
-                        kv_len: Optional[int] = None) -> torch.Tensor:
-    """Dispatch on shape alone, as the reference's multihead_attention
-    does: K1 at encoder scale (tq >= 128, Dh 64 or 128); the plain
-    reference for short sequences (the decoder's causal prefill) and other
-    head dims. K1's wrapper raises on CUDA for what its kernel does not
-    take (a dtype other than bf16, Dh 128). Inputs [B, H, T, D]."""
+                        kv_len: Optional[int] = None,
+                        form: str = "fullkv") -> torch.Tensor:
+    """Dispatch on shape and the encoder-attention form, in the order of
+    the reference's multihead_attention: plain attention for short
+    sequences (the decoder's causal prefill) and head dims other than 64
+    and 128; K1 for K/V longer than 4096 (the reference's K5, not ported);
+    K7 for a non-causal call under "q8"; K10 for a non-causal call under
+    "pipe" whose q block times Tk rounded up to 128 is at most 768 x 2048
+    (the reference's VMEM gate); K1 otherwise. Causal calls never take K7
+    or K10. A wrapper raises on CUDA for what its kernel does not take (a
+    dtype other than bf16, Dh 128). Inputs [B, H, T, D]."""
+    check_encoder_attention(form)
     tq, d = q.shape[2], q.shape[3]
-    if d in (64, 128) and tq >= 128:
-        return flash_attention_fullkv(q, k, v, causal=causal, kv_len=kv_len)
-    return attention_reference(q, k, v, causal=causal, kv_len=kv_len)
+    if d not in (64, 128) or tq < 128:
+        return attention_reference(q, k, v, causal=causal, kv_len=kv_len)
+    tk = k.shape[2]
+    if tk <= _FULLKV_MAX_KV and not causal:
+        if form == "q8":
+            return flash_attention_fullkv_q8(q, k, v, kv_len=kv_len)
+        if form == "pipe" and _block_q(tq) * -(-tk // 128) * 128 <= 768 * 2048:
+            return flash_attention_fullkv_pipe(q, k, v, kv_len=kv_len)
+    return flash_attention_fullkv(q, k, v, causal=causal, kv_len=kv_len)
+
+
+def multihead_attention_packed(q, k, v, n_head: int, causal: bool = False,
+                               kv_len: Optional[int] = None,
+                               form: str = "fullkv") -> torch.Tensor:
+    """The reference's multihead_attention_packed: q/k/v [B, T, H*Dh] (q
+    and k pre-scaled) -> [B, T, H*Dh]. K8 under "packed" and K9 under
+    "pair", on the packed tensors; the heads split as views into
+    multihead_attention under the other forms and wherever the reference
+    falls back: "pair" with an odd head count or Dh != 64, Dh not 64 or
+    128, tq < 128, Tk > 4096."""
+    check_encoder_attention(form)
+    b, tq, hd = q.shape
+    d = hd // n_head
+    if (form not in ("packed", "pair")
+            or (form == "pair" and (n_head % 2 or d != 64))
+            or d not in (64, 128) or tq < 128 or k.shape[1] > _FULLKV_MAX_KV):
+        o = multihead_attention(
+            split_heads(q, n_head), split_heads(k, n_head),
+            split_heads(v, n_head), causal=causal, kv_len=kv_len, form=form)
+        return merge_heads(o)
+    kernel = (flash_attention_fullkv_packed_pair if form == "pair"
+              else flash_attention_fullkv_packed)
+    return kernel(q, k, v, n_head, causal=causal, kv_len=kv_len)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 """Mutation check of the card tests of K3 and K6 (decode cross-attention
-over int8 and packed int4 K/V): each case breaks the kernel in a copy of
+over int8 and packed int4 K/V) and K7 (int8-dot encoder attention): each
+case breaks the kernel in a copy of
 the package under a temporary directory, where the copy builds its own
 kernel library, and the card tests of tests/test_torch_kernels_cuda.py
 must then fail on the kernel's values. Each edit names the exact text it
@@ -24,6 +25,7 @@ pytestmark = pytest.mark.cuda
 
 REPO = Path(__file__).resolve().parents[1]
 SRC = "spittle_tpu_torch/csrc/decode_cross_attention_q.cu"
+Q8_SRC = "spittle_tpu_torch/csrc/fullkv_attention_q8.cu"
 WRAPPER = "spittle_tpu_torch/ops/attention.py"
 CARD_TESTS = "tests/test_torch_kernels_cuda.py"
 
@@ -45,6 +47,18 @@ MUTATIONS = {
     "nibble_unsigned": ("quant_kernel_matches and int4", [
         (SRC, "static_cast<int>(b << 28) >> 28", "static_cast<int>((b << 28) >> 28)"),
         (SRC, "static_cast<int>(b << 24) >> 28", "static_cast<int>((b << 24) >> 28)"),
+    ]),
+    # K7: V's per-position scales not folded into P (pv = p), in the pass
+    # that takes P's scale and in the pass that quantizes P.
+    "q8_vs_not_folded": ("q8_kernel_matches and 1500", [
+        (Q8_SRC, "__fmul_rn(s[nt][e], vss[nt * 8 + 2 * c + (e & 1)])", "s[nt][e]"),
+        (Q8_SRC, "const float pv = __fmul_rn(s[nt][2 * hr + j], vss[nt * 8 + 2 * c + j]);",
+         "const float pv = s[nt][2 * hr + j];"),
+    ]),
+    # K7: P's scale sp fixed at 1 instead of mp/127.
+    "q8_sp_fixed": ("q8_kernel_matches and 1500", [
+        (Q8_SRC, "sp[hr] = mp[hr] > 0.f ? __fdiv_rn(mp[hr], 127.0f) : 1.0f;",
+         "sp[hr] = 1.0f;"),
     ]),
 }
 
@@ -74,9 +88,12 @@ def test_card_tests_fail_on_mutant(cuda, tmp_path, name):
         cwd=tmp_path, capture_output=True, text=True,
         env={**os.environ, "PYTHONPATH": str(tmp_path)})
     detail = [ln.strip() for ln in res.stdout.splitlines()
-              if "Greatest absolute difference" in ln or "Mismatched elements" in ln]
+              if "Greatest absolute difference" in ln or "Mismatched elements" in ln
+              or "not close to its plain version" in ln]
     print(f"{name}: card tests exit {res.returncode}; " + "; ".join(detail[:2]))
     # Exit 1 with a value mismatch: the mutant built, ran and was caught.
     # A build or collection error would fail for another reason.
-    assert res.returncode == 1 and "Tensor-likes are not close" in res.stdout, \
+    caught = ("Tensor-likes are not close" in res.stdout
+              or "not close to its plain version" in res.stdout)
+    assert res.returncode == 1 and caught, \
         res.stdout[-4000:] + res.stderr[-2000:]

@@ -1,6 +1,7 @@
-"""Card-only tests: the port's CUDA kernels (K1, K2, K3, K4, K6) against
-their plain PyTorch versions on CUDA tensors, and the engine's main paths
-(bf16 decoder; int8 and int4 decoders) on a small config with every
+"""Card-only tests: the port's CUDA kernels (K1, K2, K3, K4, K6, and the
+encoder-attention forms K7-K10) against their plain PyTorch versions on
+CUDA tensors, and the engine's main paths (bf16 decoder; int8 and int4
+decoders; each encoder-attention form) on a small config with every
 kernel counter moving.
 
 The kernels have no CPU mode, so every test here carries the `cuda`
@@ -233,3 +234,159 @@ def test_engine_quantized_decoder_runs_its_kernel(cuda, quantize_decoder):
             else att.decode_cross_attention_q4)
     assert {fn.__name__: fn.launches for fn in kernels} == {
         fn.__name__: (want if fn is used else 0) for fn in kernels}
+
+
+# ---------------------------------------------------------------------------
+# The encoder-attention forms: K7 (int8 products), K8/K9 (packed heads,
+# head pairs), K10 (pipelined)
+# ---------------------------------------------------------------------------
+
+
+def _packed(rng, b, t, h, dev):
+    """q, k, v as the encoder makes them: contiguous packed [B, T, H*64]
+    projections, pre-scaled by Dh^-0.25."""
+    return [_randn(rng, (b, t, h * 64), dev, scale=64 ** -0.25) for _ in range(3)]
+
+
+@pytest.mark.parametrize("t,kv_len", [(1500, 1500), (1500, 1300), (1536, 1536),
+                                      (300, 290)])
+def test_pipe_kernel_matches_plain_and_k1(cuda, t, kv_len):
+    rng = np.random.default_rng(5)
+    q, k, v = (att.split_heads(x, 4) for x in _packed(rng, 2, t, 4, cuda))
+    got = att.flash_attention_fullkv_pipe(q, k, v, kv_len=kv_len)
+    want = att.flash_attention_fullkv_plain(q, k, v, kv_len=kv_len)
+    k1 = att.flash_attention_fullkv(q, k, v, kv_len=kv_len)
+    torch.cuda.synchronize()
+    # K1's tolerance (the same arithmetic), and K1's bits: K10 reorders
+    # K1's schedule, not its operations.
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=2e-3)
+    assert torch.equal(got, k1)
+
+
+@pytest.mark.parametrize("pair", [False, True], ids=["packed", "pair"])
+@pytest.mark.parametrize("t,kv_len,causal", [
+    (1500, 1500, False), (1500, 1300, False), (1500, 1500, True),
+    (300, 290, True),
+])
+def test_packed_kernel_matches_plain_and_k1(cuda, pair, t, kv_len, causal):
+    rng = np.random.default_rng(6)
+    h = 4
+    q, k, v = _packed(rng, 2, t, h, cuda)
+    fn = (att.flash_attention_fullkv_packed_pair if pair
+          else att.flash_attention_fullkv_packed)
+    got = fn(q, k, v, h, causal=causal, kv_len=kv_len)
+    want = att.flash_attention_fullkv_packed_plain(q, k, v, h, causal=causal,
+                                                   kv_len=kv_len)
+    k1 = att.merge_heads(att.flash_attention_fullkv(
+        *(att.split_heads(x, h) for x in (q, k, v)), causal=causal,
+        kv_len=kv_len))
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.is_contiguous()
+    # K1's tolerance, and K1's bits: the same body reading the packed layout.
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=2e-3)
+    assert torch.equal(got, k1)
+
+
+@pytest.mark.parametrize("t,kv_len", [(1500, 1500), (1500, 1300), (1536, 1536),
+                                      (300, 290)])
+def test_q8_kernel_matches_plain(cuda, t, kv_len):
+    rng = np.random.default_rng(7)
+    q, k, v = (att.split_heads(x, 4) for x in _packed(rng, 2, t, 4, cuda))
+    got = att.flash_attention_fullkv_q8(q, k, v, kv_len=kv_len)
+    want = att.flash_attention_fullkv_q8_plain(q, k, v, kv_len=kv_len)
+    step = att.q8_code_step(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    # The same int8 codes and int32 sums on both sides and the same f32
+    # operations in the same order; exp's last bit may differ, and where
+    # it lands p*vs/sp across a rounding boundary one P code moves by one,
+    # shifting that row by at most mp/l. So: within one bf16 ulp of the
+    # output (2**-7 relative: the two sides round values an f32 ulp apart)
+    # plus one such step per row, and at most 1% of the rows beyond one
+    # ulp. Dropping V's scales from P or fixing sp at 1 moves every row by
+    # far more.
+    err = (got.float() - want.float()).abs()
+    tol = 2.0 ** -7 * want.float().abs() + 1e-5
+    excess = (err - tol).amax(dim=-1)
+    worst = (excess - 1.001 * step).max().item()
+    share = (excess > 0).float().mean().item()
+    assert worst <= 0 and share <= 0.01, (
+        f"K7 not close to its plain version: {worst:.3e} past the bound, "
+        f"{share:.2%} of the rows past one bf16 ulp")
+
+
+@pytest.mark.parametrize("form", ["q8", "pipe", "packed", "pair"])
+def test_form_wrappers_raise(cuda, form):
+    """On the card a form's wrapper launches its kernel or raises: f32,
+    Dh 128, and (pair) an odd head count never fall back."""
+    rng = np.random.default_rng(8)
+    h = 2
+
+    def call(x, heads=h):
+        if form in ("q8", "pipe"):
+            fn = (att.flash_attention_fullkv_q8 if form == "q8"
+                  else att.flash_attention_fullkv_pipe)
+            xs = att.split_heads(x, heads)
+            return fn(xs, xs, xs)
+        fn = (att.flash_attention_fullkv_packed_pair if form == "pair"
+              else att.flash_attention_fullkv_packed)
+        return fn(x, x, x, heads)
+
+    x = _randn(rng, (1, 256, h * 64), cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        call(x.float())
+    with pytest.raises(ValueError, match="head dim"):
+        call(_randn(rng, (1, 256, h * 128), cuda))
+    if form == "pair":
+        with pytest.raises(ValueError, match="even head count"):
+            call(_randn(rng, (1, 256, 3 * 64), cuda), heads=3)
+    assert call(x).shape[-1] in (64, h * 64)
+    launched = {"q8": att.flash_attention_fullkv_q8,
+                "pipe": att.flash_attention_fullkv_pipe,
+                "packed": att.flash_attention_fullkv_packed,
+                "pair": att.flash_attention_fullkv_packed_pair}[form]
+    before = launched.launches
+    call(x)
+    assert launched.launches == before + 1
+
+
+_FORM_WRAPPERS = {
+    "q8": att.flash_attention_fullkv_q8,
+    "packed": att.flash_attention_fullkv_packed,
+    "pair": att.flash_attention_fullkv_packed_pair,
+    "pipe": att.flash_attention_fullkv_pipe,
+}
+
+
+@pytest.mark.parametrize("form", list(_FORM_WRAPPERS))
+def test_engine_encoder_attention_form_runs_its_kernel(cuda, form):
+    """random:tiny (6 heads of 64, 1500 positions) under each form: the
+    form's kernel once per encoder layer and batch, K1 never, K2 and K4
+    as on the default path."""
+    from spittle_tpu_torch.engine.base import TranscribeParams
+    from spittle_tpu_torch.engine.whisper_engine import WhisperEngine
+
+    eng = WhisperEngine(device="cuda", dtype=torch.bfloat16,
+                        quantize_encoder=True, wire="mulaw",
+                        encoder_attention=form)
+    eng.load_model("random:tiny")
+    rng = np.random.default_rng(3)
+    audio = [(rng.standard_normal(16000 * 30) * 3000).astype(np.int16)
+             for _ in range(2)]
+    p = TranscribeParams(language="en", parallel_windows=True,
+                         condition_on_previous_text=False,
+                         temperatures=(0.0,), max_tokens=8)
+    kernels = (att.flash_attention_fullkv, w8a8_gemm,
+               att.decode_cross_attention, *_FORM_WRAPPERS.values())
+    for fn in kernels:
+        fn.launches = 0
+    results = list(eng.transcribe_stream([audio, audio], p, overlap_fetch=True))
+    assert len(results) == 2 and all(len(r) == 2 for r in results)
+    layers = eng.cfg.n_audio_layer
+    steps = sum(eng.last_decode_steps)
+    want = {fn.__name__: 0 for fn in kernels}
+    want.update({
+        _FORM_WRAPPERS[form].__name__: 2 * layers,
+        "w8a8_gemm": 2 * 6 * layers,
+        "decode_cross_attention": eng.cfg.n_text_layer * (2 + steps),
+    })
+    assert {fn.__name__: fn.launches for fn in kernels} == want
