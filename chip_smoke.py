@@ -15,7 +15,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    4, and once at B=56, bench.py's large-v3 batch), and the
    encoder-attention forms K7 (int8 products), K8 (packed heads), K9
    (head pairs) and K10 (pipelined) at [8, 20, 1500, 64], each also with
-   kv_len 1300 and K8/K9 causal. Each prints its max
+   kv_len 1300 and K8/K9 causal; K5 tiled flash attention at [2, 20, 6000,
+   64] (kv_len 6000 and 5000, causal once, ragged shapes); K4 at an odd
+   Tk and at Tk = 6000 with 8 rows; K1, K2 and K4 again at the shapes
+   the reduced-context path gives them (256 positions: [8, 20, 256, 64],
+   M = 2048, Tk = 256) and K4 at the long window's prefill; K11 (K3's
+   function, all heads walked in the block) at the decode
+   cross-attention probe's shape, R = 1 and 3;
+   K12 and K13 (in-place cache column writes) at the cache probe's shape,
+   bit for bit against a slice assignment on a clone. Each prints its max
    error and tolerance, its time (`ms`: device time per launch from a
    CUDA graph of launches replayed between CUDA events; `call_ms`: eager
    calls between CUDA events, the host's per-call cost included), the
@@ -39,7 +47,16 @@ Phases, each printing its own lines; any failure exits non-zero:
       drawn once) with encoder_attention set to "q8", "packed", "pair"
       and "pipe" in turn, 1 batch each (K7, K8, K9, K10 in place of K1);
    d. int4 variant: random:large-v3-turbo with quantize_decoder="int4"
-      and the int8 self-cache, 1 batch (K1, K2, K6).
+      and the int8 self-cache, 1 batch (K1, K2, K6);
+   e. reduced context: the turbo leg's engine with
+      TranscribeParams(audio_ctx=256), 2 batches of 8 x 5 s utterances
+      (K1, K2 and K4 at Tk = 256; K5 0);
+   f. long window: large-v3-turbo with n_audio_ctx = 6000 (120 s
+      windows), 2 batches of 2 x 120 s (K5 in place of K1, K2, K4 at
+      Tk = 6000).
+5. The probes (spittle_tpu_torch.probes.decode_cross and .cache_dus):
+   both main()s, their JSON lines printed; K11, K12 and K13 take their
+   launch counts from here.
 
 The last two lines are a JSON object of per-kernel numbers and
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and
@@ -48,6 +65,7 @@ prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import os
@@ -65,6 +83,11 @@ PEAK_BYTES = 3.35e12
 
 SEED, N_BATCHES, BATCH = 0, 2, 8
 LV3_BATCH = 56  # bench.py's large-v3 batch, for the K3/K6 timing
+# The long-window model: large-v3-turbo with 6000 encoder positions.
+LONG_MODEL, LONG_CTX = "large-v3-turbo-ctx6000", 6000
+# Kernels whose launch counts come from the probes phase.
+PROBE_KERNELS = ("decode_cross_attention_q8_mh", "alias_col_write_sub",
+                 "alias_col_write")
 REPO = os.path.dirname(os.path.abspath(__file__))
 TINY = os.path.join(REPO, "tests", "data", "trained_tiny")
 
@@ -72,11 +95,14 @@ TINY = os.path.join(REPO, "tests", "data", "trained_tiny")
 def _kernels():
     """Every kernel wrapper with a launch counter."""
     from spittle_tpu_torch.ops import attention as att
+    from spittle_tpu_torch.ops import cache_write as cw
     from spittle_tpu_torch.ops.w8a8_gemm import w8a8_gemm
 
     return (att.flash_attention_fullkv, w8a8_gemm, att.decode_cross_attention,
             att.decode_cross_attention_q8, att.decode_cross_attention_q4,
-            *_form_kernels().values())
+            *_form_kernels().values(), att.flash_attention,
+            att.decode_cross_attention_q8_mh, cw.alias_col_write_sub,
+            cw.alias_col_write)
 
 
 def _form_kernels():
@@ -315,8 +341,290 @@ def kernel_phase(dev, rng):
                              library_ms=lib_ms,
                              library="F.scaled_dot_product_attention"))
     del kvs
+    k4_shapes_phase(dev, rng)
+    reduced_shapes_phase(dev, rng)
     rows += quant_cross_phase(dev)
+    rows += flash_phase(dev, rng)
+    rows.append(mh_phase(dev))
+    rows += cache_write_phase(dev)
     weight_only_phase(dev, rng)
+    return rows
+
+
+def k4_shapes_phase(dev, rng):
+    """K4 away from Tk = 1500: an odd Tk (a reduced audio context; K/V
+    rows only 2-byte aligned) and the long window's Tk = 6000 with 8 query
+    rows, whose f32 score rows fill 192 KB of shared memory."""
+    from spittle_tpu_torch.ops import attention as att
+
+    h, d = 20, 64
+    print("K4 decode_cross_attention at other K/V lengths:")
+    for b, r, tk, kv_len in ((8, 1, 255, 255), (8, 3, 255, 201),
+                             (2, 1, 6000, 6000), (2, 3, 6000, 6000),
+                             (2, 8, 6000, 6000)):
+        qd = randn(rng, (b, h, r, d), dev, scale=d ** -0.5)
+        kt, vt = randn(rng, (b, h, d, tk), dev), randn(rng, (b, h, d, tk), dev)
+        got = att.decode_cross_attention(qd, kt, vt, kv_len=kv_len)
+        want = att.decode_cross_attention_plain(qd, kt, vt, kv_len=kv_len)
+        err = (got.float() - want.float()).abs().max().item()
+        check(f"K4 B={b} R={r} Tk={tk} kv_len={kv_len}", err,
+              2e-3 + 1e-2 * want.float().abs().max().item())
+        ms = time_ms(lambda: att.decode_cross_attention(qd, kt, vt, kv_len=kv_len), 20)
+        bms, by = bound(4.0 * b * h * r * kv_len * d, PEAK_BF16_FLOPS,
+                        2 * b * h * d * kv_len * 2 + 2 * b * h * r * d * 2)
+        print(f"    ms {ms:.4f} (one input set, {2 * b * h * d * tk * 2 / 1e6:.1f} MB "
+              f"of K/V)  bound_ms {bms:.4f} ({by})")
+
+
+def reduced_shapes_phase(dev, rng):
+    """K1, K2 and K4 against their plain versions at the shapes of the
+    reduced-context path (audio_ctx 256, batches of 8): K1 at [8, 20, 256,
+    64], K2's six GEMMs at M = 8 * 256 rows, K4 at Tk = 256 with the
+    decode step's one row and the prefill's three. Checks only, with the
+    tolerances of the full-context checks."""
+    from spittle_tpu_torch.ops import attention as att
+    from spittle_tpu_torch.ops.quant import quantize_weight_w8a8
+    from spittle_tpu_torch.ops.w8a8_gemm import w8a8_gemm, w8a8_gemm_plain
+
+    b, h, t, d = 8, 20, 256, 64
+    print("K1, K2, K4 at the reduced context's shapes (256 positions, B=8):")
+    packed = [randn(rng, (b, t, h * d), dev, scale=d ** -0.25) for _ in range(3)]
+    q, k, v = (att.split_heads(x, h) for x in packed)
+    got = att.flash_attention_fullkv(q, k, v, kv_len=t)
+    want = att.flash_attention_fullkv_plain(q, k, v, kv_len=t)
+    check("K1 [8,20,256,64]", (got.float() - want.float()).abs().max().item(),
+          1e-2 * want.float().abs().max().item())
+    m = b * t
+    x = {kk: randn(rng, (m, kk), dev) for kk in (1280, 5120)}
+    sc = d ** -0.25
+    for label, shape, has_bias, act, s in (
+            ("q 1280x1280 +bias *scale", (1280, 1280), True, "none", sc),
+            ("k 1280x1280 *scale", (1280, 1280), False, "none", sc),
+            ("v 1280x1280 +bias", (1280, 1280), True, "none", 1.0),
+            ("out 1280x1280 +bias", (1280, 1280), True, "none", 1.0),
+            ("fc1 1280x5120 +bias gelu", (1280, 5120), True, "gelu", 1.0),
+            ("fc2 5120x1280 +bias", (5120, 1280), True, "none", 1.0)):
+        qw = quantize_weight_w8a8(
+            randn(rng, shape, dev, torch.float32, shape[0] ** -0.5))
+        bias = randn(rng, (shape[1],), dev, scale=0.1) if has_bias else None
+        kw = dict(bias=bias, act=act, out_scale=s)
+        got = w8a8_gemm(x[shape[0]], qw["qw8"], qw["scale"], **kw)
+        want = w8a8_gemm_plain(x[shape[0]], qw["qw8"], qw["scale"], **kw)
+        err = ((got.float() - want.float()).abs()
+               - 2.0 ** -7 * want.float().abs()).max().item()
+        check(f"K2 M={m} {label} (excess over 1 bf16 ulp)", max(err, 0.0), 1e-5)
+    kt, vt = randn(rng, (b, h, d, t), dev), randn(rng, (b, h, d, t), dev)
+    for r in (1, 3):
+        qd = randn(rng, (b, h, r, d), dev, scale=d ** -0.5)
+        got = att.decode_cross_attention(qd, kt, vt, kv_len=t)
+        want = att.decode_cross_attention_plain(qd, kt, vt, kv_len=t)
+        check(f"K4 B={b} R={r} Tk={t}", (got.float() - want.float()).abs().max().item(),
+              2e-3 + 1e-2 * want.float().abs().max().item())
+
+
+def flash_phase(dev, rng):
+    """K5 against its plain version at the long window's shape [2, 20,
+    6000, 64] bf16 (heads as strided views of packed projections):
+    kv_len 6000 and 5000, causal once, and a ragged shape with Tq != Tk
+    under the causal rule (row >= col on absolute indices)."""
+    from spittle_tpu_torch.ops import attention as att
+
+    F = torch.nn.functional
+    b, h, t, d = 2, 20, 6000, 64
+    packed = [randn(rng, (b, t, h * d), dev, scale=d ** -0.25) for _ in range(3)]
+    q, k, v = (att.split_heads(x, h) for x in packed)
+    print("K5 flash_attention q,k,v [2,20,6000,64] bf16:")
+    err_max = 0.0
+    for kv_len, causal in ((6000, False), (5000, False), (6000, True)):
+        got = att.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+        want = att.flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len)
+        err = (got.float() - want.float()).abs().max().item()
+        # K1's tolerance: two bf16 ulps of the largest output.
+        check(f"K5 kv_len={kv_len}{' causal' if causal else ''}", err,
+              1e-2 * want.float().abs().max().item())
+        err_max = max(err_max, err)
+        del got, want
+    qr, kr, vr = q[:, :, :333], k[:, :, :4301], v[:, :, :4301]
+    for kv_len, causal in ((4301, False), (4200, True)):
+        got = att.flash_attention(qr, kr, vr, causal=causal, kv_len=kv_len)
+        want = att.flash_attention_plain(qr, kr, vr, causal=causal, kv_len=kv_len)
+        err = (got.float() - want.float()).abs().max().item()
+        check(f"K5 Tq=333 Tk=4301 kv_len={kv_len}{' causal' if causal else ''}",
+              err, 1e-2 * want.float().abs().max().item())
+        err_max = max(err_max, err)
+    kernel = lambda: att.flash_attention(q, k, v, kv_len=t)  # noqa: E731
+    ms, eager_ms = time_ms(kernel, 10), call_ms(kernel, 10)
+    causal_ms = time_ms(lambda: att.flash_attention(q, k, v, causal=True), 10)
+    plain_ms = time_ms(lambda: att.flash_attention_plain(q, k, v, kv_len=t), 2, 1)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0), 10)
+    flops = 4.0 * b * h * t * t * d
+    bms, by = bound(flops, PEAK_BF16_FLOPS, 4 * b * h * t * d * 2)
+    print(f"  ms {ms:.4f} (eager call_ms {eager_ms:.4f}; causal {causal_ms:.4f})  "
+          f"plain_ms {plain_ms:.4f}  library_ms (F.scaled_dot_product_attention) "
+          f"{lib_ms:.4f}  bound_ms {bms:.4f} ({by})  "
+          f"{flops / ms / 1e9:.1f} TFLOP/s")
+    del packed, q, k, v, qr, kr, vr
+    torch.cuda.empty_cache()
+    # K5 against K1 at equal work: both on K1's shape [8, 20, 1500, 64],
+    # in turns (K1, K5, K5, K1).
+    b1, t1 = 8, 1500
+    packed = [randn(rng, (b1, t1, h * d), dev, scale=d ** -0.25) for _ in range(3)]
+    q, k, v = (att.split_heads(x, h) for x in packed)
+    k1 = lambda: att.flash_attention_fullkv(q, k, v, kv_len=t1)  # noqa: E731
+    k5 = lambda: att.flash_attention(q, k, v, kv_len=t1)  # noqa: E731
+    turns = [time_ms(fn, 20) for fn in (k1, k5, k5, k1)]
+    k1_ms, k5_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    print(f"  at K1's shape [8,20,1500,64]: K5 ms {k5_ms:.4f}, K1 ms {k1_ms:.4f} "
+          f"(K1, K5, K5, K1: {', '.join(f'{x:.4f}' for x in turns)}); per key "
+          f"and row K5 {k5_ms / (b1 * h * t1 * t1) * 1e9:.5f} ps, "
+          f"K1 {k1_ms / (b1 * h * t1 * t1) * 1e9:.5f} ps")
+    del packed, q, k, v
+    torch.cuda.empty_cache()
+    return [dict(name="flash_attention", route="cuda",
+                 source="spittle_tpu_torch/csrc/flash_attention.cu",
+                 replaces="spittle_tpu/ops/attention.py:105",
+                 work="q,k,v [2,20,6000,64] (a long-window encoder layer)",
+                 max_abs_err=err_max, ms=ms, call_ms=eager_ms, causal_ms=causal_ms,
+                 ms_at_k1_shape=k5_ms, k1_ms_at_k1_shape=k1_ms,
+                 plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                 library="F.scaled_dot_product_attention")]
+
+
+def mh_phase(dev):
+    """K11 against K3's plain version at the decode cross-attention
+    probe's shape (B 16, H 20, T 1536, kv_len 1500), R = 1 and 3, beside
+    K3 on the same inputs."""
+    from spittle_tpu_torch.ops import attention as att
+    from spittle_tpu_torch.ops.quant import dequantize_kv
+    from spittle_tpu_torch.probes import decode_cross as probe
+
+    F = torch.nn.functional
+    b, h, d, t, kv_len = probe.B, probe.H, probe.DH, probe.T, probe.KV_LEN
+    kv_bytes = 2 * b * h * d * t + 2 * b * h * t * 4
+    sets = []
+    for i in range(n_cold_sets(kv_bytes)):
+        q, k, v, qk, qv = probe.make_inputs(dev, seed=SEED + 10 + i)
+        deq = tuple(dequantize_kv(x)[..., :kv_len].transpose(-1, -2).contiguous()
+                    for x in (qk, qv))
+        sets.append(((qk["qw"], qk["scale"], qv["qw"], qv["scale"]), deq))
+        del k, v
+    print(f"K11 decode_cross_attention_q8_mh K/V int8 [16,20,64,1536] + f32 "
+          f"scales, kv_len 1500 ({len(sets)} input sets):")
+    row = None
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 4)
+    for r in (1, 3):
+        qd = (torch.randn((b, h, r, d), generator=gen, device=dev)
+              * d ** -0.5).to(torch.bfloat16)
+        got = att.decode_cross_attention_q8_mh(qd, *sets[0][0], kv_len=kv_len)
+        want = att.decode_cross_attention_q8_plain(qd, *sets[0][0], kv_len=kv_len)
+        err = (got.float() - want.float()).abs().max().item()
+        # K3's tolerance, for K3's reasons (chunk max against row max).
+        check(f"K11 R={r}", err, 2e-3 + 1e-2 * want.float().abs().max().item())
+        ms = time_ms([lambda kv=kv: att.decode_cross_attention_q8_mh(
+            qd, *kv, kv_len=kv_len) for kv, _ in sets], 100)
+        eager_ms = call_ms([lambda kv=kv: att.decode_cross_attention_q8_mh(
+            qd, *kv, kv_len=kv_len) for kv, _ in sets], 100)
+        k3_ms = time_ms([lambda kv=kv: att.decode_cross_attention_q8(
+            qd, *kv, kv_len=kv_len) for kv, _ in sets], 100)
+        plain_ms = time_ms([lambda kv=kv: att.decode_cross_attention_q8_plain(
+            qd, *kv, kv_len=kv_len) for kv, _ in sets], 5, 1)
+        lib_ms = time_ms([lambda kd=kd, vd=vd: F.scaled_dot_product_attention(
+            qd, kd, vd, scale=1.0) for _, (kd, vd) in sets], 100)
+        # The bytes this run needs: kv_len of the T stored positions.
+        nbytes = (2 * b * h * d * kv_len + 2 * b * h * kv_len * 4
+                  + 2 * b * h * r * d * 2)
+        bms, by = bound(4.0 * b * h * r * kv_len * d, PEAK_BF16_FLOPS, nbytes)
+        print(f"  R={r}: ms {ms:.4f} (eager call_ms {eager_ms:.4f}; K3 on the "
+              f"same inputs {k3_ms:.4f})  plain_ms {plain_ms:.4f}  library_ms "
+              f"(F.scaled_dot_product_attention on bf16 K/V dequantized "
+              f"beforehand) {lib_ms:.4f}  bound_ms {bms:.4f} ({by})")
+        if r == 1:
+            row = dict(name="decode_cross_attention_q8_mh", route="cuda",
+                       source="spittle_tpu_torch/csrc/decode_cross_attention_q.cu",
+                       replaces="scripts/bench_decode_cross.py:70",
+                       work="q [16,20,1,64], K/V int8 [16,1280,1536], kv_len 1500",
+                       max_abs_err=err, ms=ms, call_ms=eager_ms,
+                       k3_ms=k3_ms,
+                       plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                       library_ms=lib_ms,
+                       library="F.scaled_dot_product_attention on bf16 K/V "
+                               "dequantized beforehand")
+        else:
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+    del sets
+    torch.cuda.empty_cache()
+    return row
+
+
+def cache_write_phase(dev):
+    """K13 and K12 against a slice assignment on a clone, at the cache
+    probe's shape and two positions: the written cache bit for bit (so
+    every other byte unchanged), in place (data_ptr unchanged, the
+    argument returned)."""
+    from spittle_tpu_torch.ops import cache_write as cw
+    from spittle_tpu_torch.probes import cache_dus as probe
+
+    cache, cache_sub = probe.make_cache(dev)
+    l, _, b, h, dh, ctx = cache.shape
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    specs = (  # (K#, wrapper, line, tensor, cols shape, plain slice write)
+        ("K13", cw.alias_col_write, 159, cache, cache.shape[:-1],
+         lambda c, cols, p: c.__setitem__((..., p), cols)),
+        ("K12", cw.alias_col_write_sub, 132, cache_sub,
+         (cache_sub.shape[0], cache_sub.shape[2]),
+         lambda c, cols, p: c.__setitem__((slice(None), p), cols)),
+    )
+    rows = []
+    for kname, fn, line, tensor, cshape, assign in specs:
+        print(f"{kname} {fn.__name__} cache {list(tensor.shape)} bf16 "
+              f"({tensor.numel() * 2 / 1e6:.0f} MB), cols {list(cshape)}:")
+        for p in (5, ctx - 1):
+            cols = torch.randn(cshape, generator=gen, device=dev).to(torch.bfloat16)
+            want = tensor.clone()
+            assign(want, cols, p)
+            ptr = tensor.data_ptr()
+            got = fn(tensor, cols, torch.tensor(p, dtype=torch.int32, device=dev))
+            torch.cuda.synchronize()
+            same = torch.equal(got.view(torch.int16), want.view(torch.int16))
+            in_place = got is tensor and tensor.data_ptr() == ptr
+            print(f"  {kname} pos={p}: bit-identical to the slice assignment "
+                  f"(whole cache): {same}; in place: {in_place}")
+            if not (same and in_place):
+                raise AssertionError(f"{kname} pos={p}: wrong bytes or not in place")
+            del want
+        pos_dev = torch.tensor(7, dtype=torch.int32, device=dev)
+        # Enough cols tensors in turn that every launch reads cold data;
+        # the sectors it dirties are one position of a 671 MB cache.
+        cols2 = [torch.randn(cshape, generator=gen, device=dev).to(torch.bfloat16)
+                 for _ in range(n_cold_sets(cols.numel() * 2))]
+        ms = time_ms([lambda c=c: fn(tensor, c, pos_dev) for c in cols2], 48)
+        eager_ms = call_ms([lambda c=c: fn(tensor, c, pos_dev) for c in cols2], 48)
+        plain_ms = time_ms([lambda c=c: assign(tensor, c, 7) for c in cols2], 48)
+        # The yardstick: index_copy_ along ctx, on [rows, ctx] (K13) or
+        # [rows, ctx, hd] (K12) views of the same tensors.
+        index = torch.tensor([7], device=dev)
+        lib = "Tensor.index_copy_ along ctx"
+        dst = tensor.view(-1, ctx) if kname == "K13" else tensor
+        lib_ms = time_ms([lambda c=c: dst.index_copy_(
+            1, index, c.view(dst.shape[0], 1, *dst.shape[2:])) for c in cols2], 48)
+        nbytes = 2 * cols.numel() * 2
+        bms, by = bound(0.0, PEAK_BF16_FLOPS, nbytes)
+        print(f"  ms {ms:.4f} (eager call_ms {eager_ms:.4f})  plain_ms (slice "
+              f"assignment) {plain_ms:.4f}  library_ms ({lib}) {lib_ms:.4f}  "
+              f"bound_ms {bms:.4f} ({by}): {nbytes / 1e6:.1f} MB at "
+              f"{nbytes / ms / 1e6:.0f} GB/s")
+        rows.append(dict(name=fn.__name__, route="cuda",
+                         source="spittle_tpu_torch/csrc/cache_col_write.cu",
+                         replaces=f"scripts/bench_cache_dus.py:{line}",
+                         work=f"cache {list(tensor.shape)} bf16, one position",
+                         max_abs_err=0.0, ms=ms, call_ms=eager_ms,
+                         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         library_ms=lib_ms, library=lib))
+        del cols2
+    del cache, cache_sub
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -559,18 +867,21 @@ def load_engine(model: str, engine_opts: dict, seed: int):
     return eng
 
 
-def e2e_phase(label: str, eng, n_batches: int, batch: int, seed: int, predict):
+def e2e_phase(label: str, eng, n_batches: int, batch: int, seed: int, predict,
+              seconds: float = 30.0, audio_ctx=None):
     """One end-to-end path on a loaded engine: warm up, then n_batches
-    batches through transcribe_stream(overlap_fetch=True) with every
-    launch counter set to 0 just before and read just after.
-    predict(cfg, steps) gives the launch count each kernel must show.
-    Returns the counts."""
+    batches of `batch` utterances of `seconds` each through
+    transcribe_stream(overlap_fetch=True) with every launch counter set
+    to 0 just before and read just after. audio_ctx: the reduced encoder
+    context (TranscribeParams.audio_ctx). predict(cfg, steps) gives the
+    launch count each kernel must show. Returns the counts."""
     from spittle_tpu_torch.engine.base import TranscribeParams
 
     cfg = eng.cfg
-    print(f"e2e {label}: encoder_attention={eng.encoder_attention!r}")
+    print(f"e2e {label}: encoder_attention={eng.encoder_attention!r} "
+          f"n_audio_ctx={cfg.n_audio_ctx} audio_ctx={audio_ctx}")
     rng = np.random.default_rng(seed + 1)
-    sr, n = 16000, 30 * 16000
+    sr, n = 16000, int(seconds * 16000)
     tt = np.arange(n) / sr
 
     def make_batch():
@@ -585,7 +896,7 @@ def e2e_phase(label: str, eng, n_batches: int, batch: int, seed: int, predict):
 
     p = TranscribeParams(language="en", condition_on_previous_text=False,
                          parallel_windows=True, temperatures=(0.0,),
-                         max_tokens=96)
+                         max_tokens=96, audio_ctx=audio_ctx)
     warm = list(eng.transcribe_stream([make_batch()], p, overlap_fetch=True))
     assert len(warm) == 1 and len(warm[0]) == batch
     batches = [make_batch() for _ in range(n_batches)]
@@ -602,10 +913,11 @@ def e2e_phase(label: str, eng, n_batches: int, batch: int, seed: int, predict):
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in kernels}
 
-    audio_s = n_batches * batch * 30.0
+    audio_s = n_batches * batch * seconds
     steps = list(eng.last_decode_steps)
-    print(f"e2e {label}: {n_batches} batches x {batch} x 30 s in {wall:.3f} s: "
-          f"sustained RTFx {audio_s / wall:.1f}")
+    print(f"e2e {label}: {n_batches} batches x {batch} x {seconds:g} s in "
+          f"{wall:.3f} s: sustained RTFx {audio_s / wall:.1f} (audio seconds "
+          f"per wall second)")
     print(f"e2e {label}: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"e2e {label}: stage seconds " + json.dumps(
@@ -613,8 +925,9 @@ def e2e_phase(label: str, eng, n_batches: int, batch: int, seed: int, predict):
     print(f"e2e {label}: decode steps per batch {steps}; "
           f"launches {json.dumps(launches)}")
 
-    # Output checks: one result per window, tokens inside the vocabulary.
-    assert len(results) == n_batches
+    # Output checks: one result per utterance (each fits one window here),
+    # tokens inside the vocabulary, one decode per batch.
+    assert len(results) == n_batches and len(steps) == n_batches
     for res in results:
         assert len(res) == batch
         for r in res:
@@ -626,14 +939,16 @@ def e2e_phase(label: str, eng, n_batches: int, batch: int, seed: int, predict):
     return launches
 
 
-def _predict(k4=0, k3=0, k6=0, form="fullkv"):
+def _predict(k4=0, k3=0, k6=0, form="fullkv", long_kv=False):
     """Launch counts of one path: the encoder-attention form's kernel (K1
-    under "fullkv") once and K2 six times per encoder layer and batch;
+    under "fullkv"; K5 under every form when the encoder's K/V is longer
+    than 4096, long_kv) once and K2 six times per encoder layer and batch;
     each cross-attention kernel once per decoder layer for the prefill and
     for every step; every other kernel 0."""
     def predict(cfg, steps):
         enc = {fn.__name__: 0 for fn in _kernels()}
-        attn = ("flash_attention_fullkv" if form == "fullkv"
+        attn = ("flash_attention" if long_kv
+                else "flash_attention_fullkv" if form == "fullkv"
                 else _form_kernels()[form].__name__)
         dec = cfg.n_text_layer * (len(steps) + sum(steps))
         enc.update({
@@ -645,6 +960,45 @@ def _predict(k4=0, k3=0, k6=0, form="fullkv"):
         })
         return enc
     return predict
+
+
+def probes_phase():
+    """Both probes' main()s on the card, their JSON lines printed, with
+    every launch counter set to 0 just before and read just after. K11,
+    K12 and K13 run here (K3 and K4 too, as the probes' other variants).
+    Returns the counts."""
+    from spittle_tpu_torch.probes import cache_dus, decode_cross
+
+    kernels = _kernels()
+    for fn in kernels:
+        fn.launches = 0
+    print("probe decode_cross:")
+    cross = decode_cross.main()
+    print("probe cache_dus:")
+    dus = cache_dus.main()
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    print(f"probes: launches {json.dumps(launches)}")
+    # Output checks: every variant reported a finite positive device time,
+    # and K11 agrees with K3's plain version to K3's tolerance.
+    for rec in cross[:-1]:
+        assert np.isfinite(rec["ms"]) and rec["ms"] > 0, rec
+    for rec in dus[1:]:
+        assert np.isfinite(rec["ms_per_step"]) and rec["ms_per_step"] > 0, rec
+    assert (cross[-1]["k11_vs_plain_int8_maxerr"]
+            <= 2e-3 + 1e-2 * cross[-1]["plain_int8_max"]), cross[-1]
+    # Each timed variant makes one settling run and the timed runs.
+    want = {fn.__name__: 0 for fn in kernels}
+    want.update({
+        "decode_cross_attention": 2 * decode_cross.N_ITER,
+        "decode_cross_attention_q8": 2 * decode_cross.N_ITER,
+        "decode_cross_attention_q8_mh": 2 * decode_cross.N_ITER + 1,
+        "alias_col_write": 2 * (1 + cache_dus.REPS) * cache_dus.STEPS,
+        "alias_col_write_sub": 2 * (1 + cache_dus.REPS) * cache_dus.STEPS,
+    })
+    if launches != want:
+        raise AssertionError(f"probes: launch counts {launches} != predicted {want}")
+    return launches
 
 
 def main() -> int:
@@ -678,26 +1032,42 @@ def main() -> int:
     print(f"phase goldens: {time.perf_counter() - t0:.1f} s")
     # Each kernel's launches come from the path that runs it: K1, K2 and
     # K4 from the turbo leg, K7-K10 from the turbo engine under each
-    # encoder-attention form, K3 from the large-v3 leg, K6 from the int4
-    # variant; every path also checks that the others stayed at 0. The
-    # form paths reuse the turbo leg's engine and weights.
-    paths = (
+    # encoder-attention form, K5 from the long window, K3 from the
+    # large-v3 leg, K6 from the int4 variant; every path also checks that
+    # the others stayed at 0. The form paths reuse the turbo leg's engine
+    # and weights.
+    # The reduced-context path reuses the turbo leg's engine too; the
+    # long-window model is the turbo config with 6000 encoder positions
+    # (120 s windows; the same weights, drawn from the same seed), whose
+    # encoder self-attention goes to K5. K11, K12 and K13 run in the
+    # probes.
+    from spittle_tpu_torch.models.whisper.config import CONFIGS
+
+    CONFIGS[LONG_MODEL] = dataclasses.replace(
+        CONFIGS["large-v3-turbo"], name=LONG_MODEL, n_audio_ctx=LONG_CTX)
+    paths = (  # (label, model, engine options, form, batches, predict,
+        #          kernels whose launches this path reports, e2e options)
         ("turbo leg", "random:large-v3-turbo", {}, "fullkv", N_BATCHES,
          _predict(k4=1), ("flash_attention_fullkv", "w8a8_gemm",
-                          "decode_cross_attention")),
+                          "decode_cross_attention"), {}),
+        ("reduced context", "random:large-v3-turbo", {}, "fullkv", N_BATCHES,
+         _predict(k4=1), (), dict(seconds=5.0, audio_ctx=256)),
         *((f"turbo {form}", "random:large-v3-turbo", {}, form, 1,
-           _predict(k4=1, form=form), (fn.__name__,))
+           _predict(k4=1, form=form), (fn.__name__,), {})
           for form, fn in _form_kernels().items()),
+        ("long window", f"random:{LONG_MODEL}", {}, "fullkv", N_BATCHES,
+         _predict(k4=1, long_kv=True), ("flash_attention",),
+         dict(seconds=LONG_CTX / 50.0, batch=2)),
         ("large-v3 leg", "random:large-v3",
          dict(quantize_decoder="int8", quantize_cache=True), "fullkv",
-         N_BATCHES, _predict(k3=1), ("decode_cross_attention_q8",)),
+         N_BATCHES, _predict(k3=1), ("decode_cross_attention_q8",), {}),
         ("int4 variant", "random:large-v3-turbo",
          dict(quantize_decoder="int4", quantize_cache=True), "fullkv", 1,
-         _predict(k6=1), ("decode_cross_attention_q4",)),
+         _predict(k6=1), ("decode_cross_attention_q4",), {}),
     )
     launches, by_path = {}, {}
     eng, loaded = None, None
-    for label, model, opts, form, n_batches, predict, owned in paths:
+    for label, model, opts, form, n_batches, predict, owned, e2e in paths:
         t0 = time.perf_counter()
         if loaded != (model, opts):
             del eng
@@ -705,11 +1075,19 @@ def main() -> int:
             torch.cuda.empty_cache()
             eng, loaded = load_engine(model, opts, SEED), (model, opts)
         eng.encoder_attention = form
-        counts = e2e_phase(label, eng, n_batches, BATCH, SEED, predict)
+        e2e = dict(e2e)
+        counts = e2e_phase(label, eng, n_batches, e2e.pop("batch", BATCH), SEED,
+                           predict, **e2e)
         print(f"phase e2e {label}: {time.perf_counter() - t0:.1f} s")
         by_path[label] = counts
         launches.update({name: counts[name] for name in owned})
     del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    by_path["probes"] = probes_phase()
+    launches.update({name: by_path["probes"][name] for name in PROBE_KERNELS})
+    print(f"phase probes: {time.perf_counter() - t0:.1f} s")
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["launches_by_path"] = {k: v[row["name"]] for k, v in by_path.items()}

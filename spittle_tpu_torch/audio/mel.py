@@ -116,3 +116,13 @@ def log_mel_spectrogram(
     log_spec = torch.maximum(log_spec, flat_max - 8.0)
     log_spec = (log_spec + 4.0) / 4.0
     return log_spec.reshape(*lead, n_mels, -1)
+
+
+def pad_or_trim(audio: torch.Tensor, length: int = N_SAMPLES) -> torch.Tensor:
+    """Pad with zeros or trim to exactly `length` samples on the last axis."""
+    t = audio.shape[-1]
+    if t > length:
+        return audio[..., :length]
+    if t < length:
+        return torch.nn.functional.pad(audio, (0, length - t))
+    return audio

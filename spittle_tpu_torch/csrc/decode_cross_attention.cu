@@ -1,6 +1,6 @@
 // Decode-time cross-attention for Hopper (sm_90a): up to 8 query rows per
 // (batch, head) against the whole encoder K/V in the decode layout
-// [B, H, Dh, Tk] (time minor), bf16.
+// [B, H, Dh, Tk] (time minor), bf16, any Tk >= 1.
 //
 // Replaces the TPU kernel spittle_tpu/ops/attention.py:
 // decode_cross_attention (body _decode_cross_kernel). q arrives
@@ -19,7 +19,10 @@
 // f32 score rows live in dynamic shared memory between the passes, where
 // the softmax runs over t < kv_len only (the real 1500, no padding). P is
 // rounded to bf16 for the PV sum, where the TPU kernel casts p to v's
-// dtype, and 1/l is applied at the end. With B*H = 160 blocks on 132 SMs
+// dtype, and 1/l is applied at the end. A reduced audio context may be
+// odd; K/V rows are then only 2-byte aligned, and the kPairs = false
+// instance reads the same pairs as two bf16 loads (still neighbouring
+// threads on neighbouring addresses). With B*H = 160 blocks on 132 SMs
 // the card is under-occupied; a split-T (flash-decoding) second pass is
 // later work.
 #include "common.cuh"
@@ -31,6 +34,18 @@ constexpr int kMaxR = 8;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
+// Time steps t and t + 1 of one K/V row. kPairs: the row is 4-byte
+// aligned and Tk is even, so one bf16x2 load stays inside the row;
+// otherwise two bf16 loads, the second only when t + 1 < kv_len.
+template <bool kPairs>
+__device__ __forceinline__ float2 ld_pair(const __nv_bfloat16* p, bool second) {
+  if (kPairs)
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  return make_float2(__bfloat162float(p[0]),
+                     second ? __bfloat162float(p[1]) : 0.f);
+}
+
+template <bool kPairs>
 __global__ void __launch_bounds__(kThreads)
     decode_cross_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
@@ -64,8 +79,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int r = 0; r < kMaxR; ++r) a0[r] = a1[r] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < kD; ++d) {
-      const float2 kk = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(kb + d * Tk + t));
+      const float2 kk = ld_pair<kPairs>(kb + d * Tk + t, t + 1 < kv_len);
 #pragma unroll
       for (int r = 0; r < kMaxR; ++r) {
         if (r < R) {
@@ -128,9 +142,8 @@ __global__ void __launch_bounds__(kThreads)
     for (int r = 0; r < kMaxR; ++r) acc[r] = 0.f;
     for (int tp = lane; tp < npairs; tp += 32) {
       const int t = 2 * tp;
-      const float2 vv = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(vrow + t));
       const bool second = t + 1 < kv_len;
+      const float2 vv = ld_pair<kPairs>(vrow + t, second);
 #pragma unroll
       for (int r = 0; r < kMaxR; ++r) {
         if (r < R) {
@@ -152,7 +165,7 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // q: [B, H, R, Dh] bf16 with strides (qsb, qsh, qsr, 1); k, v contiguous
-// [B, H, Dh, Tk] bf16 with Tk even; o: [B, H, R, Dh] bf16 with strides
+// [B, H, Dh, Tk] bf16, any Tk; o: [B, H, R, Dh] bf16 with strides
 // (osb, osh, osr, 1). Dynamic shared memory: R * ldp floats.
 SPT_API int spt_decode_cross_attention(const void* q, const void* k,
                                        const void* v, void* o, int B, int H,
@@ -163,12 +176,14 @@ SPT_API int spt_decode_cross_attention(const void* q, const void* k,
                                        void* stream) {
   const int ldp = (kv_len + 1) & ~1;
   const size_t smem = static_cast<size_t>(R) * ldp * sizeof(float);
+  const bool pairs = Tk % 2 == 0 && reinterpret_cast<uintptr_t>(k) % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(v) % 4 == 0;
+  auto kernel = pairs ? decode_cross_kernel<true> : decode_cross_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      decode_cross_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  decode_cross_kernel<<<B * H, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<B * H, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H,

@@ -5,13 +5,17 @@ What the port carries: `random:<config>` and spittle .npz models, the
 mu-law or int16 PCM wire, the W8A8 encoder, the bf16/f32 decoder or the
 weight-only int8 decoder with int8 or int4 cross-K/V (quantize_decoder)
 and an int8 self-cache (quantize_cache), the encoder-attention forms
-(encoder_attention), greedy temperature-0 decoding,
-parallel 30 s windows with overlap-stitch, `transcribe_batch` and the
-pipelined `transcribe_stream` (prefetch thread, overlap_fetch). Everything
-else raises NotImplementedError pointing at ROADMAP.md: the sequential
-seek path, temperature ladders longer than one rung, language detection,
-beam search, speculative decoding, word timestamps, a reduced audio
-context, the "w8a8" decoder, and the GGML/safetensors loaders.
+(encoder_attention), greedy temperature-0 decoding, parallel windows
+with overlap-stitch, `transcribe_batch` and the pipelined
+`transcribe_stream` (prefetch thread, overlap_fetch). A window is two mel
+frames per encoder position: 30 s for the stock 1500 positions, longer for
+a model with a larger n_audio_ctx (past 4096 positions the encoder's
+self-attention runs K5), shorter under TranscribeParams.audio_ctx (a
+push-to-talk utterance). Everything else raises NotImplementedError
+pointing at ROADMAP.md: the sequential seek path, temperature ladders
+longer than one rung, language detection, beam search, speculative
+decoding, word timestamps, the "w8a8" decoder, and the GGML/safetensors
+loaders.
 
 The engine runs on the card by default (device="cuda") and raises when
 there is none; the CPU is used only when the caller passes device="cpu".
@@ -32,7 +36,7 @@ from spittle_tpu_torch.audio.mulaw import mulaw_decode, mulaw_encode
 from spittle_tpu_torch.device import resolve_device
 from spittle_tpu_torch.models.whisper.config import CONFIGS, WhisperConfig
 from spittle_tpu_torch.models.whisper.decode import DecodeOptions, greedy_decode
-from spittle_tpu_torch.models.whisper.model import encode
+from spittle_tpu_torch.models.whisper.model import encode, sinusoidal_positions
 from spittle_tpu_torch.models.whisper.tokenizer import (
     WhisperTokenizer,
     make_test_vocab,
@@ -149,6 +153,8 @@ class WhisperEngine:
         self.wire = wire
         self.cfg: Optional[WhisperConfig] = None
         self.params = None
+        # The encoder's position table on the device, made once per model.
+        self._positions: Optional[torch.Tensor] = None
         self.tokenizer: Optional[WhisperTokenizer] = None
         self._space_token: Optional[int] = None
         self._copy_stream = (
@@ -184,6 +190,9 @@ class WhisperEngine:
             self.params = quantize_whisper_decoder(self.params)
         if self.quantize_encoder:
             self.params = quantize_whisper_encoder_w8a8(self.params)
+        self._positions = torch.from_numpy(sinusoidal_positions(
+            self.cfg.n_audio_ctx, self.cfg.n_audio_state)).to(
+            device=self.device, dtype=self.dtype)
         space = self.tokenizer.encode(" ")
         self._space_token = space[0] if space else None
 
@@ -203,8 +212,23 @@ class WhisperEngine:
 
     @property
     def window_frames(self) -> int:
-        """Mel frames per window: two per encoder position."""
+        """Mel frames per full window: two per encoder position (3000 for
+        the stock 1500 positions; a custom n_audio_ctx scales the window)."""
         return self.cfg.n_audio_ctx * 2
+
+    @property
+    def window_samples(self) -> int:
+        return self.window_frames * HOP_LENGTH
+
+    def _window_geometry(self, params: TranscribeParams) -> Tuple[int, int]:
+        """(window_frames, window_samples) for this call. params.audio_ctx
+        shrinks the window: the encoder runs over audio_ctx positions =
+        2 * audio_ctx mel frames, so a short utterance skips the padded
+        frames in the encoder and in every step's cross-K/V read."""
+        if params.audio_ctx:
+            wf = min(2 * params.audio_ctx, self.window_frames)
+            return wf, wf * HOP_LENGTH
+        return self.window_frames, self.window_samples
 
     def _check_params(self, params: TranscribeParams) -> None:
         if not params.parallel_windows or params.condition_on_previous_text:
@@ -219,8 +243,6 @@ class WhisperEngine:
             raise _not_ported("beam search")
         if params.word_timestamps:
             raise _not_ported("word timestamps")
-        if params.audio_ctx:
-            raise _not_ported("a reduced audio context (audio_ctx)")
 
     def _decode_options(self, params: TranscribeParams) -> DecodeOptions:
         return DecodeOptions(
@@ -247,11 +269,12 @@ class WhisperEngine:
 
     # -- windows ---------------------------------------------------------
 
-    def _assemble_windows(self, audios, items) -> np.ndarray:
+    def _assemble_windows(self, audios, items,
+                          window_samples: Optional[int] = None) -> np.ndarray:
         """items: [(audio_idx, start_sample)] -> [len(items), window] PCM
         (int16 when every input is int16, else f32), mu-law encoded when
-        wire == "mulaw"."""
-        ws = self.window_frames * HOP_LENGTH
+        wire == "mulaw". window_samples: a reduced window's length."""
+        ws = window_samples or self.window_samples
         all_i16 = all(a.dtype == np.int16 for a in audios)
         dtype = np.int16 if all_i16 else np.float32
         windows = np.zeros((len(items), ws), dtype)
@@ -269,7 +292,7 @@ class WhisperEngine:
         Returns (plan, windows, content_frames, overlap)."""
         n = len(audios)
         content_frames = [max(1, len(a) // HOP_LENGTH) for a in audios]
-        wf = self.window_frames
+        wf, ws = self._window_geometry(params)
         overlap = min(int(params.parallel_overlap_s * FRAMES_PER_SECOND),
                       wf // 2)
         stride = max(wf - overlap, 1)
@@ -281,7 +304,8 @@ class WhisperEngine:
             for seek in range(0, max(content_frames[i] - overlap, 1), stride)
         ]
         windows = self._assemble_windows(
-            audios, [(i, seek * HOP_LENGTH) for i, seek in plan]
+            audios, [(i, seek * HOP_LENGTH) for i, seek in plan],
+            window_samples=ws,
         )
         return plan, windows, content_frames, overlap
 
@@ -308,9 +332,12 @@ class WhisperEngine:
         return dev
 
     def _frontend(self, windows: torch.Tensor) -> torch.Tensor:
-        """windows [B, samples] wire PCM on the device -> encoder output."""
+        """windows [B, samples] wire PCM on the device -> encoder output
+        [B, samples / 320, D]: a window shorter than the model's encodes
+        with the first positions."""
         mel = log_mel_spectrogram(_pcm_f32(windows), n_mels=self.cfg.n_mels)
-        return encode(self.params, mel, self.cfg, self.encoder_attention)
+        return encode(self.params, mel, self.cfg, self.encoder_attention,
+                      self._positions)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -415,7 +442,7 @@ class WhisperEngine:
                                    base_prompt, staged) -> dict:
         """Device half: frontend + greedy decode of every window."""
         plan, placed, content_frames, overlap = staged
-        wf = self.window_frames
+        wf, _ = self._window_geometry(params)
         # full_f32: an f32 model's products and stem convolutions must
         # match the reference's f32 arithmetic, so TF32 stays off here.
         with torch.inference_mode(), full_f32():

@@ -25,7 +25,7 @@ H, ctx, Dh], "scale" [L, 2, B, H, ctx]}, one f32 scale per position.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -122,28 +122,37 @@ def encoder_block_body(h: torch.Tensor, blk, n_head: int,
     return h + _mlp(xn, blk)
 
 
-def _encoder_stem(enc, mel: torch.Tensor, cfg: WhisperConfig) -> torch.Tensor:
-    """Conv stem + positions: mel [B, n_mels, frames] -> [B, T, D]."""
+def _encoder_stem(enc, mel: torch.Tensor, cfg: WhisperConfig,
+                  positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Conv stem + positions: mel [B, n_mels, frames] -> [B, T, D].
+    positions: sinusoidal_positions(n_audio_ctx, n_audio_state) already on
+    x's device in x's dtype (a caller that encodes many batches keeps it);
+    made here when None."""
     w1 = enc["conv1_w"]
     x = F.conv1d(mel.to(w1.dtype), w1, stride=1, padding=1)
     x = F.gelu(x + enc["conv1_b"][None, :, None])
     x = F.conv1d(x, enc["conv2_w"], stride=2, padding=1)
     x = F.gelu(x + enc["conv2_b"][None, :, None])
     x = x.transpose(1, 2)  # [B, T, D]
-    pos = torch.from_numpy(
-        sinusoidal_positions(cfg.n_audio_ctx, cfg.n_audio_state)
-    ).to(device=x.device, dtype=x.dtype)
+    pos = positions
+    if pos is None:
+        pos = torch.from_numpy(
+            sinusoidal_positions(cfg.n_audio_ctx, cfg.n_audio_state)
+        ).to(device=x.device, dtype=x.dtype)
     # A mel shorter than the full window encodes with the FIRST T positions.
     return x + pos[None, : x.shape[1]]
 
 
 def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
-           attention: str = "fullkv") -> torch.Tensor:
-    """mel [B, n_mels, 3000] -> audio features [B, 1500, D]. attention:
+           attention: str = "fullkv",
+           positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """mel [B, n_mels, frames] -> audio features [B, frames / 2, D], at
+    most cfg.n_audio_ctx positions (1500 for the stock models). attention:
     the encoder-attention form, one of ops.attention.ENCODER_ATTENTION_FORMS
-    (the reference reads it from the environment)."""
+    (the reference reads it from the environment). positions: see
+    _encoder_stem."""
     enc = params["encoder"]
-    x = _encoder_stem(enc, mel, cfg)
+    x = _encoder_stem(enc, mel, cfg, positions)
     blocks = enc["blocks"]
     for layer in range(n_layers(blocks)):
         x = encoder_block_body(x, layer_params(blocks, layer), cfg.n_audio_head,

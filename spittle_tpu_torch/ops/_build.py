@@ -39,6 +39,7 @@ _L = ctypes.c_longlong
 # C entry -> argtypes (pointers and the stream as c_void_p).
 SIGNATURES = {
     "spt_fullkv_attention": [_P, _P, _P, _P] + [_I] * 6 + [_L] * 12 + [_P],
+    "spt_flash_attention": [_P, _P, _P, _P] + [_I] * 6 + [_L] * 12 + [_P],
     "spt_fullkv_attention_packed": [_P] * 4 + [_I] * 6 + [_P],
     "spt_fullkv_attention_packed_pair": [_P] * 4 + [_I] * 6 + [_P],
     "spt_fullkv_attention_pipe": [_P] * 4 + [_I] * 5 + [_L] * 12 + [_P],
@@ -49,6 +50,9 @@ SIGNATURES = {
     "spt_decode_cross_attention": [_P, _P, _P, _P] + [_I] * 5 + [_L] * 6 + [_P],
     "spt_decode_cross_attention_q8": [_P] * 7 + [_I] * 5 + [_L] * 6 + [_P],
     "spt_decode_cross_attention_q4": [_P] * 7 + [_I] * 5 + [_L] * 6 + [_P],
+    "spt_decode_cross_attention_q8_mh": [_P] * 7 + [_I] * 5 + [_L] * 6 + [_P],
+    "spt_cache_col_write": [_P, _P, _P, _L, _I, _P],
+    "spt_cache_col_write_rows": [_P, _P, _P, _L, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,11 @@
-"""Attention ops: the port's kernels K1, K3, K4 and K6–K10 with their
-plain versions (port of spittle_tpu/ops/attention.py).
+"""Attention ops: the port's kernels K1, K3–K11 with their plain versions
+(port of spittle_tpu/ops/attention.py, and of the decode cross-attention
+probe's kernel).
 
 - attention_reference: plain attention (the reference's XLA form).
+- flash_attention (K5, csrc/flash_attention.cu): tiled online-softmax
+  attention for K/V longer than 4096 positions (a long-window model's
+  encoder); replaces the Pallas `flash_attention`.
 - flash_attention_fullkv (K1, csrc/fullkv_attention.cu): encoder
   self-attention; replaces the Pallas `flash_attention_fullkv`.
 - The encoder-attention forms, each replacing the Pallas kernel of the
@@ -18,6 +22,9 @@ plain versions (port of spittle_tpu/ops/attention.py).
   csrc/decode_cross_attention_q.cu: the same over int8 K/V, or int4 K/V
   packed two per byte, with one f32 scale per position; replace the
   Pallas `decode_cross_attention_q8` and `decode_cross_attention_q4`.
+- decode_cross_attention_q8_mh (K11, the same source): K3's function with
+  a batch item's heads walked inside one block; replaces `mh_q8` of
+  scripts/bench_decode_cross.py.
 - multihead_attention_packed and multihead_attention: the dispatchers.
   They pick a kernel from the shapes and the encoder-attention form, an
   argument (ENCODER_ATTENTION_FORMS), never the environment.
@@ -44,9 +51,12 @@ _NEG_INF = -1e30
 # The reference checks the packed settings first, then q8, then pipe;
 # the port takes one form at a time.
 ENCODER_ATTENTION_FORMS = ("fullkv", "q8", "packed", "pair", "pipe")
-# The reference's full-KV kernels take K/V up to this length; longer goes
-# to its tiled flash kernel (K5, not ported: the port keeps K1 there).
+# The full-KV kernels take K/V up to this length; longer goes to the
+# tiled flash kernel (K5), whatever the form, as in the reference.
 _FULLKV_MAX_KV = 4096
+# The reference's tile sizes for K5.
+DEFAULT_BLOCK_Q = 128
+DEFAULT_BLOCK_K = 128
 
 
 def check_encoder_attention(form: str) -> str:
@@ -167,6 +177,84 @@ def flash_attention_fullkv(q, k, v, causal: bool = False,
 
 
 flash_attention_fullkv.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K5: tiled online-softmax attention (K/V longer than 4096)
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_plain(q, k, v, causal: bool = False,
+                          kv_len: Optional[int] = None,
+                          block_q: int = DEFAULT_BLOCK_Q,
+                          block_k: int = DEFAULT_BLOCK_K) -> torch.Tensor:
+    """Plain K5: the reference kernel's loop over key tiles of block_k,
+    in its rounding order. Per tile: f32 scores, the mask (col < kv_len,
+    and under `causal` row >= col on absolute indices, with no Tk - Tq
+    offset) set to -1e30 before the max; m' = max(m, tile max), alpha =
+    exp(m - m'), p = exp(s - m'), l = l * alpha + sum p, acc = acc * alpha
+    + (p in v's dtype) . v; acc / l at the end. A last tile shorter than
+    block_k stands for the reference's zero padding, whose columns are
+    masked. block_q only shapes the TPU grid: rows are independent."""
+    del block_q
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    kv_len = tk if kv_len is None else kv_len
+    dev = q.device
+    qf = q.float()
+    row = torch.arange(tq, device=dev)[:, None]
+    m = torch.full((b, h, tq, 1), _NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, h, tq, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, h, tq, d), dtype=torch.float32, device=dev)
+    for k0 in range(0, tk, block_k):
+        kt, vt = k[:, :, k0:k0 + block_k], v[:, :, k0:k0 + block_k]
+        s = torch.matmul(qf, kt.float().transpose(-1, -2))
+        col = k0 + torch.arange(kt.shape[2], device=dev)[None, :]
+        keep = col < kv_len
+        if causal:
+            keep = keep & (row >= col)
+        s = torch.where(keep, s, _NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(p.to(v.dtype).float(), vt.float())
+        m = m_new
+    return (acc / l).to(q.dtype)
+
+
+def flash_attention(q, k, v, causal: bool = False,
+                    kv_len: Optional[int] = None,
+                    block_q: int = DEFAULT_BLOCK_Q,
+                    block_k: int = DEFAULT_BLOCK_K) -> torch.Tensor:
+    """K5: tiled online-softmax attention. q [B, H, Tq, 64], k/v [B, H,
+    Tk, 64], q and k pre-scaled (strided views allowed, head dim
+    contiguous) -> [B, H, Tq, 64], on CUDA a view of a [B, Tq, H, 64]
+    buffer. Any Tq and Tk: the kernel masks its own ragged tiles where the
+    reference pads to multiples of 128. On CUDA bf16 only, and block_k
+    must be the kernel's 128 (it sets where the running max advances, so
+    the rounding); block_q changes no value and is not used."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, kv_len, block_q, block_k)
+    if block_k != DEFAULT_BLOCK_K:
+        raise ValueError(f"flash_attention: block_k {block_k} != "
+                         f"{DEFAULT_BLOCK_K}, the kernel's key tile")
+    kv_len = _check_split_qkv("flash_attention", q, k, v, kv_len)
+    b, h, tq, d = q.shape
+    out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    lib = _build.load_library()
+    _build.check(lib.spt_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, h, tq, k.shape[2], kv_len, int(causal),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        out.stride(0), out.stride(2), out.stride(1),
+        _build.stream_ptr(q.device),
+    ), "spt_flash_attention")
+    flash_attention.launches += 1
+    return out.permute(0, 2, 1, 3)
+
+
+flash_attention.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -402,18 +490,20 @@ def multihead_attention(q, k, v, causal: bool = False,
     """Dispatch on shape and the encoder-attention form, in the order of
     the reference's multihead_attention: plain attention for short
     sequences (the decoder's causal prefill) and head dims other than 64
-    and 128; K1 for K/V longer than 4096 (the reference's K5, not ported);
-    K7 for a non-causal call under "q8"; K10 for a non-causal call under
-    "pipe" whose q block times Tk rounded up to 128 is at most 768 x 2048
-    (the reference's VMEM gate); K1 otherwise. Causal calls never take K7
-    or K10. A wrapper raises on CUDA for what its kernel does not take (a
+    and 128; K5 for K/V longer than 4096 under every form; K7 for a
+    non-causal call under "q8"; K10 for a non-causal call under "pipe"
+    whose q block times Tk rounded up to 128 is at most 768 x 2048 (the
+    reference's VMEM gate); K1 otherwise. Causal calls never take K7 or
+    K10. A wrapper raises on CUDA for what its kernel does not take (a
     dtype other than bf16, Dh 128). Inputs [B, H, T, D]."""
     check_encoder_attention(form)
     tq, d = q.shape[2], q.shape[3]
     if d not in (64, 128) or tq < 128:
         return attention_reference(q, k, v, causal=causal, kv_len=kv_len)
     tk = k.shape[2]
-    if tk <= _FULLKV_MAX_KV and not causal:
+    if tk > _FULLKV_MAX_KV:
+        return flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    if not causal:
         if form == "q8":
             return flash_attention_fullkv_q8(q, k, v, kv_len=kv_len)
         if form == "pipe" and _block_q(tq) * -(-tk // 128) * 128 <= 768 * 2048:
@@ -497,7 +587,7 @@ def _check_decode_cross(name, q, kv, scales, rows, kv_dtype, kv_len):
 def decode_cross_attention(q, k, v,
                            kv_len: Optional[int] = None) -> torch.Tensor:
     """q [B, H, R<=8, 64] (head dim contiguous); k/v contiguous
-    [B, H, 64, Tk] bf16 with Tk even -> [B, H, R, 64]. On CUDA the result
+    [B, H, 64, Tk] bf16, any Tk >= 1 -> [B, H, R, 64]. On CUDA the result
     is a view of a [B, R, H, 64] buffer."""
     if q.device.type == "cpu":
         return decode_cross_attention_plain(q, k, v, kv_len)
@@ -505,8 +595,6 @@ def decode_cross_attention(q, k, v,
     tk = k.shape[3]
     kv_len = _check_decode_cross("decode_cross_attention", q, (k, v), (), d,
                                  torch.bfloat16, kv_len)
-    if tk % 2:
-        raise ValueError(f"decode_cross_attention: Tk={tk} must be even")
     if r * ((kv_len + 1) & ~1) * 4 > 200 * 1024:
         raise ValueError("decode_cross_attention: score rows exceed shared memory")
     out = torch.empty((b, r, h, d), dtype=q.dtype, device=q.device)
@@ -525,7 +613,7 @@ decode_cross_attention.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K3 and K6: decode cross-attention over int8 and packed int4 K/V
+# K3, K6 and K11: decode cross-attention over int8 and packed int4 K/V
 # ---------------------------------------------------------------------------
 
 
@@ -560,8 +648,8 @@ def decode_cross_attention_q4_plain(q, qk, ks, qv, vs,
 
 
 def _launch_decode_cross_quant(name, entry, q, qk, ks, qv, vs, kv_len, rows):
-    """Checks and launch shared by K3 and K6 (rows: stored K/V rows, 64
-    for int8 and 32 for packed int4). Returns the [B, H, R, 64] result
+    """Checks and launch shared by K3, K6 and K11 (rows: stored K/V rows,
+    64 for int8 and 32 for packed int4). Returns the [B, H, R, 64] result
     as a view of a [B, R, H, 64] buffer."""
     b, h, r, d = q.shape
     tk = qk.shape[3]
@@ -612,3 +700,22 @@ def decode_cross_attention_q4(q, qk, ks, qv, vs,
 
 
 decode_cross_attention_q4.launches = 0
+
+
+def decode_cross_attention_q8_mh(q, qk, ks, qv, vs,
+                                 kv_len: Optional[int] = None) -> torch.Tensor:
+    """K11: K3's function (decode_cross_attention_q8_plain is its plain
+    version) with all heads of a batch item walked inside one block.
+    Operands as K3's: q [B, H, R<=8, 64] bf16 pre-scaled by Dh^-0.5, qk/qv
+    int8 [B, H, 64, Tk] (per batch item one contiguous [H*64, Tk] slab,
+    the probe kernel's view) and ks/vs f32 [B, H, Tk] -> [B, H, R, 64]."""
+    if q.device.type == "cpu":
+        return decode_cross_attention_q8_plain(q, qk, ks, qv, vs, kv_len)
+    out = _launch_decode_cross_quant(
+        "decode_cross_attention_q8_mh", "spt_decode_cross_attention_q8_mh",
+        q, qk, ks, qv, vs, kv_len, q.shape[3])
+    decode_cross_attention_q8_mh.launches += 1
+    return out
+
+
+decode_cross_attention_q8_mh.launches = 0

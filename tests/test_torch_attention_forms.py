@@ -215,14 +215,14 @@ def test_packed_plain_matches_pallas_interpret(kernel, causal, kv_len):
 # The dispatch
 # ---------------------------------------------------------------------------
 
-PORT_KERNELS = tuple(FORM_KERNEL.values())
+PORT_KERNELS = (*FORM_KERNEL.values(), "flash_attention")
 
 
 @pytest.mark.parametrize("form,h,d,tq,tk,causal,want", [
     ("fullkv", 2, 64, 160, 160, False, "flash_attention_fullkv"),
     ("q8", 2, 64, 160, 160, False, "flash_attention_fullkv_q8"),
     ("q8", 2, 64, 160, 160, True, "flash_attention_fullkv"),
-    ("q8", 2, 64, 128, 4200, False, "flash_attention_fullkv"),  # Tk > 4096
+    ("q8", 2, 64, 128, 4200, False, "flash_attention"),  # Tk > 4096: K5
     ("q8", 2, 64, 64, 64, False, None),  # short: plain attention
     ("pipe", 2, 64, 160, 160, False, "flash_attention_fullkv_pipe"),
     ("pipe", 2, 64, 160, 160, True, "flash_attention_fullkv"),
@@ -231,7 +231,7 @@ PORT_KERNELS = tuple(FORM_KERNEL.values())
     ("pipe", 1, 64, 1536, 2049, False, "flash_attention_fullkv"),
     ("packed", 2, 64, 160, 160, False, "flash_attention_fullkv_packed"),
     ("packed", 2, 64, 160, 160, True, "flash_attention_fullkv_packed"),
-    ("packed", 2, 64, 128, 4200, False, "flash_attention_fullkv"),  # Tk > 4096
+    ("packed", 2, 64, 128, 4200, False, "flash_attention"),  # Tk > 4096: K5
     ("pair", 2, 64, 160, 160, True, "flash_attention_fullkv_packed_pair"),
     ("pair", 3, 64, 160, 160, False, "flash_attention_fullkv"),  # odd heads
     ("pair", 2, 128, 160, 160, False, "flash_attention_fullkv"),  # Dh 128
@@ -240,8 +240,8 @@ def test_packed_dispatch_routes_as_the_reference(monkeypatch, form, h, d, tq,
                                                  tk, causal, want):
     """multihead_attention_packed under each form picks the reference's
     kernel on shape alone and gives its output (the JAX dispatcher under
-    the same setting, Pallas in interpret mode; K5 past Tk 4096, where the
-    port keeps K1)."""
+    the same setting, Pallas in interpret mode; the tiled flash kernel K5
+    past Tk 4096, under every form)."""
     rng = np.random.default_rng(12)
     q = (rng.standard_normal((1, tq, h * d)) * d ** -0.25).astype(np.float32)
     k, v = ((rng.standard_normal((1, tk, h * d)) * d ** -0.25).astype(np.float32)

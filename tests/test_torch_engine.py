@@ -164,7 +164,6 @@ def test_default_device_is_the_card():
     dict(language=None),
     dict(beam_size=5),
     dict(word_timestamps=True),
-    dict(audio_ctx=256),
 ])
 def test_unported_paths_raise(kwargs):
     eng = WhisperEngine(device="cpu")

@@ -1,6 +1,7 @@
 """Mutation check of the card tests of K3 and K6 (decode cross-attention
-over int8 and packed int4 K/V) and K7 (int8-dot encoder attention): each
-case breaks the kernel in a copy of
+over int8 and packed int4 K/V), K7 (int8-dot encoder attention), K5
+(tiled flash attention) and K13 (cache column write): each case breaks
+the kernel in a copy of
 the package under a temporary directory, where the copy builds its own
 kernel library, and the card tests of tests/test_torch_kernels_cuda.py
 must then fail on the kernel's values. Each edit names the exact text it
@@ -26,6 +27,8 @@ pytestmark = pytest.mark.cuda
 REPO = Path(__file__).resolve().parents[1]
 SRC = "spittle_tpu_torch/csrc/decode_cross_attention_q.cu"
 Q8_SRC = "spittle_tpu_torch/csrc/fullkv_attention_q8.cu"
+FLASH_SRC = "spittle_tpu_torch/csrc/flash_attention.cu"
+CACHE_SRC = "spittle_tpu_torch/csrc/cache_col_write.cu"
 WRAPPER = "spittle_tpu_torch/ops/attention.py"
 CARD_TESTS = "tests/test_torch_kernels_cuda.py"
 
@@ -59,6 +62,17 @@ MUTATIONS = {
     "q8_sp_fixed": ("q8_kernel_matches and 1500", [
         (Q8_SRC, "sp[hr] = mp[hr] > 0.f ? __fdiv_rn(mp[hr], 127.0f) : 1.0f;",
          "sp[hr] = 1.0f;"),
+    ]),
+    # K5: attention_reference's Tk - Tq offset put into the causal rule,
+    # which K5 does not have; it shows only where Tq != Tk.
+    "flash_causal_offset": ("flash_kernel_matches and 200-500-500", [
+        (FLASH_SRC, "(causal && col > row)) s[nt][j] = kNegInf;",
+         "(causal && col > row + (Tk - Tq))) s[nt][j] = kNegInf;"),
+    ]),
+    # K13 (and K12, the same body): a neighbouring position written.
+    "cache_neighbour_column": ("cache_col_write_matches", [
+        (CACHE_SRC, "dst[r * row_stride + pos * pos_stride + j] = src[i];",
+         "dst[r * row_stride + (pos > 0 ? pos - 1 : 1) * pos_stride + j] = src[i];"),
     ]),
 }
 

@@ -1,8 +1,8 @@
-"""Card-only tests: the port's CUDA kernels (K1, K2, K3, K4, K6, and the
-encoder-attention forms K7-K10) against their plain PyTorch versions on
-CUDA tensors, and the engine's main paths (bf16 decoder; int8 and int4
-decoders; each encoder-attention form) on a small config with every
-kernel counter moving.
+"""Card-only tests: the port's CUDA kernels (K1-K6, the encoder-attention
+forms K7-K10, and the probe kernels K11-K13) against their plain PyTorch
+versions on CUDA tensors, and the engine's main paths (bf16 decoder; int8
+and int4 decoders; each encoder-attention form; a reduced and a long
+audio context) on a small config with every kernel counter moving.
 
 The kernels have no CPU mode, so every test here carries the `cuda`
 marker and skips without a card; whether a card is present is decided in
@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from spittle_tpu_torch.ops import attention as att
+from spittle_tpu_torch.ops import cache_write as cw
 from spittle_tpu_torch.ops.quant import (
     quantize_kv,
     quantize_kv_int4,
@@ -104,7 +105,8 @@ def test_f32_at_kernel_shapes_raises(cuda):
 
 
 @pytest.mark.parametrize("r", [1, 3, 8])
-@pytest.mark.parametrize("tk,kv_len", [(300, 257), (1500, 1500)])
+@pytest.mark.parametrize("tk,kv_len", [(300, 257), (1500, 1500), (301, 301),
+                                       (255, 200), (1, 1)])
 def test_decode_cross_kernel_matches_plain(cuda, r, tk, kv_len):
     rng = np.random.default_rng(2)
     b, h, d = 2, 3, 64
@@ -390,3 +392,234 @@ def test_engine_encoder_attention_form_runs_its_kernel(cuda, form):
         "decode_cross_attention": eng.cfg.n_text_layer * (2 + steps),
     })
     assert {fn.__name__: fn.launches for fn in kernels} == want
+
+
+# ---------------------------------------------------------------------------
+# K5: tiled flash attention (K/V longer than 4096), and the audio contexts
+# other than 1500 that reach it or K4 at another length
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("tq,tk,kv_len,causal", [
+    (256, 384, 300, False), (256, 384, 384, False), (256, 256, 256, True),
+    (333, 4301, 4200, False), (130, 4224, 4224, False), (200, 500, 500, True),
+    (500, 200, 150, True), (64, 129, 1, False),
+])
+def test_flash_kernel_matches_plain(cuda, tq, tk, kv_len, causal):
+    rng = np.random.default_rng(11)
+    b, h, d = 2, 3, 64
+    packed = [_randn(rng, (b, t, h * d), cuda, scale=d ** -0.25)
+              for t in (tq, tk, tk)]
+    q, k, v = (att.split_heads(x, h) for x in packed)
+    got = att.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    want = att.flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert got.shape == (b, h, tq, d)
+    # The two sides advance the running max at the same keys (128-key
+    # tiles), so P rounds alike up to exp's last bit; only the f32
+    # summation order differs, then one bf16 rounding of the output: K1's
+    # tolerance. The causal rule is K5's (row >= col on absolute indices):
+    # with Tq != Tk an offset of Tk - Tq moves whole rows.
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=2e-3)
+
+
+@pytest.mark.parametrize("form", ["fullkv", "q8", "pipe", "packed", "pair"])
+def test_long_kv_dispatches_to_flash(cuda, form):
+    """K/V longer than 4096 goes to K5 under every encoder-attention
+    form, through both dispatchers."""
+    rng = np.random.default_rng(12)
+    h = 2
+    q, k, v = (_randn(rng, (1, t, h * 64), cuda, scale=64 ** -0.25)
+               for t in (128, 4200, 4200))
+    others = (att.flash_attention_fullkv, att.flash_attention_fullkv_q8,
+              att.flash_attention_fullkv_pipe, att.flash_attention_fullkv_packed,
+              att.flash_attention_fullkv_packed_pair)
+    for fn in (att.flash_attention, *others):
+        fn.launches = 0
+    got = att.multihead_attention_packed(q, k, v, h, form=form)
+    want = att.merge_heads(att.flash_attention_plain(
+        *(att.split_heads(x, h) for x in (q, k, v))))
+    torch.cuda.synchronize()
+    assert att.flash_attention.launches == 1
+    assert all(fn.launches == 0 for fn in others)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=2e-3)
+
+
+def test_flash_wrapper_raises(cuda):
+    rng = np.random.default_rng(13)
+    x = att.split_heads(_randn(rng, (1, 256, 2 * 64), cuda), 2)
+    with pytest.raises(TypeError, match="bfloat16"):
+        att.flash_attention(x.float(), x.float(), x.float())
+    with pytest.raises(ValueError, match="block_k"):
+        att.flash_attention(x, x, x, block_k=64)
+    x128 = att.split_heads(_randn(rng, (1, 256, 2 * 128), cuda), 2)
+    with pytest.raises(ValueError, match="head dim"):
+        att.flash_attention(x128, x128, x128)
+    with pytest.raises(ValueError, match="kv_len"):
+        att.flash_attention(x, x, x, kv_len=0)
+    before = att.flash_attention.launches
+    assert att.flash_attention(x, x, x).shape == x.shape
+    assert att.flash_attention.launches == before + 1
+
+
+@pytest.mark.parametrize("case", ["reduced-odd", "reduced-256", "long"])
+def test_engine_audio_contexts_run_their_kernels(cuda, case):
+    """random:tiny (6 heads of 64) away from 1500 positions: a reduced
+    audio_ctx (odd: K4 reads 2-byte-aligned K/V rows) keeps K1 and runs K4
+    at Tk = audio_ctx; a model with 4200 positions encodes through K5 and
+    never K1."""
+    import dataclasses
+
+    from spittle_tpu_torch.engine.base import TranscribeParams
+    from spittle_tpu_torch.engine.whisper_engine import WhisperEngine
+    from spittle_tpu_torch.models.whisper.config import CONFIGS
+
+    CONFIGS["tiny-ctx4200"] = dataclasses.replace(
+        CONFIGS["tiny"], name="tiny-ctx4200", n_audio_ctx=4200)
+    long_model = case == "long"
+    audio_ctx = {"reduced-odd": 255, "reduced-256": 256, "long": None}[case]
+    eng = WhisperEngine(device="cuda", dtype=torch.bfloat16,
+                        quantize_encoder=True, wire="mulaw")
+    eng.load_model("random:tiny-ctx4200" if long_model else "random:tiny")
+    seconds = 84 if long_model else 5
+    rng = np.random.default_rng(3)
+    audio = [(rng.standard_normal(16000 * seconds) * 3000).astype(np.int16)
+             for _ in range(2)]
+    p = TranscribeParams(language="en", parallel_windows=True,
+                         condition_on_previous_text=False,
+                         temperatures=(0.0,), max_tokens=8, audio_ctx=audio_ctx)
+    kernels = (att.flash_attention_fullkv, att.flash_attention, w8a8_gemm,
+               att.decode_cross_attention)
+    for fn in kernels:
+        fn.launches = 0
+    results = list(eng.transcribe_stream([audio, audio], p, overlap_fetch=True))
+    assert len(results) == 2 and all(len(r) == 2 for r in results)
+    layers = eng.cfg.n_audio_layer
+    steps = sum(eng.last_decode_steps)
+    want = {fn.__name__: 0 for fn in kernels}
+    want.update({
+        ("flash_attention" if long_model else "flash_attention_fullkv"): 2 * layers,
+        "w8a8_gemm": 2 * 6 * layers,
+        "decode_cross_attention": eng.cfg.n_text_layer * (2 + steps),
+    })
+    assert {fn.__name__: fn.launches for fn in kernels} == want
+
+
+# ---------------------------------------------------------------------------
+# K11: K3's function, the heads of a batch item walked inside one block
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("h", [20, 3, 1])
+@pytest.mark.parametrize("b,r", [(1, 1), (16, 1), (2, 3), (2, 8)])
+@pytest.mark.parametrize("tk,kv_len", [(1536, 1500), (1500, 1500), (300, 257)])
+def test_mh_kernel_matches_plain(cuda, h, b, r, tk, kv_len):
+    rng = np.random.default_rng(14 + r)
+    q = _randn(rng, (b, h, r, 64), cuda, scale=64 ** -0.5)
+    qk, ks = _quant_kv(rng, b, h, tk, kv_len, 8, cuda)
+    qv, vs = _quant_kv(rng, b, h, tk, kv_len, 8, cuda)
+    before = att.decode_cross_attention_q8_mh.launches
+    got = att.decode_cross_attention_q8_mh(q, qk, ks, qv, vs, kv_len=kv_len)
+    want = att.decode_cross_attention_q8_plain(q, qk, ks, qv, vs, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert att.decode_cross_attention_q8_mh.launches == before + 1
+    # K3's tolerance for K3's reasons: bf16(p * vs) is rounded against the
+    # 256-position chunk's max and the chunks rescaled after.
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=2e-3)
+
+
+def test_mh_wrapper_raises(cuda):
+    rng = np.random.default_rng(15)
+    qk, ks = _quant_kv(rng, 1, 6, 300, 300, 8, cuda)
+    q = _randn(rng, (1, 6, 1, 64), cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        att.decode_cross_attention_q8_mh(q.float(), qk, ks, qk, ks)
+    with pytest.raises(ValueError, match="kv_len"):
+        att.decode_cross_attention_q8_mh(q, qk, ks, qk, ks, kv_len=301)
+    assert att.decode_cross_attention_q8_mh(q, qk, ks, qk, ks).shape == (1, 6, 1, 64)
+
+
+# ---------------------------------------------------------------------------
+# K12 and K13: in-place cache column writes, the position on the device
+# ---------------------------------------------------------------------------
+
+
+def _bits(x):
+    return x.view(torch.int16)
+
+
+@pytest.mark.parametrize("shape", [(3, 2, 2, 5, 64, 40), (7, 33), (1, 1, 128)])
+@pytest.mark.parametrize("pos", [0, 17, -1])
+def test_cache_col_write_matches_slice_assignment(cuda, shape, pos):
+    """K13: cache[..., pos] = cols, bit for bit, every other element
+    unchanged, in place (pos -1: the last position)."""
+    rng = np.random.default_rng(16)
+    ctx = shape[-1]
+    pos = pos % ctx
+    cache = _randn(rng, shape, cuda)
+    cols = _randn(rng, shape[:-1], cuda)
+    want = cache.clone()
+    want[..., pos] = cols
+    ptr = cache.data_ptr()
+    got = cw.alias_col_write(cache, cols, torch.tensor(pos, dtype=torch.int32,
+                                                       device=cuda))
+    torch.cuda.synchronize()
+    assert got is cache and cache.data_ptr() == ptr
+    wrong = (_bits(got) != _bits(want)).sum().item()
+    assert wrong == 0, (f"K13 not close to its plain version: {wrong} elements "
+                        f"differ from the slice assignment")
+
+
+@pytest.mark.parametrize("rows,ctx,hd", [(7, 24, 128), (64, 128, 1280), (1, 1, 8)])
+@pytest.mark.parametrize("pos", [0, 5, -1])
+def test_cache_col_write_rows_matches_slice_assignment(cuda, rows, ctx, hd, pos):
+    """K12: cache_t[:, pos, :] = cols, bit for bit and in place; rows need
+    not be a multiple of 8."""
+    rng = np.random.default_rng(17)
+    pos = pos % ctx
+    cache = _randn(rng, (rows, ctx, hd), cuda)
+    cols = _randn(rng, (rows, hd), cuda)
+    want = cache.clone()
+    want[:, pos, :] = cols
+    ptr = cache.data_ptr()
+    got = cw.alias_col_write_sub(cache, cols, torch.tensor(
+        pos, dtype=torch.int32, device=cuda))
+    torch.cuda.synchronize()
+    assert got is cache and cache.data_ptr() == ptr
+    wrong = (_bits(got) != _bits(want)).sum().item()
+    assert wrong == 0, (f"K12 not close to its plain version: {wrong} elements "
+                        f"differ from the slice assignment")
+
+
+def test_cache_col_write_position_and_checks(cuda):
+    """A position outside [0, ctx) writes nothing; the position follows
+    the device tensor between launches; host positions, other dtypes and
+    shapes raise."""
+    rng = np.random.default_rng(18)
+    cache = _randn(rng, (4, 6, 16), cuda)
+    cols = _randn(rng, (4, 6), cuda)
+    keep = cache.clone()
+    pos = torch.tensor(16, dtype=torch.int32, device=cuda)
+    cw.alias_col_write(cache, cols, pos)
+    assert torch.equal(cache, keep)
+    pos.fill_(-1)
+    cw.alias_col_write(cache, cols, pos)
+    assert torch.equal(cache, keep)
+    for p in (3, 9):  # the same tensor, updated on the device
+        pos.fill_(p)
+        cw.alias_col_write(cache, cols, pos)
+        keep[..., p] = cols
+    assert torch.equal(cache, keep)
+    with pytest.raises(TypeError, match="int32"):
+        cw.alias_col_write(cache, cols, 3)
+    with pytest.raises(TypeError, match="int32"):
+        cw.alias_col_write(cache, cols, pos.long())
+    with pytest.raises(TypeError, match="2-byte"):
+        cw.alias_col_write(cache.float(), cols.float(), pos)
+    with pytest.raises(ValueError, match="cols must be"):
+        cw.alias_col_write(cache, cols[:3], pos)
+    sub = _randn(rng, (4, 16, 100), cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        cw.alias_col_write_sub(sub, _randn(rng, (4, 100), cuda), pos)
+    with pytest.raises(ValueError, match="contiguous"):
+        cw.alias_col_write(cache.transpose(0, 1), cols.transpose(0, 1), pos)
