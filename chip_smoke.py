@@ -14,9 +14,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    and K6 decode cross-attention over int8 and packed int4 K/V (R = 1, 3,
    4, and once at B=56, bench.py's large-v3 batch), and the
    encoder-attention forms K7 (int8 products), K8 (packed heads), K9
-   (head pairs) and K10 (pipelined) at [8, 20, 1500, 64], each also with
-   kv_len 1300 and K8/K9 causal; K5 tiled flash attention at [2, 20, 6000,
-   64] (kv_len 6000 and 5000, causal once, ragged shapes); K4 at an odd
+   (head pairs, on the TMA + wgmma attention core) and K10 (pipelined) at
+   [8, 20, 1500, 64], each also with kv_len 1300 and K8/K9 causal; K5
+   tiled flash attention (the core's other instance) at [2, 20, 6000, 64]
+   (kv_len 6000 and 5000, causal once, ragged shapes, once on contiguous
+   [B, H, T, 64] tensors); K4 at an odd
    Tk and at Tk = 6000 with 8 rows; K1, K2 and K4 again at the shapes
    the reduced-context path gives them (256 positions: [8, 20, 256, 64],
    M = 2048, Tk = 256) and K4 at the long window's prefill; K11 (K3's
@@ -28,7 +30,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    CUDA graph of launches replayed between CUDA events; `call_ms`: eager
    calls between CUDA events, the host's per-call cost included), the
    plain version's time, a library yardstick the port never calls, and
-   the bound from the H100 data-sheet peaks. Then the weight-only int8
+   the bound from the H100 data-sheet peaks (K5 and K9 also their TFLOP/s
+   and the floor of their exponentials on the special-function units).
+   Then the weight-only int8
    decoder products of one decode step (plain matmuls, no kernel of
    their own), beside the same products on bf16 weights.
 3. The trained tiny checkpoint (tests/data/trained_tiny) through the
@@ -80,6 +84,9 @@ import torch
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
+# Special-function results per second (132 SMs x 16 per clock at ~1.85
+# GHz): the floor of an attention kernel's exponentials.
+PEAK_EXP = 3.9e12
 
 SEED, N_BATCHES, BATCH = 0, 2, 8
 LV3_BATCH = 56  # bench.py's large-v3 batch, for the K3/K6 timing
@@ -425,8 +432,9 @@ def reduced_shapes_phase(dev, rng):
 def flash_phase(dev, rng):
     """K5 against its plain version at the long window's shape [2, 20,
     6000, 64] bf16 (heads as strided views of packed projections):
-    kv_len 6000 and 5000, causal once, and a ragged shape with Tq != Tk
-    under the causal rule (row >= col on absolute indices)."""
+    kv_len 6000 and 5000, causal once, a ragged shape with Tq != Tk under
+    the causal rule (row >= col on absolute indices), and the same shape
+    on contiguous [B, H, T, 64] tensors (the other tensor-map layout)."""
     from spittle_tpu_torch.ops import attention as att
 
     F = torch.nn.functional
@@ -452,6 +460,14 @@ def flash_phase(dev, rng):
         check(f"K5 Tq=333 Tk=4301 kv_len={kv_len}{' causal' if causal else ''}",
               err, 1e-2 * want.float().abs().max().item())
         err_max = max(err_max, err)
+    qc, kc, vc = (x.contiguous() for x in (qr, kr, vr))
+    got = att.flash_attention(qc, kc, vc, kv_len=4301)
+    want = att.flash_attention_plain(qc, kc, vc, kv_len=4301)
+    err = (got.float() - want.float()).abs().max().item()
+    check("K5 Tq=333 Tk=4301 contiguous [B,H,T,64]", err,
+          1e-2 * want.float().abs().max().item())
+    err_max = max(err_max, err)
+    del qc, kc, vc, got, want
     kernel = lambda: att.flash_attention(q, k, v, kv_len=t)  # noqa: E731
     ms, eager_ms = time_ms(kernel, 10), call_ms(kernel, 10)
     causal_ms = time_ms(lambda: att.flash_attention(q, k, v, causal=True), 10)
@@ -459,10 +475,11 @@ def flash_phase(dev, rng):
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0), 10)
     flops = 4.0 * b * h * t * t * d
     bms, by = bound(flops, PEAK_BF16_FLOPS, 4 * b * h * t * d * 2)
-    print(f"  ms {ms:.4f} (eager call_ms {eager_ms:.4f}; causal {causal_ms:.4f})  "
-          f"plain_ms {plain_ms:.4f}  library_ms (F.scaled_dot_product_attention) "
-          f"{lib_ms:.4f}  bound_ms {bms:.4f} ({by})  "
-          f"{flops / ms / 1e9:.1f} TFLOP/s")
+    exp_ms = b * h * t * t / PEAK_EXP * 1e3
+    print(f"  ms {ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s; eager call_ms "
+          f"{eager_ms:.4f}; causal {causal_ms:.4f})  plain_ms {plain_ms:.4f}  "
+          f"library_ms (F.scaled_dot_product_attention) {lib_ms:.4f}  "
+          f"bound_ms {bms:.4f} ({by})  exponentials' floor {exp_ms:.4f} ms")
     del packed, q, k, v, qr, kr, vr
     torch.cuda.empty_cache()
     # K5 against K1 at equal work: both on K1's shape [8, 20, 1500, 64],
@@ -484,10 +501,11 @@ def flash_phase(dev, rng):
                  source="spittle_tpu_torch/csrc/flash_attention.cu",
                  replaces="spittle_tpu/ops/attention.py:105",
                  work="q,k,v [2,20,6000,64] (a long-window encoder layer)",
-                 max_abs_err=err_max, ms=ms, call_ms=eager_ms, causal_ms=causal_ms,
+                 max_abs_err=err_max, ms=ms, tflops=flops / ms / 1e9,
+                 call_ms=eager_ms, causal_ms=causal_ms,
                  ms_at_k1_shape=k5_ms, k1_ms_at_k1_shape=k1_ms,
-                 plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
-                 library="F.scaled_dot_product_attention")]
+                 plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                 library_ms=lib_ms, library="F.scaled_dot_product_attention")]
 
 
 def mh_phase(dev):
@@ -631,8 +649,11 @@ def cache_write_phase(dev):
 def encoder_forms_phase(dev, rng):
     """K7-K10 against their plain versions at [8, 20, 1500, 64] bf16:
     packed [B, T, H*64] projections (K8, K9) and their strided head views
-    (K7, K10), kv_len 1500 and 1300, causal for K8 and K9. K8, K9 and K10
-    run K1's arithmetic, so they must also give K1's output bit for bit."""
+    (K7, K10), kv_len 1500 and 1300, causal for K8 and K9. K8 and K10 run
+    K1's arithmetic, so they must also give K1's output bit for bit. K9 is
+    an instance of the wgmma attention core, whose sums run in another
+    order: it is held to K1's tolerance, and its largest distance from K1
+    is printed."""
     from spittle_tpu_torch.ops import attention as att
 
     F = torch.nn.functional
@@ -645,7 +666,7 @@ def encoder_forms_phase(dev, rng):
         ("K8", "packed", 478, att.flash_attention_fullkv_packed_plain,
          "fullkv_attention.cu"),
         ("K9", "pair", 573, att.flash_attention_fullkv_packed_plain,
-         "fullkv_attention.cu"),
+         "fullkv_attention_pair.cu"),
         ("K10", "pipe", 289, att.flash_attention_fullkv_plain,
          "fullkv_attention_pipe.cu"),
     )
@@ -671,13 +692,18 @@ def encoder_forms_phase(dev, rng):
                 step = att.q8_code_step(*heads, kv_len).max().item()
                 check(label, err, 2.0 ** -7 * big + step)
             else:
-                # K1's tolerance, and K1's bits.
+                # K1's tolerance; and K1's bits, except for K9.
                 check(label, err, 1e-2 * big)
                 k1 = att.flash_attention_fullkv(*heads, causal=causal, kv_len=kv_len)
-                same = torch.equal(got, att.merge_heads(k1) if on_packed else k1)
-                print(f"  {label}: bit-identical to K1: {same}")
-                if not same:
-                    raise AssertionError(f"{label}: differs from K1's output")
+                k1 = att.merge_heads(k1) if on_packed else k1
+                if form == "pair":
+                    print(f"  {label}: max |K9 - K1| "
+                          f"{(got.float() - k1.float()).abs().max().item():.3e}")
+                else:
+                    same = torch.equal(got, k1)
+                    print(f"  {label}: bit-identical to K1: {same}")
+                    if not same:
+                        raise AssertionError(f"{label}: differs from K1's output")
             err_max = max(err_max, err)
             del got, want
         kernel = lambda: fn(*args, kv_len=t)  # noqa: E731
@@ -685,18 +711,26 @@ def encoder_forms_phase(dev, rng):
         plain_ms = time_ms(lambda: plain(*args, kv_len=t), 3, 1)
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(*heads, scale=1.0), 20)
         rate = PEAK_INT8_OPS if form == "q8" else PEAK_BF16_FLOPS
-        bms, by = bound(4.0 * b * h * t * t * d, rate, 4 * b * h * t * d * 2)
+        flops = 4.0 * b * h * t * t * d
+        bms, by = bound(flops, rate, 4 * b * h * t * d * 2)
         lib = "F.scaled_dot_product_attention on the same bf16 q, k, v"
         if form == "q8":
             lib += " (no library call computes the int8 function)"
-        print(f"  ms {ms:.4f} (eager call_ms {eager_ms:.4f})  plain_ms {plain_ms:.4f}  "
-              f"library_ms ({lib}) {lib_ms:.4f}  bound_ms {bms:.4f} ({by})")
-        rows.append(dict(name=fn.__name__, route="cuda",
-                         source=f"spittle_tpu_torch/csrc/{src}",
-                         replaces=f"spittle_tpu/ops/attention.py:{line}",
-                         max_abs_err=err_max, ms=ms, call_ms=eager_ms,
-                         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                         library_ms=lib_ms, library=lib))
+        row = dict(name=fn.__name__, route="cuda",
+                   source=f"spittle_tpu_torch/csrc/{src}",
+                   replaces=f"spittle_tpu/ops/attention.py:{line}",
+                   max_abs_err=err_max, ms=ms, call_ms=eager_ms,
+                   plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                   library_ms=lib_ms, library=lib)
+        rate_txt = floor_txt = ""
+        if form == "pair":
+            row.update(tflops=flops / ms / 1e9)
+            rate_txt = f" ({row['tflops']:.1f} TFLOP/s)"
+            floor_txt = f"  exponentials' floor {b * h * t * t / PEAK_EXP * 1e3:.4f} ms"
+        print(f"  ms {ms:.4f}{rate_txt} (eager call_ms {eager_ms:.4f})  plain_ms "
+              f"{plain_ms:.4f}  library_ms ({lib}) {lib_ms:.4f}  bound_ms {bms:.4f} "
+              f"({by}){floor_txt}")
+        rows.append(row)
         torch.cuda.empty_cache()
     return rows
 

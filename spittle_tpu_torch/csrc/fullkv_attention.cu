@@ -1,5 +1,5 @@
 // Encoder self-attention for Hopper (sm_90a): o = softmax(q k^T) v per
-// (batch, head), with a kv_len mask and an optional causal mask. Three
+// (batch, head), with a kv_len mask and an optional causal mask. Two
 // instances of one body:
 //
 //  - K1 spt_fullkv_attention: heads addressed through (batch, head, time)
@@ -9,10 +9,9 @@
 //    layout fixed at compile time (time stride H*64, head stride 64), in
 //    and out. Replaces flash_attention_fullkv_packed (body _fullkv_kernel
 //    with q_axis=2).
-//  - K9 spt_fullkv_attention_packed_pair: the packed layout with two
-//    adjacent heads per block (8 warps), so every K/V tile row is 256
-//    contiguous bytes. Replaces flash_attention_fullkv_packed_pair (body
-//    _fullkv_pair_kernel).
+//
+// (K9, the head-pair form, is an instance of the attention core in
+// fullkv_attention_pair.cu.)
 //
 // Inputs arrive pre-scaled by Dh^-0.25 (Whisper's split scaling), so no
 // scale is applied here.
@@ -26,43 +25,41 @@
 // T = 1536) in VMEM and does one big QK^T, one softmax, one PV. A Hopper
 // block has at most 227 KB of shared memory, so this is an online-softmax
 // (FlashAttention-2 style) loop instead: a block owns 64 query rows of
-// one head (4 warps x 16 rows; K9: of two heads, 8 warps), holds them as
-// bf16 mma.sync A fragments in registers, and streams K/V in 64-key tiles
-// through shared memory. Scores stay in f32 registers; P is rounded to
-// bf16 for the PV product exactly where the TPU kernel casts p to v's
-// dtype, and the row sums l accumulate the f32 P. 1/l is applied after
+// one head (4 warps x 16 rows), holds them as bf16 mma.sync A fragments
+// in registers, and streams K/V in 64-key tiles through shared memory.
+// Scores stay in f32 registers; P is rounded to bf16 for the PV product
+// exactly where the TPU kernel casts p to v's dtype, and the row sums l
+// accumulate the f32 P. 1/l is applied after
 // PV, as on the TPU. The ragged edge (1500 is not a multiple of 64) is
 // masked in the kernel against kv_len; rows past Tk are zero-filled in
 // shared memory, so nothing is padded in device memory. The TPU kernel
 // takes an unmasked row max and masks after exp; the online loop masks
 // before the running max: the same function, rounded differently. The
 // causal mask is row >= col on absolute indices, as on the TPU.
-// cp.async pipelining is K10 (fullkv_attention_pipe.cu); ldmatrix and
-// wgmma are later work.
+// cp.async pipelining is K10 (fullkv_attention_pipe.cu); TMA and wgmma
+// are the attention core's (attention_sm90.cuh).
 #include "common.cuh"
 
 namespace {
 
 constexpr int kD = 64;   // head dim
-constexpr int kBQ = 64;  // query rows per block (4 warps x 16, per head)
+constexpr int kBQ = 64;  // query rows per block (4 warps x 16)
 constexpr int kBKV = 64; // keys per tile
+constexpr int kLdh = kD + 8;  // 144-byte rows: conflict-free fragment loads
 
 struct Strides {
   long long b, h, t;
 };
 
-template <int kHeads>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src,
                                           long long st, int t0, int tmax,
                                           int tid) {
-  // 64 rows x (kHeads*64) bf16 in 16-byte chunks (8 or 16 per row);
-  // rows >= tmax are zeroed.
-  constexpr int kRowShift = kHeads == 1 ? 3 : 4;
-  constexpr int kLdh = kHeads * kD + 8;
+  // 64 rows x 64 bf16 in 16-byte chunks (8 per row); rows >= tmax are
+  // zeroed.
 #pragma unroll
-  for (int ch = tid; ch < kBKV << kRowShift; ch += kHeads * 128) {
-    const int r = ch >> kRowShift, cc = (ch & ((1 << kRowShift) - 1)) * 8;
+  for (int ch = tid; ch < kBKV << 3; ch += 128) {
+    const int r = ch >> 3, cc = (ch & 7) * 8;
     const int t = t0 + r;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (t < tmax) v = *reinterpret_cast<const uint4*>(src + t * st + cc);
@@ -70,27 +67,19 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   }
 }
 
-// kHeads: heads per block (1 or 2; 2 needs the packed layout).
 // kPacked: q/k/v/o are [B, T, H*64] tensors and the strides below are
 // derived from H, Tq and Tk; otherwise they come from the arguments.
-template <int kHeads, bool kPacked>
-__global__ void __launch_bounds__(kHeads * 128)
+template <bool kPacked>
+__global__ void __launch_bounds__(128)
     fullkv_attention_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ k,
                             const __nv_bfloat16* __restrict__ v,
                             __nv_bfloat16* __restrict__ o, int H, int Tq,
                             int Tk, int kv_len, int causal, Strides qs,
                             Strides ks, Strides vs, Strides os) {
-  // Tile rows hold kHeads heads side by side, +8 bf16 of padding: 144 B
-  // (K1, K8) or 272 B (K9), both conflict-free for the fragment loads.
-  constexpr int kLdh = kHeads * kD + 8;
-  // K9's Q tile shares the K buffer (three 64 x 136 tiles would pass the
-  // 48 KB of static shared memory): Q is read into registers before the
-  // first K tile lands, and the loop opens with a barrier.
-  __shared__ __align__(16) __nv_bfloat16 Qbuf[kHeads == 1 ? kBQ * kLdh : 8];
+  __shared__ __align__(16) __nv_bfloat16 Qs[kBQ * kLdh];
   __shared__ __align__(16) __nv_bfloat16 Ks[kBKV * kLdh];
   __shared__ __align__(16) __nv_bfloat16 Vs[kBKV * kLdh];
-  __nv_bfloat16* Qs = kHeads == 1 ? Qbuf : Ks;
 
   if (kPacked) {
     const long long row = static_cast<long long>(H) * kD;
@@ -102,25 +91,20 @@ __global__ void __launch_bounds__(kHeads * 128)
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c = lane & 3;
-  // Head within the block and row group (constants 0 and warp for the
-  // one-head instances, so K1's addressing is what it was before K9).
-  const int hw = kHeads == 1 ? 0 : warp >> 2;
-  const int wr = kHeads == 1 ? warp : warp & 3;
-  const int bh = blockIdx.x, groups = H / kHeads;
-  const int b = bh / groups, h0 = bh % groups * kHeads;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
   const int q0 = blockIdx.y * kBQ;
-  q += b * qs.b + h0 * qs.h;
-  k += b * ks.b + h0 * ks.h;
-  v += b * vs.b + h0 * vs.h;
-  o += b * os.b + (h0 + hw) * os.h;
-  const int hc = hw * kD;  // this warp's head's column offset in a tile row
+  q += b * qs.b + h * qs.h;
+  k += b * ks.b + h * ks.h;
+  v += b * vs.b + h * vs.h;
+  o += b * os.b + h * os.h;
 
-  load_tile<kHeads>(Qs, q, qs.t, q0, Tq, tid);
+  load_tile(Qs, q, qs.t, q0, Tq, tid);
   __syncthreads();
   uint32_t qf[4][4];
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    const int r = wr * 16 + g, col = hc + kk * 16 + 2 * c;
+    const int r = warp * 16 + g, col = kk * 16 + 2 * c;
     qf[kk][0] = spt::ld_u32(&Qs[r * kLdh + col]);
     qf[kk][1] = spt::ld_u32(&Qs[(r + 8) * kLdh + col]);
     qf[kk][2] = spt::ld_u32(&Qs[r * kLdh + col + 8]);
@@ -134,14 +118,14 @@ __global__ void __launch_bounds__(kHeads * 128)
     for (int j = 0; j < 4; ++j) oacc[i][j] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};
-  const int row_base = q0 + wr * 16 + g;  // rows row_base, row_base + 8
+  const int row_base = q0 + warp * 16 + g;  // rows row_base, row_base + 8
 
   int kv_end = kv_len;
   if (causal) kv_end = min(kv_len, q0 + kBQ);
   for (int kv0 = 0; kv0 < kv_end; kv0 += kBKV) {
     __syncthreads();  // every warp is done with the previous tile (and Q)
-    load_tile<kHeads>(Ks, k, ks.t, kv0, Tk, tid);
-    load_tile<kHeads>(Vs, v, vs.t, kv0, Tk, tid);
+    load_tile(Ks, k, ks.t, kv0, Tk, tid);
+    load_tile(Vs, v, vs.t, kv0, Tk, tid);
     __syncthreads();
 
     float s[8][4];
@@ -151,7 +135,7 @@ __global__ void __launch_bounds__(kHeads * 128)
       for (int j = 0; j < 4; ++j) s[nt][j] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const int key = nt * 8 + g, col = hc + kk * 16 + 2 * c;
+        const int key = nt * 8 + g, col = kk * 16 + 2 * c;
         uint32_t bfr[2];
         bfr[0] = spt::ld_u32(&Ks[key * kLdh + col]);
         bfr[1] = spt::ld_u32(&Ks[key * kLdh + col + 8]);
@@ -209,7 +193,7 @@ __global__ void __launch_bounds__(kHeads * 128)
       const int key = kk * 16 + 2 * c;
 #pragma unroll
       for (int dt = 0; dt < 8; ++dt) {
-        const int d = hc + dt * 8 + g;
+        const int d = dt * 8 + g;
         uint32_t bfr[2];
         bfr[0] = spt::pack_bf16_raw(Vs[key * kLdh + d], Vs[(key + 1) * kLdh + d]);
         bfr[1] = spt::pack_bf16_raw(Vs[(key + 8) * kLdh + d],
@@ -236,13 +220,13 @@ __global__ void __launch_bounds__(kHeads * 128)
   }
 }
 
-template <int kHeads, bool kPacked>
+template <bool kPacked>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
            int Tq, int Tk, int kv_len, int causal, Strides qs, Strides ks,
            Strides vs, Strides os, void* stream) {
-  dim3 grid(B * H / kHeads, (Tq + kBQ - 1) / kBQ);
-  fullkv_attention_kernel<kHeads, kPacked>
-      <<<grid, kHeads * 128, 0, static_cast<cudaStream_t>(stream)>>>(
+  dim3 grid(B * H, (Tq + kBQ - 1) / kBQ);
+  fullkv_attention_kernel<kPacked>
+      <<<grid, 128, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const __nv_bfloat16*>(q),
           static_cast<const __nv_bfloat16*>(k),
           static_cast<const __nv_bfloat16*>(v),
@@ -262,10 +246,10 @@ SPT_API int spt_fullkv_attention(const void* q, const void* k, const void* v,
                                  long long ksh, long long kst, long long vsb,
                                  long long vsh, long long vst, long long osb,
                                  long long osh, long long ost, void* stream) {
-  return launch<1, false>(q, k, v, o, B, H, Tq, Tk, kv_len, causal,
-                          Strides{qsb, qsh, qst}, Strides{ksb, ksh, kst},
-                          Strides{vsb, vsh, vst}, Strides{osb, osh, ost},
-                          stream);
+  return launch<false>(q, k, v, o, B, H, Tq, Tk, kv_len, causal,
+                       Strides{qsb, qsh, qst}, Strides{ksb, ksh, kst},
+                       Strides{vsb, vsh, vst}, Strides{osb, osh, ost},
+                       stream);
 }
 
 // K8. q, o contiguous [B, Tq, H*64]; k, v contiguous [B, Tk, H*64].
@@ -274,17 +258,6 @@ SPT_API int spt_fullkv_attention_packed(const void* q, const void* k,
                                         int Tq, int Tk, int kv_len,
                                         int causal, void* stream) {
   const Strides none{0, 0, 0};
-  return launch<1, true>(q, k, v, o, B, H, Tq, Tk, kv_len, causal, none, none,
-                         none, none, stream);
-}
-
-// K9. As K8, with H even.
-SPT_API int spt_fullkv_attention_packed_pair(const void* q, const void* k,
-                                             const void* v, void* o, int B,
-                                             int H, int Tq, int Tk,
-                                             int kv_len, int causal,
-                                             void* stream) {
-  const Strides none{0, 0, 0};
-  return launch<2, true>(q, k, v, o, B, H, Tq, Tk, kv_len, causal, none, none,
-                         none, none, stream);
+  return launch<true>(q, k, v, o, B, H, Tq, Tk, kv_len, causal, none, none,
+                      none, none, stream);
 }

@@ -5,13 +5,15 @@ probe's kernel).
 - attention_reference: plain attention (the reference's XLA form).
 - flash_attention (K5, csrc/flash_attention.cu): tiled online-softmax
   attention for K/V longer than 4096 positions (a long-window model's
-  encoder); replaces the Pallas `flash_attention`.
+  encoder); replaces the Pallas `flash_attention`. An instance of the
+  TMA + wgmma attention core (csrc/attention_sm90.cuh).
 - flash_attention_fullkv (K1, csrc/fullkv_attention.cu): encoder
   self-attention; replaces the Pallas `flash_attention_fullkv`.
 - The encoder-attention forms, each replacing the Pallas kernel of the
-  same name: flash_attention_fullkv_packed (K8) and
-  flash_attention_fullkv_packed_pair (K9), K1's body on the packed
-  [B, T, H*Dh] projections (csrc/fullkv_attention.cu);
+  same name: flash_attention_fullkv_packed (K8), K1's body on the packed
+  [B, T, H*Dh] projections (csrc/fullkv_attention.cu), and
+  flash_attention_fullkv_packed_pair (K9, csrc/fullkv_attention_pair.cu),
+  the attention core's other instance, two heads per block;
   flash_attention_fullkv_pipe (K10, csrc/fullkv_attention_pipe.cu), K1
   software-pipelined; flash_attention_fullkv_q8 (K7,
   csrc/fullkv_attention_q8.cu), both products int8.
@@ -129,9 +131,23 @@ def _check_attn_operand(name, t, d):
                         "(the kernel has no other form; run the model in bf16)")
     if t.shape[-1] != d or t.stride(-1) != 1:
         raise ValueError(f"{name}: head dim must be {d} and contiguous")
+    # 16-byte rows and strides: what the kernels' 16-byte loads and the
+    # TMA tensor maps of K5 and K9 need.
     if any(s % 8 for s in t.stride()[:-1]) or t.data_ptr() % 16:
         raise ValueError(f"{name}: strides must be multiples of 8 elements "
                          "and the data 16-byte aligned")
+
+
+# The wgmma attention core (K5, K9) puts batch x head groups on the grid's
+# y axis, which CUDA caps at 65535; its x axis holds the query blocks, so
+# that blocks of one head run side by side and share its K/V in L2.
+_SM90_MAX_GROUPS = 65535
+
+
+def _check_sm90_groups(name, groups):
+    if groups > _SM90_MAX_GROUPS:
+        raise ValueError(f"{name}: {groups} (batch x head groups) blocks on the "
+                         f"grid's y axis, past CUDA's {_SM90_MAX_GROUPS}")
 
 
 def _check_split_qkv(name, q, k, v, kv_len):
@@ -241,6 +257,7 @@ def flash_attention(q, k, v, causal: bool = False,
                          f"{DEFAULT_BLOCK_K}, the kernel's key tile")
     kv_len = _check_split_qkv("flash_attention", q, k, v, kv_len)
     b, h, tq, d = q.shape
+    _check_sm90_groups("flash_attention", b * h)
     out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     lib = _build.load_library()
     _build.check(lib.spt_flash_attention(
@@ -391,7 +408,7 @@ flash_attention_fullkv_q8.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K8 and K9: K1 on the packed [B, T, H*Dh] projections
+# K8 and K9: K1's function on the packed [B, T, H*Dh] projections
 # ---------------------------------------------------------------------------
 
 
@@ -458,9 +475,13 @@ def flash_attention_fullkv_packed_pair(q, k, v, n_head: int,
                                        causal: bool = False,
                                        kv_len: Optional[int] = None
                                        ) -> torch.Tensor:
-    """K9: K8 with two adjacent heads per block; n_head must be even."""
+    """K9: K8's function with two adjacent heads per block, on the wgmma
+    attention core; n_head must be even. Within K1's tolerance of the
+    plain version, not K1's bits (its sums round in another order)."""
     if q.device.type == "cpu":
         return flash_attention_fullkv_packed_plain(q, k, v, n_head, causal, kv_len)
+    _check_sm90_groups("flash_attention_fullkv_packed_pair",
+                       q.shape[0] * (n_head // 2))
     out = _launch_packed("flash_attention_fullkv_packed_pair",
                          "spt_fullkv_attention_packed_pair", q, k, v, n_head,
                          causal, kv_len, 2)

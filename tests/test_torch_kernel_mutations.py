@@ -1,8 +1,8 @@
 """Mutation check of the card tests of K3 and K6 (decode cross-attention
 over int8 and packed int4 K/V), K7 (int8-dot encoder attention), K5
-(tiled flash attention) and K13 (cache column write): each case breaks
-the kernel in a copy of
-the package under a temporary directory, where the copy builds its own
+(tiled flash attention) and K9 (head pairs), both on the wgmma attention
+core, and K13 (cache column write): each case breaks the kernel in a copy
+of the package under a temporary directory, where the copy builds its own
 kernel library, and the card tests of tests/test_torch_kernels_cuda.py
 must then fail on the kernel's values. Each edit names the exact text it
 replaces, so a case fails loudly once the source no longer holds it.
@@ -27,7 +27,9 @@ pytestmark = pytest.mark.cuda
 REPO = Path(__file__).resolve().parents[1]
 SRC = "spittle_tpu_torch/csrc/decode_cross_attention_q.cu"
 Q8_SRC = "spittle_tpu_torch/csrc/fullkv_attention_q8.cu"
-FLASH_SRC = "spittle_tpu_torch/csrc/flash_attention.cu"
+# K5 and K9 are instances of the attention core; their masks and operand
+# addressing live there.
+CORE_SRC = "spittle_tpu_torch/csrc/attention_sm90.cuh"
 CACHE_SRC = "spittle_tpu_torch/csrc/cache_col_write.cu"
 WRAPPER = "spittle_tpu_torch/ops/attention.py"
 CARD_TESTS = "tests/test_torch_kernels_cuda.py"
@@ -66,8 +68,18 @@ MUTATIONS = {
     # K5: attention_reference's Tk - Tq offset put into the causal rule,
     # which K5 does not have; it shows only where Tq != Tk.
     "flash_causal_offset": ("flash_kernel_matches and 200-500-500", [
-        (FLASH_SRC, "(causal && col > row)) s[nt][j] = kNegInf;",
-         "(causal && col > row + (Tk - Tq))) s[nt][j] = kNegInf;"),
+        (CORE_SRC, "(p.causal && col > row)) s[i] = kNegBig;",
+         "(p.causal && col > row + (p.Tk - p.Tq))) s[i] = kNegBig;"),
+    ]),
+    # K5: the key mask taken against Tk instead of kv_len, so keys from
+    # kv_len to Tk enter the softmax.
+    "flash_kv_len_mask": ("flash_kernel_matches and 256-384-300", [
+        (CORE_SRC, "if (col >= p.kv_len || (p.causal", "if (col >= p.Tk || (p.causal"),
+    ]),
+    # K9: warpgroup 1 reads head h0's V box instead of its own head's.
+    "pair_v_box": ("packed_kernel_matches and pair", [
+        (CORE_SRC, "const uint32_t v_off = (P::kKvBoxes + w * P::kHeadSteps) * L::kBoxBytes;",
+         "const uint32_t v_off = (P::kKvBoxes + 0 * P::kHeadSteps) * L::kBoxBytes;"),
     ]),
     # K13 (and K12, the same body): a neighbouring position written.
     "cache_neighbour_column": ("cache_col_write_matches", [

@@ -268,9 +268,11 @@ def test_pipe_kernel_matches_plain_and_k1(cuda, t, kv_len):
 @pytest.mark.parametrize("pair", [False, True], ids=["packed", "pair"])
 @pytest.mark.parametrize("t,kv_len,causal", [
     (1500, 1500, False), (1500, 1300, False), (1500, 1500, True),
-    (300, 290, True),
+    (300, 290, True), (1500, 1281, False), (1000, 1000, False),
 ])
 def test_packed_kernel_matches_plain_and_k1(cuda, pair, t, kv_len, causal):
+    """K8 and K9 on the packed layout. kv_len 1281 is one key past a
+    128-key tile; t = 1000 ends inside a 64-row block."""
     rng = np.random.default_rng(6)
     h = 4
     q, k, v = _packed(rng, 2, t, h, cuda)
@@ -284,9 +286,12 @@ def test_packed_kernel_matches_plain_and_k1(cuda, pair, t, kv_len, causal):
         kv_len=kv_len))
     torch.cuda.synchronize()
     assert got.shape == q.shape and got.is_contiguous()
-    # K1's tolerance, and K1's bits: the same body reading the packed layout.
+    # K1's tolerance for both. K8 is K1's body reading the packed layout,
+    # so it gives K1's bits; K9 runs on the wgmma core, whose sums (and
+    # exp2) round in another order.
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=2e-3)
-    assert torch.equal(got, k1)
+    if not pair:
+        assert torch.equal(got, k1)
 
 
 @pytest.mark.parametrize("t,kv_len", [(1500, 1500), (1500, 1300), (1536, 1536),
@@ -319,7 +324,8 @@ def test_q8_kernel_matches_plain(cuda, t, kv_len):
 @pytest.mark.parametrize("form", ["q8", "pipe", "packed", "pair"])
 def test_form_wrappers_raise(cuda, form):
     """On the card a form's wrapper launches its kernel or raises: f32,
-    Dh 128, and (pair) an odd head count never fall back."""
+    Dh 128, and (pair) an odd head count or more head pairs than the
+    grid holds never fall back."""
     rng = np.random.default_rng(8)
     h = 2
 
@@ -341,6 +347,10 @@ def test_form_wrappers_raise(cuda, form):
     if form == "pair":
         with pytest.raises(ValueError, match="even head count"):
             call(_randn(rng, (1, 256, 3 * 64), cuda), heads=3)
+        # B * H / 2 past the grid's y axis (65535) raises before the launch.
+        wide = torch.zeros((1, 1, 131072 * 64), dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError, match="grid's y axis"):
+            call(wide, heads=131072)
     assert call(x).shape[-1] in (64, h * 64)
     launched = {"q8": att.flash_attention_fullkv_q8,
                 "pipe": att.flash_attention_fullkv_pipe,
@@ -400,17 +410,25 @@ def test_engine_encoder_attention_form_runs_its_kernel(cuda, form):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("tq,tk,kv_len,causal", [
-    (256, 384, 300, False), (256, 384, 384, False), (256, 256, 256, True),
-    (333, 4301, 4200, False), (130, 4224, 4224, False), (200, 500, 500, True),
-    (500, 200, 150, True), (64, 129, 1, False),
+@pytest.mark.parametrize("tq,tk,kv_len,causal,contiguous", [
+    (256, 384, 300, False, False), (256, 384, 384, False, False),
+    (256, 256, 256, True, False), (333, 4301, 4200, False, False),
+    (130, 4224, 4224, False, False), (200, 500, 500, True, False),
+    (500, 200, 150, True, False), (64, 129, 1, False, False),
+    (130, 4225, 4225, False, True), (333, 4301, 4200, True, True),
 ])
-def test_flash_kernel_matches_plain(cuda, tq, tk, kv_len, causal):
+def test_flash_kernel_matches_plain(cuda, tq, tk, kv_len, causal, contiguous):
+    """Heads as strided views of packed projections (as the encoder passes
+    them), or contiguous [B, H, T, 64] tensors: the two tensor-map layouts.
+    Tk 4225 is one key past a 128-multiple: a last tile of one key and 127
+    rows that TMA fills with zeros."""
     rng = np.random.default_rng(11)
     b, h, d = 2, 3, 64
     packed = [_randn(rng, (b, t, h * d), cuda, scale=d ** -0.25)
               for t in (tq, tk, tk)]
     q, k, v = (att.split_heads(x, h) for x in packed)
+    if contiguous:
+        q, k, v = (x.contiguous() for x in (q, k, v))
     got = att.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
     want = att.flash_attention_plain(q, k, v, causal=causal, kv_len=kv_len)
     torch.cuda.synchronize()
@@ -457,6 +475,10 @@ def test_flash_wrapper_raises(cuda):
         att.flash_attention(x128, x128, x128)
     with pytest.raises(ValueError, match="kv_len"):
         att.flash_attention(x, x, x, kv_len=0)
+    # B * H past the grid's y axis (65535) raises before the launch.
+    wide = torch.zeros((1, 65536, 1, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="grid's y axis"):
+        att.flash_attention(wide, wide, wide)
     before = att.flash_attention.launches
     assert att.flash_attention(x, x, x).shape == x.shape
     assert att.flash_attention.launches == before + 1
