@@ -9,19 +9,24 @@ Phases, each printing its own lines; any failure exits non-zero:
    (nvidia-smi), and the build time of the kernels (built from
    spittle_tpu_torch/csrc on first use).
 2. Kernels against their plain PyTorch versions at the main-path
-   shapes with B=8 windows: K1 encoder attention, K2 W8A8 GEMM (the six
+   shapes with B=8 windows: K1 encoder attention (an instance of the TMA
+   + wgmma attention core), K2 W8A8 GEMM (the six
    GEMMs of one encoder layer), K4 decode cross-attention (bf16 K/V), K3
    and K6 decode cross-attention over int8 and packed int4 K/V (R = 1, 3,
    4, and once at B=56, bench.py's large-v3 batch), and the
-   encoder-attention forms K7 (int8 products), K8 (packed heads), K9
-   (head pairs, on the TMA + wgmma attention core) and K10 (pipelined) at
-   [8, 20, 1500, 64], each also with kv_len 1300 and K8/K9 causal; K5
-   tiled flash attention (the core's other instance) at [2, 20, 6000, 64]
-   (kv_len 6000 and 5000, causal once, ragged shapes, once on contiguous
-   [B, H, T, 64] tensors); K4 at an odd
-   Tk and at Tk = 6000 with 8 rows; K1, K2 and K4 again at the shapes
+   encoder-attention forms K7 (int8 products), K8 (packed heads, K1's
+   instance of the core on the packed strides), K9 (head pairs, the
+   core's other policy) and K10 (pipelined, mma.sync) at [8, 20, 1500,
+   64], each also with kv_len 1300 and K8/K9 causal (K8 bit for bit
+   against K1, K9 and K10 to K1's tolerance); K5 tiled flash attention
+   (K1's policy and tile) at [2, 20, 6000, 64] (kv_len 6000 and 5000,
+   causal once, ragged shapes, once on contiguous [B, H, T, 64] tensors)
+   and bit for bit against K1 on K1's inputs; K4 at an odd Tk, at
+   Tk = 6000 with 8 rows and at Tk = 6500 with 8 rows (past its shared
+   memory: the chunked online softmax); K1, K2 and K4 again at the shapes
    the reduced-context path gives them (256 positions: [8, 20, 256, 64],
-   M = 2048, Tk = 256) and K4 at the long window's prefill; K11 (K3's
+   M = 2048, Tk = 256; K1 also timed) and K4 at the long window's
+   prefill; K11 (K3's
    function, all heads walked in the block) at the decode
    cross-attention probe's shape, R = 1 and 3;
    K12 and K13 (in-place cache column writes) at the cache probe's shape,
@@ -30,8 +35,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    CUDA graph of launches replayed between CUDA events; `call_ms`: eager
    calls between CUDA events, the host's per-call cost included), the
    plain version's time, a library yardstick the port never calls, and
-   the bound from the H100 data-sheet peaks (K5 and K9 also their TFLOP/s
-   and the floor of their exponentials on the special-function units).
+   the bound from the H100 data-sheet peaks (K1, K5, K8 and K9 also their
+   TFLOP/s and the floor of their exponentials on the special-function
+   units).
    Then the weight-only int8
    decoder products of one decode step (plain matmuls, no kernel of
    their own), beside the same products on bf16 weights.
@@ -224,14 +230,18 @@ def kernel_phase(dev, rng):
         lambda: att.flash_attention_fullkv_plain(q, k, v, kv_len=t), 3, 1)
     lib_ms = time_ms(
         lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0), 20)
-    bms, by = bound(4.0 * b * h * t * t * d, PEAK_BF16_FLOPS, 4 * b * h * t * d * 2)
-    print(f"  ms {ms:.4f} (eager call_ms {eager_ms:.4f})  plain_ms {plain_ms:.4f}  "
+    flops = 4.0 * b * h * t * t * d
+    bms, by = bound(flops, PEAK_BF16_FLOPS, 4 * b * h * t * d * 2)
+    print(f"  ms {ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s; eager call_ms "
+          f"{eager_ms:.4f})  plain_ms {plain_ms:.4f}  "
           f"library_ms (F.scaled_dot_product_attention) {lib_ms:.4f}  "
-          f"bound_ms {bms:.4f} ({by})")
+          f"bound_ms {bms:.4f} ({by})  exponentials' floor "
+          f"{b * h * t * t / PEAK_EXP * 1e3:.4f} ms")
     rows.append(dict(name="flash_attention_fullkv", route="cuda",
                      source="spittle_tpu_torch/csrc/fullkv_attention.cu",
                      replaces="spittle_tpu/ops/attention.py:206",
-                     max_abs_err=err, ms=ms, call_ms=eager_ms, plain_ms=plain_ms,
+                     max_abs_err=err, ms=ms, tflops=flops / ms / 1e9,
+                     call_ms=eager_ms, plain_ms=plain_ms,
                      bound_ms=bms, bound_by=by, library_ms=lib_ms,
                      library="F.scaled_dot_product_attention"))
     del packed, q, k, v, got, want
@@ -360,15 +370,18 @@ def kernel_phase(dev, rng):
 
 def k4_shapes_phase(dev, rng):
     """K4 away from Tk = 1500: an odd Tk (a reduced audio context; K/V
-    rows only 2-byte aligned) and the long window's Tk = 6000 with 8 query
-    rows, whose f32 score rows fill 192 KB of shared memory."""
+    rows only 2-byte aligned), the long window's Tk = 6000 with 8 query
+    rows, whose f32 score rows fill 192 KB of shared memory, and Tk = 6500
+    with 8 rows, past that memory, where the kernel walks kv in chunks
+    with an online softmax (3 rows of 6401 still fit)."""
     from spittle_tpu_torch.ops import attention as att
 
     h, d = 20, 64
     print("K4 decode_cross_attention at other K/V lengths:")
     for b, r, tk, kv_len in ((8, 1, 255, 255), (8, 3, 255, 201),
                              (2, 1, 6000, 6000), (2, 3, 6000, 6000),
-                             (2, 8, 6000, 6000)):
+                             (2, 8, 6000, 6000), (2, 8, 6500, 6500),
+                             (2, 3, 6500, 6401)):
         qd = randn(rng, (b, h, r, d), dev, scale=d ** -0.5)
         kt, vt = randn(rng, (b, h, d, tk), dev), randn(rng, (b, h, d, tk), dev)
         got = att.decode_cross_attention(qd, kt, vt, kv_len=kv_len)
@@ -401,6 +414,15 @@ def reduced_shapes_phase(dev, rng):
     want = att.flash_attention_fullkv_plain(q, k, v, kv_len=t)
     check("K1 [8,20,256,64]", (got.float() - want.float()).abs().max().item(),
           1e-2 * want.float().abs().max().item())
+    kernel = lambda: att.flash_attention_fullkv(q, k, v, kv_len=t)  # noqa: E731
+    ms, eager_ms = time_ms(kernel, 50), call_ms(kernel, 50)
+    flops = 4.0 * b * h * t * t * d
+    bms, by = bound(flops, PEAK_BF16_FLOPS, 4 * b * h * t * d * 2)
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, scale=1.0), 50)
+    print(f"    ms {ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s; eager call_ms "
+          f"{eager_ms:.4f})  library_ms (F.scaled_dot_product_attention) "
+          f"{lib_ms:.4f}  bound_ms {bms:.4f} ({by})")
     m = b * t
     x = {kk: randn(rng, (m, kk), dev) for kk in (1280, 5120)}
     sc = d ** -0.25
@@ -489,6 +511,12 @@ def flash_phase(dev, rng):
     q, k, v = (att.split_heads(x, h) for x in packed)
     k1 = lambda: att.flash_attention_fullkv(q, k, v, kv_len=t1)  # noqa: E731
     k5 = lambda: att.flash_attention(q, k, v, kv_len=t1)  # noqa: E731
+    # One instance of the core (SplitRows, 128-key tiles) behind two
+    # entries: the same bits on the same inputs.
+    same = torch.equal(k5(), k1())
+    print(f"  at K1's shape [8,20,1500,64]: K5 bit-identical to K1: {same}")
+    if not same:
+        raise AssertionError("K5 differs from K1 on K1's inputs")
     turns = [time_ms(fn, 20) for fn in (k1, k5, k5, k1)]
     k1_ms, k5_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
     print(f"  at K1's shape [8,20,1500,64]: K5 ms {k5_ms:.4f}, K1 ms {k1_ms:.4f} "
@@ -649,11 +677,13 @@ def cache_write_phase(dev):
 def encoder_forms_phase(dev, rng):
     """K7-K10 against their plain versions at [8, 20, 1500, 64] bf16:
     packed [B, T, H*64] projections (K8, K9) and their strided head views
-    (K7, K10), kv_len 1500 and 1300, causal for K8 and K9. K8 and K10 run
-    K1's arithmetic, so they must also give K1's output bit for bit. K9 is
-    an instance of the wgmma attention core, whose sums run in another
-    order: it is held to K1's tolerance, and its largest distance from K1
-    is printed."""
+    (K7, K10), kv_len 1500 and 1300, causal for K8 and K9. K8 is K1's
+    instance of the wgmma attention core on the packed strides, so it must
+    give K1's output bit for bit. K9 (the core's head-pair instance, whose
+    64-row causal blocks skip other masked tiles) and K10 (an mma.sync
+    body of its own, summing in another order) are each held to K1's
+    tolerance against K1 too, and their largest distance from K1 is
+    printed."""
     from spittle_tpu_torch.ops import attention as att
 
     F = torch.nn.functional
@@ -692,13 +722,13 @@ def encoder_forms_phase(dev, rng):
                 step = att.q8_code_step(*heads, kv_len).max().item()
                 check(label, err, 2.0 ** -7 * big + step)
             else:
-                # K1's tolerance; and K1's bits, except for K9.
+                # K1's tolerance; and K1's bits for K8.
                 check(label, err, 1e-2 * big)
                 k1 = att.flash_attention_fullkv(*heads, causal=causal, kv_len=kv_len)
                 k1 = att.merge_heads(k1) if on_packed else k1
-                if form == "pair":
-                    print(f"  {label}: max |K9 - K1| "
-                          f"{(got.float() - k1.float()).abs().max().item():.3e}")
+                if form in ("pair", "pipe"):
+                    check(f"{label}: |{kname} - K1|",
+                          (got.float() - k1.float()).abs().max().item(), 1e-2 * big)
                 else:
                     same = torch.equal(got, k1)
                     print(f"  {label}: bit-identical to K1: {same}")
@@ -723,7 +753,7 @@ def encoder_forms_phase(dev, rng):
                    plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                    library_ms=lib_ms, library=lib)
         rate_txt = floor_txt = ""
-        if form == "pair":
+        if form in ("packed", "pair"):
             row.update(tflops=flops / ms / 1e9)
             rate_txt = f" ({row['tflops']:.1f} TFLOP/s)"
             floor_txt = f"  exponentials' floor {b * h * t * t / PEAK_EXP * 1e3:.4f} ms"

@@ -1,8 +1,8 @@
 // The port's attention core for Hopper (sm_90a): o = softmax(q k^T) v for
 // a head dim of 64, bf16 in, f32 scores and sums, bf16 out, on TMA loads
 // and wgmma products with a producer/consumer split. Written once and
-// instantiated per kernel: K5 (flash_attention.cu) and K9
-// (fullkv_attention_pair.cu) are its first instances.
+// instantiated per kernel: K1 and K8 (fullkv_attention.cu), K5
+// (flash_attention.cu) and K9 (fullkv_attention_pair.cu).
 //
 // What bounds it on an H100. Per score a call does 4 * 64 = 256 FLOP of
 // tensor-core work (989 TFLOP/s bf16) and one exponential on the
@@ -49,7 +49,7 @@
 // The policy (template parameter) says which (head, rows) each consumer
 // owns and so what the producer's boxes address: SplitRows (two
 // warpgroups on rows 0-63 and 64-127 of one head, sharing each K/V box:
-// K5, and K1/K8 later) or HeadPair (both on the same 64 rows of heads h0
+// K1, K5 and K8) or HeadPair (both on the same 64 rows of heads h0
 // and h0 + 1, each reading its own head's box: K9). The tensor maps are
 // rank 4, (d, t, h, b), built per call from the caller's (batch, head,
 // time) strides, so head views of a packed projection (time stride H*64,

@@ -28,10 +28,12 @@
 // rescales and barrier rounds of 64. The TPU kernel holds a head's whole
 // K/V in VMEM and takes one softmax; here an online softmax, the mask
 // before the running max with the finite -1e30, P rounded to bf16 for PV,
-// l summing the f32 P and one division acc / l at the end: K1's function,
-// no longer K1's bits (another summation order in wgmma, exp2). Rows past
-// Tk are zero-filled by TMA inside the head and masked; rows past Tq are
-// not stored.
+// l summing the f32 P and one division acc / l at the end: K1's function.
+// K1 is the core's SplitRows instance with the same 128-key tiles, so each
+// row takes the same steps, except that a causal block of 64 rows skips
+// fully masked tiles that K1's 128-row blocks run; the two are held to
+// each other by K1's tolerance. Rows past Tk are zero-filled by TMA inside
+// the head and masked; rows past Tq are not stored.
 #include "attention_sm90.cuh"
 
 // K9. q, o contiguous [B, Tq, H*64]; k, v contiguous [B, Tk, H*64]; H even;

@@ -1,7 +1,8 @@
 // Software-pipelined encoder self-attention for Hopper (sm_90a), K10:
-// K1's function (fullkv_attention.cu) for non-causal calls, with the copy
-// of the next K/V tiles and the next tile's QK^T overlapped with the
-// current tile's softmax and PV.
+// K1's function (fullkv_attention.cu) for non-causal calls, on a body of
+// its own (mma.sync, 64-key tiles; K1 is an instance of the TMA + wgmma
+// attention core), with the copy of the next K/V tiles and the next
+// tile's QK^T overlapped with the current tile's softmax and PV.
 //
 // Replaces the TPU kernel spittle_tpu/ops/attention.py:
 // flash_attention_fullkv_pipe (body _fullkv_pipe_kernel). There, grid step
@@ -10,12 +11,12 @@
 // other half, so that Mosaic overlaps the matrix unit with the vector unit.
 //
 // What bounds it on an H100: as K1, the tensor cores' 989 TFLOP/s bf16
-// rate (~1,500 FLOP per byte at T = 1500, Dh = 64).
+// rate (~3,000 FLOP per byte at [8, 20, 1500, 64]: 0.093 ms).
 //
-// Design: K1's block (64 query rows of one head, 4 warps x 16 rows, bf16
+// Design: a block of 64 query rows of one head (4 warps x 16 rows, bf16
 // mma.sync, online softmax over 64-key tiles, masks before the running
-// max, P rounded to bf16 for PV, 1/l after PV), with two changes that
-// K1's synchronous loop lacks:
+// max, P rounded to bf16 for PV, 1/l after PV), with two changes over a
+// synchronous loop of that kind:
 //  - K and V tiles go through a two-stage cp.async ring each. At the top
 //    of iteration j the block issues the copy of K tile j+2 and V tile
 //    j+1, which lands while the whole of iteration j computes; iteration
@@ -25,8 +26,9 @@
 //    PV, so the tensor cores work on the next scores while the SFU
 //    exponentiates the current ones (the TPU kernel's double scratch,
 //    kept in registers).
-// Every tile's arithmetic is K1's, in K1's order, so K10 gives K1's
-// output bit for bit. wgmma, TMA and warp specialisation are later work.
+// K1 runs 128-key tiles on wgmma, with exp2 and another summation order,
+// so K10 is held to K1's tolerance, not K1's bits. wgmma, TMA and warp
+// specialisation are later work.
 #include "common.cuh"
 
 namespace {
@@ -85,7 +87,7 @@ __device__ __forceinline__ void qk_tile(float (&s)[8][4],
   }
 }
 
-// K1's per-tile step: kv_len mask, running max and sum, rescale of the
+// One tile's step: kv_len mask, running max and sum, rescale of the
 // accumulators, P rounded to bf16, PV.
 __device__ __forceinline__ void softmax_pv_tile(
     float (&s)[8][4], float (&oacc)[8][4], float (&m_run)[2],

@@ -8,14 +8,15 @@ probe's kernel).
   encoder); replaces the Pallas `flash_attention`. An instance of the
   TMA + wgmma attention core (csrc/attention_sm90.cuh).
 - flash_attention_fullkv (K1, csrc/fullkv_attention.cu): encoder
-  self-attention; replaces the Pallas `flash_attention_fullkv`.
+  self-attention; replaces the Pallas `flash_attention_fullkv`. The
+  attention core's SplitRows instance, as K5.
 - The encoder-attention forms, each replacing the Pallas kernel of the
-  same name: flash_attention_fullkv_packed (K8), K1's body on the packed
-  [B, T, H*Dh] projections (csrc/fullkv_attention.cu), and
+  same name: flash_attention_fullkv_packed (K8), K1's instance on the
+  packed [B, T, H*Dh] projections (csrc/fullkv_attention.cu), and
   flash_attention_fullkv_packed_pair (K9, csrc/fullkv_attention_pair.cu),
-  the attention core's other instance, two heads per block;
-  flash_attention_fullkv_pipe (K10, csrc/fullkv_attention_pipe.cu), K1
-  software-pipelined; flash_attention_fullkv_q8 (K7,
+  the core's HeadPair instance, two heads per block;
+  flash_attention_fullkv_pipe (K10, csrc/fullkv_attention_pipe.cu), K1's
+  function software-pipelined on mma.sync; flash_attention_fullkv_q8 (K7,
   csrc/fullkv_attention_q8.cu), both products int8.
 - decode_cross_attention (K4, csrc/decode_cross_attention.cu): <= 8 query
   rows against the whole K/V in the decode layout [B, H, Dh, Tk]; replaces
@@ -132,15 +133,16 @@ def _check_attn_operand(name, t, d):
     if t.shape[-1] != d or t.stride(-1) != 1:
         raise ValueError(f"{name}: head dim must be {d} and contiguous")
     # 16-byte rows and strides: what the kernels' 16-byte loads and the
-    # TMA tensor maps of K5 and K9 need.
+    # TMA tensor maps of the attention core's instances need.
     if any(s % 8 for s in t.stride()[:-1]) or t.data_ptr() % 16:
         raise ValueError(f"{name}: strides must be multiples of 8 elements "
                          "and the data 16-byte aligned")
 
 
-# The wgmma attention core (K5, K9) puts batch x head groups on the grid's
-# y axis, which CUDA caps at 65535; its x axis holds the query blocks, so
-# that blocks of one head run side by side and share its K/V in L2.
+# The wgmma attention core (K1, K5, K8, K9) puts batch x head groups on
+# the grid's y axis, which CUDA caps at 65535; its x axis holds the query
+# blocks, so that blocks of one head run side by side and share its K/V
+# in L2.
 _SM90_MAX_GROUPS = 65535
 
 
@@ -172,13 +174,18 @@ def _check_split_qkv(name, q, k, v, kv_len):
 
 def flash_attention_fullkv(q, k, v, causal: bool = False,
                            kv_len: Optional[int] = None) -> torch.Tensor:
-    """q [B, H, Tq, 64], k/v [B, H, Tk, 64] (strided views allowed, head dim
-    contiguous) -> [B, H, Tq, 64]. On CUDA the result is a view of a
-    [B, Tq, H, 64] buffer, so merging heads afterwards copies nothing."""
+    """K1. q [B, H, Tq, 64], k/v [B, H, Tk, 64], q and k pre-scaled
+    (strided views allowed, head dim contiguous) -> [B, H, Tq, 64]. On
+    CUDA the result is a view of a [B, Tq, H, 64] buffer, so merging heads
+    afterwards copies nothing. The kernel is the attention core's SplitRows
+    instance (128 query rows of one head per block, 128-key tiles), K5's
+    policy and tile, so on the same inputs it gives K5's bits; bf16 only,
+    and B * H at most 65535 (the grid's y axis), else it raises."""
     if q.device.type == "cpu":
         return flash_attention_fullkv_plain(q, k, v, causal, kv_len)
     kv_len = _check_split_qkv("flash_attention_fullkv", q, k, v, kv_len)
     b, h, tq, d = q.shape
+    _check_sm90_groups("flash_attention_fullkv", b * h)
     out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     lib = _build.load_library()
     _build.check(lib.spt_fullkv_attention(
@@ -458,9 +465,13 @@ def _launch_packed(name, entry, q, k, v, n_head, causal, kv_len,
 def flash_attention_fullkv_packed(q, k, v, n_head: int, causal: bool = False,
                                   kv_len: Optional[int] = None) -> torch.Tensor:
     """K8: K1 per head, reading and writing the packed layout. q [B, Tq,
-    H*64], k/v [B, Tk, H*64], contiguous bf16 on CUDA -> [B, Tq, H*64]."""
+    H*64], k/v [B, Tk, H*64], contiguous bf16 on CUDA -> [B, Tq, H*64].
+    The kernel is K1's instance of the attention core on the packed
+    strides, so it gives K1's bits; B * H at most 65535 (the grid's y
+    axis), else it raises."""
     if q.device.type == "cpu":
         return flash_attention_fullkv_packed_plain(q, k, v, n_head, causal, kv_len)
+    _check_sm90_groups("flash_attention_fullkv_packed", q.shape[0] * n_head)
     out = _launch_packed("flash_attention_fullkv_packed",
                          "spt_fullkv_attention_packed", q, k, v, n_head,
                          causal, kv_len, 1)
@@ -476,8 +487,9 @@ def flash_attention_fullkv_packed_pair(q, k, v, n_head: int,
                                        kv_len: Optional[int] = None
                                        ) -> torch.Tensor:
     """K9: K8's function with two adjacent heads per block, on the wgmma
-    attention core; n_head must be even. Within K1's tolerance of the
-    plain version, not K1's bits (its sums round in another order)."""
+    attention core; n_head must be even. Held to K1's tolerance: its rows
+    take K1's tiles, but its 64-row causal blocks skip other masked
+    tiles."""
     if q.device.type == "cpu":
         return flash_attention_fullkv_packed_plain(q, k, v, n_head, causal, kv_len)
     _check_sm90_groups("flash_attention_fullkv_packed_pair",
@@ -609,15 +621,16 @@ def decode_cross_attention(q, k, v,
                            kv_len: Optional[int] = None) -> torch.Tensor:
     """q [B, H, R<=8, 64] (head dim contiguous); k/v contiguous
     [B, H, 64, Tk] bf16, any Tk >= 1 -> [B, H, R, 64]. On CUDA the result
-    is a view of a [B, R, H, 64] buffer."""
+    is a view of a [B, R, H, 64] buffer. Score rows that do not fit the
+    kernel's shared memory (R * kv_len past 51200) are walked in chunks
+    with an online softmax, so P rounds to bf16 against each chunk's
+    running max there."""
     if q.device.type == "cpu":
         return decode_cross_attention_plain(q, k, v, kv_len)
     b, h, r, d = q.shape
     tk = k.shape[3]
     kv_len = _check_decode_cross("decode_cross_attention", q, (k, v), (), d,
                                  torch.bfloat16, kv_len)
-    if r * ((kv_len + 1) & ~1) * 4 > 200 * 1024:
-        raise ValueError("decode_cross_attention: score rows exceed shared memory")
     out = torch.empty((b, r, h, d), dtype=q.dtype, device=q.device)
     lib = _build.load_library()
     _build.check(lib.spt_decode_cross_attention(

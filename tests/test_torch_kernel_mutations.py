@@ -1,7 +1,9 @@
 """Mutation check of the card tests of K3 and K6 (decode cross-attention
-over int8 and packed int4 K/V), K7 (int8-dot encoder attention), K5
-(tiled flash attention) and K9 (head pairs), both on the wgmma attention
-core, and K13 (cache column write): each case breaks the kernel in a copy
+over int8 and packed int4 K/V), K4 (the same over bf16 K/V, chunked past
+its shared memory), K7 (int8-dot encoder attention), K1 and K8 (encoder
+attention, strided and packed heads), K5 (tiled flash attention) and K9
+(head pairs), all four on the wgmma attention core, and K13 (cache column
+write): each case breaks the kernel in a copy
 of the package under a temporary directory, where the copy builds its own
 kernel library, and the card tests of tests/test_torch_kernels_cuda.py
 must then fail on the kernel's values. Each edit names the exact text it
@@ -27,8 +29,10 @@ pytestmark = pytest.mark.cuda
 REPO = Path(__file__).resolve().parents[1]
 SRC = "spittle_tpu_torch/csrc/decode_cross_attention_q.cu"
 Q8_SRC = "spittle_tpu_torch/csrc/fullkv_attention_q8.cu"
-# K5 and K9 are instances of the attention core; their masks and operand
-# addressing live there.
+K4_SRC = "spittle_tpu_torch/csrc/decode_cross_attention.cu"
+FULLKV_SRC = "spittle_tpu_torch/csrc/fullkv_attention.cu"
+# K1, K5, K8 and K9 are instances of the attention core; their masks and
+# operand addressing live there.
 CORE_SRC = "spittle_tpu_torch/csrc/attention_sm90.cuh"
 CACHE_SRC = "spittle_tpu_torch/csrc/cache_col_write.cu"
 WRAPPER = "spittle_tpu_torch/ops/attention.py"
@@ -75,6 +79,23 @@ MUTATIONS = {
     # kv_len to Tk enter the softmax.
     "flash_kv_len_mask": ("flash_kernel_matches and 256-384-300", [
         (CORE_SRC, "if (col >= p.kv_len || (p.causal", "if (col >= p.Tk || (p.causal"),
+    ]),
+    # K1: the same mask mutant in the core, against K1's card test at
+    # kv_len 290 of 300.
+    "fullkv_kv_len_mask": ("fullkv_kernel_matches and 290", [
+        (CORE_SRC, "if (col >= p.kv_len || (p.causal", "if (col >= p.Tk || (p.causal"),
+    ]),
+    # K8: the packed layout's head stride passed as T*64 (a contiguous
+    # [B, H, T, 64] tensor's) instead of 64, for q and for k/v.
+    "packed_head_stride": ("packed_kernel_matches and not pair", [
+        (FULLKV_SRC, "const long long qs[3] = {Tq * row, kD, row}, ks[3] = {Tk * row, kD, row};",
+         "const long long qs[3] = {Tq * row, Tq * kD, row}, ks[3] = {Tk * row, Tk * kD, row};"),
+    ]),
+    # K4: the chunked accumulators not rescaled by alpha when a later
+    # chunk raises a row's max; only K/V past the shared memory chunk.
+    "k4_chunk_alpha_dropped": ("decode_cross_kernel_long_kv", [
+        (K4_SRC, "opart[r][d] = first ? s : opart[r][d] * ralpha[r] + s;",
+         "opart[r][d] = first ? s : opart[r][d] + s;"),
     ]),
     # K9: warpgroup 1 reads head h0's V box instead of its own head's.
     "pair_v_box": ("packed_kernel_matches and pair", [

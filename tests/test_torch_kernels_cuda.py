@@ -66,8 +66,12 @@ def test_w8a8_kernel_matches_plain(cuda, dtype, m, k, n, bias, act, out_scale):
 
 @pytest.mark.parametrize("t,kv_len,causal", [
     (300, 290, False), (1500, 1500, False), (200, 200, True),
+    (96, 90, False), (1500, 1281, False),
 ])
 def test_fullkv_kernel_matches_plain(cuda, t, kv_len, causal):
+    """K1 on the attention core: t 96 is one key tile and one query block
+    taller than the tensor (TMA fills the rest with zeros), t 200 is not a
+    multiple of 64 and causal, kv_len 1281 is one key past a tile."""
     rng = np.random.default_rng(1)
     b, h, d = 2, 3, 64
     # Heads as strided views of packed [B, T, H*D] projections, as the
@@ -118,6 +122,25 @@ def test_decode_cross_kernel_matches_plain(cuda, r, tk, kv_len):
     torch.cuda.synchronize()
     # Same bf16-rounded P; only the f32 summation order differs, then one
     # bf16 rounding of the output.
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=2e-3)
+
+
+@pytest.mark.parametrize("r,kv_len", [(8, 6500), (3, 6401)])
+def test_decode_cross_kernel_long_kv_matches_plain(cuda, r, kv_len):
+    """K4 at Tk 6500: 8 rows of 6500 scores pass the kernel's 200 KB of
+    shared memory, so it walks kv in chunks with an online softmax; 3 rows
+    of 6401 still fit in one pass."""
+    rng = np.random.default_rng(14)
+    b, h, d, tk = 2, 20, 64, 6500
+    q = _randn(rng, (b, h, r, d), cuda, scale=d ** -0.5)
+    k = _randn(rng, (b, h, d, tk), cuda)
+    v = _randn(rng, (b, h, d, tk), cuda)
+    got = att.decode_cross_attention(q, k, v, kv_len=kv_len)
+    want = att.decode_cross_attention_plain(q, k, v, kv_len=kv_len)
+    torch.cuda.synchronize()
+    # As at the shorter lengths; where chunked, P also rounds to bf16
+    # against its chunk's running max instead of the row max (as K3's
+    # split-T does): a bf16 half-ulp per weight, averaged.
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=2e-3)
 
 
@@ -259,10 +282,12 @@ def test_pipe_kernel_matches_plain_and_k1(cuda, t, kv_len):
     want = att.flash_attention_fullkv_plain(q, k, v, kv_len=kv_len)
     k1 = att.flash_attention_fullkv(q, k, v, kv_len=kv_len)
     torch.cuda.synchronize()
-    # K1's tolerance (the same arithmetic), and K1's bits: K10 reorders
-    # K1's schedule, not its operations.
+    # K1's tolerance against the plain version, and against K1 itself:
+    # K10 keeps an mma.sync body with 64-key tiles, K1 runs on the wgmma
+    # core with 128-key tiles and exp2, so their sums round in another
+    # order.
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=2e-3)
-    assert torch.equal(got, k1)
+    torch.testing.assert_close(got.float(), k1.float(), rtol=1e-2, atol=2e-3)
 
 
 @pytest.mark.parametrize("pair", [False, True], ids=["packed", "pair"])
@@ -286,9 +311,10 @@ def test_packed_kernel_matches_plain_and_k1(cuda, pair, t, kv_len, causal):
         kv_len=kv_len))
     torch.cuda.synchronize()
     assert got.shape == q.shape and got.is_contiguous()
-    # K1's tolerance for both. K8 is K1's body reading the packed layout,
-    # so it gives K1's bits; K9 runs on the wgmma core, whose sums (and
-    # exp2) round in another order.
+    # K1's tolerance for both. K8 is K1's instance of the attention core on
+    # the packed strides, so it gives K1's bits. K9 is the core's head-pair
+    # instance: its rows run K1's 128-key tiles, but its 64-row causal
+    # blocks skip other fully masked tiles, so it is held to K1's tolerance.
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=2e-3)
     if not pair:
         assert torch.equal(got, k1)
@@ -351,6 +377,11 @@ def test_form_wrappers_raise(cuda, form):
         wide = torch.zeros((1, 1, 131072 * 64), dtype=torch.bfloat16, device=cuda)
         with pytest.raises(ValueError, match="grid's y axis"):
             call(wide, heads=131072)
+    if form == "packed":
+        # K8 is on the attention core too: B * H past 65535 raises.
+        wide = torch.zeros((1, 1, 65536 * 64), dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError, match="grid's y axis"):
+            call(wide, heads=65536)
     assert call(x).shape[-1] in (64, h * 64)
     launched = {"q8": att.flash_attention_fullkv_q8,
                 "pipe": att.flash_attention_fullkv_pipe,
@@ -441,6 +472,21 @@ def test_flash_kernel_matches_plain(cuda, tq, tk, kv_len, causal, contiguous):
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=2e-3)
 
 
+@pytest.mark.parametrize("t,kv_len,causal", [
+    (1500, 1500, False), (1500, 1281, False), (200, 200, True), (96, 90, False),
+])
+def test_flash_equals_fullkv_on_its_inputs(cuda, t, kv_len, causal):
+    """K5 and K1 are one instance of the attention core (SplitRows,
+    128-key tiles) behind two entries: on K1's inputs, strided head views
+    of packed projections, they give the same bits."""
+    rng = np.random.default_rng(15)
+    q, k, v = (att.split_heads(x, 4) for x in _packed(rng, 2, t, 4, cuda))
+    k1 = att.flash_attention_fullkv(q, k, v, causal=causal, kv_len=kv_len)
+    k5 = att.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert torch.equal(k5, k1)
+
+
 @pytest.mark.parametrize("form", ["fullkv", "q8", "pipe", "packed", "pair"])
 def test_long_kv_dispatches_to_flash(cuda, form):
     """K/V longer than 4096 goes to K5 under every encoder-attention
@@ -475,10 +521,13 @@ def test_flash_wrapper_raises(cuda):
         att.flash_attention(x128, x128, x128)
     with pytest.raises(ValueError, match="kv_len"):
         att.flash_attention(x, x, x, kv_len=0)
-    # B * H past the grid's y axis (65535) raises before the launch.
+    # B * H past the grid's y axis (65535) raises before the launch, for
+    # K5 and for K1, the attention core's other SplitRows entry.
     wide = torch.zeros((1, 65536, 1, 64), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="grid's y axis"):
         att.flash_attention(wide, wide, wide)
+    with pytest.raises(ValueError, match="grid's y axis"):
+        att.flash_attention_fullkv(wide, wide, wide)
     before = att.flash_attention.launches
     assert att.flash_attention(x, x, x).shape == x.shape
     assert att.flash_attention.launches == before + 1

@@ -221,6 +221,30 @@ def test_cross_attention_dispatch(monkeypatch, r, dh, kernel):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
 
 
+@pytest.mark.parametrize("kv_len", [0, 6401])
+def test_cross_attention_long_audio_ctx(monkeypatch, kv_len):
+    """A prefill's 8 rows (sot, language, task and a prompt) against the
+    cross K/V of a model with n_audio_ctx 6500: past the 6400 positions
+    whose 8 score rows fit K4's shared memory in one pass. The core still
+    picks K4 on shape alone, and matches the reference's `_cross_attention`."""
+    seen = []
+    real = tmod.decode_cross_attention
+    monkeypatch.setattr(tmod, "decode_cross_attention",
+                        lambda *a, **kw: seen.append(1) or real(*a, **kw))
+    cfg = dataclasses.replace(JCFG, n_audio_ctx=6500)
+    rng = np.random.default_rng(17)
+    dh = cfg.n_text_state // cfg.n_text_head
+    cq = rng.standard_normal((1, cfg.n_text_head, 8, dh)).astype(np.float32)
+    ck, cv = (rng.standard_normal((1, cfg.n_text_head, dh, cfg.n_audio_ctx))
+              .astype(np.float32) for _ in range(2))
+    got = tmod._cross_attention(_t(cq), _t(ck), _t(cv), dh, kv_len=kv_len)
+    assert seen
+    ref = jmod._cross_attention(jnp.asarray(cq), jnp.asarray(ck),
+                                jnp.asarray(cv), dh, kv_len=kv_len)
+    # f32 end to end; softmax order and masking form differ only.
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+
+
 @pytest.mark.parametrize("language,max_tokens", [("en", 12), ("de", 6)])
 def test_greedy_tokens_identical(trees, xa, language, max_tokens):
     jp, tp = trees

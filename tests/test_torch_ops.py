@@ -257,3 +257,23 @@ def test_decode_cross_plain_matches_pallas_interpret(r, kv_len):
     # f32 end to end; the reference masks after exp, the port before the
     # max: the same function up to float rounding.
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+
+
+@pytest.mark.parametrize("kv_len", [6401, 6500])
+def test_decode_cross_plain_long_kv_matches_pallas_interpret(kv_len):
+    """8 query rows (a prefill with a prompt) over K/V longer than 6400
+    positions: past the score rows that K4's one-pass kernel keeps in
+    shared memory, where the card walks kv in chunks. The plain version,
+    which the CPU runs, holds the reference's value there."""
+    rng = np.random.default_rng(16)
+    r, d, tk = 8, 64, 6528
+    q = (rng.standard_normal((1, 2, r, d)) * d ** -0.5).astype(np.float32)
+    k = rng.standard_normal((1, 2, d, tk)).astype(np.float32)
+    v = rng.standard_normal((1, 2, d, tk)).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        ref = jatt.decode_cross_attention(jnp.asarray(q), jnp.asarray(k),
+                                          jnp.asarray(v), kv_len=kv_len)
+    got = tatt.decode_cross_attention(_t(q), _t(k), _t(v), kv_len=kv_len)
+    # As at 256 positions: f32 end to end, the mask before the max against
+    # the reference's after exp.
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
