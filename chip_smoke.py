@@ -16,19 +16,21 @@ Phases, each printing its own lines; any failure exits non-zero:
    4, and once at B=56, bench.py's large-v3 batch), and the
    encoder-attention forms K7 (int8 products), K8 (packed heads, K1's
    instance of the core on the packed strides), K9 (head pairs, the
-   core's other policy) and K10 (pipelined, mma.sync) at [8, 20, 1500,
-   64], each also with kv_len 1300 and K8/K9 causal (K8 bit for bit
-   against K1, K9 and K10 to K1's tolerance); K5 tiled flash attention
+   core's other policy) and K10 (the core's persistent kernel, timed
+   beside K1) at [8, 20, 1500, 64], each also with kv_len 1300 and K8/K9
+   causal (K8 and K10 bit for bit against K1, K9 to K1's tolerance); K5
+   tiled flash attention
    (K1's policy and tile) at [2, 20, 6000, 64] (kv_len 6000 and 5000,
    causal once, ragged shapes, once on contiguous [B, H, T, 64] tensors)
    and bit for bit against K1 on K1's inputs; K4 at an odd Tk, at
    Tk = 6000 with 8 rows and at Tk = 6500 with 8 rows (past its shared
    memory: the chunked online softmax); K1, K2 and K4 again at the shapes
    the reduced-context path gives them (256 positions: [8, 20, 256, 64],
-   M = 2048, Tk = 256; K1 also timed) and K4 at the long window's
-   prefill; K11 (K3's
-   function, all heads walked in the block) at the decode
-   cross-attention probe's shape, R = 1 and 3;
+   M = 2048, Tk = 256; K1 timed, and K10 bit for bit against it and
+   timed) and K4 at the long window's prefill; K11 (K3's function over a
+   batch item's K/V slab, a persistent grid fed by producer warps) at the
+   decode cross-attention probe's shape on its TMA path (T 1536) and with
+   T 1500 on its cp.async path, R = 1 and 3, each beside K3;
    K12 and K13 (in-place cache column writes) at the cache probe's shape,
    bit for bit against a slice assignment on a clone. Each prints its max
    error and tolerance, its time (`ms`: device time per launch from a
@@ -423,6 +425,16 @@ def reduced_shapes_phase(dev, rng):
     print(f"    ms {ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s; eager call_ms "
           f"{eager_ms:.4f})  library_ms (F.scaled_dot_product_attention) "
           f"{lib_ms:.4f}  bound_ms {bms:.4f} ({by})")
+    # K10 (the "pipe" form) on the same inputs: 320 work items.
+    pipe = att.flash_attention_fullkv_pipe(q, k, v, kv_len=t)
+    same = torch.equal(pipe, got)
+    print(f"  K10 [8,20,256,64]: bit-identical to K1: {same}")
+    if not same:
+        raise AssertionError("K10 [8,20,256,64] differs from K1's output")
+    kernel = lambda: att.flash_attention_fullkv_pipe(q, k, v, kv_len=t)  # noqa: E731
+    ms, eager_ms = time_ms(kernel, 50), call_ms(kernel, 50)
+    print(f"    ms {ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s; eager call_ms "
+          f"{eager_ms:.4f})")
     m = b * t
     x = {kk: randn(rng, (m, kk), dev) for kk in (1280, 5120)}
     sc = d ** -0.25
@@ -537,69 +549,74 @@ def flash_phase(dev, rng):
 
 
 def mh_phase(dev):
-    """K11 against K3's plain version at the decode cross-attention
-    probe's shape (B 16, H 20, T 1536, kv_len 1500), R = 1 and 3, beside
-    K3 on the same inputs."""
+    """K11 against K3's plain version on both of its load paths: the
+    decode cross-attention probe's shape (B 16, H 20, T 1536, kv_len 1500:
+    TMA boxes) and the same with T 1500 (rows at no 16-byte boundary:
+    cp.async covers), R = 1 and 3, each timed beside K3 on the same
+    inputs. The row's numbers are the probe shape's at R = 1; the T 1500
+    path's go under "tk1500"."""
     from spittle_tpu_torch.ops import attention as att
     from spittle_tpu_torch.ops.quant import dequantize_kv
     from spittle_tpu_torch.probes import decode_cross as probe
 
     F = torch.nn.functional
-    b, h, d, t, kv_len = probe.B, probe.H, probe.DH, probe.T, probe.KV_LEN
-    kv_bytes = 2 * b * h * d * t + 2 * b * h * t * 4
-    sets = []
-    for i in range(n_cold_sets(kv_bytes)):
-        q, k, v, qk, qv = probe.make_inputs(dev, seed=SEED + 10 + i)
-        deq = tuple(dequantize_kv(x)[..., :kv_len].transpose(-1, -2).contiguous()
-                    for x in (qk, qv))
-        sets.append(((qk["qw"], qk["scale"], qv["qw"], qv["scale"]), deq))
-        del k, v
-    print(f"K11 decode_cross_attention_q8_mh K/V int8 [16,20,64,1536] + f32 "
-          f"scales, kv_len 1500 ({len(sets)} input sets):")
+    b, h, d, kv_len = probe.B, probe.H, probe.DH, probe.KV_LEN
     row = None
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 4)
-    for r in (1, 3):
-        qd = (torch.randn((b, h, r, d), generator=gen, device=dev)
-              * d ** -0.5).to(torch.bfloat16)
-        got = att.decode_cross_attention_q8_mh(qd, *sets[0][0], kv_len=kv_len)
-        want = att.decode_cross_attention_q8_plain(qd, *sets[0][0], kv_len=kv_len)
-        err = (got.float() - want.float()).abs().max().item()
-        # K3's tolerance, for K3's reasons (chunk max against row max).
-        check(f"K11 R={r}", err, 2e-3 + 1e-2 * want.float().abs().max().item())
-        ms = time_ms([lambda kv=kv: att.decode_cross_attention_q8_mh(
-            qd, *kv, kv_len=kv_len) for kv, _ in sets], 100)
-        eager_ms = call_ms([lambda kv=kv: att.decode_cross_attention_q8_mh(
-            qd, *kv, kv_len=kv_len) for kv, _ in sets], 100)
-        k3_ms = time_ms([lambda kv=kv: att.decode_cross_attention_q8(
-            qd, *kv, kv_len=kv_len) for kv, _ in sets], 100)
-        plain_ms = time_ms([lambda kv=kv: att.decode_cross_attention_q8_plain(
-            qd, *kv, kv_len=kv_len) for kv, _ in sets], 5, 1)
-        lib_ms = time_ms([lambda kd=kd, vd=vd: F.scaled_dot_product_attention(
-            qd, kd, vd, scale=1.0) for _, (kd, vd) in sets], 100)
-        # The bytes this run needs: kv_len of the T stored positions.
-        nbytes = (2 * b * h * d * kv_len + 2 * b * h * kv_len * 4
-                  + 2 * b * h * r * d * 2)
-        bms, by = bound(4.0 * b * h * r * kv_len * d, PEAK_BF16_FLOPS, nbytes)
-        print(f"  R={r}: ms {ms:.4f} (eager call_ms {eager_ms:.4f}; K3 on the "
-              f"same inputs {k3_ms:.4f})  plain_ms {plain_ms:.4f}  library_ms "
-              f"(F.scaled_dot_product_attention on bf16 K/V dequantized "
-              f"beforehand) {lib_ms:.4f}  bound_ms {bms:.4f} ({by})")
-        if r == 1:
-            row = dict(name="decode_cross_attention_q8_mh", route="cuda",
-                       source="spittle_tpu_torch/csrc/decode_cross_attention_q.cu",
-                       replaces="scripts/bench_decode_cross.py:70",
-                       work="q [16,20,1,64], K/V int8 [16,1280,1536], kv_len 1500",
-                       max_abs_err=err, ms=ms, call_ms=eager_ms,
-                       k3_ms=k3_ms,
-                       plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                       library_ms=lib_ms,
-                       library="F.scaled_dot_product_attention on bf16 K/V "
-                               "dequantized beforehand")
-        else:
+    for t, path in ((probe.T, "TMA"), (kv_len, "cp.async")):
+        kv_bytes = 2 * b * h * d * t + 2 * b * h * t * 4
+        sets = []
+        for i in range(n_cold_sets(kv_bytes)):
+            q, k, v, qk, qv = probe.make_inputs(dev, t=t, seed=SEED + 10 + i)
+            deq = tuple(dequantize_kv(x)[..., :kv_len].transpose(-1, -2).contiguous()
+                        for x in (qk, qv))
+            sets.append(((qk["qw"], qk["scale"], qv["qw"], qv["scale"]), deq))
+            del k, v
+        print(f"K11 decode_cross_attention_q8_mh K/V int8 [16,20,64,{t}] + f32 "
+              f"scales, kv_len 1500, {path} path ({len(sets)} input sets):")
+        for r in (1, 3):
+            qd = (torch.randn((b, h, r, d), generator=gen, device=dev)
+                  * d ** -0.5).to(torch.bfloat16)
+            got = att.decode_cross_attention_q8_mh(qd, *sets[0][0], kv_len=kv_len)
+            want = att.decode_cross_attention_q8_plain(qd, *sets[0][0], kv_len=kv_len)
+            err = (got.float() - want.float()).abs().max().item()
+            # K3's tolerance, for K3's reasons (chunk max against row max).
+            check(f"K11 T={t} R={r}", err,
+                  2e-3 + 1e-2 * want.float().abs().max().item())
+            ms = time_ms([lambda kv=kv: att.decode_cross_attention_q8_mh(
+                qd, *kv, kv_len=kv_len) for kv, _ in sets], 100)
+            eager_ms = call_ms([lambda kv=kv: att.decode_cross_attention_q8_mh(
+                qd, *kv, kv_len=kv_len) for kv, _ in sets], 100)
+            k3_ms = time_ms([lambda kv=kv: att.decode_cross_attention_q8(
+                qd, *kv, kv_len=kv_len) for kv, _ in sets], 100)
+            plain_ms = time_ms([lambda kv=kv: att.decode_cross_attention_q8_plain(
+                qd, *kv, kv_len=kv_len) for kv, _ in sets], 5, 1)
+            lib_ms = time_ms([lambda kd=kd, vd=vd: F.scaled_dot_product_attention(
+                qd, kd, vd, scale=1.0) for _, (kd, vd) in sets], 100)
+            # The bytes this run needs: kv_len of the T stored positions.
+            nbytes = (2 * b * h * d * kv_len + 2 * b * h * kv_len * 4
+                      + 2 * b * h * r * d * 2)
+            bms, by = bound(4.0 * b * h * r * kv_len * d, PEAK_BF16_FLOPS, nbytes)
+            print(f"  R={r}: ms {ms:.4f} (eager call_ms {eager_ms:.4f}; K3 on the "
+                  f"same inputs {k3_ms:.4f})  plain_ms {plain_ms:.4f}  library_ms "
+                  f"(F.scaled_dot_product_attention on bf16 K/V dequantized "
+                  f"beforehand) {lib_ms:.4f}  bound_ms {bms:.4f} ({by})")
+            nums = dict(ms=ms, call_ms=eager_ms, k3_ms=k3_ms, plain_ms=plain_ms,
+                        bound_ms=bms, bound_by=by, library_ms=lib_ms)
+            if row is None:
+                row = dict(name="decode_cross_attention_q8_mh", route="cuda",
+                           source="spittle_tpu_torch/csrc/decode_cross_attention_mh.cu",
+                           replaces="scripts/bench_decode_cross.py:70",
+                           work="q [16,20,1,64], K/V int8 [16,1280,1536], kv_len 1500",
+                           max_abs_err=err, **nums,
+                           library="F.scaled_dot_product_attention on bf16 K/V "
+                                   "dequantized beforehand")
+            elif path == "cp.async" and r == 1:
+                row["tk1500"] = nums
             row["max_abs_err"] = max(row["max_abs_err"], err)
-    del sets
-    torch.cuda.empty_cache()
+        del sets
+        torch.cuda.empty_cache()
     return row
 
 
@@ -678,12 +695,12 @@ def encoder_forms_phase(dev, rng):
     """K7-K10 against their plain versions at [8, 20, 1500, 64] bf16:
     packed [B, T, H*64] projections (K8, K9) and their strided head views
     (K7, K10), kv_len 1500 and 1300, causal for K8 and K9. K8 is K1's
-    instance of the wgmma attention core on the packed strides, so it must
-    give K1's output bit for bit. K9 (the core's head-pair instance, whose
-    64-row causal blocks skip other masked tiles) and K10 (an mma.sync
-    body of its own, summing in another order) are each held to K1's
-    tolerance against K1 too, and their largest distance from K1 is
-    printed."""
+    instance of the wgmma attention core on the packed strides, and K10
+    the core's persistent kernel on K1's policy and tiles, so both must
+    give K1's output bit for bit; K10 is also timed beside K1 on the same
+    inputs. K9 (the core's head-pair instance, whose 64-row causal blocks
+    skip other masked tiles) is held to K1's tolerance against K1 too, and
+    its largest distance from K1 is printed."""
     from spittle_tpu_torch.ops import attention as att
 
     F = torch.nn.functional
@@ -722,11 +739,11 @@ def encoder_forms_phase(dev, rng):
                 step = att.q8_code_step(*heads, kv_len).max().item()
                 check(label, err, 2.0 ** -7 * big + step)
             else:
-                # K1's tolerance; and K1's bits for K8.
+                # K1's tolerance; and K1's bits for K8 and K10.
                 check(label, err, 1e-2 * big)
                 k1 = att.flash_attention_fullkv(*heads, causal=causal, kv_len=kv_len)
                 k1 = att.merge_heads(k1) if on_packed else k1
-                if form in ("pair", "pipe"):
+                if form == "pair":
                     check(f"{label}: |{kname} - K1|",
                           (got.float() - k1.float()).abs().max().item(), 1e-2 * big)
                 else:
@@ -753,10 +770,16 @@ def encoder_forms_phase(dev, rng):
                    plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                    library_ms=lib_ms, library=lib)
         rate_txt = floor_txt = ""
-        if form in ("packed", "pair"):
+        if form in ("packed", "pair", "pipe"):
             row.update(tflops=flops / ms / 1e9)
             rate_txt = f" ({row['tflops']:.1f} TFLOP/s)"
             floor_txt = f"  exponentials' floor {b * h * t * t / PEAK_EXP * 1e3:.4f} ms"
+        if form == "pipe":
+            # K1 on the same inputs in the same call, and the bits checked
+            # above at every case.
+            k1_ms = time_ms(lambda: att.flash_attention_fullkv(*heads, kv_len=t), 20)
+            row.update(k1_ms=k1_ms, equal_to_k1=True)
+            floor_txt += f"  K1 on the same inputs ms {k1_ms:.4f}"
         print(f"  ms {ms:.4f}{rate_txt} (eager call_ms {eager_ms:.4f})  plain_ms "
               f"{plain_ms:.4f}  library_ms ({lib}) {lib_ms:.4f}  bound_ms {bms:.4f} "
               f"({by}){floor_txt}")

@@ -2,7 +2,10 @@
 // a head dim of 64, bf16 in, f32 scores and sums, bf16 out, on TMA loads
 // and wgmma products with a producer/consumer split. Written once and
 // instantiated per kernel: K1 and K8 (fullkv_attention.cu), K5
-// (flash_attention.cu) and K9 (fullkv_attention_pair.cu).
+// (flash_attention.cu) and K9 (fullkv_attention_pair.cu) on
+// attention_sm90_kernel, one block per work item; K10
+// (fullkv_attention_pipe.cu) on attention_sm90_persistent_kernel, the same
+// steps in at most one block per SM whose pipeline runs on across items.
 //
 // What bounds it on an H100. Per score a call does 4 * 64 = 256 FLOP of
 // tensor-core work (989 TFLOP/s bf16) and one exponential on the
@@ -498,6 +501,241 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// The persistent kernel
+// ---------------------------------------------------------------------------
+
+// Shared memory of the persistent kernel: two Q buffers (one item's Q and
+// the next one's), the stages, then the barriers: Q full and Q empty per
+// buffer, full and empty per stage.
+template <class P, int BK, int kStages>
+struct PersistentLayout {
+  static constexpr int kQBytes = 2 * kQBoxBytes;  // one buffer
+  static constexpr int kBoxBytes = BK * kRowBytes;
+  static constexpr int kStageBytes = 2 * P::kKvBoxes * kBoxBytes;
+  static constexpr int kStagesOffset = 2 * kQBytes;
+  static constexpr int kBarOffset = kStagesOffset + kStages * kStageBytes;
+  static constexpr int kBytes = kBarOffset + (4 + 2 * kStages) * 8;
+  static constexpr int kAlloc = kBytes + 1024;
+};
+
+// A work item of the persistent kernel: the block that
+// attention_sm90_kernel runs at grid (x, y), numbered y * nq + x, so the
+// q blocks of one head group stay adjacent.
+struct Item {
+  int b, h0, q0, n_tiles;
+};
+
+template <class P, int BK>
+__device__ __forceinline__ Item item_at(int i, int nq, const Params& p) {
+  const int groups = p.H / P::kHeadsPerBlock;
+  Item it;
+  it.b = i / nq / groups;
+  it.h0 = i / nq % groups * P::kHeadsPerBlock;
+  it.q0 = i % nq * P::kRowsPerBlock;
+  int kv_end = p.kv_len;
+  if (p.causal) kv_end = min(kv_end, it.q0 + P::kRowsPerBlock);
+  it.n_tiles = (kv_end + BK - 1) / BK;
+  return it;
+}
+
+// The same function and the same per-row steps as attention_sm90_kernel,
+// in a grid of at most one block per SM that walks the work items i =
+// blockIdx.x, + gridDim.x, ... . The pipeline runs on from one item into
+// the next: the ring's tile counter and barrier phases carry over, Q has
+// two buffers (the producer loads the next item's Q while the current
+// item's tiles are consumed; the consumers release a buffer after the
+// item's last Q K^T), and at an item's end each consumer issues its last
+// PV and the next item's first Q K^T in one turn, waits for the PV alone
+// (wait_group 1), writes the item's rows while the scores run, then takes
+// the next item with fresh m, l and acc. The two warpgroups keep their
+// turns on the named barriers across items: both walk the same items and
+// tiles, so they take the same number of turns.
+template <class P, int BK, int kStages>
+__global__ void __launch_bounds__(kThreads, 1)
+    attention_sm90_persistent_kernel(const __grid_constant__ CUtensorMap tm_q,
+                                     const __grid_constant__ CUtensorMap tm_k,
+                                     const __grid_constant__ CUtensorMap tm_v,
+                                     __nv_bfloat16* __restrict__ o,
+                                     const Params p, int n_items) {
+  using L = PersistentLayout<P, BK, kStages>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bars = base + L::kBarOffset;
+  auto q_full = [&](int qb) { return bars + 8 * qb; };
+  auto q_empty = [&](int qb) { return bars + 8 * (2 + qb); };
+  auto full = [&](int s) { return bars + 8 * (4 + s); };
+  auto empty = [&](int s) { return bars + 8 * (4 + kStages + s); };
+  auto stage = [&](int g) {
+    return base + L::kStagesOffset + (g % kStages) * L::kStageBytes;
+  };
+  auto q_buf = [&](int n) { return base + (n & 1) * L::kQBytes; };
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int nq = (p.Tq + P::kRowsPerBlock - 1) / P::kRowsPerBlock;
+
+  if (tid == 0) {
+    for (int qb = 0; qb < 2; ++qb) {
+      mbar_init(q_full(qb), 1);
+      mbar_init(q_empty(qb), 8);  // one arrival per consumer warp
+    }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: item n's Q into buffer n % 2, then its K/V tiles ----
+    reg_dealloc<24>();
+    if (tid == 0) {
+      int g = 0;  // tiles loaded so far, across items
+      for (int i = blockIdx.x, n = 0; i < n_items; i += gridDim.x, ++n) {
+        const Item it = item_at<P, BK>(i, nq, p);
+        if (n >= 2) mbar_wait(q_empty(n & 1), ((n >> 1) - 1) & 1);
+        mbar_expect_tx(q_full(n & 1), L::kQBytes);
+#pragma unroll
+        for (int w = 0; w < 2; ++w)
+          tma_load_4d(q_buf(n) + w * kQBoxBytes, &tm_q, q_full(n & 1), 0,
+                      it.q0 + w * P::kRowSteps, it.h0 + w * P::kHeadSteps, it.b);
+        for (int j = 0; j < it.n_tiles; ++j, ++g) {
+          const int s = g % kStages;
+          if (g >= kStages) mbar_wait(empty(s), (g / kStages - 1) & 1);
+          const uint32_t st = stage(g);
+          mbar_expect_tx(full(s), L::kStageBytes);
+#pragma unroll
+          for (int t = 0; t < P::kKvBoxes; ++t) {
+            tma_load_4d(st + t * L::kBoxBytes, &tm_k, full(s), 0, j * BK,
+                        it.h0 + t, it.b);
+            tma_load_4d(st + (P::kKvBoxes + t) * L::kBoxBytes, &tm_v, full(s),
+                        0, j * BK, it.h0 + t, it.b);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers ----
+    reg_alloc<240>();
+    const int w = wg - 1, t = tid & 127;
+    const int warp = t >> 5, lane = t & 31, gr = lane >> 2, c = lane & 3;
+    const uint32_t k_off = w * P::kHeadSteps * L::kBoxBytes;
+    const uint32_t v_off = (P::kKvBoxes + w * P::kHeadSteps) * L::kBoxBytes;
+    const int own = kSchedBar + w, other = kSchedBar + 1 - w;
+
+    float s[BK / 2], acc[32], m[2], l[2], alpha[2];
+    uint32_t pa[BK / 4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) m[hr] = kNegBig, l[hr] = 0.f;
+
+    int i = blockIdx.x, n = 0, g = 0;  // item, its number here, its tile 0
+    Item it = item_at<P, BK>(i, nq, p);
+    uint64_t dq = desc_sw128(q_buf(0) + w * kQBoxBytes);
+
+    if (w == 1) named_arrive(kSchedBar);  // warpgroup 0 issues first
+    // The first item's tile 0.
+    mbar_wait(q_full(0), 0);
+    mbar_wait(full(0), 0);
+    named_sync(own);
+    wgmma_fence();
+    issue_scores<BK>(s, dq, stage(0) + k_off);
+    wgmma_commit();
+    named_arrive(other);
+    wgmma_wait<0>();
+    fence_regs<BK / 2>(s);
+
+    for (;;) {
+      const int head = it.h0 + w * P::kHeadSteps;
+      const int row0 = it.q0 + w * P::kRowSteps + warp * 16 + gr;  // and + 8
+      softmax_tile<BK>(s, m, l, alpha, 0, row0, c, p);
+#pragma unroll
+      for (int k = 0; k < BK / 4; ++k) pa[k] = pack_bf16(s[2 * k], s[2 * k + 1]);
+
+      for (int j = 1; j < it.n_tiles; ++j) {
+        const int gj = g + j;
+        mbar_wait(full(gj % kStages), (gj / kStages) & 1);
+        named_sync(own);
+        wgmma_fence();
+        issue_scores<BK>(s, dq, stage(gj) + k_off);
+        wgmma_commit();
+        issue_pv<BK>(acc, pa, stage(gj - 1) + v_off);
+        wgmma_commit();
+        named_arrive(other);
+        wgmma_wait<1>();  // S_j is in; PV_{j-1} may still run
+        fence_regs<BK / 2>(s);
+        softmax_tile<BK>(s, m, l, alpha, j * BK, row0, c, p);
+        wgmma_wait<0>();
+        fence_regs<32>(acc);
+        fence_regs<BK / 4>(pa);
+        if (lane == 0) mbar_arrive(empty((gj - 1) % kStages));
+#pragma unroll
+        for (int k = 0; k < 32; ++k) acc[k] *= alpha[(k >> 1) & 1];
+#pragma unroll
+        for (int k = 0; k < BK / 4; ++k) pa[k] = pack_bf16(s[2 * k], s[2 * k + 1]);
+      }
+      // Every Q K^T of this item is done: its Q buffer may take item n + 2's.
+      if (lane == 0) mbar_arrive(q_empty(n & 1));
+
+      // The item's last PV and the next item's S_0 in one turn. The last
+      // item has no successor: its turn issues S_0 all the same, on the
+      // current Q and a stage nothing writes any more, whose scores are
+      // dropped, so that no wgmma sits on a branch (ptxas serialises the
+      // products of a function that has one). Warpgroup 1's last turn
+      // signals no one.
+      const int last = g + it.n_tiles - 1;
+      const int i_next = i + gridDim.x;
+      const bool more = i_next < n_items;
+      Item nx = it;
+      uint64_t dq_next = dq;
+      if (more) {
+        nx = item_at<P, BK>(i_next, nq, p);
+        dq_next = desc_sw128(q_buf(n + 1) + w * kQBoxBytes);
+        mbar_wait(q_full((n + 1) & 1), ((n + 1) >> 1) & 1);
+        mbar_wait(full((last + 1) % kStages), ((last + 1) / kStages) & 1);
+      }
+      named_sync(own);
+      wgmma_fence();
+      issue_pv<BK>(acc, pa, stage(last) + v_off);
+      wgmma_commit();
+      issue_scores<BK>(s, dq_next, stage(last + 1) + k_off);
+      wgmma_commit();
+      if (more || w == 0) named_arrive(other);
+      wgmma_wait<1>();  // the PV is in; the next S_0 may still run
+      fence_regs<32>(acc);
+      fence_regs<BK / 4>(pa);
+      if (lane == 0) mbar_arrive(empty(last % kStages));
+
+      const long long obase = it.b * p.osb + head * p.osh;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float lt = l[hr];
+        lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+        lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+        const int row = row0 + hr * 8;
+        if (row >= p.Tq) continue;
+        __nv_bfloat16* orow = o + obase + row * p.ost;
+#pragma unroll
+        for (int nb = 0; nb < kD / 8; ++nb)
+          *reinterpret_cast<uint32_t*>(orow + nb * 8 + 2 * c) =
+              pack_bf16(acc[4 * nb + 2 * hr] / lt, acc[4 * nb + 2 * hr + 1] / lt);
+      }
+
+      // The next item starts from fresh row state.
+#pragma unroll
+      for (int k = 0; k < 32; ++k) acc[k] = 0.f;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) l[hr] = 0.f, m[hr] = kNegBig;
+      wgmma_wait<0>();
+      fence_regs<BK / 2>(s);
+      if (!more) break;
+      i = i_next, ++n, g = last + 1, it = nx, dq = dq_next;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 
@@ -552,14 +790,23 @@ inline int encode_bhtd(CUtensorMap* map, const void* ptr, int B, int H, int T,
 // Grid (query blocks, B * head groups): the query blocks of one head are
 // adjacent, so they run side by side and share its K/V in L2; CUDA caps
 // the y axis, so B * H / kHeadsPerBlock <= 65535 (the wrappers check).
+// The three maps of a call: Q in 64-row boxes, K and V in BK-row boxes.
+inline int encode_qkv(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv,
+                      const void* q, const void* k, const void* v, int B,
+                      const Params& p, const long long* qs,
+                      const long long* ks, const long long* vs, int BK) {
+  int err = encode_bhtd(mq, q, B, p.H, p.Tq, qs[0], qs[1], qs[2], kRowsPerWg);
+  if (err == 0) err = encode_bhtd(mk, k, B, p.H, p.Tk, ks[0], ks[1], ks[2], BK);
+  if (err == 0) err = encode_bhtd(mv, v, B, p.H, p.Tk, vs[0], vs[1], vs[2], BK);
+  return err;
+}
+
 template <class P, int BK, int kStages>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            const Params& p, const long long* qs, const long long* ks,
            const long long* vs, void* stream) {
   CUtensorMap mq, mk, mv;
-  int err = encode_bhtd(&mq, q, B, p.H, p.Tq, qs[0], qs[1], qs[2], kRowsPerWg);
-  if (err == 0) err = encode_bhtd(&mk, k, B, p.H, p.Tk, ks[0], ks[1], ks[2], BK);
-  if (err == 0) err = encode_bhtd(&mv, v, B, p.H, p.Tk, vs[0], vs[1], vs[2], BK);
+  const int err = encode_qkv(&mq, &mk, &mv, q, k, v, B, p, qs, ks, vs, BK);
   if (err != 0) return err;
   constexpr int kSmem = Layout<P, BK, kStages>::kAlloc;
   static bool sized = false;
@@ -575,6 +822,39 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   attention_sm90_kernel<P, BK, kStages>
       <<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
           mq, mk, mv, static_cast<__nv_bfloat16*>(o), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The persistent kernel over the same operands: min(num_sms, items) blocks
+// of one per SM, where an item is one block of `launch`'s grid. Items are
+// counted in an int, so ceil(Tq / rows per block) * B * H / heads per
+// block must stay below 2^31; no grid axis caps B * H.
+template <class P, int BK, int kStages>
+int launch_persistent(const void* q, const void* k, const void* v, void* o,
+                      int B, const Params& p, const long long* qs,
+                      const long long* ks, const long long* vs, int num_sms,
+                      void* stream) {
+  const long long nq = (p.Tq + P::kRowsPerBlock - 1) / P::kRowsPerBlock;
+  const long long items = nq * B * (p.H / P::kHeadsPerBlock);
+  if (items > 0x7fffffffLL || num_sms < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mq, mk, mv;
+  const int err = encode_qkv(&mq, &mk, &mv, q, k, v, B, p, qs, ks, vs, BK);
+  if (err != 0) return err;
+  constexpr int kSmem = PersistentLayout<P, BK, kStages>::kAlloc;
+  static bool sized = false;
+  if (!sized) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        attention_sm90_persistent_kernel<P, BK, kStages>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    sized = true;
+  }
+  const int grid = static_cast<int>(items < num_sms ? items : num_sms);
+  attention_sm90_persistent_kernel<P, BK, kStages>
+      <<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
+          mq, mk, mv, static_cast<__nv_bfloat16*>(o), p,
+          static_cast<int>(items));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -29,33 +29,23 @@
 // scores are computed. One thread owns one position for the scores; each
 // warp owns 8 output rows d for the PV sum, its lanes striding along
 // time. The block writes its unnormalised (o, m, l) per row; a second
-// small kernel rescales the chunks by exp(m_c - m) and divides by l.
-//
-// K11, spt_decode_cross_attention_q8_mh, is K3's function with the heads
-// walked inside the block. It replaces the probe kernel
-// scripts/bench_decode_cross.py:mh_q8 (body _mh_q8_kernel), whose point on
-// the TPU is one large DMA per batch item: K/V viewed as [B, H*64, Tk], all
-// heads of an item in one program. The card's counterpart is a block per
-// (256-position chunk, batch item) that walks all H heads over the
-// contiguous slab with a two-stage cp.async ring: while head h is scored
-// and summed, head h + 1's K and V slices are already in flight, so a
-// block keeps loads outstanding for its whole life where a K3 block
-// starts one 32 KB burst and then only computes. The grid is H times
-// smaller than K3's (96 blocks at B 16, kv_len 1500, on 132 SMs). R rows
-// natively (the TPU form pads to 8). Same arithmetic and partial records
-// as K3, so the same combine pass finishes it.
-#include "common.cuh"
+// small kernel (decode_cross_combine.cuh, shared with K11 in
+// decode_cross_attention_mh.cu) rescales the chunks by exp(m_c - m) and
+// divides by l.
+#include "decode_cross_combine.cuh"
 
 namespace {
 
-constexpr int kD = 64;
-constexpr int kMaxR = 8;
+using spt::decode_cross::decode_cross_q_combine;
+using spt::decode_cross::kD;
+using spt::decode_cross::kMaxR;
+using spt::decode_cross::kRec;
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = kThreads;        // time positions per block
 constexpr int kRowBytes = kChunk + 16;  // a row slice's aligned 16-byte cover
 constexpr int kSegs = kRowBytes / 16;   // at most 17 chunks of 16 bytes
-constexpr int kRec = kD + 2;            // partial record: o[64], m, l
 
 // Sign-extended nibbles of a stored byte: rows d (low) and d + 32 (high).
 // The shifts run on an unsigned value; the cast back to int and the
@@ -236,177 +226,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// One block per (b, h), one thread per (r, d): o = sum_c o_c e^(m_c - m)
-// / sum_c l_c e^(m_c - m), rounded to bf16.
-__global__ void __launch_bounds__(kMaxR * kD)
-    decode_cross_q_combine(const float* __restrict__ part,
-                           __nv_bfloat16* __restrict__ o, int H, int R,
-                           int nchunks, long long osb, long long osh,
-                           long long osr) {
-  const int bh = blockIdx.x, b = bh / H, h = bh % H;
-  const int r = threadIdx.x / kD, d = threadIdx.x % kD;
-  if (r >= R) return;
-  const float* rec = part + static_cast<size_t>(bh) * nchunks * R * kRec;
-  float m = -INFINITY;
-  for (int c = 0; c < nchunks; ++c)
-    m = fmaxf(m, rec[(c * R + r) * kRec + kD]);
-  float acc = 0.f, l = 0.f;
-  for (int c = 0; c < nchunks; ++c) {
-    const float* x = rec + (c * R + r) * kRec;
-    const float w = expf(x[kD] - m);
-    acc = fmaf(x[d], w, acc);
-    l = fmaf(x[kD + 1], w, l);
-  }
-  o[b * osb + h * osh + r * osr + d] = __float2bfloat16_rn(acc / l);
-}
-
-// K11: one block per (chunk, batch item) walks all H heads; int8 K/V only.
-// Dynamic shared memory: two stages of K and V slices.
-constexpr int kStageBytes = 2 * kD * kRowBytes;  // one head's K and V
-constexpr int kMhSmem = 2 * kStageBytes;
-
-template <int R>
-__global__ void __launch_bounds__(kThreads)
-    decode_cross_q8_mh_kernel(const __nv_bfloat16* __restrict__ q,
-                              const int8_t* __restrict__ qk,
-                              const float* __restrict__ ks,
-                              const int8_t* __restrict__ qv,
-                              const float* __restrict__ vs,
-                              float* __restrict__ part, int H, int Tk,
-                              int kv_len, long long qsb, long long qsh,
-                              long long qsr) {
-  extern __shared__ __align__(16) unsigned char stage[];
-  __shared__ unsigned char kshift[2][kD], vshift[2][kD];
-  __shared__ float qsm[kD][R];
-  __shared__ float pv[kChunk][R];
-  __shared__ float red[R][kWarps];
-  __shared__ float rmax[R];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int chunk = blockIdx.x, nchunks = gridDim.x;
-  const int b = blockIdx.y;
-  const int t0 = chunk * kChunk;
-  const int t1 = min(t0 + kChunk, kv_len);
-  const int n = t1 - t0;
-  const bool live = tid < n;
-  q += b * qsb;
-
-  auto prefetch = [&](int h, int buf) {
-    const size_t off = static_cast<size_t>(b * H + h) * kD * Tk;
-    unsigned char* dst = stage + buf * kStageBytes;
-    stage_rows(dst, kshift[buf], qk + off, kD, Tk, t0, t1);
-    stage_rows(dst + kD * kRowBytes, vshift[buf], qv + off, kD, Tk, t0, t1);
-    spt::cp_async_commit();
-  };
-
-  prefetch(0, 0);
-  for (int h = 0; h < H; ++h) {
-    const int buf = h & 1;
-    const int bh = b * H + h;
-    // The other stage was read by head h - 1, which ended on a barrier.
-    if (h + 1 < H) {
-      prefetch(h + 1, buf ^ 1);
-      spt::cp_async_wait<1>();  // head h's copies have landed
-    } else {
-      spt::cp_async_wait<0>();
-    }
-    for (int j = tid; j < R * kD; j += kThreads)
-      qsm[j % kD][j / kD] =
-          __bfloat162float(q[h * qsh + (j / kD) * qsr + (j % kD)]);
-    __syncthreads();
-
-    const unsigned char* ksm = stage + buf * kStageBytes;
-    const unsigned char* vsm = ksm + kD * kRowBytes;
-    float s[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) s[r] = 0.f;
-    if (live) {
-#pragma unroll 8
-      for (int row = 0; row < kD; ++row) {
-        const float kv = static_cast<float>(static_cast<int8_t>(
-            ksm[row * kRowBytes + kshift[buf][row] + tid]));
-#pragma unroll
-        for (int r = 0; r < R; ++r) s[r] = fmaf(qsm[row][r], kv, s[r]);
-      }
-      const float sc = ks[static_cast<size_t>(bh) * Tk + t0 + tid];
-#pragma unroll
-      for (int r = 0; r < R; ++r) s[r] *= sc;
-    }
-    // Positions past kv_len never enter the max.
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float mx = spt::warp_max(live ? s[r] : -INFINITY);
-      if (lane == 0) red[r][warp] = mx;
-    }
-    __syncthreads();
-    if (tid < R) {
-      float mx = red[tid][0];
-      for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, red[tid][w]);
-      rmax[tid] = mx;
-    }
-    __syncthreads();
-
-    const float vsc = live ? vs[static_cast<size_t>(bh) * Tk + t0 + tid] : 0.f;
-    float lsum[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float p = live ? expf(s[r] - rmax[r]) : 0.f;
-      pv[tid][r] = __bfloat162float(__float2bfloat16_rn(p * vsc));
-      lsum[r] = spt::warp_sum(p);
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      if (lane == 0) red[r][warp] = lsum[r];
-    __syncthreads();  // pv and the row sums complete
-
-    float* rec = part + (static_cast<size_t>(bh) * nchunks + chunk) * R * kRec;
-    if (tid < R) {
-      float l = 0.f;
-      for (int w = 0; w < kWarps; ++w) l += red[tid][w];
-      rec[tid * kRec + kD] = rmax[tid];
-      rec[tid * kRec + kD + 1] = l;
-    }
-#pragma unroll
-    for (int j = 0; j < kD / kWarps; ++j) {
-      const int row = warp * (kD / kWarps) + j;
-      const unsigned char* vrow = vsm + row * kRowBytes + vshift[buf][row];
-      float a[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) a[r] = 0.f;
-      for (int t = lane; t < n; t += 32) {
-        const float vv = static_cast<float>(static_cast<int8_t>(vrow[t]));
-#pragma unroll
-        for (int r = 0; r < R; ++r) a[r] = fmaf(pv[t][r], vv, a[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float o0 = spt::warp_sum(a[r]);
-        if (lane == 0) rec[r * kRec + row] = o0;
-      }
-    }
-    __syncthreads();  // this stage, qsm, pv and red are free again
-  }
-}
-
-template <int R>
-cudaError_t launch_mh_rows(const void* q, const void* qk, const void* ks,
-                           const void* qv, const void* vs, void* part, int B,
-                           int H, int Tk, int kv_len, long long qsb,
-                           long long qsh, long long qsr, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_cross_q8_mh_kernel<R>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kMhSmem);
-  if (err != cudaSuccess) return err;
-  const int nchunks = (kv_len + kChunk - 1) / kChunk;
-  decode_cross_q8_mh_kernel<R>
-      <<<dim3(nchunks, B), kThreads, kMhSmem, st>>>(
-          static_cast<const __nv_bfloat16*>(q),
-          static_cast<const int8_t*>(qk), static_cast<const float*>(ks),
-          static_cast<const int8_t*>(qv), static_cast<const float*>(vs),
-          static_cast<float*>(part), H, Tk, kv_len, qsb, qsh, qsr);
-  return cudaGetLastError();
-}
-
 template <int kBits, int R>
 cudaError_t launch_rows(const void* q, const void* qk, const void* ks,
                         const void* qv, const void* vs, void* part, int B,
@@ -468,31 +287,4 @@ SPT_API int spt_decode_cross_attention_q4(
     long long osh, long long osr, void* stream) {
   return launch<4>(q, qk, ks, qv, vs, part, o, B, H, R, Tk, kv_len, qsb, qsh,
                    qsr, osb, osh, osr, stream);
-}
-
-// K11. Operands as K3's (the K/V of one batch item are one contiguous
-// [H*64, Tk] slab).
-SPT_API int spt_decode_cross_attention_q8_mh(
-    const void* q, const void* qk, const void* ks, const void* qv,
-    const void* vs, void* part, void* o, int B, int H, int R, int Tk,
-    int kv_len, long long qsb, long long qsh, long long qsr, long long osb,
-    long long osh, long long osr, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  switch (R) {
-#define SPT_ROWS(n)                                                        \
-  case n:                                                                  \
-    err = launch_mh_rows<n>(q, qk, ks, qv, vs, part, B, H, Tk, kv_len, qsb, \
-                            qsh, qsr, st);                                 \
-    break;
-    SPT_ROWS(1) SPT_ROWS(2) SPT_ROWS(3) SPT_ROWS(4)
-    SPT_ROWS(5) SPT_ROWS(6) SPT_ROWS(7) SPT_ROWS(8)
-#undef SPT_ROWS
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int nchunks = (kv_len + kChunk - 1) / kChunk;
-  decode_cross_q_combine<<<B * H, kMaxR * kD, 0, st>>>(
-      static_cast<const float*>(part), static_cast<__nv_bfloat16*>(o), H, R,
-      nchunks, osb, osh, osr);
-  return static_cast<int>(cudaGetLastError());
 }

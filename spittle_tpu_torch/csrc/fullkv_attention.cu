@@ -15,7 +15,8 @@
 // Both launch the same template instance, so K8 gives K1's bits; K5
 // (flash_attention.cu) is the same policy and tile, so it gives K1's bits
 // on K1's inputs too. (K9, the head-pair form, is the core's HeadPair
-// instance in fullkv_attention_pair.cu; K10 keeps its own mma.sync body.)
+// instance in fullkv_attention_pair.cu; K10, fullkv_attention_pipe.cu, is
+// the core's persistent kernel on this policy and tile.)
 //
 // Inputs arrive pre-scaled by Dh^-0.25 (Whisper's split scaling), so no
 // scale is applied here.

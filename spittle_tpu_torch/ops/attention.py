@@ -16,7 +16,8 @@ probe's kernel).
   flash_attention_fullkv_packed_pair (K9, csrc/fullkv_attention_pair.cu),
   the core's HeadPair instance, two heads per block;
   flash_attention_fullkv_pipe (K10, csrc/fullkv_attention_pipe.cu), K1's
-  function software-pipelined on mma.sync; flash_attention_fullkv_q8 (K7,
+  function on the core's persistent kernel, whose pipeline runs on across
+  work items; flash_attention_fullkv_q8 (K7,
   csrc/fullkv_attention_q8.cu), both products int8.
 - decode_cross_attention (K4, csrc/decode_cross_attention.cu): <= 8 query
   rows against the whole K/V in the decode layout [B, H, Dh, Tk]; replaces
@@ -25,9 +26,9 @@ probe's kernel).
   csrc/decode_cross_attention_q.cu: the same over int8 K/V, or int4 K/V
   packed two per byte, with one f32 scale per position; replace the
   Pallas `decode_cross_attention_q8` and `decode_cross_attention_q4`.
-- decode_cross_attention_q8_mh (K11, the same source): K3's function with
-  a batch item's heads walked inside one block; replaces `mh_q8` of
-  scripts/bench_decode_cross.py.
+- decode_cross_attention_q8_mh (K11, csrc/decode_cross_attention_mh.cu):
+  K3's function over a batch item's K/V as one slab, in a persistent grid
+  fed by a producer warp; replaces `mh_q8` of scripts/bench_decode_cross.py.
 - multihead_attention_packed and multihead_attention: the dispatchers.
   They pick a kernel from the shapes and the encoder-attention form, an
   argument (ENCODER_ATTENTION_FORMS), never the environment.
@@ -39,6 +40,7 @@ launches in `<wrapper>.launches`.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -282,8 +284,14 @@ flash_attention.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K10: K1 software-pipelined (non-causal)
+# K10: K1 on a persistent, cross-item pipeline (non-causal)
 # ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    """The card's SM count: the size of the persistent kernels' grids."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def flash_attention_fullkv_pipe(q, k, v,
@@ -291,7 +299,10 @@ def flash_attention_fullkv_pipe(q, k, v,
     """K10: K1's function for a non-causal call, shapes and result as
     flash_attention_fullkv's. Its plain version is K1's: the two compute
     the same function (the reference's pipelined kernel reorders the
-    schedule, not the arithmetic)."""
+    schedule, not the arithmetic). The kernel is the attention core's
+    persistent instance on K1's policy and tiles, one block per SM walking
+    K1's work items, so it gives K1's bits; bf16 only. Its grid is the SM
+    count, so K1's cap of 65535 on B * H does not apply."""
     if q.device.type == "cpu":
         return flash_attention_fullkv_plain(q, k, v, False, kv_len)
     kv_len = _check_split_qkv("flash_attention_fullkv_pipe", q, k, v, kv_len)
@@ -300,7 +311,7 @@ def flash_attention_fullkv_pipe(q, k, v,
     lib = _build.load_library()
     _build.check(lib.spt_fullkv_attention_pipe(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, h, tq, k.shape[2], kv_len,
+        b, h, tq, k.shape[2], kv_len, _num_sms(q.device.index),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         out.stride(0), out.stride(2), out.stride(1),
         _build.stream_ptr(q.device),
@@ -651,8 +662,10 @@ decode_cross_attention.launches = 0
 # ---------------------------------------------------------------------------
 
 
-# Time positions per block of K3/K6 (kChunk in the source).
+# Time positions per partial record of K3/K6 and of K11 (kChunk in their
+# sources).
 _QUANT_CHUNK = 256
+_MH_CHUNK = 128
 
 
 def decode_cross_attention_q8_plain(q, qk, ks, qv, vs,
@@ -681,15 +694,17 @@ def decode_cross_attention_q4_plain(q, qk, ks, qv, vs,
                                            unpack_kv_int4(qv), vs, kv_len)
 
 
-def _launch_decode_cross_quant(name, entry, q, qk, ks, qv, vs, kv_len, rows):
+def _launch_decode_cross_quant(name, entry, q, qk, ks, qv, vs, kv_len, rows,
+                               chunk=_QUANT_CHUNK, grid=()):
     """Checks and launch shared by K3, K6 and K11 (rows: stored K/V rows,
-    64 for int8 and 32 for packed int4). Returns the [B, H, R, 64] result
-    as a view of a [B, R, H, 64] buffer."""
+    64 for int8 and 32 for packed int4; chunk: positions per partial
+    record; grid: the persistent kernel's SM count, passed after kv_len).
+    Returns the [B, H, R, 64] result as a view of a [B, R, H, 64] buffer."""
     b, h, r, d = q.shape
     tk = qk.shape[3]
     kv_len = _check_decode_cross(name, q, (qk, qv), (ks, vs), rows, torch.int8,
                                  kv_len)
-    chunks = -(-kv_len // _QUANT_CHUNK)
+    chunks = -(-kv_len // chunk)
     part = torch.empty((b * h, chunks, r, d + 2), dtype=torch.float32,
                        device=q.device)
     out = torch.empty((b, r, h, d), dtype=q.dtype, device=q.device)
@@ -697,7 +712,7 @@ def _launch_decode_cross_quant(name, entry, q, qk, ks, qv, vs, kv_len, rows):
     _build.check(getattr(lib, entry)(
         q.data_ptr(), qk.data_ptr(), ks.data_ptr(), qv.data_ptr(),
         vs.data_ptr(), part.data_ptr(), out.data_ptr(),
-        b, h, r, tk, kv_len, *q.stride()[:3],
+        b, h, r, tk, kv_len, *grid, *q.stride()[:3],
         out.stride(0), out.stride(2), out.stride(1),
         _build.stream_ptr(q.device),
     ), entry)
@@ -739,15 +754,19 @@ decode_cross_attention_q4.launches = 0
 def decode_cross_attention_q8_mh(q, qk, ks, qv, vs,
                                  kv_len: Optional[int] = None) -> torch.Tensor:
     """K11: K3's function (decode_cross_attention_q8_plain is its plain
-    version) with all heads of a batch item walked inside one block.
-    Operands as K3's: q [B, H, R<=8, 64] bf16 pre-scaled by Dh^-0.5, qk/qv
-    int8 [B, H, 64, Tk] (per batch item one contiguous [H*64, Tk] slab,
-    the probe kernel's view) and ks/vs f32 [B, H, Tk] -> [B, H, R, 64]."""
+    version) over the K/V of a batch item as one contiguous [H*64, Tk]
+    slab, the probe kernel's view: a persistent grid of one block per SM
+    over items of (batch item, head pair, 128 positions), each loaded as
+    one box per K and V (TMA where Tk % 16 == 0, 16-byte cp.async covers
+    otherwise). Operands as K3's: q [B, H, R<=8, 64] bf16 pre-scaled by
+    Dh^-0.5, qk/qv int8 [B, H, 64, Tk] and ks/vs f32 [B, H, Tk], any Tk ->
+    [B, H, R, 64]."""
     if q.device.type == "cpu":
         return decode_cross_attention_q8_plain(q, qk, ks, qv, vs, kv_len)
     out = _launch_decode_cross_quant(
         "decode_cross_attention_q8_mh", "spt_decode_cross_attention_q8_mh",
-        q, qk, ks, qv, vs, kv_len, q.shape[3])
+        q, qk, ks, qv, vs, kv_len, q.shape[3], chunk=_MH_CHUNK,
+        grid=(_num_sms(q.device.index),))
     decode_cross_attention_q8_mh.launches += 1
     return out
 

@@ -11,9 +11,11 @@ Dh 64, T 1536 with kv_len 1500, one query row) across:
   plain-int8   the plain path over int8 K/V (decode_cross_attention_q8_plain)
   k3-int8      decode_cross_attention_q8 (K3): dequantization in the kernel,
                one block per (256 positions, batch, head)
-  k11-int8-mh  decode_cross_attention_q8_mh (K11): K3's function with all
-               heads of a batch item walked inside one block behind a
-               cp.async ring
+  k11-int8-mh  decode_cross_attention_q8_mh (K11): K3's function over a
+               batch item's K/V as one [H*64, T] slab, a persistent grid
+               of one block per SM over (batch item, head pair, 128
+               positions), each pair's K and V rows one TMA box each (T
+               1536 is a multiple of 16) into a ring fed by a producer warp
 
 Every variant runs N_ITER calls between CUDA events; the K/V of one call
 (126 MB bf16, 63 MB int8) exceed the 50 MB L2, so each call reads device

@@ -1,9 +1,10 @@
 """Mutation check of the card tests of K3 and K6 (decode cross-attention
 over int8 and packed int4 K/V), K4 (the same over bf16 K/V, chunked past
 its shared memory), K7 (int8-dot encoder attention), K1 and K8 (encoder
-attention, strided and packed heads), K5 (tiled flash attention) and K9
-(head pairs), all four on the wgmma attention core, and K13 (cache column
-write): each case breaks the kernel in a copy
+attention, strided and packed heads), K5 (tiled flash attention), K9
+(head pairs) and K10 (the persistent, pipelined form), all five on the
+wgmma attention core, K11 (the slab-fed decode cross-attention over int8
+K/V) and K13 (cache column write): each case breaks the kernel in a copy
 of the package under a temporary directory, where the copy builds its own
 kernel library, and the card tests of tests/test_torch_kernels_cuda.py
 must then fail on the kernel's values. Each edit names the exact text it
@@ -31,10 +32,11 @@ SRC = "spittle_tpu_torch/csrc/decode_cross_attention_q.cu"
 Q8_SRC = "spittle_tpu_torch/csrc/fullkv_attention_q8.cu"
 K4_SRC = "spittle_tpu_torch/csrc/decode_cross_attention.cu"
 FULLKV_SRC = "spittle_tpu_torch/csrc/fullkv_attention.cu"
-# K1, K5, K8 and K9 are instances of the attention core; their masks and
-# operand addressing live there.
+# K1, K5, K8, K9 and K10 are instances of the attention core; their masks,
+# operand addressing and (K10) cross-item state live there.
 CORE_SRC = "spittle_tpu_torch/csrc/attention_sm90.cuh"
 CACHE_SRC = "spittle_tpu_torch/csrc/cache_col_write.cu"
+MH_SRC = "spittle_tpu_torch/csrc/decode_cross_attention_mh.cu"
 WRAPPER = "spittle_tpu_torch/ops/attention.py"
 CARD_TESTS = "tests/test_torch_kernels_cuda.py"
 
@@ -49,8 +51,7 @@ MUTATIONS = {
          "const int nchunks = (Tk + kChunk - 1) / kChunk;"),
         (SRC, "const float p = live ? expf(s[r] - rmax[r]) : 0.f;",
          "const float p = (live && t0 + tid < kv_len) ? expf(s[r] - rmax[r]) : 0.f;"),
-        (WRAPPER, "chunks = -(-kv_len // _QUANT_CHUNK)",
-         "chunks = -(-tk // _QUANT_CHUNK)"),
+        (WRAPPER, "chunks = -(-kv_len // chunk)", "chunks = -(-tk // chunk)"),
     ]),
     # Nibbles shifted as unsigned values: 0..15, no sign extension.
     "nibble_unsigned": ("quant_kernel_matches and int4", [
@@ -101,6 +102,18 @@ MUTATIONS = {
     "pair_v_box": ("packed_kernel_matches and pair", [
         (CORE_SRC, "const uint32_t v_off = (P::kKvBoxes + w * P::kHeadSteps) * L::kBoxBytes;",
          "const uint32_t v_off = (P::kKvBoxes + 0 * P::kHeadSteps) * L::kBoxBytes;"),
+    ]),
+    # K10: l and m not reset where a block moves on to its next work item,
+    # so a row's sum carries the previous item's rows; only blocks that
+    # walk several items ([2, 20, 1500]: 480 items).
+    "pipe_row_state_carried": ("pipe_kernel_matches and 2-20-1500-1500", [
+        (CORE_SRC, "for (int hr = 0; hr < 2; ++hr) l[hr] = 0.f, m[hr] = kNegBig;",
+         "for (int hr = 0; hr < 2; ++hr) (void)hr;"),
+    ]),
+    # K11, TMA path: K's box one head further down the slab.
+    "mh_box_head_offset": ("mh_kernel_matches and 1536", [
+        (MH_SRC, "tma_load_2d(sm::smem_u32(st), &tm_k, full(s), it.t0, row0);",
+         "tma_load_2d(sm::smem_u32(st), &tm_k, full(s), it.t0, row0 + kD);"),
     ]),
     # K13 (and K12, the same body): a neighbouring position written.
     "cache_neighbour_column": ("cache_col_write_matches", [
