@@ -11,9 +11,11 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. Kernels against their plain PyTorch versions at the main-path
    shapes with B=8 windows: K1 encoder attention (an instance of the TMA
    + wgmma attention core), K2 W8A8 GEMM (the six
-   GEMMs of one encoder layer), K4 decode cross-attention (bf16 K/V), K3
+   GEMMs of one encoder layer, its row quantizer and its persistent wgmma
+   GEMM also timed apart), K4 decode cross-attention (bf16 K/V), K3
    and K6 decode cross-attention over int8 and packed int4 K/V (R = 1, 3,
-   4, and once at B=56, bench.py's large-v3 batch), and the
+   4, and once at B=56, bench.py's large-v3 batch; K3 on the decoder's
+   int8 rows padded to a 1504-byte pitch), and the
    encoder-attention forms K7 (int8 products), K8 (packed heads, K1's
    instance of the core on the packed strides), K9 (head pairs, the
    core's other policy) and K10 (the core's persistent kernel, timed
@@ -208,7 +210,8 @@ def kernel_phase(dev, rng):
     from spittle_tpu_torch.ops import attention as att
     from spittle_tpu_torch.ops.quant import quantize_weight_w8a8
     from spittle_tpu_torch.ops.w8a8_gemm import (
-        quantize_rows, w8a8_gemm, w8a8_gemm_plain,
+        launch_gemm, launch_quantize, quantize_for_gemm, quantize_rows, w8a8_gemm,
+        w8a8_gemm_plain,
     )
 
     rows = []
@@ -258,36 +261,50 @@ def kernel_phase(dev, rng):
         for shape in ((1280, 1280), (1280, 5120), (5120, 1280))}
     bias = {n: randn(rng, (n,), dev, scale=0.1) for n in (1280, 5120)}
     sc = d ** -0.25
+    # k and v take q's quantized rows, as the encoder's attention does
+    # (model.py:_attn_full): the layer runs four row quantizers.
+    xq1 = quantize_for_gemm(x1)
     calls = [  # (label, x, weight shape, bias, act, out_scale)
         ("q 1280x1280 +bias *scale", x1, (1280, 1280), 1280, "none", sc),
-        ("k 1280x1280 *scale", x1, (1280, 1280), None, "none", sc),
-        ("v 1280x1280 +bias", x1, (1280, 1280), 1280, "none", 1.0),
+        ("k 1280x1280 *scale (q's rows)", xq1, (1280, 1280), None, "none", sc),
+        ("v 1280x1280 +bias (q's rows)", xq1, (1280, 1280), 1280, "none", 1.0),
         ("out 1280x1280 +bias", x1, (1280, 1280), 1280, "none", 1.0),
         ("fc1 1280x5120 +bias gelu", x1, (1280, 5120), 5120, "gelu", 1.0),
         ("fc2 5120x1280 +bias", x4, (5120, 1280), 1280, "none", 1.0),
     ]
-    print("K2 w8a8_gemm, one encoder layer's six GEMMs at M=12000, bf16:")
-    tot = dict(err=0.0, ms=0.0, eager=0.0, plain=0.0, lib=0.0, ops=0.0, nbytes=0.0)
+    print("K2 w8a8_gemm, one encoder layer's six GEMMs at M=12000, bf16 "
+          "(quantizer and GEMM also timed apart):")
+    keys = ("err", "ms", "eager", "plain", "lib", "ops", "nbytes", "quant_ms",
+            "gemm_ms", "quant_bound", "gemm_bound")
+    tot = dict.fromkeys(keys, 0.0)
+    parts = {}
     lib_ok = True
     for label, x, shape, bn, act, s in calls:
         qw = ws[shape]
         bb = None if bn is None else bias[bn]
+        shared = not torch.is_tensor(x)
+        xt = x1 if shared else x  # the plain version quantizes on its own
         run = lambda: w8a8_gemm(x, qw["qw8"], qw["scale"], bias=bb, act=act,  # noqa: E731
                                 out_scale=s)
         got = run()
-        want = w8a8_gemm_plain(x, qw["qw8"], qw["scale"], bias=bb, act=act,
+        want = w8a8_gemm_plain(xt, qw["qw8"], qw["scale"], bias=bb, act=act,
                                out_scale=s)
         # One bf16 output ulp: same int8 bytes and int32 sums on both sides.
         err = ((got.float() - want.float()).abs()
                - 2.0 ** -7 * want.float().abs()).max().item()
         check(f"K2 {label} (excess over 1 bf16 ulp)", max(err, 0.0), 1e-5)
         ms, eager_ms = time_ms(run, 20), call_ms(run, 20)
+        # The two launches apart: the row quantizer (none for k and v),
+        # then the GEMM on its output.
+        qx, sx = (x.qx, x.sx) if shared else launch_quantize(x)
+        quant_ms = 0.0 if shared else time_ms(lambda: launch_quantize(x), 20)
+        gemm_ms = time_ms(lambda: launch_gemm(qx, sx, qw["qw8"], qw["scale"], bb, s,
+                                              act == "gelu", torch.bfloat16), 20)
         plain_ms = time_ms(lambda: w8a8_gemm_plain(
-            x, qw["qw8"], qw["scale"], bias=bb, act=act, out_scale=s), 2, 1)
+            xt, qw["qw8"], qw["scale"], bias=bb, act=act, out_scale=s), 2, 1)
         kk, n = shape
         lib_ms = None
         if lib_ok:
-            qx, _ = quantize_rows(x)
             try:
                 lib_ms = time_ms(lambda: torch._int_mm(qx, qw["qw8"]), 20)
             except RuntimeError as e:  # yardstick only; the port never calls it
@@ -296,26 +313,46 @@ def kernel_phase(dev, rng):
         ops = 2.0 * m * kk * n
         nbytes = m * kk * 2 + kk * n + n * 4 + (0 if bn is None else n * 2) + m * n * 2
         bms, by = bound(ops, PEAK_INT8_OPS, nbytes)
-        print(f"  {label}: ms {ms:.4f} (eager call_ms {eager_ms:.4f})  "
+        # The parts' own bounds: the quantizer reads x and writes qx and
+        # sx; the GEMM reads qx, sx and the weight, writes the output. The
+        # layer's bound counts x once per quantizer.
+        q_bound = 0.0 if shared else (m * kk * 3 + m * 4) / PEAK_BYTES * 1e3
+        g_bound, _ = bound(ops, PEAK_INT8_OPS, nbytes - m * kk * 2 + m * kk + m * 4)
+        if shared:
+            nbytes -= m * kk * 2
+        print(f"  {label}: ms {ms:.4f} (quantizer {quant_ms:.4f}, bound "
+              f"{q_bound:.4f}; GEMM {gemm_ms:.4f}, bound {g_bound:.4f}, "
+              f"{ops / gemm_ms / 1e9:.0f} TOP/s; eager call_ms {eager_ms:.4f})  "
               f"plain_ms {plain_ms:.4f}  "
               f"library_ms (torch._int_mm, dot alone) "
               f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'}  "
               f"bound_ms {bms:.4f} ({by})")
+        parts[label.split()[0]] = dict(ms=ms, quant_ms=quant_ms, gemm_ms=gemm_ms,
+                                       library_ms=lib_ms, bound_ms=bms)
         tot["err"] = max(tot["err"], (got.float() - want.float()).abs().max().item())
-        tot["ms"] += ms
-        tot["eager"] += eager_ms
-        tot["plain"] += plain_ms
+        for key, val in (("ms", ms), ("eager", eager_ms), ("plain", plain_ms),
+                         ("ops", ops), ("nbytes", nbytes), ("quant_ms", quant_ms),
+                         ("gemm_ms", gemm_ms), ("quant_bound", q_bound),
+                         ("gemm_bound", g_bound)):
+            tot[key] += val
         tot["lib"] = None if (lib_ms is None or tot["lib"] is None) else tot["lib"] + lib_ms
-        tot["ops"] += ops
-        tot["nbytes"] += nbytes
+        del qx, sx, got, want
     bms, by = bound(tot["ops"], PEAK_INT8_OPS, tot["nbytes"])
-    print(f"  layer total: ms {tot['ms']:.4f} (eager call_ms {tot['eager']:.4f})  "
+    lib_txt = "n/a" if tot["lib"] is None else f"{tot['lib']:.4f}"
+    print(f"  layer total: ms {tot['ms']:.4f} (quantizers {tot['quant_ms']:.4f}, "
+          f"bound {tot['quant_bound']:.4f}; GEMMs {tot['gemm_ms']:.4f}, bound "
+          f"{tot['gemm_bound']:.4f}; eager call_ms {tot['eager']:.4f})  "
+          f"library_ms (torch._int_mm, the six dots alone) "
+          f"{lib_txt}  "
           f"bound_ms {bms:.4f} ({by})")
     rows.append(dict(name="w8a8_gemm", route="cuda",
                      source="spittle_tpu_torch/csrc/w8a8_gemm.cu",
                      replaces="spittle_tpu/ops/w8a8_gemm.py:84",
                      work="one encoder layer: 4 x (1280x1280), fc1, fc2 at M=12000",
                      max_abs_err=tot["err"], ms=tot["ms"], call_ms=tot["eager"],
+                     quant_ms=tot["quant_ms"], gemm_ms=tot["gemm_ms"],
+                     quant_bound_ms=tot["quant_bound"],
+                     gemm_bound_ms=tot["gemm_bound"], per_gemm=parts,
                      plain_ms=tot["plain"],
                      bound_ms=bms, bound_by=by, library_ms=tot["lib"],
                      library="torch._int_mm, the int8 dot alone"))
@@ -788,9 +825,22 @@ def encoder_forms_phase(dev, rng):
     return rows
 
 
+def padded_rows(x):
+    """int8 x [..., Tk] copied into rows tma_pitch(Tk) bytes apart, as the
+    decoder stores its int8 cross-K/V (models/whisper/model.py:
+    precompute_cross_kv_quant): a view of the logical shape."""
+    from spittle_tpu_torch.ops.attention import tma_pitch
+
+    tk = x.shape[-1]
+    buf = x.new_empty((*x.shape[:-1], tma_pitch(tk)))
+    buf[..., :tk] = x
+    return buf[..., :tk]
+
+
 def quant_cross_phase(dev):
     """K3 and K6 against their plain versions at B=8 (R = 1, 3, 4) and
-    B=56 (R = 1). Inputs come from a seeded generator on the card."""
+    B=56 (R = 1), K3 on the decoder's padded int8 rows (Tk 1500 at a pitch
+    of 1504 bytes). Inputs come from a seeded generator on the card."""
     from spittle_tpu_torch.ops import attention as att
     from spittle_tpu_torch.ops.quant import (
         dequantize_kv, dequantize_kv_int4, quantize_kv, quantize_kv_int4,
@@ -801,15 +851,16 @@ def quant_cross_phase(dev):
     gen.manual_seed(SEED + 2)
     h, t, d = 20, 1500, 64
     rows = []
-    specs = (  # (K#, bits, wrapper, plain, quantizer, dequantizer, key, line)
+    specs = (  # (K#, bits, wrapper, plain, quantizer, dequantizer, key, line,
+        #          layout of the stored rows, source)
         ("K3", 8, att.decode_cross_attention_q8,
          att.decode_cross_attention_q8_plain, quantize_kv, dequantize_kv,
-         "qw", 795),
+         "qw", 795, padded_rows, "decode_cross_attention_mh.cu"),
         ("K6", 4, att.decode_cross_attention_q4,
          att.decode_cross_attention_q4_plain, quantize_kv_int4,
-         dequantize_kv_int4, "qw4", 876),
+         dequantize_kv_int4, "qw4", 876, lambda x: x, "decode_cross_attention_q.cu"),
     )
-    for kname, bits, fn, plain, quant, dequant, key, line in specs:
+    for kname, bits, fn, plain, quant, dequant, key, line, layout, src in specs:
         stored = d if bits == 8 else d // 2
         print(f"{kname} {fn.__name__} K/V {bits}-bit [B,20,{stored},1500] "
               f"+ f32 scales:")
@@ -823,7 +874,7 @@ def quant_cross_phase(dev):
                 qkv = [quant(torch.randn((b, h, d, t), generator=gen, device=dev))
                        for _ in range(2)]
                 deq = tuple(dequant(x).transpose(-1, -2).contiguous() for x in qkv)
-                return (qkv[0][key], qkv[0]["scale"], qkv[1][key],
+                return (layout(qkv[0][key]), qkv[0]["scale"], layout(qkv[1][key]),
                         qkv[1]["scale"]), deq
 
             sets = [make_set() for _ in range(n_cold_sets(kv_bytes))]
@@ -834,7 +885,8 @@ def quant_cross_phase(dev):
                 want = plain(qd, *sets[0][0], kv_len=t)
                 err = (got.float() - want.float()).abs().max().item()
                 # K4's tolerance: the kernel rounds bf16(p * vs) against
-                # its 256-position chunk's max, the plain version against
+                # its chunk's max (K3 128 positions, K6 256), the plain
+                # version against
                 # the row max (a bf16 half-ulp per weight, averaged), then
                 # one bf16 rounding of the output.
                 check(f"{kname} B={b} R={r}", err,
@@ -847,6 +899,8 @@ def quant_cross_phase(dev):
                     qd, kd, vd, scale=1.0) for _, (kd, vd) in sets], 100)
                 nbytes = kv_bytes + 2 * b * h * r * d * 2
                 bms, by = bound(4.0 * b * h * r * t * d, PEAK_BF16_FLOPS, nbytes)
+                row_r = dict(ms=ms, call_ms=eager_ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=bms)
                 print(f"  B={b} R={r} ({len(sets)} input sets): ms {ms:.4f} "
                       f"(eager call_ms {eager_ms:.4f})  plain_ms {plain_ms:.4f}  "
                       f"library_ms (F.scaled_dot_product_attention on bf16 "
@@ -855,20 +909,21 @@ def quant_cross_phase(dev):
                 if b == 8 and r == 1:
                     row = dict(
                         name=fn.__name__, route="cuda",
-                        source="spittle_tpu_torch/csrc/decode_cross_attention_q.cu",
+                        source=f"spittle_tpu_torch/csrc/{src}",
                         replaces=f"spittle_tpu/ops/attention.py:{line}",
                         work="q [8,20,1,64] (a decode step)",
                         max_abs_err=err, ms=ms, call_ms=eager_ms,
                         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                         library_ms=lib_ms,
                         library="F.scaled_dot_product_attention on bf16 K/V "
-                                "dequantized beforehand")
+                                "dequantized beforehand", by_shape={})
                 elif b == LV3_BATCH:
                     row.update(ms_b56=ms, plain_ms_b56=plain_ms,
                                bound_ms_b56=bms, library_ms_b56=lib_ms,
                                max_abs_err=max(row["max_abs_err"], err))
                 else:
                     row["max_abs_err"] = max(row["max_abs_err"], err)
+                row["by_shape"][f"B{b}R{r}"] = row_r
             del sets, kernel
             torch.cuda.empty_cache()
         rows.append(row)

@@ -1,11 +1,16 @@
-// Decode-time cross-attention over int8 K/V for Hopper (sm_90a), K11: K3's
-// function (decode_cross_attention_q.cu) with the K/V of a batch item read
-// as one contiguous [H*64, Tk] int8 slab, several heads per load.
+// Decode-time cross-attention over int8 K/V for Hopper (sm_90a): K3 and
+// K11, one kernel and one entry (spt_decode_cross_attention_q8), which
+// both wrappers call. The K/V of a batch item is read as
+// one [H*64, Tk] int8 slab of row pitch ld, several heads per load.
 //
-// Replaces the probe kernel scripts/bench_decode_cross.py:mh_q8 (body
+// Replaces the TPU kernels spittle_tpu/ops/attention.py:
+// decode_cross_attention_q8 (K3, body _decode_cross_q8_kernel) and the
+// probe kernel scripts/bench_decode_cross.py:mh_q8 (K11, body
 // _mh_q8_kernel), whose point on the TPU is one large DMA per batch item:
-// K/V viewed as [B, H*64, Tk], all heads of an item in one program. q
-// arrives bf16, pre-scaled by Dh^-0.5. Per (b, h), with t < kv_len:
+// K/V viewed as [B, H*64, Tk], all heads of an item in one program. Both
+// compute the same function (tests/test_torch_probes.py), and here they
+// give the same bits. q arrives bf16, pre-scaled by Dh^-0.5. Per (b, h),
+// with t < kv_len:
 //   s[r, t] = (sum_d q[r, d] * qK[d, t]) * ks[t]
 //   m = max_t s, p = exp(s - m), l = sum_t p     (mask before the max)
 //   o[r, d] = sum_t bf16(p * vs[t]) * qV[d, t] / l
@@ -16,6 +21,12 @@
 // h, t). Widening each byte with I2F (16 per clock per SM) would take ~17
 // us of its own on 132 SMs, so no byte goes through it.
 //
+// The row pitch. The decoder stores its int8 cross-K/V with rows padded to
+// a multiple of 16 bytes (models/whisper/model.py:precompute_cross_kv_quant:
+// 1504 for Tk 1500, 0.27% more bytes), so that TMA can address every row;
+// the views keep the logical shape [B, H, 64, Tk]. Contiguous K/V (ld =
+// Tk) takes TMA where Tk % 16 == 0 and the covers otherwise.
+//
 // Design:
 //  - Work items (b, pair of heads, 128 positions): 1920 at the probe's
 //    shape, in a persistent grid of one block per SM (min(SMs, items)
@@ -24,13 +35,14 @@
 //  - Producer warps fill a ring of kStages stages, each an item's K and
 //    V rows (2 x 128 rows x 128 positions, 32 KB), guarded by a full and
 //    an empty mbarrier per stage; the ring keeps up to 160 KB in flight
-//    per SM. Two load paths, chosen by the host: where Tk % 16 == 0 (and
-//    the slabs are 16-byte aligned) a 2-D tensor map over the slab
-//    [B*H*64, Tk] loads an item's 128 K rows (two heads) in one TMA box,
-//    and V's in another, positions past Tk zero-filled; otherwise rows
-//    are Tk bytes apart at no 16-byte boundary, and four producer warps
+//    per SM. Two load paths, chosen by the host: where ld % 16 == 0 and
+//    the slabs are 16-byte aligned a 2-D tensor map over the slab
+//    [B*H*64, Tk] of pitch ld loads an item's 128 K rows (two heads) in
+//    one TMA box, and V's in another, positions past Tk zero-filled (the
+//    padding past Tk is never read); otherwise rows are ld bytes apart at
+//    no 16-byte boundary, and four producer warps
 //    copy each row's slice as the aligned 16-byte cp.async chunks that
-//    cover it (K3's stage_rows), into rows of 144 bytes, and each of their
+//    cover it (K6's stage_rows), into rows of 144 bytes, and each of their
 //    threads signals the full barrier with cp.async.mbarrier.arrive.noinc
 //    (one warp issuing 2,304 copies per item held the card to 0.047 ms
 //    against the TMA path's 0.032 at the probe's shape on an H100 80GB HBM3 at 700 W). A
@@ -44,16 +56,17 @@
 //    rotated by its lane, so the 32 lanes hit 32 banks), with bf16(p * vs)
 //    passed through shared memory over the K rows the scores have read.
 //    Ring depth and item size were timed on the card
-//    (probes/decode_cross_items.py): head pairs and 5 stages were the
-//    fastest or within 3% on both paths at R 1 and 3. Max and sum are
+//    (probes/decode_cross_items.py): head pairs, with 4 stages at R 1 on
+//    the TMA path (a decode step: 7-11% faster than 5 at K3's B 8 and
+//    56) and 5 otherwise (5% faster than 4 at R 3, 2% on cp.async). Max and sum are
 //    warp shuffles. q and the scales are loaded before the wait for the
 //    stage.
 //  - Widening: an int8 x becomes a float as 2^23 + (x + 128) built with
 //    __byte_perm (the byte XOR 0x80 under the exponent bits of 2^23), less
 //    2^23 + 128 in f32: exact for every byte, on the integer and FMA pipes.
-//  - Each row of a score sums over d in K3's order; P rounds to bf16
-//    against the 128-position chunk's max (K3: the 256-position chunk's),
-//    and the chunks are combined by K3's combine pass
+//  - Each row of a score sums over d in K6's order; P rounds to bf16
+//    against the 128-position chunk's max (K6: the 256-position chunk's),
+//    and the chunks are combined by K6's combine pass
 //    (decode_cross_combine.cuh) from the same partial records.
 //
 // The ring's phases: a team's consumers wait for the full barrier's phase
@@ -61,8 +74,8 @@
 // g it has finished item g - kTeams, so the producer has loaded at least
 // up to it; with kStages >= kTeams the stage's barrier is then at most one
 // phase behind, where a parity wait is exact.
-#include "attention_sm90.cuh"
 #include "decode_cross_combine.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -73,7 +86,13 @@ using spt::decode_cross::kMaxR;
 using spt::decode_cross::kRec;
 
 constexpr int kHeads = 2;   // heads per item (one TMA box)
-constexpr int kStages = 5;  // ring depth
+// Ring depth: kStages1 for one query row (a decode step) on the TMA path,
+// kStagesN otherwise (more rows, the prefill's 3 or 4, or cp.async
+// covers), as timed on the card.
+constexpr int kStages1 = 4;
+constexpr int kStagesN = 5;
+template <bool kTma, int R>
+constexpr int kRing = kTma && R == 1 ? kStages1 : kStagesN;
 constexpr int kChunk = 128;                // positions per item: 4 per lane
 constexpr int kWarps = 8;                  // consumer warps
 constexpr int kTeams = kWarps / kHeads;    // a team takes an item
@@ -83,18 +102,20 @@ constexpr int kProducers = kTma ? 1 : 4;
 template <bool kTma>
 constexpr int kThreads = 32 * (kWarps + kProducers<kTma>);
 constexpr int kRows = kHeads * kD;         // K (or V) rows of an item
-static_assert(kStages >= kTeams, "the parity waits need kStages >= kTeams");
+static_assert(kStages1 >= kTeams && kStagesN >= kTeams,
+              "the parity waits need a ring of at least kTeams stages");
 
 // Shared memory: the stages (K rows, then V rows), q per warp ([64][8]
 // f32), the barriers. A warp writes bf16(p * vs) ([R][128] f32, at most 4
 // KB) over its head's K rows (8 KB) once its scores are summed.
-template <bool kTma>
+template <bool kTma, int R>
 struct Smem {
+  static constexpr int kDepth = kRing<kTma, R>;
   static constexpr int kRowBytes = kTma ? kChunk : kChunk + 16;
   static constexpr int kStageBytes = 2 * kRows * kRowBytes;
-  static constexpr int kQOffset = kStages * kStageBytes;
+  static constexpr int kQOffset = kDepth * kStageBytes;
   static constexpr int kBarOffset = kQOffset + kWarps * kD * 8 * 4;
-  static constexpr int kAlloc = kBarOffset + 2 * kStages * 8 + 1024;
+  static constexpr int kAlloc = kBarOffset + 2 * kDepth * 8 + 1024;
 };
 
 struct Item {
@@ -108,15 +129,6 @@ __device__ __forceinline__ Item item_at(int i, int groups, int nchunks) {
   it.b = i / nchunks / groups;
   it.t0 = it.c * kChunk;
   return it;
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
 }
 
 // Arrive on `bar` once this thread's earlier cp.async copies have landed;
@@ -149,18 +161,18 @@ __device__ __forceinline__ uint32_t row_word(const uint8_t* row, int k,
   }
 }
 
-// cp.async path: copy bytes [t0, t1) of `rows` rows of the slab (Tk bytes
+// cp.async path: copy bytes [t0, t1) of `rows` rows of the slab (ld bytes
 // apart from `src`) into rows of kChunk + 16 bytes, as the aligned 16-byte
 // chunks that cover each slice. Every chunk holds a byte of the row, so no
 // read leaves the tensor's 16-byte granules.
 __device__ __forceinline__ void stage_covers(uint8_t* dst, const int8_t* src,
-                                             int rows, int Tk, int t0, int t1,
-                                             int first, int stride) {
+                                             int rows, long long ld, int t0,
+                                             int t1, int first, int stride) {
   constexpr int kSegs = (kChunk + 16) / 16;
   for (int i = first; i < rows * kSegs; i += stride) {
     const int row = i / kSegs, seg = i % kSegs;
     const uintptr_t lo = reinterpret_cast<uintptr_t>(src) +
-                         static_cast<uintptr_t>(row) * Tk + t0;
+                         static_cast<uintptr_t>(row) * ld + t0;
     const uintptr_t a = (lo & ~static_cast<uintptr_t>(15)) + 16 * seg;
     if (a < lo + (t1 - t0))
       spt::cp_async_16(dst + row * (kChunk + 16) + 16 * seg,
@@ -179,8 +191,9 @@ __global__ void __launch_bounds__(kThreads<kTma>, 1)
                            const float* __restrict__ vs,
                            float* __restrict__ part, int B, int H, int Tk,
                            int kv_len, long long qsb, long long qsh,
-                           long long qsr) {
-  using S = Smem<kTma>;
+                           long long qsr, long long ld) {
+  using S = Smem<kTma, R>;
+  constexpr int kStages = S::kDepth;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024u - (sm::smem_u32(smem_raw) & 1023u)) & 1023u);
   const uint32_t bars = sm::smem_u32(base) + S::kBarOffset;
@@ -213,18 +226,18 @@ __global__ void __launch_bounds__(kThreads<kTma>, 1)
       if constexpr (kTma) {
         if (pt == 0) {
           sm::mbar_expect_tx(full(s), S::kStageBytes);
-          tma_load_2d(sm::smem_u32(st), &tm_k, full(s), it.t0, row0);
-          tma_load_2d(sm::smem_u32(st + kRows * S::kRowBytes), &tm_v, full(s),
+          sm::tma_load_2d(sm::smem_u32(st), &tm_k, full(s), it.t0, row0);
+          sm::tma_load_2d(sm::smem_u32(st + kRows * S::kRowBytes), &tm_v, full(s),
                       it.t0, row0);
         }
       } else {
         // Rows of heads past H are not copied (no consumer reads them).
         const int rows = min(kHeads, H - it.h0) * kD;
         const int t1 = min(it.t0 + kChunk, kv_len);
-        const size_t off = static_cast<size_t>(row0) * Tk;
+        const size_t off = static_cast<size_t>(row0) * ld;
         constexpr int kN = 32 * kProducers<kTma>;
-        stage_covers(st, qk + off, rows, Tk, it.t0, t1, pt, kN);
-        stage_covers(st + kRows * S::kRowBytes, qv + off, rows, Tk, it.t0, t1,
+        stage_covers(st, qk + off, rows, ld, it.t0, t1, pt, kN);
+        stage_covers(st + kRows * S::kRowBytes, qv + off, rows, ld, it.t0, t1,
                      pt, kN);
         cp_async_arrive(full(s));
       }
@@ -272,9 +285,9 @@ __global__ void __launch_bounds__(kThreads<kTma>, 1)
       // Slab address of this head's row 0 at t0: a row's cp.async slice
       // starts at its address's offset in 16 bytes.
       const uintptr_t k0 = reinterpret_cast<uintptr_t>(qk) +
-                           static_cast<size_t>(bh) * kD * Tk + it.t0;
+                           static_cast<size_t>(bh) * kD * ld + it.t0;
       const uintptr_t v0 = reinterpret_cast<uintptr_t>(qv) +
-                           static_cast<size_t>(bh) * kD * Tk + it.t0;
+                           static_cast<size_t>(bh) * kD * ld + it.t0;
 
       // Scores: s[r][j] for positions t0 + 4 lane + j, summed over d in
       // K3's order.
@@ -287,7 +300,7 @@ __global__ void __launch_bounds__(kThreads<kTma>, 1)
       for (int d = 0; d < kD; ++d) {
         float f[4];
         widen4(row_word<kTma>(kst + d * S::kRowBytes, lane,
-                              static_cast<int>((k0 + d * Tk) & 15)),
+                              static_cast<int>((k0 + d * ld) & 15)),
                f);
         float qd[8];
         *reinterpret_cast<float4*>(qd) = *reinterpret_cast<const float4*>(qsw + d * 8);
@@ -337,8 +350,8 @@ __global__ void __launch_bounds__(kThreads<kTma>, 1)
       float a0[R], a1[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) a0[r] = a1[r] = 0.f;
-      const int sh0 = static_cast<int>((v0 + lane * Tk) & 15);
-      const int sh1 = static_cast<int>((v0 + (lane + 32) * Tk) & 15);
+      const int sh0 = static_cast<int>((v0 + lane * ld) & 15);
+      const int sh1 = static_cast<int>((v0 + (lane + 32) * ld) & 15);
       const uint8_t* vr0 = vst + lane * S::kRowBytes;
       const uint8_t* vr1 = vst + (lane + 32) * S::kRowBytes;
 #pragma unroll 4
@@ -371,15 +384,17 @@ __global__ void __launch_bounds__(kThreads<kTma>, 1)
   }
 }
 
-// A 2-D map over an int8 slab [rows, Tk] (Tk % 16 == 0): boxes of kChunk
-// positions x kRows rows, no swizzle, past Tk and past the last row
-// filled with zeros.
-int encode_slab(CUtensorMap* map, const void* ptr, long long rows, int Tk) {
+// A 2-D map over an int8 slab of `rows` rows of Tk positions, ld bytes
+// apart (ld % 16 == 0): boxes of kChunk positions x kRows rows, no
+// swizzle, past Tk and past the last row filled with zeros. The map's
+// width is Tk, so no byte of a row's padding past Tk is read.
+int encode_slab(CUtensorMap* map, const void* ptr, long long rows, int Tk,
+                long long ld) {
   const sm::EncodeTiledFn enc = sm::encoder();
   if (enc == nullptr) return sm::kErrNoEncoder;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(Tk),
                               static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(Tk)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld)};
   const cuuint32_t box[2] = {kChunk, kRows};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
@@ -394,15 +409,15 @@ template <bool kTma, int R>
 int launch_rows(const void* q, const void* qk, const void* ks, const void* qv,
                 const void* vs, void* part, int B, int H, int Tk, int kv_len,
                 int num_sms, long long qsb, long long qsh, long long qsr,
-                cudaStream_t st) {
+                long long ld, cudaStream_t st) {
   CUtensorMap mk{}, mv{};
   if (kTma) {
     const long long rows = static_cast<long long>(B) * H * kD;
-    int err = encode_slab(&mk, qk, rows, Tk);
-    if (err == 0) err = encode_slab(&mv, qv, rows, Tk);
+    int err = encode_slab(&mk, qk, rows, Tk, ld);
+    if (err == 0) err = encode_slab(&mv, qv, rows, Tk, ld);
     if (err != 0) return err;
   }
-  constexpr int kSmem = Smem<kTma>::kAlloc;
+  constexpr int kSmem = Smem<kTma, R>::kAlloc;
   static bool sized = false;
   if (!sized) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -418,35 +433,27 @@ int launch_rows(const void* q, const void* qk, const void* ks, const void* qv,
       mk, mv, static_cast<const __nv_bfloat16*>(q),
       static_cast<const int8_t*>(qk), static_cast<const float*>(ks),
       static_cast<const int8_t*>(qv), static_cast<const float*>(vs),
-      static_cast<float*>(part), B, H, Tk, kv_len, qsb, qsh, qsr);
+      static_cast<float*>(part), B, H, Tk, kv_len, qsb, qsh, qsr, ld);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// K11. q: [B, H, R, 64] bf16 with strides (qsb, qsh, qsr, 1); qk, qv
-// contiguous int8 [B, H, 64, Tk] (per batch item one [H*64, Tk] slab); ks,
-// vs contiguous f32 [B, H, Tk]; part: f32 scratch [B*H, ceil(kv_len/128),
-// R, 66]; o: [B, H, R, 64] bf16 with strides (osb, osh, osr, 1). Any Tk;
-// the TMA path where Tk % 16 == 0 and both slabs are 16-byte aligned.
-// num_sms: the card's SM count, the grid's size.
-SPT_API int spt_decode_cross_attention_q8_mh(
-    const void* q, const void* qk, const void* ks, const void* qv,
-    const void* vs, void* part, void* o, int B, int H, int R, int Tk,
-    int kv_len, int num_sms, long long qsb, long long qsh, long long qsr,
-    long long osb, long long osh, long long osr, void* stream) {
+int launch(const void* q, const void* qk, const void* ks, const void* qv,
+           const void* vs, void* part, void* o, int B, int H, int R,
+           int Tk, int kv_len, int num_sms, int tma, long long qsb,
+           long long qsh, long long qsr, long long ld, long long osb,
+           long long osh, long long osr, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (num_sms < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const bool tma = Tk % 16 == 0 && reinterpret_cast<uintptr_t>(qk) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(qv) % 16 == 0;
+  if (num_sms < 1 || ld < Tk) return static_cast<int>(cudaErrorInvalidValue);
+  if (tma && (ld % 16 != 0 || reinterpret_cast<uintptr_t>(qk) % 16 != 0 ||
+              reinterpret_cast<uintptr_t>(qv) % 16 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   int err = static_cast<int>(cudaErrorInvalidValue);
   switch (R) {
 #define SPT_ROWS(n)                                                           \
   case n:                                                                     \
-    err = tma ? launch_rows<true, n>(q, qk, ks, qv, vs, part, B, H, Tk,       \
-                                     kv_len, num_sms, qsb, qsh, qsr, st)      \
-              : launch_rows<false, n>(q, qk, ks, qv, vs, part, B, H, Tk,      \
-                                      kv_len, num_sms, qsb, qsh, qsr, st);    \
+    err = (tma ? launch_rows<true, n> : launch_rows<false, n>)(               \
+        q, qk, ks, qv, vs, part, B, H, Tk, kv_len, num_sms, qsb, qsh, qsr, ld, \
+        st);                                                                  \
     break;
     SPT_ROWS(1) SPT_ROWS(2) SPT_ROWS(3) SPT_ROWS(4)
     SPT_ROWS(5) SPT_ROWS(6) SPT_ROWS(7) SPT_ROWS(8)
@@ -458,4 +465,24 @@ SPT_API int spt_decode_cross_attention_q8_mh(
       static_cast<const float*>(part), static_cast<__nv_bfloat16*>(o), H, R,
       nchunks, osb, osh, osr);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K3 and K11. q: [B, H, R, 64] bf16 with strides (qsb, qsh, qsr, 1); qk, qv int8 [B, H, 64, Tk], rows ld >= Tk bytes apart with
+// strides (H*64*ld, 64*ld, ld, 1) (per batch item one [H*64, Tk] slab of
+// pitch ld); ks, vs contiguous f32 [B, H, Tk]; part: f32 scratch [B*H,
+// ceil(kv_len/128), R, 66]; o: [B, H, R, 64] bf16 with strides (osb,
+// osh, osr, 1). tma:
+// the load path the host chose (ops/attention.py: decode_cross_load_path),
+// TMA boxes (ld and both slabs 16-byte aligned) or 16-byte cp.async
+// covers. num_sms: the card's SM count, the grid's size.
+SPT_API int spt_decode_cross_attention_q8(
+    const void* q, const void* qk, const void* ks, const void* qv,
+    const void* vs, void* part, void* o, int B, int H, int R, int Tk,
+    int kv_len, int num_sms, int tma, long long qsb, long long qsh,
+    long long qsr, long long ld, long long osb, long long osh, long long osr,
+    void* stream) {
+  return launch(q, qk, ks, qv, vs, part, o, B, H, R, Tk, kv_len, num_sms, tma,
+                qsb, qsh, qsr, ld, osb, osh, osr, stream);
 }

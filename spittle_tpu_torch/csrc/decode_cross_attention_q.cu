@@ -1,10 +1,11 @@
-// Decode-time cross-attention over quantized K/V for Hopper (sm_90a): up
-// to 8 query rows per (batch, head) against the whole encoder K/V in the
-// decode layout (time minor), int8 (K3) or int4 packed two per byte (K6),
-// with one f32 scale per position.
+// Decode-time cross-attention over quantized K/V for Hopper (sm_90a), K6:
+// up to 8 query rows per (batch, head) against the whole encoder K/V in
+// the decode layout (time minor), int4 packed two per byte, with one f32
+// scale per position. The kernel is written for int8 (kBits 8) or int4
+// (kBits 4) stored rows; only the int4 instance is built: K3, the int8
+// form, runs on decode_cross_attention_mh.cu's kernel.
 //
-// Replaces the TPU kernels spittle_tpu/ops/attention.py:
-// decode_cross_attention_q8 (body _decode_cross_q8_kernel) and
+// Replaces the TPU kernel spittle_tpu/ops/attention.py:
 // decode_cross_attention_q4 (body _decode_cross_q4_kernel). q arrives
 // bf16, pre-scaled by Dh^-0.5. Per (b, h), with t < kv_len:
 //   s[r, t] = (sum_d q[r, d] * qK[d, t]) * ks[t]      (f32 dot of exact
@@ -16,8 +17,8 @@
 // the high nibbles, each sign-extended.
 //
 // What bounds it on an H100: memory. At B=8, H=20, Tk=1500 a call reads
-// 2 x 8*20*64*1500 int8 bytes and 2 x 8*20*1500*4 scale bytes (32.6 MB;
-// int4 17.3 MB) for only 4*R*Dh flops per (b, h, t).
+// 2 x 8*20*32*1500 packed bytes and 2 x 8*20*1500*4 scale bytes (17.3 MB)
+// for only 4*R*Dh flops per (b, h, t).
 //
 // Design: split-T (flash-decoding). A block takes 256 time positions of
 // one (b, h), which gives ceil(1500/256) * B*H = 960 blocks at B=8 where
@@ -29,7 +30,7 @@
 // scores are computed. One thread owns one position for the scores; each
 // warp owns 8 output rows d for the PV sum, its lanes striding along
 // time. The block writes its unnormalised (o, m, l) per row; a second
-// small kernel (decode_cross_combine.cuh, shared with K11 in
+// small kernel (decode_cross_combine.cuh, shared with K3 and K11 in
 // decode_cross_attention_mh.cu) rescales the chunks by exp(m_c - m) and
 // divides by l.
 #include "decode_cross_combine.cuh"
@@ -267,19 +268,10 @@ int launch(const void* q, const void* qk, const void* ks, const void* qv,
 
 }  // namespace
 
-// q: [B, H, R, 64] bf16 with strides (qsb, qsh, qsr, 1); qk, qv contiguous
-// int8 [B, H, 64, Tk] (K3) or packed int4 [B, H, 32, Tk] (K6); ks, vs
-// contiguous f32 [B, H, Tk]; part: f32 scratch [B*H, ceil(kv_len/256), R,
-// 66]; o: [B, H, R, 64] bf16 with strides (osb, osh, osr, 1).
-SPT_API int spt_decode_cross_attention_q8(
-    const void* q, const void* qk, const void* ks, const void* qv,
-    const void* vs, void* part, void* o, int B, int H, int R, int Tk,
-    int kv_len, long long qsb, long long qsh, long long qsr, long long osb,
-    long long osh, long long osr, void* stream) {
-  return launch<8>(q, qk, ks, qv, vs, part, o, B, H, R, Tk, kv_len, qsb, qsh,
-                   qsr, osb, osh, osr, stream);
-}
-
+// K6. q: [B, H, R, 64] bf16 with strides (qsb, qsh, qsr, 1); qk, qv
+// contiguous packed int4 [B, H, 32, Tk]; ks, vs contiguous f32 [B, H, Tk];
+// part: f32 scratch [B*H, ceil(kv_len/256), R, 66]; o: [B, H, R, 64] bf16
+// with strides (osb, osh, osr, 1).
 SPT_API int spt_decode_cross_attention_q4(
     const void* q, const void* qk, const void* ks, const void* qv,
     const void* vs, void* part, void* o, int B, int H, int R, int Tk,

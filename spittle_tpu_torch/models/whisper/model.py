@@ -39,14 +39,17 @@ from spittle_tpu_torch.ops.attention import (
     multihead_attention,
     multihead_attention_packed,
     split_heads,
+    tma_pitch,
 )
 from spittle_tpu_torch.ops.quant import (
     is_quant_kv4,
+    is_quant_w8a8,
     mm,
     mm_bias,
     quantize_kv_t,
     unpack_kv_int4,
 )
+from spittle_tpu_torch.ops.w8a8_gemm import quantize_for_gemm
 
 from .config import WhisperConfig
 
@@ -100,6 +103,8 @@ def _attn_full(x, blk, n_head: int, causal: bool, attention: str = "fullkv"):
     Dh^-0.25 scaling (folded into the projection epilogue). attention: the
     encoder-attention form (ops.attention.ENCODER_ATTENTION_FORMS)."""
     scale = (x.shape[-1] // n_head) ** -0.25
+    if all(is_quant_w8a8(blk[key]) for key in ("wq", "wk", "wv")):
+        x = quantize_for_gemm(x)  # one row quantizer for the three GEMMs
     q = mm_bias(x, blk["wq"], blk["bq"], out_scale=scale)
     k = mm_bias(x, blk["wk"], out_scale=scale)
     v = mm_bias(x, blk["wv"], blk["bv"])
@@ -179,6 +184,15 @@ def precompute_cross_kv(params: Params, xa: torch.Tensor, cfg: WhisperConfig):
     return torch.stack(ks), torch.stack(vs)
 
 
+def _cross_kv_buffer(key: str, a: torch.Tensor, n: int) -> torch.Tensor:
+    """An uninitialised [n, *a.shape] buffer for n layers of `a`; for the
+    int8 "qw" a view of one whose rows are tma_pitch(T) apart."""
+    if key != "qw":
+        return a.new_empty((n, *a.shape))
+    t = a.shape[-1]
+    return a.new_empty((n, *a.shape[:-1], tma_pitch(t)))[..., :t]
+
+
 def precompute_cross_kv_quant(params: Params, xa: torch.Tensor,
                               cfg: WhisperConfig, quant):
     """precompute_cross_kv fused with K/V quantization, one layer at a
@@ -186,7 +200,12 @@ def precompute_cross_kv_quant(params: Params, xa: torch.Tensor,
     bf16/f32 intermediates are ever live. quant is quantize_kv (int8:
     {"qw" int8 [L, B, H, Dh, T], "scale" f32 [L, B, H, T]}) or
     quantize_kv_int4 ({"qw4" int8 [L, B, H, Dh/2, T], "scale"}). Returns
-    the K dict and the V dict."""
+    the K dict and the V dict.
+
+    The int8 "qw" rows are stored tma_pitch(T) bytes apart (1504 for T
+    1500: 0.27% more bytes, never read past T) and returned as views of
+    the logical shape, so that K3 can load them by TMA; the values are
+    those of quant's. The scales and the int4 "qw4" are contiguous."""
     blocks = params["decoder"]["blocks"]
     h = cfg.n_text_head
     n = n_layers(blocks)
@@ -198,7 +217,7 @@ def precompute_cross_kv_quant(params: Params, xa: torch.Tensor,
                          ).transpose(-1, -2)
         qkv = (quant(k), quant(v))
         if out is None:
-            out = [{key: a.new_empty((n, *a.shape)) for key, a in q.items()}
+            out = [{key: _cross_kv_buffer(key, a, n) for key, a in q.items()}
                    for q in qkv]
         for dst, src in zip(out, qkv):
             for key, a in src.items():

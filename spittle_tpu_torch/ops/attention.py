@@ -22,13 +22,15 @@ probe's kernel).
 - decode_cross_attention (K4, csrc/decode_cross_attention.cu): <= 8 query
   rows against the whole K/V in the decode layout [B, H, Dh, Tk]; replaces
   the Pallas `decode_cross_attention`.
-- decode_cross_attention_q8 (K3) and decode_cross_attention_q4 (K6),
-  csrc/decode_cross_attention_q.cu: the same over int8 K/V, or int4 K/V
-  packed two per byte, with one f32 scale per position; replace the
-  Pallas `decode_cross_attention_q8` and `decode_cross_attention_q4`.
-- decode_cross_attention_q8_mh (K11, csrc/decode_cross_attention_mh.cu):
-  K3's function over a batch item's K/V as one slab, in a persistent grid
-  fed by a producer warp; replaces `mh_q8` of scripts/bench_decode_cross.py.
+- decode_cross_attention_q4 (K6, csrc/decode_cross_attention_q.cu): the
+  same over int4 K/V packed two per byte, with one f32 scale per
+  position; replaces the Pallas `decode_cross_attention_q4`.
+- decode_cross_attention_q8 (K3) and decode_cross_attention_q8_mh (K11),
+  one kernel (csrc/decode_cross_attention_mh.cu): the same over int8 K/V,
+  a batch item's K/V read as one slab of row pitch ld (the decoder pads
+  it to a multiple of 16 bytes, tma_pitch) in a persistent grid fed by
+  producer warps; replace the Pallas `decode_cross_attention_q8` and
+  `mh_q8` of scripts/bench_decode_cross.py.
 - multihead_attention_packed and multihead_attention: the dispatchers.
   They pick a kernel from the shapes and the encoder-attention form, an
   argument (ENCODER_ATTENTION_FORMS), never the environment.
@@ -597,11 +599,13 @@ def decode_cross_attention_plain(q, k, v,
     return (o / l).to(q.dtype)
 
 
-def _check_decode_cross(name, q, kv, scales, rows, kv_dtype, kv_len):
-    """Checks shared by K4, K3 and K6 on CUDA: q [B, H, R<=8, 64] bf16
-    with its head dim contiguous; kv = (k, v), each contiguous
-    [B, H, rows, Tk] of kv_dtype; scales = (ks, vs), each contiguous f32
-    [B, H, Tk], or () for bf16 K/V. Returns kv_len (Tk when None)."""
+def _check_decode_cross(name, q, kv, scales, rows, kv_dtype, kv_len,
+                        pitched: bool = False):
+    """Checks shared by K4, K3, K6 and K11 on CUDA: q [B, H, R<=8, 64]
+    bf16 with its head dim contiguous; kv = (k, v), each contiguous
+    [B, H, rows, Tk] of kv_dtype (pitched: rows of any pitch, checked by
+    _slab_pitch); scales = (ks, vs), each contiguous f32 [B, H, Tk], or ()
+    for bf16 K/V. Returns kv_len (Tk when None)."""
     b, h, r, d = q.shape
     tk = kv[0].shape[3]
     kv_len = tk if kv_len is None else kv_len
@@ -623,7 +627,8 @@ def _check_decode_cross(name, q, kv, scales, rows, kv_dtype, kv_len):
             raise TypeError(f"{name}: {label} must be {dtype} on {q.device}, "
                             f"got {t.dtype} on {t.device} (the kernel has no "
                             "other form; run the model in bf16)")
-    if q.stride(-1) != 1 or not all(t.is_contiguous() for t in (*kv, *scales)):
+    if q.stride(-1) != 1 or not all(t.is_contiguous() for t in scales) or not (
+            pitched or all(t.is_contiguous() for t in kv)):
         raise ValueError(f"{name}: q's head dim, K/V and scales must be contiguous")
     return kv_len
 
@@ -662,10 +667,47 @@ decode_cross_attention.launches = 0
 # ---------------------------------------------------------------------------
 
 
-# Time positions per partial record of K3/K6 and of K11 (kChunk in their
+# Time positions per partial record of K6 and of K3/K11 (kChunk in their
 # sources).
 _QUANT_CHUNK = 256
 _MH_CHUNK = 128
+# TMA addresses a row only where its pitch and base are multiples of this
+# many bytes.
+TMA_ALIGN = 16
+
+
+def tma_pitch(tk: int) -> int:
+    """The row pitch, in bytes, at which int8 rows of tk positions can be
+    addressed by TMA: tk rounded up to a multiple of 16 (1504 for 1500)."""
+    return -(-tk // TMA_ALIGN) * TMA_ALIGN
+
+
+def decode_cross_load_path(pitch: int, *addresses: int) -> str:
+    """K3/K11's load path for int8 K/V slabs of row pitch `pitch` bytes at
+    the given base addresses: "tma" (one box per item's K and V) where the
+    pitch and every address are multiples of 16 bytes, "cp.async" (16-byte
+    covers of each row's slice) otherwise."""
+    aligned = all(a % TMA_ALIGN == 0 for a in (pitch, *addresses))
+    return "tma" if aligned else "cp.async"
+
+
+def _slab_pitch(name, kv) -> int:
+    """The row pitch ld (bytes) of int8 K/V [B, H, 64, Tk] that K3/K11 read
+    as one slab per batch item: strides (H*64*ld, 64*ld, ld, 1), alike for
+    K and V, with ld = Tk (contiguous) or a multiple of 16 bytes past it
+    (the decoder's padded rows). Strides of dimensions of size 1 are not
+    compared, as torch's contiguity does not."""
+    b, h, rows, tk = kv[0].shape
+    ld = kv[0].stride(2) if rows > 1 else tk
+    want = (h * rows * ld, rows * ld, ld, 1)
+    ok = ld >= tk and (ld == tk or ld % TMA_ALIGN == 0) and all(
+        st == w for t in kv for n, st, w in zip(t.shape, t.stride(), want) if n > 1)
+    if not ok:
+        raise ValueError(
+            f"{name}: K/V must be contiguous, or rows of a pitch that is a "
+            f"multiple of 16 bytes with strides (H*64*ld, 64*ld, ld, 1), "
+            f"alike for K and V; got {[t.stride() for t in kv]}")
+    return ld
 
 
 def decode_cross_attention_q8_plain(q, qk, ks, qv, vs,
@@ -695,16 +737,23 @@ def decode_cross_attention_q4_plain(q, qk, ks, qv, vs,
 
 
 def _launch_decode_cross_quant(name, entry, q, qk, ks, qv, vs, kv_len, rows,
-                               chunk=_QUANT_CHUNK, grid=()):
-    """Checks and launch shared by K3, K6 and K11 (rows: stored K/V rows,
-    64 for int8 and 32 for packed int4; chunk: positions per partial
-    record; grid: the persistent kernel's SM count, passed after kv_len).
-    Returns the [B, H, R, 64] result as a view of a [B, R, H, 64] buffer."""
+                               slab=False):
+    """Checks and launch shared by K6 (rows: 32 stored rows of packed int4;
+    256-position partial records) and K3 and K11 (slab: 64 int8 rows of
+    pitch ld, 128-position records, the persistent kernel's SM count and
+    load path passed after kv_len and ld after q's strides). Returns the
+    [B, H, R, 64] result as a view of a [B, R, H, 64] buffer."""
     b, h, r, d = q.shape
     tk = qk.shape[3]
     kv_len = _check_decode_cross(name, q, (qk, qv), (ks, vs), rows, torch.int8,
-                                 kv_len)
+                                 kv_len, pitched=slab)
+    chunk = _MH_CHUNK if slab else _QUANT_CHUNK
     chunks = -(-kv_len // chunk)
+    grid, strides = (), q.stride()[:3]
+    if slab:
+        ld = _slab_pitch(name, (qk, qv))
+        path = decode_cross_load_path(ld, qk.data_ptr(), qv.data_ptr())
+        grid, strides = (_num_sms(q.device.index), int(path == "tma")), (*strides, ld)
     part = torch.empty((b * h, chunks, r, d + 2), dtype=torch.float32,
                        device=q.device)
     out = torch.empty((b, r, h, d), dtype=q.dtype, device=q.device)
@@ -712,7 +761,7 @@ def _launch_decode_cross_quant(name, entry, q, qk, ks, qv, vs, kv_len, rows,
     _build.check(getattr(lib, entry)(
         q.data_ptr(), qk.data_ptr(), ks.data_ptr(), qv.data_ptr(),
         vs.data_ptr(), part.data_ptr(), out.data_ptr(),
-        b, h, r, tk, kv_len, *grid, *q.stride()[:3],
+        b, h, r, tk, kv_len, *grid, *strides,
         out.stride(0), out.stride(2), out.stride(1),
         _build.stream_ptr(q.device),
     ), entry)
@@ -722,13 +771,17 @@ def _launch_decode_cross_quant(name, entry, q, qk, ks, qv, vs, kv_len, rows,
 def decode_cross_attention_q8(q, qk, ks, qv, vs,
                               kv_len: Optional[int] = None) -> torch.Tensor:
     """K3. q [B, H, R<=8, 64] bf16 pre-scaled by Dh^-0.5 (head dim
-    contiguous); qk/qv int8 [B, H, 64, Tk] and ks/vs f32 [B, H, Tk],
-    contiguous, any Tk -> [B, H, R, 64]."""
+    contiguous); qk/qv int8 [B, H, 64, Tk], contiguous or with rows of a
+    pitch that is a multiple of 16 bytes (the decoder's layout,
+    tma_pitch); ks/vs f32 [B, H, Tk], contiguous; any Tk -> [B, H, R,
+    64]. The kernel is K11's (the same bits on the same inputs): items of
+    (batch item, head pair, 128 positions), so P rounds to bf16 against
+    each 128-position chunk's max."""
     if q.device.type == "cpu":
         return decode_cross_attention_q8_plain(q, qk, ks, qv, vs, kv_len)
     out = _launch_decode_cross_quant(
         "decode_cross_attention_q8", "spt_decode_cross_attention_q8",
-        q, qk, ks, qv, vs, kv_len, q.shape[3])
+        q, qk, ks, qv, vs, kv_len, q.shape[3], slab=True)
     decode_cross_attention_q8.launches += 1
     return out
 
@@ -753,20 +806,18 @@ decode_cross_attention_q4.launches = 0
 
 def decode_cross_attention_q8_mh(q, qk, ks, qv, vs,
                                  kv_len: Optional[int] = None) -> torch.Tensor:
-    """K11: K3's function (decode_cross_attention_q8_plain is its plain
-    version) over the K/V of a batch item as one contiguous [H*64, Tk]
+    """K11: K3's function and kernel (decode_cross_attention_q8_plain is
+    its plain version) over the K/V of a batch item as one [H*64, Tk]
     slab, the probe kernel's view: a persistent grid of one block per SM
     over items of (batch item, head pair, 128 positions), each loaded as
-    one box per K and V (TMA where Tk % 16 == 0, 16-byte cp.async covers
-    otherwise). Operands as K3's: q [B, H, R<=8, 64] bf16 pre-scaled by
-    Dh^-0.5, qk/qv int8 [B, H, 64, Tk] and ks/vs f32 [B, H, Tk], any Tk ->
-    [B, H, R, 64]."""
+    one box per K and V (decode_cross_load_path: TMA where the row pitch
+    and the slabs are 16-byte aligned, 16-byte cp.async covers otherwise).
+    Operands as K3's."""
     if q.device.type == "cpu":
         return decode_cross_attention_q8_plain(q, qk, ks, qv, vs, kv_len)
     out = _launch_decode_cross_quant(
-        "decode_cross_attention_q8_mh", "spt_decode_cross_attention_q8_mh",
-        q, qk, ks, qv, vs, kv_len, q.shape[3], chunk=_MH_CHUNK,
-        grid=(_num_sms(q.device.index),))
+        "decode_cross_attention_q8_mh", "spt_decode_cross_attention_q8",
+        q, qk, ks, qv, vs, kv_len, q.shape[3], slab=True)
     decode_cross_attention_q8_mh.launches += 1
     return out
 

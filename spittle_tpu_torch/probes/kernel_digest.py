@@ -1,6 +1,8 @@
-"""Probe: digests of the outputs of K1, K3, K4, K5, K6 and K8 at the
-shapes chip_smoke.py holds them at, so that two trees of the port can be
-compared bit for bit on one card.
+"""Probe: digests of the outputs of K1, K2, K3, K4, K5, K6, K8 and K11 at
+the shapes chip_smoke.py and the card tests hold them at, so that two
+trees of the port can be compared bit for bit on one card (K3 and K11
+call one entry since K3 moved onto K11's kernel, so K3 is compared with
+an older tree's K11).
 
 Inputs come from a seeded generator on the card, re-seeded per shape, so
 every tree draws the same ones. Prints one JSON line per kernel and shape
@@ -23,7 +25,12 @@ import json
 import torch
 
 from spittle_tpu_torch.ops import attention as att
-from spittle_tpu_torch.ops.quant import quantize_kv, quantize_kv_int4
+from spittle_tpu_torch.ops.quant import (
+    quantize_kv,
+    quantize_kv_int4,
+    quantize_weight_w8a8,
+)
+from spittle_tpu_torch.ops.w8a8_gemm import w8a8_gemm
 
 H, D, SEED = 20, 64, 0
 # K4 (B, R, Tk, kv_len): the main path's decode step and prefills, the
@@ -42,6 +49,18 @@ FULLKV_SHAPES = ((8, 1500, 1500, False), (8, 1500, 1300, False),
                  (8, 1500, 1500, True), (8, 256, 256, False))
 FLASH_SHAPES = ((2, 6000, 6000, False), (2, 6000, 5000, False),
                 (2, 6000, 6000, True))
+# K2 (M, K, N, bias, act, out_scale, dtype): one encoder layer's six GEMMs
+# at chip_smoke's M = 8 * 1500 and the reduced context's 8 * 256, then the
+# card tests' ragged shapes in both dtypes.
+_LAYER = ((1280, 1280, True, "none", D ** -0.25), (1280, 1280, False, "none", D ** -0.25),
+          (1280, 1280, True, "none", 1.0), (1280, 1280, True, "none", 1.0),
+          (1280, 5120, True, "gelu", 1.0), (5120, 1280, True, "none", 1.0))
+GEMM_SHAPES = tuple((m, *g, "bf16") for m in (12000, 2048) for g in _LAYER) + tuple(
+    (m, k, n, bias, act, 0.125 ** 0.5 if bias else 1.0, dt)
+    for m in (1, 127, 129) for (k, n, bias, act) in (
+        (1280, 384, True, "gelu"), (1280, 1280, False, "none"),
+        (1280, 5120, True, "gelu"), (5120, 1280, True, "none"))
+    for dt in ("bf16", "f32"))
 
 
 def _digest(x: torch.Tensor) -> str:
@@ -62,6 +81,7 @@ def _cases(dev, gen):
             return att.decode_cross_attention(q, k, v, kv_len=kv_len)
         yield "K4", [b, r, tk, kv_len], k4
     for name, quant, fn in (("K3", quantize_kv, att.decode_cross_attention_q8),
+                            ("K11", quantize_kv, att.decode_cross_attention_q8_mh),
                             ("K6", quantize_kv_int4, att.decode_cross_attention_q4)):
         for b, r, tk, kv_len in QUANT_SHAPES:
             def kq(b=b, r=r, tk=tk, kv_len=kv_len, quant=quant, fn=fn):
@@ -89,6 +109,22 @@ def _cases(dev, gen):
             q, k, v = (randn((b, H, t, D), D ** -0.25) for _ in range(3))
             return att.flash_attention(q, k, v, causal=causal, kv_len=kv_len)
         yield "K5", [b, t, kv_len, causal], k5
+    for m, k, n, bias, act, scale, dt in GEMM_SHAPES:
+        def k2(m=m, k=k, n=n, bias=bias, act=act, scale=scale, dt=dt):
+            x, qw, b = k2_inputs(gen, dev, m, k, n, dt, bias)
+            return w8a8_gemm(x, qw["qw8"], qw["scale"], bias=b, act=act,
+                             out_scale=scale)
+        yield "K2", [m, k, n, bias, act, round(scale, 4), dt], k2
+
+
+def k2_inputs(gen, dev, m, k, n, dt, bias):
+    """K2's operands of a digest case: x [m, k] of dt ("bf16" or "f32"),
+    the weight quantized as the encoder's, the bias of dt or None."""
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    qw = quantize_weight_w8a8(torch.randn((k, n), generator=gen, device=dev) * k ** -0.5)
+    b = (torch.randn((n,), generator=gen, device=dev) * 0.1).to(dtype)
+    return x, qw, b if bias else None
 
 
 def main(out=print):

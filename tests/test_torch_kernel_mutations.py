@@ -1,5 +1,6 @@
-"""Mutation check of the card tests of K3 and K6 (decode cross-attention
-over int8 and packed int4 K/V), K4 (the same over bf16 K/V, chunked past
+"""Mutation check of the card tests of K2 (the W8A8 GEMM and its row
+quantizer), K3 and K6 (decode cross-attention over int8 and packed int4
+K/V; K3 on K11's kernel), K4 (the same over bf16 K/V, chunked past
 its shared memory), K7 (int8-dot encoder attention), K1 and K8 (encoder
 attention, strided and packed heads), K5 (tiled flash attention), K9
 (head pairs) and K10 (the persistent, pipelined form), all five on the
@@ -37,6 +38,7 @@ FULLKV_SRC = "spittle_tpu_torch/csrc/fullkv_attention.cu"
 CORE_SRC = "spittle_tpu_torch/csrc/attention_sm90.cuh"
 CACHE_SRC = "spittle_tpu_torch/csrc/cache_col_write.cu"
 MH_SRC = "spittle_tpu_torch/csrc/decode_cross_attention_mh.cu"
+GEMM_SRC = "spittle_tpu_torch/csrc/w8a8_gemm.cu"
 WRAPPER = "spittle_tpu_torch/ops/attention.py"
 CARD_TESTS = "tests/test_torch_kernels_cuda.py"
 
@@ -44,6 +46,8 @@ CARD_TESTS = "tests/test_torch_kernels_cuda.py"
 MUTATIONS = {
     # Pad columns enter the row max and are zeroed only after it: the
     # blocks cover Tk instead of kv_len, and p is masked after exp.
+    # K6 in its source, K3 on K11's kernel: the pad columns' scales are
+    # read and their scores kept.
     "mask_after_max": ("quant_kernel_matches and 1300", [
         (SRC, "const int t1 = min(t0 + kChunk, kv_len);",
          "const int t1 = min(t0 + kChunk, Tk);"),
@@ -52,6 +56,9 @@ MUTATIONS = {
         (SRC, "const float p = live ? expf(s[r] - rmax[r]) : 0.f;",
          "const float p = (live && t0 + tid < kv_len) ? expf(s[r] - rmax[r]) : 0.f;"),
         (WRAPPER, "chunks = -(-kv_len // chunk)", "chunks = -(-tk // chunk)"),
+        (MH_SRC, "ksc[j] = live[j] ? ks[at] : 0.f;", "ksc[j] = ks[at];"),
+        (MH_SRC, "sc[r][j] = live[j] ? sc[r][j] * ksc[j] : -INFINITY;",
+         "sc[r][j] = sc[r][j] * ksc[j];"),
     ]),
     # Nibbles shifted as unsigned values: 0..15, no sign extension.
     "nibble_unsigned": ("quant_kernel_matches and int4", [
@@ -115,6 +122,35 @@ MUTATIONS = {
         (MH_SRC, "tma_load_2d(sm::smem_u32(st), &tm_k, full(s), it.t0, row0);",
          "tma_load_2d(sm::smem_u32(st), &tm_k, full(s), it.t0, row0 + kD);"),
     ]),
+    # K3 (on K11's kernel), the decoder's padded rows: the TMA map's row
+    # pitch taken as Tk rounded down to 16 bytes instead of the stride.
+    "k3_map_pitch_rounded_down": ("k3_on_decoder_layouts and padded", [
+        (MH_SRC, "const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld)};",
+         "const cuuint64_t strides[1] = {static_cast<cuuint64_t>(Tk & ~15)};"),
+    ]),
+    # K2: a row's sx read from its neighbour's (the last row of an odd M
+    # keeps its own, so that no read passes sx's end).
+    "gemm_sx_neighbour_row": ("w8a8_kernel_at_encoder_shapes", [
+        (GEMM_SRC, "sxr[i] = row < M ? sx[row] : 0.f;",
+         "sxr[i] = row < M ? sx[min(row ^ 1, M - 1)] : 0.f;"),
+    ]),
+    # K2: the ring's second K slice of every tile skipped, slice 0's A box
+    # loaded again in its place.
+    "gemm_slice_skipped": ("w8a8_kernel_at_encoder_shapes", [
+        (GEMM_SRC, "sm::tma_load_2d(stage(g), &tm_a, full(s), j * kBK, ti.m0);",
+         "sm::tma_load_2d(stage(g), &tm_a, full(s), (j == 1 ? 0 : j) * kBK, ti.m0);"),
+    ]),
+    # K2: the bias added before the scales instead of after them.
+    "gemm_bias_before_scale": ("w8a8_kernel_at_encoder_shapes", [
+        (GEMM_SRC,
+         "float v = __fmaf_rn(__fmul_rn(static_cast<float>(acc), s_x), s_w, b);",
+         "float v = __fmul_rn(__fmul_rn(static_cast<float>(acc) + b, s_x), s_w);"),
+    ]),
+    # K2's quantizer: x / s as a multiply by the reciprocal of s.
+    "quantizer_reciprocal": ("w8a8_quantizer_bytes_equal_plain", [
+        (GEMM_SRC, "const float v = rintf(at(4 * i + j) / s);",
+         "const float v = rintf(at(4 * i + j) * (1.0f / s));"),
+    ]),
     # K13 (and K12, the same body): a neighbouring position written.
     "cache_neighbour_column": ("cache_col_write_matches", [
         (CACHE_SRC, "dst[r * row_stride + pos * pos_stride + j] = src[i];",
@@ -154,6 +190,7 @@ def test_card_tests_fail_on_mutant(cuda, tmp_path, name):
     # Exit 1 with a value mismatch: the mutant built, ran and was caught.
     # A build or collection error would fail for another reason.
     caught = ("Tensor-likes are not close" in res.stdout
+              or "Tensor-likes are not equal" in res.stdout
               or "not close to its plain version" in res.stdout)
     assert res.returncode == 1 and caught, \
         res.stdout[-4000:] + res.stderr[-2000:]

@@ -1,6 +1,8 @@
 """Card-only tests: the port's CUDA kernels (K1-K6, the encoder-attention
 forms K7-K10, and the probe kernels K11-K13) against their plain PyTorch
-versions on CUDA tensors, and the engine's main paths (bf16 decoder; int8
+versions on CUDA tensors (K2 also at the encoder's widths, its quantizer
+byte for byte; K3 also on the decoder's padded int8 rows and bit for bit
+against K11), and the engine's main paths (bf16 decoder; int8
 and int4 decoders; each encoder-attention form; a reduced and a long
 audio context) on a small config with every kernel counter moving.
 
@@ -62,6 +64,59 @@ def test_w8a8_kernel_matches_plain(cuda, dtype, m, k, n, bias, act, out_scale):
     # output ulp after rounding: 2**-7 relative in bf16, 1e-5 in f32.
     rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=1e-5)
+
+
+# K2 at the encoder's widths and the odd row counts around a 128-row tile;
+# bias, GELU and out_scale rotate over the cases so that each (K, N) and
+# dtype meets each of them.
+_K2_OPTIONS = ((True, "none", 1.0), (False, "gelu", 1.0),
+               (True, "gelu", 0.125 ** 0.5), (False, "none", 0.125 ** 0.5))
+_K2_CASES = [(m, k, n, dtype) + _K2_OPTIONS[i % len(_K2_OPTIONS)]
+             for i, (m, (k, n), dtype) in enumerate(
+                 (m, kn, dtype) for m in (1, 127, 129, 2048, 12000)
+                 for kn in ((1280, 384), (1280, 1280), (1280, 5120), (5120, 1280))
+                 for dtype in (torch.bfloat16, torch.float32))]
+
+
+@pytest.mark.parametrize("m,k,n,dtype,bias,act,out_scale", _K2_CASES,
+                         ids=[f"{m}-{k}-{n}-{str(d)[6:]}-{int(b)}-{a}-{s:.2f}"
+                              for m, k, n, d, b, a, s in _K2_CASES])
+def test_w8a8_kernel_at_encoder_shapes(cuda, m, k, n, dtype, bias, act,
+                                       out_scale):
+    """The persistent wgmma GEMM on 128 x 256 tiles (bf16, tile_n's choice
+    where the tiles fill the card) and 128 x 128 (f32, N 384, M 2048 at N
+    1280), with ragged rows (M 1, 127, 129) and columns (N 384)."""
+    rng = np.random.default_rng(m + k + n)
+    x = _randn(rng, (m, k), cuda, dtype)
+    q = quantize_weight_w8a8(_randn(rng, (k, n), cuda, torch.float32, k ** -0.5))
+    b = _randn(rng, (n,), cuda, dtype, 0.1) if bias else None
+    before = w8a8_gemm.launches
+    got = w8a8_gemm(x, q["qw8"], q["scale"], bias=b, act=act, out_scale=out_scale)
+    want = w8a8_gemm_plain(x, q["qw8"], q["scale"], bias=b, act=act,
+                           out_scale=out_scale)
+    torch.cuda.synchronize()
+    assert w8a8_gemm.launches == before + 1
+    # test_w8a8_kernel_matches_plain's tolerance, for its reasons.
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k", [(12000, 1280), (129, 5120), (3, 20480)])
+def test_w8a8_quantizer_bytes_equal_plain(cuda, dtype, m, k):
+    """The row quantizer's int8 bytes and f32 scales equal quantize_rows'
+    (true division, round-half-even) exactly: K 1280 one warp per row,
+    5120 four, 20480 eight, past the units a thread holds."""
+    from spittle_tpu_torch.ops.w8a8_gemm import launch_quantize, quantize_rows
+
+    rng = np.random.default_rng(k)
+    x = _randn(rng, (m, k), cuda, dtype, 3.0)
+    x[0] = 0.0  # amax 0: scale 1
+    qx, sx = launch_quantize(x)
+    want_qx, want_sx = quantize_rows(x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(sx, want_sx[:, 0], rtol=0, atol=0)
+    torch.testing.assert_close(qx.float(), want_qx.float(), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("t,kv_len,causal", [
@@ -208,12 +263,51 @@ def test_decode_cross_quant_kernel_matches_plain(cuda, bits, b, r, tk, kv_len):
     got = kernel(q, qk, ks, qv, vs, kv_len=kv_len)
     want = plain(q, qk, ks, qv, vs, kv_len=kv_len)
     torch.cuda.synchronize()
-    # The kernel rounds bf16(p * vs) with p scaled by its 256-position
-    # chunk's max and rescales the chunk sums after; the plain version
+    # The kernel rounds bf16(p * vs) with p scaled by its chunk's max (K3:
+    # each 128-position item's, on K11's kernel; K6: each 256-position
+    # block's) and rescales the chunk sums after; the plain version
     # rounds with the global max. That moves each weight by up to a bf16
     # half-ulp (2**-9 relative), averaged over the sum, then one bf16
     # rounding of the output: K4's tolerance. A pad column in the max, or
     # nibbles read without sign extension, move outputs by far more.
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=2e-3)
+
+
+def _padded_rows(x, pitch):
+    """x [..., Tk] copied into rows `pitch` bytes apart (the decoder's
+    int8 cross-K/V layout), the padding filled with random codes that the
+    kernel must never read: a view of the logical shape."""
+    tk = x.shape[-1]
+    buf = torch.randint(-128, 128, (*x.shape[:-1], pitch), dtype=torch.int8,
+                        device=x.device)
+    buf[..., :tk] = x
+    return buf[..., :tk]
+
+
+@pytest.mark.parametrize("layout", ["padded-1500", "contiguous-1500",
+                                    "contiguous-1536"])
+@pytest.mark.parametrize("b", [1, 8, 56])
+@pytest.mark.parametrize("r", [1, 3, 4, 8])
+def test_k3_on_decoder_layouts_matches_plain(cuda, layout, b, r):
+    """K3 on the decoder's padded rows (Tk 1500 at a pitch of 1504 bytes:
+    TMA) and on contiguous Tk 1500 (cp.async covers) and 1536 (TMA),
+    against its plain version. K11 calls the same entry
+    (test_k3_and_k11_call_one_entry)."""
+    tk = 1536 if layout.endswith("1536") else 1500
+    rng = np.random.default_rng(30 + r + b)
+    h = 20
+    q = _randn(rng, (b, h, r, 64), cuda, scale=64 ** -0.5)
+    qk, ks = _quant_kv(rng, b, h, tk, tk, 8, cuda)
+    qv, vs = _quant_kv(rng, b, h, tk, tk, 8, cuda)
+    if layout.startswith("padded"):
+        qk, qv = _padded_rows(qk, 1504), _padded_rows(qv, 1504)
+        assert qk.stride(2) == 1504 and not qk.is_contiguous()
+    before = att.decode_cross_attention_q8.launches
+    got = att.decode_cross_attention_q8(q, qk, ks, qv, vs)
+    want = att.decode_cross_attention_q8_plain(q, qk, ks, qv, vs)
+    torch.cuda.synchronize()
+    assert att.decode_cross_attention_q8.launches == before + 1
+    # test_decode_cross_quant_kernel_matches_plain's tolerance.
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=2e-3)
 
 
@@ -229,6 +323,11 @@ def test_decode_cross_quant_wrapper_raises(cuda, bits):
         kernel(q, qk.float(), ks, qk, ks)
     with pytest.raises(ValueError, match="1..8 rows"):
         kernel(_randn(rng, (1, 2, 9, 64), cuda), qk, ks, qk, ks)
+    # Rows of a pitch that is no multiple of 16 bytes: K3 refuses them; K6
+    # takes only contiguous K/V.
+    odd = torch.zeros((1, 2, qk.shape[2], 310), dtype=torch.int8, device=cuda)[..., :300]
+    with pytest.raises(ValueError, match="pitch" if bits == 8 else "contiguous"):
+        kernel(q, odd, ks, odd, ks)
     assert kernel(q, qk, ks, qk, ks).shape == (1, 2, 1, 64)
 
 
