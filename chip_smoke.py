@@ -12,11 +12,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    shapes with B=8 windows: K1 encoder attention (an instance of the TMA
    + wgmma attention core), K2 W8A8 GEMM (the six
    GEMMs of one encoder layer, its row quantizer and its persistent wgmma
-   GEMM also timed apart), K4 decode cross-attention (bf16 K/V), K3
+   GEMM also timed apart), K4 decode cross-attention (bf16 K/V, the bf16
+   instance of K3's kernel, on the decoder's rows padded to a 1504-position
+   pitch; R = 1, 3, 4, and once at B=48, bench.py's turbo batch), K3
    and K6 decode cross-attention over int8 and packed int4 K/V (R = 1, 3,
    4, and once at B=56, bench.py's large-v3 batch; K3 on the decoder's
    int8 rows padded to a 1504-byte pitch), and the
-   encoder-attention forms K7 (int8 products), K8 (packed heads, K1's
+   encoder-attention forms K7 (int8 products on wgmma, its quantizers and
+   attention also timed apart), K8 (packed heads, K1's
    instance of the core on the packed strides), K9 (head pairs, the
    core's other policy) and K10 (the core's persistent kernel, timed
    beside K1) at [8, 20, 1500, 64], each also with kv_len 1300 and K8/K9
@@ -25,8 +28,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    (K1's policy and tile) at [2, 20, 6000, 64] (kv_len 6000 and 5000,
    causal once, ragged shapes, once on contiguous [B, H, T, 64] tensors)
    and bit for bit against K1 on K1's inputs; K4 at an odd Tk, at
-   Tk = 6000 with 8 rows and at Tk = 6500 with 8 rows (past its shared
-   memory: the chunked online softmax); K1, K2 and K4 again at the shapes
+   Tk = 6000 with 8 rows and at Tk = 6500 with 8 rows; K1, K2 and K4 again at the shapes
    the reduced-context path gives them (256 positions: [8, 20, 256, 64],
    M = 2048, Tk = 256; K1 timed, and K10 bit for bit against it and
    timed) and K4 at the long window's prefill; K11 (K3's function over a
@@ -358,46 +360,8 @@ def kernel_phase(dev, rng):
                      library="torch._int_mm, the int8 dot alone"))
     del x1, x4, ws
 
-    # K4: decode cross-attention, time-minor K/V; enough K/V sets that
-    # every timed call reads cold data.
-    kvs = [(randn(rng, (b, h, d, t), dev), randn(rng, (b, h, d, t), dev))
-           for _ in range(n_cold_sets(2 * b * h * d * t * 2))]
-    print(f"K4 decode_cross_attention k,v [8,20,64,1500] bf16 ({len(kvs)} "
-          "input sets):")
-    # Query rows: 1 in a decode step, 3 in the main path's prefill
-    # ([sot, language, task]), 4 in a prefill without timestamps.
-    for r in (1, 3, 4):
-        qd = randn(rng, (b, h, r, d), dev, scale=d ** -0.5)
-        kt, vt = kvs[0]
-        got = att.decode_cross_attention(qd, kt, vt, kv_len=t)
-        want = att.decode_cross_attention_plain(qd, kt, vt, kv_len=t)
-        err = (got.float() - want.float()).abs().max().item()
-        check(f"K4 R={r}", err, 2e-3 + 1e-2 * want.float().abs().max().item())
-        kernel = [lambda kt=kt, vt=vt: att.decode_cross_attention(
-            qd, kt, vt, kv_len=t) for kt, vt in kvs]
-        ms, eager_ms = time_ms(kernel, 100), call_ms(kernel, 100)
-        plain_ms = time_ms([lambda kt=kt, vt=vt: att.decode_cross_attention_plain(
-            qd, kt, vt, kv_len=t) for kt, vt in kvs], 10)
-        lib_ms = time_ms([lambda kt=kt, vt=vt: F.scaled_dot_product_attention(
-            qd, kt.transpose(-1, -2), vt.transpose(-1, -2), scale=1.0)
-            for kt, vt in kvs], 100)
-        bms, by = bound(4.0 * b * h * r * t * d, PEAK_BF16_FLOPS,
-                        2 * b * h * d * t * 2 + 2 * b * h * r * d * 2)
-        print(f"  R={r}: ms {ms:.4f} (eager call_ms {eager_ms:.4f})  "
-              f"plain_ms {plain_ms:.4f}  "
-              f"library_ms (F.scaled_dot_product_attention) {lib_ms:.4f}  "
-              f"bound_ms {bms:.4f} ({by})")
-        if r == 1:
-            rows.append(dict(name="decode_cross_attention", route="cuda",
-                             source="spittle_tpu_torch/csrc/decode_cross_attention.cu",
-                             replaces="spittle_tpu/ops/attention.py:723",
-                             work="q [8,20,1,64] (a decode step)",
-                             max_abs_err=err, ms=ms, call_ms=eager_ms,
-                             plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                             library_ms=lib_ms,
-                             library="F.scaled_dot_product_attention"))
-    del kvs
-    k4_shapes_phase(dev, rng)
+    rows.append(k4_phase(dev, rng))
+    rows[-1]["by_shape"].update(k4_shapes_phase(dev, rng))
     reduced_shapes_phase(dev, rng)
     rows += quant_cross_phase(dev)
     rows += flash_phase(dev, rng)
@@ -407,15 +371,74 @@ def kernel_phase(dev, rng):
     return rows
 
 
+def k4_phase(dev, rng):
+    """K4 against its plain version on the decoder's bf16 rows, padded to
+    tma_pitch (1504 positions for Tk 1500: the TMA path), at B=8 with R =
+    1 (a decode step), 3 (the main path's prefill: sot, language, task) and
+    4 (a prefill without timestamps), and at B=48, bench.py's turbo batch,
+    with R = 1; each timed over enough K/V sets that every call reads cold
+    data. The row's numbers are B=8, R=1's; every case's go under
+    "by_shape"."""
+    from spittle_tpu_torch.ops import attention as att
+
+    F = torch.nn.functional
+    h, t, d = 20, 1500, 64
+    print("K4 decode_cross_attention k,v [B,20,64,1500] bf16 in rows of 1504 "
+          "positions:")
+    row = None
+    for b, rs in ((8, (1, 3, 4)), (48, (1,))):
+        kvs = [(padded_rows(randn(rng, (b, h, d, t), dev)),
+                padded_rows(randn(rng, (b, h, d, t), dev)))
+               for _ in range(n_cold_sets(2 * b * h * d * t * 2))]
+        for r in rs:
+            qd = randn(rng, (b, h, r, d), dev, scale=d ** -0.5)
+            kt, vt = kvs[0]
+            got = att.decode_cross_attention(qd, kt, vt, kv_len=t)
+            want = att.decode_cross_attention_plain(qd, kt, vt, kv_len=t)
+            err = (got.float() - want.float()).abs().max().item()
+            check(f"K4 B={b} R={r}", err, 2e-3 + 1e-2 * want.float().abs().max().item())
+            kernel = [lambda kt=kt, vt=vt: att.decode_cross_attention(
+                qd, kt, vt, kv_len=t) for kt, vt in kvs]
+            ms, eager_ms = time_ms(kernel, 100), call_ms(kernel, 100)
+            plain_ms = time_ms([lambda kt=kt, vt=vt: att.decode_cross_attention_plain(
+                qd, kt, vt, kv_len=t) for kt, vt in kvs], 10)
+            lib_ms = time_ms([lambda kt=kt, vt=vt: F.scaled_dot_product_attention(
+                qd, kt.transpose(-1, -2), vt.transpose(-1, -2), scale=1.0)
+                for kt, vt in kvs], 100)
+            bms, by = bound(4.0 * b * h * r * t * d, PEAK_BF16_FLOPS,
+                            2 * b * h * d * t * 2 + 2 * b * h * r * d * 2)
+            print(f"  B={b} R={r} ({len(kvs)} input sets): ms {ms:.4f} (eager "
+                  f"call_ms {eager_ms:.4f})  plain_ms {plain_ms:.4f}  "
+                  f"library_ms (F.scaled_dot_product_attention) {lib_ms:.4f}  "
+                  f"bound_ms {bms:.4f} ({by})")
+            nums = dict(ms=ms, call_ms=eager_ms, plain_ms=plain_ms,
+                        library_ms=lib_ms, bound_ms=bms, max_abs_err=err)
+            if row is None:
+                row = dict(name="decode_cross_attention", route="cuda",
+                           source="spittle_tpu_torch/csrc/decode_cross_attention_mh.cu",
+                           replaces="spittle_tpu/ops/attention.py:723",
+                           work="q [8,20,1,64] (a decode step), K/V rows of 1504",
+                           max_abs_err=err, ms=ms, call_ms=eager_ms,
+                           plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                           library_ms=lib_ms,
+                           library="F.scaled_dot_product_attention", by_shape={})
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            row["by_shape"][f"B{b}R{r}"] = nums
+        del kvs
+        torch.cuda.empty_cache()
+    return row
+
+
 def k4_shapes_phase(dev, rng):
     """K4 away from Tk = 1500: an odd Tk (a reduced audio context; K/V
-    rows only 2-byte aligned), the long window's Tk = 6000 with 8 query
-    rows, whose f32 score rows fill 192 KB of shared memory, and Tk = 6500
-    with 8 rows, past that memory, where the kernel walks kv in chunks
-    with an online softmax (3 rows of 6401 still fit)."""
+    rows only 2-byte aligned: the cp.async path), the long window's Tk =
+    6000 with 1, 3 and 8 query rows, and Tk = 6500 with 8 rows (past the
+    200 KB of score rows that bounded K4's first kernel). Returns each
+    case's numbers by "B{b}R{r}Tk{tk}kv{kv_len}"."""
     from spittle_tpu_torch.ops import attention as att
 
     h, d = 20, 64
+    cases = {}
     print("K4 decode_cross_attention at other K/V lengths:")
     for b, r, tk, kv_len in ((8, 1, 255, 255), (8, 3, 255, 201),
                              (2, 1, 6000, 6000), (2, 3, 6000, 6000),
@@ -433,6 +456,8 @@ def k4_shapes_phase(dev, rng):
                         2 * b * h * d * kv_len * 2 + 2 * b * h * r * d * 2)
         print(f"    ms {ms:.4f} (one input set, {2 * b * h * d * tk * 2 / 1e6:.1f} MB "
               f"of K/V)  bound_ms {bms:.4f} ({by})")
+        cases[f"B{b}R{r}Tk{tk}kv{kv_len}"] = dict(ms=ms, bound_ms=bms, max_abs_err=err)
+    return cases
 
 
 def reduced_shapes_phase(dev, rng):
@@ -811,6 +836,23 @@ def encoder_forms_phase(dev, rng):
             row.update(tflops=flops / ms / 1e9)
             rate_txt = f" ({row['tflops']:.1f} TFLOP/s)"
             floor_txt = f"  exponentials' floor {b * h * t * t / PEAK_EXP * 1e3:.4f} ms"
+        if form == "q8":
+            # The three quantizer launches and the attention launch apart,
+            # through the wrapper's own helpers and entries.
+            from spittle_tpu_torch.ops import _build
+
+            so = _build.load_library()
+            bufs = att._q8_buffers(*heads[:2])
+            quant_ms = time_ms(lambda: att._q8_quantize(
+                so.spt_fullkv_q8_quantize, *heads, bufs), 20)
+            attn_ms = time_ms(lambda: att._q8_attend(
+                so.spt_fullkv_attention_q8, bufs, t), 20)
+            row.update(quant_ms=quant_ms, attention_ms=attn_ms,
+                       exp_floor_ms=b * h * t * t / PEAK_EXP * 1e3)
+            floor_txt = (f"  quantizers {quant_ms:.4f} ms + attention {attn_ms:.4f} ms"
+                         f"  exponentials' floor {row['exp_floor_ms']:.4f} ms "
+                         "(one per score; the kernel takes two)")
+            del bufs
         if form == "pipe":
             # K1 on the same inputs in the same call, and the bits checked
             # above at every case.
@@ -826,13 +868,14 @@ def encoder_forms_phase(dev, rng):
 
 
 def padded_rows(x):
-    """int8 x [..., Tk] copied into rows tma_pitch(Tk) bytes apart, as the
-    decoder stores its int8 cross-K/V (models/whisper/model.py:
-    precompute_cross_kv_quant): a view of the logical shape."""
+    """x [..., Tk] (int8 or bf16) copied into rows tma_pitch(Tk) elements
+    apart, as the decoder stores its cross-K/V (models/whisper/model.py:
+    precompute_cross_kv and precompute_cross_kv_quant): a view of the
+    logical shape."""
     from spittle_tpu_torch.ops.attention import tma_pitch
 
     tk = x.shape[-1]
-    buf = x.new_empty((*x.shape[:-1], tma_pitch(tk)))
+    buf = x.new_empty((*x.shape[:-1], tma_pitch(tk, x.element_size())))
     buf[..., :tk] = x
     return buf[..., :tk]
 

@@ -1,15 +1,17 @@
 // PTX wrappers and host helpers shared by the port's Hopper (sm_90a)
 // kernels that run on TMA loads, mbarrier rings and wgmma: the attention
 // core (attention_sm90.cuh), the slab-fed decode cross-attention
-// (decode_cross_attention_mh.cu) and the W8A8 GEMM (w8a8_gemm.cu).
+// (decode_cross_attention_mh.cu), the W8A8 GEMM (w8a8_gemm.cu) and the
+// int8-dot encoder attention (fullkv_attention_q8.cu).
 //
 // Device side: shared-memory addresses, mbarriers (init, expect-tx,
 // arrive, a parity wait that traps instead of spinning forever), TMA loads
 // and stores (cp.async.bulk.tensor) with their bulk-group waits and the
 // proxy fence, setmaxnreg, named barriers, the wgmma fence, commit and
-// wait, register pins, and the 128-byte-swizzle shared-memory matrix
-// descriptor. Host side: cuTensorMapEncodeTiled, fetched from the driver
-// through cudaGetDriverEntryPoint, so the library links only cudart.
+// wait, register pins, the 128- and 64-byte-swizzle shared-memory matrix
+// descriptors and the int8 wgmma forms. Host side: cuTensorMapEncodeTiled,
+// fetched from the driver through cudaGetDriverEntryPoint, so the library
+// links only cudart.
 #pragma once
 
 #include <cuda.h>
@@ -78,6 +80,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// One box of a rank-3 map at (c0, c1, c2) (c0 the contiguous axis) into
+// shared memory, completing its bytes on `bar`.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -192,6 +205,73 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr) {
   return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(1) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// The same for the 64-byte swizzle (K-major rows of 64 bytes, e.g. 64
+// int8 of a head dim): 8-row groups 512 bytes apart; advancing 32 int8
+// along K inside a row is +32 bytes (+2).
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t saddr) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
+}
+
+// D[64 x 128] (+)= A[64 x 32] * B[32 x 128], int8 x int8 -> exact int32
+// sums, A and B from shared memory (K-major, swizzled as the descriptors
+// say) at da + kOffA and db + kOffB (the offsets in 16-byte units, added
+// inside, so that one register pair per operand serves every K step and
+// row half); scale_d 0 overwrites D. D's layout is the bf16 wgmma's: d[i]
+// is row 16 * warp + g + 8 * ((i >> 1) & 1), column 8 * (i >> 2) + 2c +
+// (i & 1).
+template <int kOffA, int kOffB>
+__device__ __forceinline__ void wgmma_s8_n128(int* d, uint64_t da, uint64_t db,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 a, b;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "add.s64 a, %64, %67;\n"
+      "add.s64 b, %65, %68;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, a, b, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(kOffA), "n"(kOffB));
+}
+
+// D[64 x 64] (+)= A[64 x 32] * B[32 x 64], int8 x int8 -> exact int32
+// sums, A from registers (each warp's 16 rows as mma.sync m16n8k32's A
+// fragment: a0 row g, k 4c..4c+3; a1 row g + 8; a2, a3 k + 16), B from
+// shared memory (K-major) at the descriptor db; scale_d 0 overwrites D.
+// D's layout is wgmma_s8_n128's.
+__device__ __forceinline__ void wgmma_s8_rs_n64(int* d, const uint32_t* a,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 // ---------------------------------------------------------------------------

@@ -213,41 +213,6 @@ void quantize_rows(const void* x, void* qx, void* sx, int M, int K,
 // The GEMM
 // ---------------------------------------------------------------------------
 
-// D[64 x 128] (+)= A[64 x 32] * B[32 x 128], int8 x int8 -> exact int32
-// sums, A and B from shared memory (K-major, 128-byte swizzle) at the
-// descriptors da + kOffA and db + kOffB (the offsets in 16-byte units, added
-// inside, so that one register pair per operand serves every K step and
-// row half); scale_d 0 overwrites D. D's layout is the bf16 wgmma's: d[i]
-// is row 16 * warp + g + 8 * ((i >> 1) & 1), column 8 * (i >> 2) + 2c +
-// (i & 1).
-template <int kOffA, int kOffB>
-__device__ __forceinline__ void wgmma_s8_n128(int* d, uint64_t da, uint64_t db,
-                                           int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .b64 a, b;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "add.s64 a, %64, %67;\n"
-      "add.s64 b, %65, %68;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, a, b, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
-        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
-        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
-        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
-        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
-        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(kOffA), "n"(kOffB));
-}
-
 // D[64 x 256] (+)= A[64 x 32] * B[32 x 256], int8 x int8 -> exact int32
 // sums, A and B from shared memory (K-major, 128-byte swizzle) at the
 // descriptors da + kOffA and db + kOffB (the offsets in 16-byte units, added
@@ -304,7 +269,7 @@ __device__ __forceinline__ void wgmma_s8(int* d, uint64_t da, uint64_t db,
   if constexpr (BN == 256)
     wgmma_s8_n256<kOffA, kOffB>(d, da, db, scale_d);
   else
-    wgmma_s8_n128<kOffA, kOffB>(d, da, db, scale_d);
+    sm::wgmma_s8_n128<kOffA, kOffB>(d, da, db, scale_d);
 }
 
 // One output value: (acc * sx) * sw' + b' with one rounding of the

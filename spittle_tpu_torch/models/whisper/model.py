@@ -170,18 +170,36 @@ def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
 # ---------------------------------------------------------------------------
 
 
+def _padded_rows(a: torch.Tensor, n: int) -> torch.Tensor:
+    """An uninitialised [n, *a.shape] buffer for n layers of `a` (time
+    last) whose rows are tma_pitch(T) elements apart: a view of the
+    logical shape."""
+    t = a.shape[-1]
+    return a.new_empty((n, *a.shape[:-1], tma_pitch(t, a.element_size())))[..., :t]
+
+
 def precompute_cross_kv(params: Params, xa: torch.Tensor, cfg: WhisperConfig):
     """Per-layer cross-attention K/V from the encoder output, each
-    [L, B, H, Dh, T]: the decode layout (time minor) that K4 streams."""
+    [L, B, H, Dh, T]: the decode layout (time minor) that K4 streams.
+
+    The rows are stored tma_pitch(T) elements apart (1504 for T 1500: a
+    multiple of 16 bytes, 0.27% more bytes, never read past T) and
+    returned as views of the logical shape, so that K4 can load them by
+    TMA; the values are the stacked projections'."""
     blocks = params["decoder"]["blocks"]
     h = cfg.n_text_head
-    ks, vs = [], []
-    for layer in range(n_layers(blocks)):
+    n = n_layers(blocks)
+    out = None
+    for layer in range(n):
         blk = layer_params(blocks, layer)
-        ks.append(split_heads(mm(xa, blk["cross_wk"]), h).transpose(-1, -2))
-        vs.append(split_heads(mm(xa, blk["cross_wv"]) + blk["cross_bv"], h)
-                  .transpose(-1, -2))
-    return torch.stack(ks), torch.stack(vs)
+        k = split_heads(mm(xa, blk["cross_wk"]), h).transpose(-1, -2)
+        v = split_heads(mm(xa, blk["cross_wv"]) + blk["cross_bv"], h
+                         ).transpose(-1, -2)
+        if out is None:
+            out = (_padded_rows(k, n), _padded_rows(v, n))
+        out[0][layer].copy_(k)
+        out[1][layer].copy_(v)
+    return out
 
 
 def _cross_kv_buffer(key: str, a: torch.Tensor, n: int) -> torch.Tensor:
@@ -189,8 +207,7 @@ def _cross_kv_buffer(key: str, a: torch.Tensor, n: int) -> torch.Tensor:
     int8 "qw" a view of one whose rows are tma_pitch(T) apart."""
     if key != "qw":
         return a.new_empty((n, *a.shape))
-    t = a.shape[-1]
-    return a.new_empty((n, *a.shape[:-1], tma_pitch(t)))[..., :t]
+    return _padded_rows(a, n)
 
 
 def precompute_cross_kv_quant(params: Params, xa: torch.Tensor,

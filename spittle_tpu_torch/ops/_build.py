@@ -45,10 +45,10 @@ SIGNATURES = {
     "spt_fullkv_attention_packed_pair": [_P] * 4 + [_I] * 6 + [_P],
     "spt_fullkv_attention_pipe": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_P],
     "spt_fullkv_q8_quantize": [_P, _L, _L, _L] + [_I] * 4 + [_P, _P, _I, _P],
-    "spt_fullkv_attention_q8": [_P] * 7 + [_I] * 7 + [_L] * 3 + [_P],
+    "spt_fullkv_attention_q8": [_P] * 7 + [_I] * 9 + [_L] * 3 + [_P],
     "spt_w8a8_quantize_rows": [_P, _P, _P, _I, _I, _I, _P],
     "spt_w8a8_gemm": [_P] * 6 + [_I] * 8 + [_F, _P],
-    "spt_decode_cross_attention": [_P, _P, _P, _P] + [_I] * 5 + [_L] * 6 + [_P],
+    "spt_decode_cross_attention": [_P] * 5 + [_I] * 7 + [_L] * 7 + [_P],
     "spt_decode_cross_attention_q8": [_P] * 7 + [_I] * 7 + [_L] * 7 + [_P],
     "spt_decode_cross_attention_q4": [_P] * 7 + [_I] * 5 + [_L] * 6 + [_P],
     "spt_cache_col_write": [_P, _P, _P, _L, _I, _P],

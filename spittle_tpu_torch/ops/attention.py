@@ -18,18 +18,21 @@ probe's kernel).
   flash_attention_fullkv_pipe (K10, csrc/fullkv_attention_pipe.cu), K1's
   function on the core's persistent kernel, whose pipeline runs on across
   work items; flash_attention_fullkv_q8 (K7,
-  csrc/fullkv_attention_q8.cu), both products int8.
-- decode_cross_attention (K4, csrc/decode_cross_attention.cu): <= 8 query
-  rows against the whole K/V in the decode layout [B, H, Dh, Tk]; replaces
-  the Pallas `decode_cross_attention`.
+  csrc/fullkv_attention_q8.cu), both products int8 on wgmma, K/V resident
+  in shared memory up to 1536 positions and streamed past them (q8_form).
+- decode_cross_attention (K4): <= 8 query rows against the whole bf16 K/V
+  in the decode layout [B, H, Dh, Tk]; replaces the Pallas
+  `decode_cross_attention`. The bf16 instance of K3's kernel
+  (csrc/decode_cross_attention_mh.cu), on the decoder's rows padded to a
+  multiple of 16 bytes (tma_pitch).
 - decode_cross_attention_q4 (K6, csrc/decode_cross_attention_q.cu): the
   same over int4 K/V packed two per byte, with one f32 scale per
   position; replaces the Pallas `decode_cross_attention_q4`.
 - decode_cross_attention_q8 (K3) and decode_cross_attention_q8_mh (K11),
-  one kernel (csrc/decode_cross_attention_mh.cu): the same over int8 K/V,
-  a batch item's K/V read as one slab of row pitch ld (the decoder pads
-  it to a multiple of 16 bytes, tma_pitch) in a persistent grid fed by
-  producer warps; replace the Pallas `decode_cross_attention_q8` and
+  one kernel (csrc/decode_cross_attention_mh.cu, K4's): the same over int8
+  K/V, a batch item's K/V read as one slab of row pitch ld (the decoder
+  pads it to a multiple of 16 bytes, tma_pitch) in a persistent grid fed
+  by producer warps; replace the Pallas `decode_cross_attention_q8` and
   `mh_q8` of scripts/bench_decode_cross.py.
 - multihead_attention_packed and multihead_attention: the dispatchers.
   They pick a kernel from the shapes and the encoder-attention form, an
@@ -384,6 +387,71 @@ def q8_code_step(q, k, v, kv_len: Optional[int] = None) -> torch.Tensor:
     return (p * vs[..., None, :]).amax(dim=-1) / p.sum(dim=-1)
 
 
+# K/V positions that K7 keeps resident in shared memory (12 key tiles of
+# 128; kStages in its source).
+_Q8_RESIDENT_KV = 1536
+
+
+def q8_form(tk: int) -> str:
+    """K7's form for K/V of tk positions, from the shape alone: "resident"
+    (a head's int8 K and Vt loaded once into shared memory, tk <= 1536)
+    or "streamed" (every pass streams them through the same stages)."""
+    return "resident" if -(-tk // 128) * 128 <= _Q8_RESIDENT_KV else "streamed"
+
+
+def _q8_buffers(q, k) -> dict:
+    """K7's buffers for q [B, H, Tq, 64] and k [B, H, Tk, 64]: the int8
+    operands q8 [B, H, Tq, 64], k8 [B, H, Tk, 64] and v8t [B, H, 64, Tpad]
+    (V transposed), their f32 scales qs [B, H, Tqpad], ks and vs [B, H,
+    Tpad] (Tq and Tk rounded up to 128), and the output out [B, Tq, H,
+    64] in q's dtype."""
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    tqpad, tpad = (-(-t // 128) * 128 for t in (tq, tk))
+    dev = q.device
+    bufs = {
+        "q8": torch.empty((b, h, tq, d), dtype=torch.int8, device=dev),
+        "k8": torch.empty((b, h, tk, d), dtype=torch.int8, device=dev),
+        "v8t": torch.empty((b, h, d, tpad), dtype=torch.int8, device=dev),
+        "out": torch.empty((b, tq, h, d), dtype=q.dtype, device=dev),
+    }
+    for key, t in (("qs", tqpad), ("ks", tpad), ("vs", tpad)):
+        bufs[key] = torch.empty((b, h, t), dtype=torch.float32, device=dev)
+    return bufs
+
+
+def _q8_quantize(entry, q, k, v, bufs: dict) -> None:
+    """K7's three row-quantizer launches through `entry` (a loaded
+    library's spt_fullkv_q8_quantize) into _q8_buffers' operands and
+    scales: V written transposed, the scales padded to 128 positions."""
+    b, h = q.shape[:2]
+    stream = _build.stream_ptr(q.device)
+    for x, x8, scale, transposed in ((q, "q8", "qs", 0), (k, "k8", "ks", 0),
+                                     (v, "v8t", "vs", 1)):
+        _build.check(entry(
+            x.data_ptr(), *x.stride()[:3], b, h, x.shape[2],
+            bufs[scale].shape[2], bufs[x8].data_ptr(), bufs[scale].data_ptr(),
+            transposed, stream,
+        ), "spt_fullkv_q8_quantize")
+
+
+def _q8_attend(entry, bufs: dict, kv_len: int) -> None:
+    """K7's attention launch through `entry` (a loaded library's
+    spt_fullkv_attention_q8) on quantized _q8_buffers, into bufs["out"],
+    in q8_form's form for their K/V length."""
+    b, h, tq, _ = bufs["q8"].shape
+    tk, tpad = bufs["k8"].shape[2], bufs["v8t"].shape[3]
+    out = bufs["out"]
+    _build.check(entry(
+        bufs["q8"].data_ptr(), bufs["qs"].data_ptr(), bufs["k8"].data_ptr(),
+        bufs["ks"].data_ptr(), bufs["v8t"].data_ptr(), bufs["vs"].data_ptr(),
+        out.data_ptr(), b, h, tq, tk, tpad, kv_len, int(tk % 128 != 0),
+        int(q8_form(tk) == "resident"), _num_sms(out.device.index),
+        out.stride(0), out.stride(2), out.stride(1),
+        _build.stream_ptr(out.device),
+    ), "spt_fullkv_attention_q8")
+
+
 def flash_attention_fullkv_q8(q, k, v,
                               kv_len: Optional[int] = None) -> torch.Tensor:
     """K7: int8-dot full-KV attention, non-causal. q [B, H, Tq, 64], k/v
@@ -391,37 +459,18 @@ def flash_attention_fullkv_q8(q, k, v,
     [B, H, Tq, 64], on CUDA a view of a [B, Tq, H, 64] buffer. The
     function is flash_attention_fullkv_q8_plain's; on the card the wrapper
     quantizes q, k and v (three launches of the K7 source's row quantizer,
-    V written transposed) before the attention launch, as the reference's
-    function quantizes before its kernel."""
+    V written transposed, the scales padded to 128 positions) before the
+    attention launch, as the reference's function quantizes before its
+    kernel."""
     if q.device.type == "cpu":
         return flash_attention_fullkv_q8_plain(q, k, v, kv_len)
     kv_len = _check_split_qkv("flash_attention_fullkv_q8", q, k, v, kv_len)
-    b, h, tq, d = q.shape
-    tk = k.shape[2]
-    tpad = -(-tk // 64) * 64
-    dev = q.device
-    q8 = torch.empty((b, h, tq, d), dtype=torch.int8, device=dev)
-    k8 = torch.empty((b, h, tk, d), dtype=torch.int8, device=dev)
-    v8t = torch.empty((b, h, d, tpad), dtype=torch.int8, device=dev)
-    qs, ks, vs = (torch.empty((b, h, t), dtype=torch.float32, device=dev)
-                  for t in (tq, tk, tk))
-    out = torch.empty((b, tq, h, d), dtype=q.dtype, device=dev)
+    bufs = _q8_buffers(q, k)
     lib = _build.load_library()
-    stream = _build.stream_ptr(dev)
-    for x, x8, scale, transposed in ((q, q8, qs, 0), (k, k8, ks, 0),
-                                     (v, v8t, vs, 1)):
-        _build.check(lib.spt_fullkv_q8_quantize(
-            x.data_ptr(), *x.stride()[:3], b, h, x.shape[2], tpad,
-            x8.data_ptr(), scale.data_ptr(), transposed, stream,
-        ), "spt_fullkv_q8_quantize")
-    _build.check(lib.spt_fullkv_attention_q8(
-        q8.data_ptr(), qs.data_ptr(), k8.data_ptr(), ks.data_ptr(),
-        v8t.data_ptr(), vs.data_ptr(), out.data_ptr(),
-        b, h, tq, tk, tpad, kv_len, int(tk % 128 != 0),
-        out.stride(0), out.stride(2), out.stride(1), stream,
-    ), "spt_fullkv_attention_q8")
+    _q8_quantize(lib.spt_fullkv_q8_quantize, q, k, v, bufs)
+    _q8_attend(lib.spt_fullkv_attention_q8, bufs, kv_len)
     flash_attention_fullkv_q8.launches += 1
-    return out.permute(0, 2, 1, 3)
+    return bufs["out"].permute(0, 2, 1, 3)
 
 
 flash_attention_fullkv_q8.launches = 0
@@ -635,28 +684,20 @@ def _check_decode_cross(name, q, kv, scales, rows, kv_dtype, kv_len,
 
 def decode_cross_attention(q, k, v,
                            kv_len: Optional[int] = None) -> torch.Tensor:
-    """q [B, H, R<=8, 64] (head dim contiguous); k/v contiguous
-    [B, H, 64, Tk] bf16, any Tk >= 1 -> [B, H, R, 64]. On CUDA the result
-    is a view of a [B, R, H, 64] buffer. Score rows that do not fit the
-    kernel's shared memory (R * kv_len past 51200) are walked in chunks
-    with an online softmax, so P rounds to bf16 against each chunk's
-    running max there."""
+    """K4. q [B, H, R<=8, 64] bf16 pre-scaled by Dh^-0.5 (head dim
+    contiguous); k/v bf16 [B, H, 64, Tk], contiguous or with rows of a
+    pitch that is a multiple of 16 bytes (the decoder's layout,
+    tma_pitch); any Tk >= 1 -> [B, H, R, 64], on CUDA a view of a
+    [B, R, H, 64] buffer. The kernel is K3's bf16 instance: items of
+    (batch item, head pair, 64 positions), so P rounds to bf16 against
+    each 64-position chunk's max."""
     if q.device.type == "cpu":
         return decode_cross_attention_plain(q, k, v, kv_len)
-    b, h, r, d = q.shape
-    tk = k.shape[3]
-    kv_len = _check_decode_cross("decode_cross_attention", q, (k, v), (), d,
-                                 torch.bfloat16, kv_len)
-    out = torch.empty((b, r, h, d), dtype=q.dtype, device=q.device)
-    lib = _build.load_library()
-    _build.check(lib.spt_decode_cross_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, h, r, tk, kv_len, *q.stride()[:3],
-        out.stride(0), out.stride(2), out.stride(1),
-        _build.stream_ptr(q.device),
-    ), "spt_decode_cross_attention")
+    out = _launch_decode_cross("decode_cross_attention",
+                               "spt_decode_cross_attention", q, k, v, (),
+                               kv_len, q.shape[3], slab=True)
     decode_cross_attention.launches += 1
-    return out.permute(0, 2, 1, 3)
+    return out
 
 
 decode_cross_attention.launches = 0
@@ -667,40 +708,50 @@ decode_cross_attention.launches = 0
 # ---------------------------------------------------------------------------
 
 
-# Time positions per partial record of K6 and of K3/K11 (kChunk in their
-# sources).
+# Time positions per partial record of K6 (kChunk in its source); K3,
+# K4 and K11 take one 128-byte row slice per record (_slice_positions).
 _QUANT_CHUNK = 256
-_MH_CHUNK = 128
+_MH_SLICE = 128
 # TMA addresses a row only where its pitch and base are multiples of this
 # many bytes.
 TMA_ALIGN = 16
 
 
-def tma_pitch(tk: int) -> int:
-    """The row pitch, in bytes, at which int8 rows of tk positions can be
-    addressed by TMA: tk rounded up to a multiple of 16 (1504 for 1500)."""
-    return -(-tk // TMA_ALIGN) * TMA_ALIGN
+def _slice_positions(itemsize: int) -> int:
+    """Positions per work item and partial record of K3/K4/K11 (kChunk in
+    csrc/decode_cross_attention_mh.cu): 128 int8, 64 bf16."""
+    return _MH_SLICE // itemsize
+
+
+def tma_pitch(tk: int, itemsize: int = 1) -> int:
+    """The row pitch, in elements of `itemsize` bytes, at which rows of tk
+    positions can be addressed by TMA: rows rounded up to a multiple of 16
+    bytes (1504 for 1500, int8 and bf16 alike)."""
+    per = TMA_ALIGN // itemsize
+    return -(-tk // per) * per
 
 
 def decode_cross_load_path(pitch: int, *addresses: int) -> str:
-    """K3/K11's load path for int8 K/V slabs of row pitch `pitch` bytes at
-    the given base addresses: "tma" (one box per item's K and V) where the
-    pitch and every address are multiples of 16 bytes, "cp.async" (16-byte
-    covers of each row's slice) otherwise."""
+    """K3/K4/K11's load path for K/V slabs whose rows lie `pitch` bytes
+    apart (ld times the element size) at the given base addresses: "tma"
+    (one box per item's K and V) where the pitch and every address are
+    multiples of 16 bytes, "cp.async" (16-byte covers of each row's slice)
+    otherwise."""
     aligned = all(a % TMA_ALIGN == 0 for a in (pitch, *addresses))
     return "tma" if aligned else "cp.async"
 
 
 def _slab_pitch(name, kv) -> int:
-    """The row pitch ld (bytes) of int8 K/V [B, H, 64, Tk] that K3/K11 read
-    as one slab per batch item: strides (H*64*ld, 64*ld, ld, 1), alike for
-    K and V, with ld = Tk (contiguous) or a multiple of 16 bytes past it
-    (the decoder's padded rows). Strides of dimensions of size 1 are not
-    compared, as torch's contiguity does not."""
+    """The row pitch ld (elements) of K/V [B, H, 64, Tk] that K3/K4/K11
+    read as one slab per batch item: strides (H*64*ld, 64*ld, ld, 1),
+    alike for K and V, with ld = Tk (contiguous) or, past it, a pitch
+    whose rows are a multiple of 16 bytes (the decoder's padded rows,
+    tma_pitch). Strides of dimensions of size 1 are not compared, as
+    torch's contiguity does not."""
     b, h, rows, tk = kv[0].shape
     ld = kv[0].stride(2) if rows > 1 else tk
     want = (h * rows * ld, rows * ld, ld, 1)
-    ok = ld >= tk and (ld == tk or ld % TMA_ALIGN == 0) and all(
+    ok = ld >= tk and (ld == tk or ld * kv[0].element_size() % TMA_ALIGN == 0) and all(
         st == w for t in kv for n, st, w in zip(t.shape, t.stride(), want) if n > 1)
     if not ok:
         raise ValueError(
@@ -736,32 +787,35 @@ def decode_cross_attention_q4_plain(q, qk, ks, qv, vs,
                                            unpack_kv_int4(qv), vs, kv_len)
 
 
-def _launch_decode_cross_quant(name, entry, q, qk, ks, qv, vs, kv_len, rows,
-                               slab=False):
+def _launch_decode_cross(name, entry, q, k, v, scales, kv_len, rows,
+                         slab=False):
     """Checks and launch shared by K6 (rows: 32 stored rows of packed int4;
-    256-position partial records) and K3 and K11 (slab: 64 int8 rows of
-    pitch ld, 128-position records, the persistent kernel's SM count and
-    load path passed after kv_len and ld after q's strides). Returns the
+    256-position partial records) and K3, K4 and K11 (slab: 64 rows of
+    pitch ld, one record per 128-byte row slice, the persistent kernel's SM
+    count and load path passed after kv_len and ld after q's strides).
+    scales: (ks, vs) for int8 and int4 K/V, () for bf16 (K4). Returns the
     [B, H, R, 64] result as a view of a [B, R, H, 64] buffer."""
     b, h, r, d = q.shape
-    tk = qk.shape[3]
-    kv_len = _check_decode_cross(name, q, (qk, qv), (ks, vs), rows, torch.int8,
+    tk = k.shape[3]
+    kv_dtype = torch.int8 if scales else torch.bfloat16
+    kv_len = _check_decode_cross(name, q, (k, v), scales, rows, kv_dtype,
                                  kv_len, pitched=slab)
-    chunk = _MH_CHUNK if slab else _QUANT_CHUNK
+    chunk = _slice_positions(k.element_size()) if slab else _QUANT_CHUNK
     chunks = -(-kv_len // chunk)
     grid, strides = (), q.stride()[:3]
     if slab:
-        ld = _slab_pitch(name, (qk, qv))
-        path = decode_cross_load_path(ld, qk.data_ptr(), qv.data_ptr())
+        ld = _slab_pitch(name, (k, v))
+        path = decode_cross_load_path(ld * k.element_size(), k.data_ptr(),
+                                      v.data_ptr())
         grid, strides = (_num_sms(q.device.index), int(path == "tma")), (*strides, ld)
     part = torch.empty((b * h, chunks, r, d + 2), dtype=torch.float32,
                        device=q.device)
     out = torch.empty((b, r, h, d), dtype=q.dtype, device=q.device)
+    ptrs = ((k, scales[0], v, scales[1]) if scales else (k, v))
     lib = _build.load_library()
     _build.check(getattr(lib, entry)(
-        q.data_ptr(), qk.data_ptr(), ks.data_ptr(), qv.data_ptr(),
-        vs.data_ptr(), part.data_ptr(), out.data_ptr(),
-        b, h, r, tk, kv_len, *grid, *strides,
+        q.data_ptr(), *(t.data_ptr() for t in ptrs), part.data_ptr(),
+        out.data_ptr(), b, h, r, tk, kv_len, *grid, *strides,
         out.stride(0), out.stride(2), out.stride(1),
         _build.stream_ptr(q.device),
     ), entry)
@@ -779,9 +833,9 @@ def decode_cross_attention_q8(q, qk, ks, qv, vs,
     each 128-position chunk's max."""
     if q.device.type == "cpu":
         return decode_cross_attention_q8_plain(q, qk, ks, qv, vs, kv_len)
-    out = _launch_decode_cross_quant(
+    out = _launch_decode_cross(
         "decode_cross_attention_q8", "spt_decode_cross_attention_q8",
-        q, qk, ks, qv, vs, kv_len, q.shape[3], slab=True)
+        q, qk, qv, (ks, vs), kv_len, q.shape[3], slab=True)
     decode_cross_attention_q8.launches += 1
     return out
 
@@ -794,9 +848,9 @@ def decode_cross_attention_q4(q, qk, ks, qv, vs,
     """K6. As K3 with qk/qv the packed int4 [B, H, 32, Tk]."""
     if q.device.type == "cpu":
         return decode_cross_attention_q4_plain(q, qk, ks, qv, vs, kv_len)
-    out = _launch_decode_cross_quant(
+    out = _launch_decode_cross(
         "decode_cross_attention_q4", "spt_decode_cross_attention_q4",
-        q, qk, ks, qv, vs, kv_len, q.shape[3] // 2)
+        q, qk, qv, (ks, vs), kv_len, q.shape[3] // 2)
     decode_cross_attention_q4.launches += 1
     return out
 
@@ -815,9 +869,9 @@ def decode_cross_attention_q8_mh(q, qk, ks, qv, vs,
     Operands as K3's."""
     if q.device.type == "cpu":
         return decode_cross_attention_q8_plain(q, qk, ks, qv, vs, kv_len)
-    out = _launch_decode_cross_quant(
+    out = _launch_decode_cross(
         "decode_cross_attention_q8_mh", "spt_decode_cross_attention_q8",
-        q, qk, ks, qv, vs, kv_len, q.shape[3], slab=True)
+        q, qk, qv, (ks, vs), kv_len, q.shape[3], slab=True)
     decode_cross_attention_q8_mh.launches += 1
     return out
 

@@ -7,10 +7,10 @@ Dh 64, T 1536 with kv_len 1500, one query row) across:
 
   plain-bf16   the model's plain path (ops.attention
                decode_cross_attention_plain)
-  k4-bf16      decode_cross_attention (K4): one block per (batch, head)
+  k4-bf16      decode_cross_attention (K4): the bf16 instance of K11's
+               kernel, items of (batch item, head pair, 64 positions)
   plain-int8   the plain path over int8 K/V (decode_cross_attention_q8_plain)
-  k3-int8      decode_cross_attention_q8 (K3): dequantization in the kernel,
-               one block per (256 positions, batch, head)
+  k3-int8      decode_cross_attention_q8 (K3): K11's kernel and entry
   k11-int8-mh  decode_cross_attention_q8_mh (K11): K3's function over a
                batch item's K/V as one [H*64, T] slab, a persistent grid
                of one block per SM over (batch item, head pair, 128

@@ -263,6 +263,38 @@ def test_packed_dispatch_routes_as_the_reference(monkeypatch, form, h, d, tq,
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=2e-5)
 
 
+@pytest.mark.parametrize("tk,want", [(1500, "resident"), (1536, "resident"),
+                                     (300, "resident"), (1537, "streamed"),
+                                     (2000, "streamed"), (4096, "streamed")])
+def test_q8_form_by_shape(tk, want):
+    """K7 keeps a head's int8 K and Vt in shared memory up to 12 key tiles
+    of 128 (1536 positions) and streams them past that: a function of Tk
+    alone."""
+    assert tatt.q8_form(tk) == want
+
+
+@pytest.mark.parametrize("tq,tk,tqpad,tpad", [(1500, 1500, 1536, 1536),
+                                              (1536, 1536, 1536, 1536),
+                                              (300, 300, 384, 384),
+                                              (1537, 1537, 1664, 1664),
+                                              (160, 2000, 256, 2048),
+                                              (4096, 4096, 4096, 4096)])
+def test_q8_buffers_shapes(tq, tk, tqpad, tpad):
+    """K7's buffers, shared by the wrapper, its parts probe and chip_smoke:
+    q8 and k8 row-major, V transposed over Tk rounded up to 128, the
+    scales padded to 128 positions, the output [B, Tq, H, 64] in q's
+    dtype."""
+    q = torch.zeros((2, 3, tq, 64), dtype=torch.bfloat16)
+    k = torch.zeros((2, 3, tk, 64), dtype=torch.bfloat16)
+    bufs = tatt._q8_buffers(q, k)
+    shapes = {name: tuple(t.shape) for name, t in bufs.items()}
+    assert shapes == {"q8": (2, 3, tq, 64), "k8": (2, 3, tk, 64),
+                      "v8t": (2, 3, 64, tpad), "out": (2, tq, 3, 64),
+                      "qs": (2, 3, tqpad), "ks": (2, 3, tpad), "vs": (2, 3, tpad)}
+    assert [bufs[n].dtype for n in ("q8", "k8", "v8t", "qs", "out")] == [
+        torch.int8, torch.int8, torch.int8, torch.float32, torch.bfloat16]
+
+
 def test_unknown_form_raises():
     q = torch.zeros((1, 2, 160, 64))
     for call in (

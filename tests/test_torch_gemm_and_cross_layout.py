@@ -129,7 +129,7 @@ def test_k3_and_k11_call_one_entry(monkeypatch):
         calls.append((entry, args[-1], kw))
         return None
 
-    monkeypatch.setattr(att, "_launch_decode_cross_quant", record)
+    monkeypatch.setattr(att, "_launch_decode_cross", record)
     q = torch.empty((1, 2, 1, 64), dtype=torch.bfloat16, device="meta")
     kv = torch.empty((1, 2, 64, 300), dtype=torch.int8, device="meta")
     s = torch.empty((1, 2, 300), dtype=torch.float32, device="meta")

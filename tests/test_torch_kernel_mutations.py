@@ -1,7 +1,8 @@
 """Mutation check of the card tests of K2 (the W8A8 GEMM and its row
 quantizer), K3 and K6 (decode cross-attention over int8 and packed int4
-K/V; K3 on K11's kernel), K4 (the same over bf16 K/V, chunked past
-its shared memory), K7 (int8-dot encoder attention), K1 and K8 (encoder
+K/V; K3 on K11's kernel), K4 (the same over bf16 K/V, the bf16 instance
+of K11's kernel), K7 (int8-dot encoder attention on wgmma, resident and
+streamed), K1 and K8 (encoder
 attention, strided and packed heads), K5 (tiled flash attention), K9
 (head pairs) and K10 (the persistent, pipelined form), all five on the
 wgmma attention core, K11 (the slab-fed decode cross-attention over int8
@@ -31,7 +32,6 @@ pytestmark = pytest.mark.cuda
 REPO = Path(__file__).resolve().parents[1]
 SRC = "spittle_tpu_torch/csrc/decode_cross_attention_q.cu"
 Q8_SRC = "spittle_tpu_torch/csrc/fullkv_attention_q8.cu"
-K4_SRC = "spittle_tpu_torch/csrc/decode_cross_attention.cu"
 FULLKV_SRC = "spittle_tpu_torch/csrc/fullkv_attention.cu"
 # K1, K5, K8, K9 and K10 are instances of the attention core; their masks,
 # operand addressing and (K10) cross-item state live there.
@@ -57,8 +57,7 @@ MUTATIONS = {
          "const float p = (live && t0 + tid < kv_len) ? expf(s[r] - rmax[r]) : 0.f;"),
         (WRAPPER, "chunks = -(-kv_len // chunk)", "chunks = -(-tk // chunk)"),
         (MH_SRC, "ksc[j] = live[j] ? ks[at] : 0.f;", "ksc[j] = ks[at];"),
-        (MH_SRC, "sc[r][j] = live[j] ? sc[r][j] * ksc[j] : -INFINITY;",
-         "sc[r][j] = sc[r][j] * ksc[j];"),
+        (MH_SRC, "sc[r][j] = live[j] ? sj : -INFINITY;", "sc[r][j] = sj;"),
     ]),
     # Nibbles shifted as unsigned values: 0..15, no sign extension.
     "nibble_unsigned": ("quant_kernel_matches and int4", [
@@ -68,14 +67,31 @@ MUTATIONS = {
     # K7: V's per-position scales not folded into P (pv = p), in the pass
     # that takes P's scale and in the pass that quantizes P.
     "q8_vs_not_folded": ("q8_kernel_matches and 1500", [
-        (Q8_SRC, "__fmul_rn(s[nt][e], vss[nt * 8 + 2 * c + (e & 1)])", "s[nt][e]"),
-        (Q8_SRC, "const float pv = __fmul_rn(s[nt][2 * hr + j], vss[nt * 8 + 2 * c + j]);",
-         "const float pv = s[nt][2 * hr + j];"),
+        (Q8_SRC, "const float pv = __fmul_rn(pr, e ? vs2.y : vs2.x);",
+         "const float pv = pr;"),
     ]),
     # K7: P's scale sp fixed at 1 instead of mp/127.
     "q8_sp_fixed": ("q8_kernel_matches and 1500", [
         (Q8_SRC, "sp[hr] = mp[hr] > 0.f ? __fdiv_rn(mp[hr], 127.0f) : 1.0f;",
          "sp[hr] = 1.0f;"),
+    ]),
+    # K7: the kv_len mask dropped from p, so keys from kv_len to Tk enter
+    # l, mp and PV.
+    "q8_kv_len_mask_dropped": ("q8_kernel_matches and (1300 or 1900)", [
+        (Q8_SRC, "const float pr = !kEdge || col < p.kv_len ? expf(s - m[hr]) : 0.f;",
+         "const float pr = expf(s - m[hr]);"),
+    ]),
+    # K7: Vt written in key order instead of PV's operand order, so each
+    # P code meets another key's V.
+    "q8_pv_order_identity": ("q8_kernel_matches and 1500", [
+        (Q8_SRC, "return (r & ~15) | (4 * ((r & 7) >> 1) + 2 * ((r >> 3) & 1) + (r & 1));",
+         "return r;"),
+    ]),
+    # K7: pass 3 loads the neighbouring key tile's Vt (j ^ 1), on the
+    # streamed form's shape.
+    "q8_v_tile_swapped": ("q8_kernel_matches and 4096", [
+        (Q8_SRC, "sm::tma_load_3d(st + kVOffset, &tm_v, full(s), j * kBK, 0, bh);",
+         "sm::tma_load_3d(st + kVOffset, &tm_v, full(s), (j ^ 1) * kBK, 0, bh);"),
     ]),
     # K5: attention_reference's Tk - Tq offset put into the causal rule,
     # which K5 does not have; it shows only where Tq != Tk.
@@ -99,11 +115,23 @@ MUTATIONS = {
         (FULLKV_SRC, "const long long qs[3] = {Tq * row, kD, row}, ks[3] = {Tk * row, kD, row};",
          "const long long qs[3] = {Tq * row, Tq * kD, row}, ks[3] = {Tk * row, Tk * kD, row};"),
     ]),
-    # K4: the chunked accumulators not rescaled by alpha when a later
-    # chunk raises a row's max; only K/V past the shared memory chunk.
-    "k4_chunk_alpha_dropped": ("decode_cross_kernel_long_kv", [
-        (K4_SRC, "opart[r][d] = first ? s : opart[r][d] * ralpha[r] + s;",
-         "opart[r][d] = first ? s : opart[r][d] + s;"),
+    # K4 (the bf16 instance of K11's kernel): p = exp(s) without the
+    # chunk's max, so the combine pass weighs each chunk by e^m_c once too
+    # often.
+    "k4_chunk_max_not_subtracted": ("k4_on_decoder_layouts and 1500-1500", [
+        (MH_SRC, "const float p = live[j] ? expf(sc[r][j] - mx) : 0.f;",
+         "const float p = live[j] ? expf(sc[r][j]) : 0.f;"),
+    ]),
+    # K4, the decoder's padded rows: the TMA map's row pitch taken as 2 *
+    # Tk rounded down to 16 bytes instead of the stride.
+    "k4_map_pitch_rounded_down": ("k4_on_decoder_layouts and padded and 1500", [
+        (MH_SRC, "const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ldb)};",
+         "const cuuint64_t strides[1] = {static_cast<cuuint64_t>(Tk * sizeof(E)) & ~15ull};"),
+    ]),
+    # K4: the V words past kv_len of the last item not zeroed, so the NaN
+    # and inf there reach PV (0 * inf).
+    "k4_tail_unmasked": ("k4_on_decoder_layouts and 1300", [
+        (MH_SRC, "            w0 &= keep;\n            w1 &= keep;\n", ""),
     ]),
     # K9: warpgroup 1 reads head h0's V box instead of its own head's.
     "pair_v_box": ("packed_kernel_matches and pair", [
@@ -125,8 +153,8 @@ MUTATIONS = {
     # K3 (on K11's kernel), the decoder's padded rows: the TMA map's row
     # pitch taken as Tk rounded down to 16 bytes instead of the stride.
     "k3_map_pitch_rounded_down": ("k3_on_decoder_layouts and padded", [
-        (MH_SRC, "const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld)};",
-         "const cuuint64_t strides[1] = {static_cast<cuuint64_t>(Tk & ~15)};"),
+        (MH_SRC, "const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ldb)};",
+         "const cuuint64_t strides[1] = {static_cast<cuuint64_t>(Tk * sizeof(E)) & ~15ull};"),
     ]),
     # K2: a row's sx read from its neighbour's (the last row of an odd M
     # keeps its own, so that no read passes sx's end).

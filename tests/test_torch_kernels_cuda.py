@@ -1,8 +1,9 @@
 """Card-only tests: the port's CUDA kernels (K1-K6, the encoder-attention
 forms K7-K10, and the probe kernels K11-K13) against their plain PyTorch
 versions on CUDA tensors (K2 also at the encoder's widths, its quantizer
-byte for byte; K3 also on the decoder's padded int8 rows and bit for bit
-against K11), and the engine's main paths (bf16 decoder; int8
+byte for byte; K3 and K4, one kernel, also on the decoder's padded rows,
+K3 bit for bit against K11; K7 in both of its forms), and the engine's
+main paths (bf16 decoder; int8
 and int4 decoders; each encoder-attention form; a reduced and a long
 audio context) on a small config with every kernel counter moving.
 
@@ -182,9 +183,9 @@ def test_decode_cross_kernel_matches_plain(cuda, r, tk, kv_len):
 
 @pytest.mark.parametrize("r,kv_len", [(8, 6500), (3, 6401)])
 def test_decode_cross_kernel_long_kv_matches_plain(cuda, r, kv_len):
-    """K4 at Tk 6500: 8 rows of 6500 scores pass the kernel's 200 KB of
-    shared memory, so it walks kv in chunks with an online softmax; 3 rows
-    of 6401 still fit in one pass."""
+    """K4 at Tk 6500, past the 200 KB of score rows that bounded its first
+    kernel: 8 rows of 6500 positions, and 3 of 6401. The kernel splits any
+    length into 64-position items combined by a second pass."""
     rng = np.random.default_rng(14)
     b, h, d, tk = 2, 20, 64, 6500
     q = _randn(rng, (b, h, r, d), cuda, scale=d ** -0.5)
@@ -193,10 +194,86 @@ def test_decode_cross_kernel_long_kv_matches_plain(cuda, r, kv_len):
     got = att.decode_cross_attention(q, k, v, kv_len=kv_len)
     want = att.decode_cross_attention_plain(q, k, v, kv_len=kv_len)
     torch.cuda.synchronize()
-    # As at the shorter lengths; where chunked, P also rounds to bf16
-    # against its chunk's running max instead of the row max (as K3's
-    # split-T does): a bf16 half-ulp per weight, averaged.
+    # As at the shorter lengths: P rounds to bf16 against its 64-position
+    # chunk's max instead of the row max (as K3's split-T does): a bf16
+    # half-ulp per weight, averaged.
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=2e-3)
+
+
+def _k4_kv(rng, b, h, tk, kv_len, pitch, dev):
+    """bf16 K or V [B, H, 64, Tk] in rows `pitch` positions apart (a view
+    of the logical shape; pitch Tk: contiguous), the columns from kv_len
+    on and the padding past Tk holding NaN and inf, which the kernel must
+    never let through (the plain version never reads them)."""
+    buf = torch.full((b, h, 64, pitch), float("nan"), dtype=torch.bfloat16, device=dev)
+    buf[..., :kv_len] = _randn(rng, (b, h, 64, kv_len), dev)
+    buf[..., kv_len:tk:2] = float("inf")
+    return buf[..., :tk]
+
+
+_K4_SHAPES = [(r, tk, kv_len) for r in (1, 3, 4, 8)
+              for tk, kv_len in ((255, 255), (255, 201), (1500, 1500), (1500, 1300),
+                                 (1536, 1536), (6000, 6000))] + [(8, 6500, 6500)]
+
+
+@pytest.mark.parametrize("layout", ["padded", "contiguous"])
+@pytest.mark.parametrize("r,tk,kv_len", _K4_SHAPES,
+                         ids=[f"R{r}-{tk}-{kv}" for r, tk, kv in _K4_SHAPES])
+def test_k4_on_decoder_layouts_matches_plain(cuda, layout, r, tk, kv_len):
+    """K4 on the decoder's padded rows (tma_pitch: TMA at every Tk) and on
+    contiguous K/V (TMA where 2 * Tk is a multiple of 16: 1536, 6000,
+    6500; cp.async covers at 255 and 1500), against its plain version."""
+    rng = np.random.default_rng(40 + r + tk)
+    b, h = 2, 20
+    pitch = att.tma_pitch(tk, 2) if layout == "padded" else tk
+    q = _randn(rng, (b, h, r, 64), cuda, scale=64 ** -0.5)
+    k = _k4_kv(rng, b, h, tk, kv_len, pitch, cuda)
+    v = _k4_kv(rng, b, h, tk, kv_len, pitch, cuda)
+    if layout == "padded":
+        assert k.stride(2) == pitch and pitch * 2 % 16 == 0
+    before = att.decode_cross_attention.launches
+    got = att.decode_cross_attention(q, k, v, kv_len=kv_len)
+    want = att.decode_cross_attention_plain(q, k, v, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert att.decode_cross_attention.launches == before + 1
+    # test_decode_cross_kernel_matches_plain's tolerance; P rounds to bf16
+    # against each 64-position chunk's max (the long-K/V test's reason).
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=2e-3)
+
+
+def test_k4_at_the_turbo_batch(cuda):
+    """bench.py's turbo batch, B 48, one row, on the decoder's padded rows."""
+    rng = np.random.default_rng(48)
+    b, h, tk = 48, 20, 1500
+    q = _randn(rng, (b, h, 1, 64), cuda, scale=64 ** -0.5)
+    k, v = (_k4_kv(rng, b, h, tk, tk, att.tma_pitch(tk, 2), cuda) for _ in range(2))
+    got = att.decode_cross_attention(q, k, v)
+    want = att.decode_cross_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=2e-3)
+
+
+@pytest.mark.parametrize("kind,b,r", [("bf16", 48, 1), ("bf16", 48, 3), ("int8", 56, 3)])
+def test_decode_cross_ring_stable_over_many_launches(cuda, kind, b, r):
+    """K4 and K3 (one persistent kernel) launched 600 times back to back at
+    bench.py's batches on the decoder's padded rows: every output equals
+    the first. Rings of more stages than consumer teams faulted or hung
+    within 50-750 such launches on an H100 (the source's kStages note)."""
+    rng = np.random.default_rng(60 + b + r)
+    h, tk = 20, 1500
+    q = _randn(rng, (b, h, r, 64), cuda, scale=64 ** -0.5)
+    if kind == "bf16":
+        k, v = (_k4_kv(rng, b, h, tk, tk, att.tma_pitch(tk, 2), cuda) for _ in range(2))
+        run = lambda: att.decode_cross_attention(q, k, v)  # noqa: E731
+    else:
+        qk, ks = _quant_kv(rng, b, h, tk, tk, 8, cuda)
+        qv, vs = _quant_kv(rng, b, h, tk, tk, 8, cuda)
+        args = (q, _padded_rows(qk, 1504), ks, _padded_rows(qv, 1504), vs)
+        run = lambda: att.decode_cross_attention_q8(*args)  # noqa: E731
+    first = run()
+    outs = [run() for _ in range(600)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, first) for o in outs)
 
 
 def test_engine_main_path_runs_every_kernel(cuda):
@@ -443,8 +520,10 @@ def test_packed_kernel_matches_plain_and_k1(cuda, pair, t, kv_len, causal):
 
 
 @pytest.mark.parametrize("t,kv_len", [(1500, 1500), (1500, 1300), (1536, 1536),
-                                      (300, 290)])
+                                      (300, 290), (4096, 4096), (2000, 1900)])
 def test_q8_kernel_matches_plain(cuda, t, kv_len):
+    """K7 resident (T <= 1536: a head's K and Vt loaded once) and streamed
+    (T 2000 and 4096: every pass streams them)."""
     rng = np.random.default_rng(7)
     q, k, v = (att.split_heads(x, 4) for x in _packed(rng, 2, t, 4, cuda))
     got = att.flash_attention_fullkv_q8(q, k, v, kv_len=kv_len)

@@ -25,7 +25,7 @@ from spittle_tpu.ops.quant import quantize_kv as jquantize_kv
 from spittle_tpu_torch.ops import attention as tatt
 from spittle_tpu_torch.ops import cache_write as cw
 from spittle_tpu_torch.ops.quant import quantize_kv
-from spittle_tpu_torch.probes import cache_dus, decode_cross
+from spittle_tpu_torch.probes import cache_dus, decode_cross, decode_cross_host
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -249,6 +249,32 @@ def test_cache_layouts_hold_the_same_values():
     assert cache.shape == (2, 2, 2, 3, 8, 16) and cache_sub.shape == (8, 16, 24)
     back = cache_sub.reshape(2, 2, 2, 16, 3, 8).permute(0, 1, 2, 4, 5, 3)
     assert torch.equal(back, cache)
+
+
+@pytest.mark.parametrize("name", ["decode_cross_host", "q8_parts", "step_profile"])
+def test_card_only_probes_raise_without_a_card(name):
+    """The probes that time host submission, K7's parts or a profiled
+    turbo leg run only on a card, and say so."""
+    if torch.cuda.is_available():
+        return
+    probe = importlib.import_module(f"spittle_tpu_torch.probes.{name}")
+    with pytest.raises(RuntimeError, match="needs a CUDA card"):
+        probe.main()
+
+
+@pytest.mark.parametrize("dtype,tk,pitch", [(torch.bfloat16, 1500, 1504),
+                                            (torch.bfloat16, 255, 256),
+                                            (torch.int8, 1500, 1504),
+                                            (torch.int8, 255, 256)])
+def test_host_probe_pitched_rows(dtype, tk, pitch):
+    """decode_cross_host's padded layout: the values of x in rows a
+    multiple of 16 bytes apart, as a view of x's shape, which K3/K4's
+    pitch check takes."""
+    x = (torch.arange(2 * 3 * 64 * tk) % 100).reshape(2, 3, 64, tk).to(dtype)
+    got = decode_cross_host._pitched(x)
+    assert got.shape == x.shape and torch.equal(got, x)
+    assert got.stride() == (3 * 64 * pitch, 64 * pitch, pitch, 1)
+    assert tatt._slab_pitch("probe", (got, got)) == pitch
 
 
 def test_probes_need_a_card_by_default():
