@@ -15,9 +15,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    GEMM also timed apart), K4 decode cross-attention (bf16 K/V, the bf16
    instance of K3's kernel, on the decoder's rows padded to a 1504-position
    pitch; R = 1, 3, 4, and once at B=48, bench.py's turbo batch), K3
-   and K6 decode cross-attention over int8 and packed int4 K/V (R = 1, 3,
-   4, and once at B=56, bench.py's large-v3 batch; K3 on the decoder's
-   int8 rows padded to a 1504-byte pitch), and the
+   and K6 decode cross-attention over int8 and packed int4 K/V, the int8
+   and int4 instances of the same kernel (R = 1, 3, 4, and once at B=56,
+   bench.py's large-v3 batch; on the decoder's rows padded to a 1504-byte
+   pitch, K6 also on contiguous rows), and the
    encoder-attention forms K7 (int8 products on wgmma, its quantizers and
    attention also timed apart), K8 (packed heads, K1's
    instance of the core on the packed strides), K9 (head pairs, the
@@ -36,7 +37,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    decode cross-attention probe's shape on its TMA path (T 1536) and with
    T 1500 on its cp.async path, R = 1 and 3, each beside K3;
    K12 and K13 (in-place cache column writes) at the cache probe's shape,
-   bit for bit against a slice assignment on a clone. Each prints its max
+   bit for bit against a slice assignment on a clone at the edges of a
+   row's 32-byte sectors (K13 beside the floor of a sector in and out per
+   row). Each prints its max
    error and tolerance, its time (`ms`: device time per launch from a
    CUDA graph of launches replayed between CUDA events; `call_ms`: eager
    calls between CUDA events, the host's per-call cost included), the
@@ -684,9 +687,11 @@ def mh_phase(dev):
 
 def cache_write_phase(dev):
     """K13 and K12 against a slice assignment on a clone, at the cache
-    probe's shape and two positions: the written cache bit for bit (so
-    every other byte unchanged), in place (data_ptr unchanged, the
-    argument returned)."""
+    probe's shape: the written cache bit for bit (so every other byte
+    unchanged), in place (data_ptr unchanged, the argument returned), at
+    the edges of a row's 32-byte sectors (positions 0, 5, 15, 16 and the
+    last). K13's row adds the sector floor: one 32-byte sector read and
+    one written per row."""
     from spittle_tpu_torch.ops import cache_write as cw
     from spittle_tpu_torch.probes import cache_dus as probe
 
@@ -705,7 +710,7 @@ def cache_write_phase(dev):
     for kname, fn, line, tensor, cshape, assign in specs:
         print(f"{kname} {fn.__name__} cache {list(tensor.shape)} bf16 "
               f"({tensor.numel() * 2 / 1e6:.0f} MB), cols {list(cshape)}:")
-        for p in (5, ctx - 1):
+        for p in (0, 5, 15, 16, ctx - 1):
             cols = torch.randn(cshape, generator=gen, device=dev).to(torch.bfloat16)
             want = tensor.clone()
             assign(want, cols, p)
@@ -736,17 +741,24 @@ def cache_write_phase(dev):
             1, index, c.view(dst.shape[0], 1, *dst.shape[2:])) for c in cols2], 48)
         nbytes = 2 * cols.numel() * 2
         bms, by = bound(0.0, PEAK_BF16_FLOPS, nbytes)
+        row = dict(name=fn.__name__, route="cuda",
+                   source="spittle_tpu_torch/csrc/cache_col_write.cu",
+                   replaces=f"scripts/bench_cache_dus.py:{line}",
+                   work=f"cache {list(tensor.shape)} bf16, one position",
+                   max_abs_err=0.0, ms=ms, call_ms=eager_ms,
+                   plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                   library_ms=lib_ms, library=lib)
+        extra = ""
+        if kname == "K13":
+            # The floor the layout sets: a 32-byte sector in and out per row.
+            floor = cols.numel() * 64 / PEAK_BYTES * 1e3
+            row.update(sector_floor_ms=floor)
+            extra = f"  sector_floor_ms {floor:.4f}"
         print(f"  ms {ms:.4f} (eager call_ms {eager_ms:.4f})  plain_ms (slice "
               f"assignment) {plain_ms:.4f}  library_ms ({lib}) {lib_ms:.4f}  "
               f"bound_ms {bms:.4f} ({by}): {nbytes / 1e6:.1f} MB at "
-              f"{nbytes / ms / 1e6:.0f} GB/s")
-        rows.append(dict(name=fn.__name__, route="cuda",
-                         source="spittle_tpu_torch/csrc/cache_col_write.cu",
-                         replaces=f"scripts/bench_cache_dus.py:{line}",
-                         work=f"cache {list(tensor.shape)} bf16, one position",
-                         max_abs_err=0.0, ms=ms, call_ms=eager_ms,
-                         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                         library_ms=lib_ms, library=lib))
+              f"{nbytes / ms / 1e6:.0f} GB/s{extra}")
+        rows.append(row)
         del cols2
     del cache, cache_sub
     torch.cuda.empty_cache()
@@ -882,8 +894,12 @@ def padded_rows(x):
 
 def quant_cross_phase(dev):
     """K3 and K6 against their plain versions at B=8 (R = 1, 3, 4) and
-    B=56 (R = 1), K3 on the decoder's padded int8 rows (Tk 1500 at a pitch
-    of 1504 bytes). Inputs come from a seeded generator on the card."""
+    B=56 (R = 1) on the decoder's padded rows (Tk 1500 at a pitch of 1504
+    bytes: int8 codes, or packed int4 bytes), K6 also on contiguous rows
+    (Tk 1500 bytes apart: the cp.async covers). Inputs come from a seeded
+    generator on the card. The row's numbers are B=8, R=1's on the padded
+    rows; every case's go under "by_shape" (contiguous rows' keys end in
+    "contiguous")."""
     from spittle_tpu_torch.ops import attention as att
     from spittle_tpu_torch.ops.quant import (
         dequantize_kv, dequantize_kv_int4, quantize_kv, quantize_kv_int4,
@@ -894,81 +910,83 @@ def quant_cross_phase(dev):
     gen.manual_seed(SEED + 2)
     h, t, d = 20, 1500, 64
     rows = []
+    layouts = {"padded": padded_rows, "contiguous": lambda x: x}
     specs = (  # (K#, bits, wrapper, plain, quantizer, dequantizer, key, line,
-        #          layout of the stored rows, source)
+        #          layouts of the stored rows)
         ("K3", 8, att.decode_cross_attention_q8,
          att.decode_cross_attention_q8_plain, quantize_kv, dequantize_kv,
-         "qw", 795, padded_rows, "decode_cross_attention_mh.cu"),
+         "qw", 795, ("padded",)),
         ("K6", 4, att.decode_cross_attention_q4,
          att.decode_cross_attention_q4_plain, quantize_kv_int4,
-         dequantize_kv_int4, "qw4", 876, lambda x: x, "decode_cross_attention_q.cu"),
+         dequantize_kv_int4, "qw4", 876, ("padded", "contiguous")),
     )
-    for kname, bits, fn, plain, quant, dequant, key, line, layout, src in specs:
+    for kname, bits, fn, plain, quant, dequant, key, line, names in specs:
         stored = d if bits == 8 else d // 2
-        print(f"{kname} {fn.__name__} K/V {bits}-bit [B,20,{stored},1500] "
-              f"+ f32 scales:")
         row = None
-        for b, rs in ((8, (1, 3, 4)), (LV3_BATCH, (1,))):
-            kv_bytes = 2 * b * h * stored * t + 2 * b * h * t * 4
+        for name in names:
+            layout = layouts[name]
+            print(f"{kname} {fn.__name__} K/V {bits}-bit [B,20,{stored},1500] "
+                  f"+ f32 scales, {name} rows:")
+            for b, rs in ((8, (1, 3, 4)), (LV3_BATCH, (1,))):
+                kv_bytes = 2 * b * h * stored * t + 2 * b * h * t * 4
 
-            def make_set():
-                """(qK, ks, qV, vs) and the yardstick's bf16 K/V,
-                dequantized and laid out for SDPA beforehand (not timed)."""
-                qkv = [quant(torch.randn((b, h, d, t), generator=gen, device=dev))
-                       for _ in range(2)]
-                deq = tuple(dequant(x).transpose(-1, -2).contiguous() for x in qkv)
-                return (layout(qkv[0][key]), qkv[0]["scale"], layout(qkv[1][key]),
-                        qkv[1]["scale"]), deq
+                def make_set():
+                    """(qK, ks, qV, vs) and the yardstick's bf16 K/V,
+                    dequantized and laid out for SDPA beforehand (not
+                    timed)."""
+                    qkv = [quant(torch.randn((b, h, d, t), generator=gen, device=dev))
+                           for _ in range(2)]
+                    deq = tuple(dequant(x).transpose(-1, -2).contiguous() for x in qkv)
+                    return (layout(qkv[0][key]), qkv[0]["scale"], layout(qkv[1][key]),
+                            qkv[1]["scale"]), deq
 
-            sets = [make_set() for _ in range(n_cold_sets(kv_bytes))]
-            for r in rs:
-                qd = (torch.randn((b, h, r, d), generator=gen, device=dev)
-                      * d ** -0.5).to(torch.bfloat16)
-                got = fn(qd, *sets[0][0], kv_len=t)
-                want = plain(qd, *sets[0][0], kv_len=t)
-                err = (got.float() - want.float()).abs().max().item()
-                # K4's tolerance: the kernel rounds bf16(p * vs) against
-                # its chunk's max (K3 128 positions, K6 256), the plain
-                # version against
-                # the row max (a bf16 half-ulp per weight, averaged), then
-                # one bf16 rounding of the output.
-                check(f"{kname} B={b} R={r}", err,
-                      2e-3 + 1e-2 * want.float().abs().max().item())
-                kernel = [lambda kv=kv: fn(qd, *kv, kv_len=t) for kv, _ in sets]
-                ms, eager_ms = time_ms(kernel, 100), call_ms(kernel, 100)
-                plain_ms = time_ms([lambda kv=kv: plain(qd, *kv, kv_len=t)
-                                    for kv, _ in sets], 5, 1)
-                lib_ms = time_ms([lambda kd=kd, vd=vd: F.scaled_dot_product_attention(
-                    qd, kd, vd, scale=1.0) for _, (kd, vd) in sets], 100)
-                nbytes = kv_bytes + 2 * b * h * r * d * 2
-                bms, by = bound(4.0 * b * h * r * t * d, PEAK_BF16_FLOPS, nbytes)
-                row_r = dict(ms=ms, call_ms=eager_ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, bound_ms=bms)
-                print(f"  B={b} R={r} ({len(sets)} input sets): ms {ms:.4f} "
-                      f"(eager call_ms {eager_ms:.4f})  plain_ms {plain_ms:.4f}  "
-                      f"library_ms (F.scaled_dot_product_attention on bf16 "
-                      f"K/V dequantized beforehand) {lib_ms:.4f}  "
-                      f"bound_ms {bms:.4f} ({by})")
-                if b == 8 and r == 1:
-                    row = dict(
-                        name=fn.__name__, route="cuda",
-                        source=f"spittle_tpu_torch/csrc/{src}",
-                        replaces=f"spittle_tpu/ops/attention.py:{line}",
-                        work="q [8,20,1,64] (a decode step)",
-                        max_abs_err=err, ms=ms, call_ms=eager_ms,
-                        plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                        library_ms=lib_ms,
-                        library="F.scaled_dot_product_attention on bf16 K/V "
-                                "dequantized beforehand", by_shape={})
-                elif b == LV3_BATCH:
-                    row.update(ms_b56=ms, plain_ms_b56=plain_ms,
-                               bound_ms_b56=bms, library_ms_b56=lib_ms,
-                               max_abs_err=max(row["max_abs_err"], err))
-                else:
+                sets = [make_set() for _ in range(n_cold_sets(kv_bytes))]
+                for r in rs:
+                    qd = (torch.randn((b, h, r, d), generator=gen, device=dev)
+                          * d ** -0.5).to(torch.bfloat16)
+                    got = fn(qd, *sets[0][0], kv_len=t)
+                    want = plain(qd, *sets[0][0], kv_len=t)
+                    err = (got.float() - want.float()).abs().max().item()
+                    # K4's tolerance: the kernel rounds bf16(p * vs) against
+                    # its work item's max (128 positions), the plain version
+                    # against the row max (a bf16 half-ulp per weight,
+                    # averaged), then one bf16 rounding of the output.
+                    check(f"{kname} {name} B={b} R={r}", err,
+                          2e-3 + 1e-2 * want.float().abs().max().item())
+                    kernel = [lambda kv=kv: fn(qd, *kv, kv_len=t) for kv, _ in sets]
+                    ms, eager_ms = time_ms(kernel, 100), call_ms(kernel, 100)
+                    plain_ms = time_ms([lambda kv=kv: plain(qd, *kv, kv_len=t)
+                                        for kv, _ in sets], 5, 1)
+                    lib_ms = time_ms([lambda kd=kd, vd=vd: F.scaled_dot_product_attention(
+                        qd, kd, vd, scale=1.0) for _, (kd, vd) in sets], 100)
+                    nbytes = kv_bytes + 2 * b * h * r * d * 2
+                    bms, by = bound(4.0 * b * h * r * t * d, PEAK_BF16_FLOPS, nbytes)
+                    row_r = dict(ms=ms, call_ms=eager_ms, plain_ms=plain_ms,
+                                 library_ms=lib_ms, bound_ms=bms, max_abs_err=err)
+                    print(f"  B={b} R={r} ({len(sets)} input sets): ms {ms:.4f} "
+                          f"(eager call_ms {eager_ms:.4f})  plain_ms {plain_ms:.4f}  "
+                          f"library_ms (F.scaled_dot_product_attention on bf16 "
+                          f"K/V dequantized beforehand) {lib_ms:.4f}  "
+                          f"bound_ms {bms:.4f} ({by})")
+                    if row is None:
+                        row = dict(
+                            name=fn.__name__, route="cuda",
+                            source="spittle_tpu_torch/csrc/decode_cross_attention_mh.cu",
+                            replaces=f"spittle_tpu/ops/attention.py:{line}",
+                            work="q [8,20,1,64] (a decode step), K/V rows of 1504 bytes",
+                            max_abs_err=err, ms=ms, call_ms=eager_ms,
+                            plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                            library_ms=lib_ms,
+                            library="F.scaled_dot_product_attention on bf16 K/V "
+                                    "dequantized beforehand", by_shape={})
+                    elif b == LV3_BATCH and name == "padded":
+                        row.update(ms_b56=ms, plain_ms_b56=plain_ms,
+                                   bound_ms_b56=bms, library_ms_b56=lib_ms)
                     row["max_abs_err"] = max(row["max_abs_err"], err)
-                row["by_shape"][f"B{b}R{r}"] = row_r
-            del sets, kernel
-            torch.cuda.empty_cache()
+                    suffix = "" if name == "padded" else name
+                    row["by_shape"][f"B{b}R{r}{suffix}"] = row_r
+                del sets, kernel
+                torch.cuda.empty_cache()
         rows.append(row)
     return rows
 

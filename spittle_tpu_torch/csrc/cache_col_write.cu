@@ -19,8 +19,13 @@
 // What bounds it on an H100: bytes, `cols` read once and written once.
 // K12 moves contiguous rows (2.5 KB at H*Dh = 1280) as 16-byte vectors
 // and can reach that bound. K13 writes 2-byte elements ctx*2 bytes apart:
-// every element dirties its own 32-byte sector, so it moves 16 times the
-// bytes it stores; the layout sets that, not the kernel.
+// every element dirties its own 32-byte sector, and memory brings in the
+// sector's other 30 bytes before it goes back. Its floor in this layout is
+// one sector read and one written per row (64 bytes a row: 168 MB, 0.050
+// ms at the cache probe's 2.6 M rows); the layout sets that, not the
+// kernel. Kernels that read each row's sector, merged the element and
+// wrote the sector back whole (by lane pairs, or by TMA boxes) were 6-8%
+// slower than this one at the probe's shape on an H100 (PERF.md §6).
 #include "common.cuh"
 
 namespace {

@@ -1,11 +1,10 @@
-// The combine pass of the split-T decode cross-attention kernels, shared
-// by K6 (decode_cross_attention_q.cu) and K3 and K11
-// (decode_cross_attention_mh.cu). Each block of those kernels writes one
-// partial record per (b, h, chunk of positions, query row): its
-// unnormalised o[64], then its chunk's max m and its sum l, over f32
-// scratch [B*H, nchunks, R, 66]. This pass rescales the chunks by exp(m_c
-// - m) and divides by l, a second launch after each. Included by each
-// source; the kernel has internal linkage, one copy per source.
+// The combine pass of the split-T decode cross-attention kernel
+// (decode_cross_attention_mh.cu: K3, K4, K6 and K11). Each work item of
+// that kernel writes one partial record per (b, h, chunk of positions,
+// query row): its unnormalised o[64], then its chunk's max m and its sum
+// l, over f32 scratch [B*H, nchunks, R, 66]. This pass rescales the
+// chunks by exp(m_c - m) and divides by l, a second launch after each.
+// The kernel has internal linkage, one copy per source that includes it.
 #pragma once
 
 #include "common.cuh"

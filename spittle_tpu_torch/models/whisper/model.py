@@ -204,8 +204,9 @@ def precompute_cross_kv(params: Params, xa: torch.Tensor, cfg: WhisperConfig):
 
 def _cross_kv_buffer(key: str, a: torch.Tensor, n: int) -> torch.Tensor:
     """An uninitialised [n, *a.shape] buffer for n layers of `a`; for the
-    int8 "qw" a view of one whose rows are tma_pitch(T) apart."""
-    if key != "qw":
+    int8 "qw" and the packed int4 "qw4" a view of one whose rows are
+    tma_pitch(T) apart."""
+    if key not in ("qw", "qw4"):
         return a.new_empty((n, *a.shape))
     return _padded_rows(a, n)
 
@@ -219,10 +220,11 @@ def precompute_cross_kv_quant(params: Params, xa: torch.Tensor,
     quantize_kv_int4 ({"qw4" int8 [L, B, H, Dh/2, T], "scale"}). Returns
     the K dict and the V dict.
 
-    The int8 "qw" rows are stored tma_pitch(T) bytes apart (1504 for T
-    1500: 0.27% more bytes, never read past T) and returned as views of
-    the logical shape, so that K3 can load them by TMA; the values are
-    those of quant's. The scales and the int4 "qw4" are contiguous."""
+    The int8 "qw" and packed int4 "qw4" rows are stored tma_pitch(T)
+    bytes apart (1504 for T 1500: 0.27% more bytes, never read past T)
+    and returned as views of the logical shape, so that K3 and K6 can
+    load them by TMA; the values are those of quant's. The scales are
+    contiguous."""
     blocks = params["decoder"]["blocks"]
     h = cfg.n_text_head
     n = n_layers(blocks)

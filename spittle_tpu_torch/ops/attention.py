@@ -25,15 +25,16 @@ probe's kernel).
   `decode_cross_attention`. The bf16 instance of K3's kernel
   (csrc/decode_cross_attention_mh.cu), on the decoder's rows padded to a
   multiple of 16 bytes (tma_pitch).
-- decode_cross_attention_q4 (K6, csrc/decode_cross_attention_q.cu): the
-  same over int4 K/V packed two per byte, with one f32 scale per
-  position; replaces the Pallas `decode_cross_attention_q4`.
 - decode_cross_attention_q8 (K3) and decode_cross_attention_q8_mh (K11),
   one kernel (csrc/decode_cross_attention_mh.cu, K4's): the same over int8
   K/V, a batch item's K/V read as one slab of row pitch ld (the decoder
   pads it to a multiple of 16 bytes, tma_pitch) in a persistent grid fed
   by producer warps; replace the Pallas `decode_cross_attention_q8` and
   `mh_q8` of scripts/bench_decode_cross.py.
+- decode_cross_attention_q4 (K6): the same over int4 K/V packed two per
+  byte, with one f32 scale per position, the int4 instance of that
+  kernel, on the decoder's padded rows; replaces the Pallas
+  `decode_cross_attention_q4`.
 - multihead_attention_packed and multihead_attention: the dispatchers.
   They pick a kernel from the shapes and the encoder-attention form, an
   argument (ENCODER_ATTENTION_FORMS), never the environment.
@@ -648,13 +649,12 @@ def decode_cross_attention_plain(q, k, v,
     return (o / l).to(q.dtype)
 
 
-def _check_decode_cross(name, q, kv, scales, rows, kv_dtype, kv_len,
-                        pitched: bool = False):
+def _check_decode_cross(name, q, kv, scales, rows, kv_dtype, kv_len):
     """Checks shared by K4, K3, K6 and K11 on CUDA: q [B, H, R<=8, 64]
-    bf16 with its head dim contiguous; kv = (k, v), each contiguous
-    [B, H, rows, Tk] of kv_dtype (pitched: rows of any pitch, checked by
-    _slab_pitch); scales = (ks, vs), each contiguous f32 [B, H, Tk], or ()
-    for bf16 K/V. Returns kv_len (Tk when None)."""
+    bf16 with its head dim contiguous; kv = (k, v), each [B, H, rows, Tk]
+    of kv_dtype, rows of any pitch _slab_pitch takes; scales = (ks, vs),
+    each contiguous f32 [B, H, Tk], or () for bf16 K/V. Returns kv_len
+    (Tk when None)."""
     b, h, r, d = q.shape
     tk = kv[0].shape[3]
     kv_len = tk if kv_len is None else kv_len
@@ -676,9 +676,8 @@ def _check_decode_cross(name, q, kv, scales, rows, kv_dtype, kv_len,
             raise TypeError(f"{name}: {label} must be {dtype} on {q.device}, "
                             f"got {t.dtype} on {t.device} (the kernel has no "
                             "other form; run the model in bf16)")
-    if q.stride(-1) != 1 or not all(t.is_contiguous() for t in scales) or not (
-            pitched or all(t.is_contiguous() for t in kv)):
-        raise ValueError(f"{name}: q's head dim, K/V and scales must be contiguous")
+    if q.stride(-1) != 1 or not all(t.is_contiguous() for t in scales):
+        raise ValueError(f"{name}: q's head dim and the scales must be contiguous")
     return kv_len
 
 
@@ -694,8 +693,7 @@ def decode_cross_attention(q, k, v,
     if q.device.type == "cpu":
         return decode_cross_attention_plain(q, k, v, kv_len)
     out = _launch_decode_cross("decode_cross_attention",
-                               "spt_decode_cross_attention", q, k, v, (),
-                               kv_len, q.shape[3], slab=True)
+                               "spt_decode_cross_attention", q, k, v, (), kv_len)
     decode_cross_attention.launches += 1
     return out
 
@@ -708,19 +706,20 @@ decode_cross_attention.launches = 0
 # ---------------------------------------------------------------------------
 
 
-# Time positions per partial record of K6 (kChunk in its source); K3,
-# K4 and K11 take one 128-byte row slice per record (_slice_positions).
-_QUANT_CHUNK = 256
-_MH_SLICE = 128
+# Bytes of a K/V row per work item and partial record of the decode
+# kernel (kSlice in csrc/decode_cross_attention_mh.cu): 128 of int8 (K3,
+# K11), bf16 (K4) and packed int4 (K6, one position per byte).
+_ROW_SLICE = 128
 # TMA addresses a row only where its pitch and base are multiples of this
 # many bytes.
 TMA_ALIGN = 16
 
 
-def _slice_positions(itemsize: int) -> int:
-    """Positions per work item and partial record of K3/K4/K11 (kChunk in
-    csrc/decode_cross_attention_mh.cu): 128 int8, 64 bf16."""
-    return _MH_SLICE // itemsize
+def item_positions(itemsize: int) -> int:
+    """Positions per work item and partial record of K3/K4/K6/K11 (kChunk
+    in csrc/decode_cross_attention_mh.cu): 128 of int8 or packed int4
+    (itemsize 1), 64 of bf16."""
+    return _ROW_SLICE // itemsize
 
 
 def tma_pitch(tk: int, itemsize: int = 1) -> int:
@@ -732,7 +731,7 @@ def tma_pitch(tk: int, itemsize: int = 1) -> int:
 
 
 def decode_cross_load_path(pitch: int, *addresses: int) -> str:
-    """K3/K4/K11's load path for K/V slabs whose rows lie `pitch` bytes
+    """K3/K4/K6/K11's load path for K/V slabs whose rows lie `pitch` bytes
     apart (ld times the element size) at the given base addresses: "tma"
     (one box per item's K and V) where the pitch and every address are
     multiples of 16 bytes, "cp.async" (16-byte covers of each row's slice)
@@ -742,12 +741,12 @@ def decode_cross_load_path(pitch: int, *addresses: int) -> str:
 
 
 def _slab_pitch(name, kv) -> int:
-    """The row pitch ld (elements) of K/V [B, H, 64, Tk] that K3/K4/K11
-    read as one slab per batch item: strides (H*64*ld, 64*ld, ld, 1),
-    alike for K and V, with ld = Tk (contiguous) or, past it, a pitch
-    whose rows are a multiple of 16 bytes (the decoder's padded rows,
-    tma_pitch). Strides of dimensions of size 1 are not compared, as
-    torch's contiguity does not."""
+    """The row pitch ld (elements) of K/V [B, H, rows, Tk] (rows 64, or
+    32 of packed int4) that K3/K4/K6/K11 read as one slab per batch item:
+    strides (H*rows*ld, rows*ld, ld, 1), alike for K and V, with ld = Tk
+    (contiguous) or, past it, a pitch whose rows are a multiple of 16
+    bytes (the decoder's padded rows, tma_pitch). Strides of dimensions
+    of size 1 are not compared, as torch's contiguity does not."""
     b, h, rows, tk = kv[0].shape
     ld = kv[0].stride(2) if rows > 1 else tk
     want = (h * rows * ld, rows * ld, ld, 1)
@@ -756,7 +755,7 @@ def _slab_pitch(name, kv) -> int:
     if not ok:
         raise ValueError(
             f"{name}: K/V must be contiguous, or rows of a pitch that is a "
-            f"multiple of 16 bytes with strides (H*64*ld, 64*ld, ld, 1), "
+            f"multiple of 16 bytes with strides (H*rows*ld, rows*ld, ld, 1), "
             f"alike for K and V; got {[t.stride() for t in kv]}")
     return ld
 
@@ -787,27 +786,22 @@ def decode_cross_attention_q4_plain(q, qk, ks, qv, vs,
                                            unpack_kv_int4(qv), vs, kv_len)
 
 
-def _launch_decode_cross(name, entry, q, k, v, scales, kv_len, rows,
-                         slab=False):
-    """Checks and launch shared by K6 (rows: 32 stored rows of packed int4;
-    256-position partial records) and K3, K4 and K11 (slab: 64 rows of
-    pitch ld, one record per 128-byte row slice, the persistent kernel's SM
-    count and load path passed after kv_len and ld after q's strides).
-    scales: (ks, vs) for int8 and int4 K/V, () for bf16 (K4). Returns the
-    [B, H, R, 64] result as a view of a [B, R, H, 64] buffer."""
+def _launch_decode_cross(name, entry, q, k, v, scales, kv_len, packed=False):
+    """Checks and launch shared by K3, K4, K6 and K11, one persistent
+    kernel: K/V [B, H, rows, Tk] of any pitch _slab_pitch takes (rows 64,
+    or 32 of packed int4: packed), one partial record per work item
+    (item_positions), the SM count and the load path passed after kv_len
+    and ld after q's strides. scales: (ks, vs) for int8 and int4 K/V, ()
+    for bf16 (K4). Returns the [B, H, R, 64] result as a view of a [B, R,
+    H, 64] buffer."""
     b, h, r, d = q.shape
     tk = k.shape[3]
     kv_dtype = torch.int8 if scales else torch.bfloat16
-    kv_len = _check_decode_cross(name, q, (k, v), scales, rows, kv_dtype,
-                                 kv_len, pitched=slab)
-    chunk = _slice_positions(k.element_size()) if slab else _QUANT_CHUNK
-    chunks = -(-kv_len // chunk)
-    grid, strides = (), q.stride()[:3]
-    if slab:
-        ld = _slab_pitch(name, (k, v))
-        path = decode_cross_load_path(ld * k.element_size(), k.data_ptr(),
-                                      v.data_ptr())
-        grid, strides = (_num_sms(q.device.index), int(path == "tma")), (*strides, ld)
+    kv_len = _check_decode_cross(name, q, (k, v), scales, d // 2 if packed else d,
+                                 kv_dtype, kv_len)
+    chunks = -(-kv_len // item_positions(k.element_size()))
+    ld = _slab_pitch(name, (k, v))
+    path = decode_cross_load_path(ld * k.element_size(), k.data_ptr(), v.data_ptr())
     part = torch.empty((b * h, chunks, r, d + 2), dtype=torch.float32,
                        device=q.device)
     out = torch.empty((b, r, h, d), dtype=q.dtype, device=q.device)
@@ -815,7 +809,8 @@ def _launch_decode_cross(name, entry, q, k, v, scales, kv_len, rows,
     lib = _build.load_library()
     _build.check(getattr(lib, entry)(
         q.data_ptr(), *(t.data_ptr() for t in ptrs), part.data_ptr(),
-        out.data_ptr(), b, h, r, tk, kv_len, *grid, *strides,
+        out.data_ptr(), b, h, r, tk, kv_len, _num_sms(q.device.index),
+        int(path == "tma"), *q.stride()[:3], ld,
         out.stride(0), out.stride(2), out.stride(1),
         _build.stream_ptr(q.device),
     ), entry)
@@ -835,7 +830,7 @@ def decode_cross_attention_q8(q, qk, ks, qv, vs,
         return decode_cross_attention_q8_plain(q, qk, ks, qv, vs, kv_len)
     out = _launch_decode_cross(
         "decode_cross_attention_q8", "spt_decode_cross_attention_q8",
-        q, qk, qv, (ks, vs), kv_len, q.shape[3], slab=True)
+        q, qk, qv, (ks, vs), kv_len)
     decode_cross_attention_q8.launches += 1
     return out
 
@@ -845,12 +840,17 @@ decode_cross_attention_q8.launches = 0
 
 def decode_cross_attention_q4(q, qk, ks, qv, vs,
                               kv_len: Optional[int] = None) -> torch.Tensor:
-    """K6. As K3 with qk/qv the packed int4 [B, H, 32, Tk]."""
+    """K6. As K3 with qk/qv the packed int4 [B, H, 32, Tk] (byte t of row
+    d: dims d and d + 32 of position t), contiguous or with rows of a
+    pitch that is a multiple of 16 bytes (the decoder's layout,
+    tma_pitch). The kernel is K3's int4 instance: items of (batch item,
+    head pair, 128 positions), so P rounds to bf16 against each such
+    chunk's max."""
     if q.device.type == "cpu":
         return decode_cross_attention_q4_plain(q, qk, ks, qv, vs, kv_len)
     out = _launch_decode_cross(
         "decode_cross_attention_q4", "spt_decode_cross_attention_q4",
-        q, qk, qv, (ks, vs), kv_len, q.shape[3] // 2)
+        q, qk, qv, (ks, vs), kv_len, packed=True)
     decode_cross_attention_q4.launches += 1
     return out
 
@@ -871,7 +871,7 @@ def decode_cross_attention_q8_mh(q, qk, ks, qv, vs,
         return decode_cross_attention_q8_plain(q, qk, ks, qv, vs, kv_len)
     out = _launch_decode_cross(
         "decode_cross_attention_q8_mh", "spt_decode_cross_attention_q8",
-        q, qk, qv, (ks, vs), kv_len, q.shape[3], slab=True)
+        q, qk, qv, (ks, vs), kv_len)
     decode_cross_attention_q8_mh.launches += 1
     return out
 

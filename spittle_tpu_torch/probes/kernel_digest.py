@@ -2,7 +2,10 @@
 the shapes chip_smoke.py and the card tests hold them at, so that two
 trees of the port can be compared bit for bit on one card (K3 and K11
 call one entry since K3 moved onto K11's kernel, so K3 is compared with
-an older tree's K11).
+an older tree's K11). K6's cases (contiguous packed int4 rows) record the
+bits of its instance of that kernel, whose 128-position items round P
+against other chunk maxima than the split-T kernel's 256-position blocks
+did in older trees.
 
 Inputs come from a seeded generator on the card, re-seeded per shape, so
 every tree draws the same ones. Prints one JSON line per kernel and shape

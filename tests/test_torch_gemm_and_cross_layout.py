@@ -16,6 +16,7 @@ import torch
 from spittle_tpu.models.whisper import config as jcfg
 from spittle_tpu.models.whisper import decode as jdec
 from spittle_tpu.models.whisper import model as jmod
+from spittle_tpu.ops import quant as jquant
 from spittle_tpu_torch.models.whisper import config as tcfg
 from spittle_tpu_torch.models.whisper import decode as tdec
 from spittle_tpu_torch.models.whisper import model as tmod
@@ -122,11 +123,12 @@ def test_decode_cross_load_path(pitch, addresses, want):
 def test_k3_and_k11_call_one_entry(monkeypatch):
     """K3 moved onto K11's kernel: both wrappers launch one C entry with
     the same layout, so they give the same bits on the same inputs; each
-    keeps its own launch count."""
+    keeps its own launch count. K6 launches the kernel's int4 entry on
+    packed rows, K4 its bf16 one; there is no other launch path."""
     calls = []
 
     def record(name, entry, *args, **kw):
-        calls.append((entry, args[-1], kw))
+        calls.append((entry, kw))
         return None
 
     monkeypatch.setattr(att, "_launch_decode_cross", record)
@@ -137,43 +139,76 @@ def test_k3_and_k11_call_one_entry(monkeypatch):
               att.decode_cross_attention_q8_mh.launches)
     att.decode_cross_attention_q8(q, kv, s, kv, s)
     att.decode_cross_attention_q8_mh(q, kv, s, kv, s)
-    assert calls[0] == calls[1] == ("spt_decode_cross_attention_q8", 64,
-                                    {"slab": True})
+    att.decode_cross_attention_q4(q, kv[:, :, :32], s, kv[:, :, :32], s)
+    att.decode_cross_attention(q, kv.bfloat16(), kv.bfloat16())
+    assert calls[0] == calls[1] == ("spt_decode_cross_attention_q8", {})
+    assert calls[2] == ("spt_decode_cross_attention_q4", {"packed": True})
+    assert calls[3] == ("spt_decode_cross_attention", {})
     assert "spt_decode_cross_attention_q8_mh" not in _build.SIGNATURES
+    assert (_build.SIGNATURES["spt_decode_cross_attention_q4"]
+            == _build.SIGNATURES["spt_decode_cross_attention_q8"])
     assert (att.decode_cross_attention_q8.launches,
             att.decode_cross_attention_q8_mh.launches) == (counts[0] + 1, counts[1] + 1)
 
 
-def _padded(b, h, tk, pitch):
-    return torch.zeros((b, h, 64, pitch), dtype=torch.int8)[..., :tk]
+@pytest.mark.parametrize("itemsize,want", [(1, 128), (2, 64)])
+def test_item_positions(itemsize, want):
+    """Positions per work item: one 128-byte row slice of int8, packed
+    int4 (one position per byte) or bf16."""
+    assert att.item_positions(itemsize) == want
+    assert att.item_positions(itemsize) * itemsize == 128
 
 
+def _padded(b, h, tk, pitch, rows=64):
+    return torch.zeros((b, h, rows, pitch), dtype=torch.int8)[..., :tk]
+
+
+@pytest.mark.parametrize("rows", [64, 32], ids=["int8", "int4"])
 @pytest.mark.parametrize("b,h", [(8, 20), (1, 20), (2, 1)])
-def test_slab_pitch_accepts_contiguous_and_padded_rows(b, h):
-    contiguous = torch.zeros((b, h, 64, 1500), dtype=torch.int8)
+def test_slab_pitch_accepts_contiguous_and_padded_rows(b, h, rows):
+    """int8 slabs of 64 rows per head (K3) and packed int4 slabs of 32
+    (K6): contiguous, padded, and one layer of the decoder's buffer."""
+    contiguous = torch.zeros((b, h, rows, 1500), dtype=torch.int8)
     assert att._slab_pitch("k3", (contiguous, contiguous)) == 1500
-    padded = _padded(b, h, 1500, 1504)
+    padded = _padded(b, h, 1500, 1504, rows)
     assert att._slab_pitch("k3", (padded, padded)) == 1504
-    # One layer of the decoder's [L, B, H, 64, T] buffer.
-    layer = torch.zeros((4, b, h, 64, 1504), dtype=torch.int8)[..., :1500][2]
+    # One layer of the decoder's [L, B, H, rows, T] buffer.
+    layer = torch.zeros((4, b, h, rows, 1504), dtype=torch.int8)[..., :1500][2]
     assert att._slab_pitch("k3", (layer, layer)) == 1504
 
 
+@pytest.mark.parametrize("rows", [64, 32], ids=["int8", "int4"])
 @pytest.mark.parametrize("case", ["pitch-not-16", "k-v-differ", "heads-apart",
                                   "time-strided"])
-def test_slab_pitch_refuses_other_layouts(case):
-    k = _padded(2, 3, 1500, 1504)
+def test_slab_pitch_refuses_other_layouts(case, rows):
+    k = _padded(2, 3, 1500, 1504, rows)
     v = k
     if case == "pitch-not-16":
-        k = v = _padded(2, 3, 1500, 1510)
+        k = v = _padded(2, 3, 1500, 1510, rows)
     elif case == "k-v-differ":
-        v = torch.zeros((2, 3, 64, 1500), dtype=torch.int8)
+        v = torch.zeros((2, 3, rows, 1500), dtype=torch.int8)
     elif case == "heads-apart":  # a head slice of a wider buffer
-        k = v = torch.zeros((2, 5, 64, 1504), dtype=torch.int8)[:, :3, :, :1500]
+        k = v = torch.zeros((2, 5, rows, 1504), dtype=torch.int8)[:, :3, :, :1500]
     else:
-        k = v = torch.zeros((2, 3, 64, 3000), dtype=torch.int8)[..., ::2]
+        k = v = torch.zeros((2, 3, rows, 3000), dtype=torch.int8)[..., ::2]
     with pytest.raises(ValueError, match="pitch"):
         att._slab_pitch("k3", (k, v))
+
+
+@pytest.mark.parametrize("tk", [1500, 1536, 301, 256])
+def test_int4_load_path(tk):
+    """Packed int4 rows take TMA at tma_pitch (one byte per position, as
+    int8) and on contiguous rows whose Tk is a multiple of 16; covers
+    otherwise, or where a base is off a 16-byte boundary."""
+    pitch = att.tma_pitch(tk)
+    padded = _padded(2, 3, tk, pitch, 32)
+    ld = att._slab_pitch("k6", (padded, padded))
+    assert ld == pitch and att.decode_cross_load_path(ld, 0x7F0000000000) == "tma"
+    contiguous = torch.zeros((2, 3, 32, tk), dtype=torch.int8)
+    ld = att._slab_pitch("k6", (contiguous, contiguous))
+    assert att.decode_cross_load_path(ld, 0x7F0000000000, 0x7F0000001000) == (
+        "tma" if tk % 16 == 0 else "cp.async")
+    assert att.decode_cross_load_path(pitch, 0x7F0000000004) == "cp.async"
 
 
 FIELDS = dict(name="test-narrow-q8", n_mels=80, n_audio_ctx=64, n_audio_state=128,
@@ -232,23 +267,46 @@ def test_cross_kv_int8_rows_padded_and_equal_to_reference(trees):
                                    rtol=1e-5)
 
 
-def test_cross_kv_int4_stays_contiguous(trees):
-    _, tp, xa = trees
-    got = tmod.precompute_cross_kv_quant(tp, torch.from_numpy(xa[:, :100]), TCFG,
+def test_cross_kv_int4_rows_padded_and_equal_to_reference(trees):
+    """The packed int4 "qw4" is stored as the int8 "qw" is: rows
+    tma_pitch(T) bytes apart (1504 for 1500), views of the logical [L, B,
+    H, 32, T] that K6 loads by TMA, whose codes are the JAX package's
+    quantize_kv_int4 bytes of the same projections."""
+    jp, tp, xa = trees
+    ck_j, cv_j = jmod.precompute_cross_kv(jp, jnp.asarray(xa), JCFG)
+    ref = (jquant.quantize_kv_int4(ck_j), jquant.quantize_kv_int4(cv_j))
+    got = tmod.precompute_cross_kv_quant(tp, torch.from_numpy(xa), TCFG,
                                          tquant.quantize_kv_int4)
-    for g in got:
-        assert g["qw4"].is_contiguous() and g["scale"].is_contiguous()
+    for g, r in zip(got, ref):
+        qw = g["qw4"]
+        assert qw.shape == (2, 2, 2, 32, AUDIO_T)
+        assert qw.stride() == (2 * 2 * 32 * 1504, 2 * 32 * 1504, 32 * 1504, 1504, 1)
+        assert g["scale"].is_contiguous()
+        for layer in range(2):
+            view = qw[layer]
+            ld = att._slab_pitch("k6", (view, view))
+            assert att.decode_cross_load_path(ld, 0x7f0000000000) == "tma"
+        # As tests/test_torch_quant.py: f32 summation order can flip a code
+        # on a rounding tie by one; scales to f32 rounding.
+        diff = np.abs(tquant.unpack_kv_int4(qw).numpy().astype(np.int16)
+                      - np.asarray(jquant.unpack_kv_int4(r["qw4"])).astype(np.int16))
+        assert diff.max() <= 1 and (diff == 0).mean() > 0.999
+        np.testing.assert_allclose(g["scale"].numpy(), np.asarray(r["scale"]),
+                                   rtol=1e-5)
 
 
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
 @pytest.mark.parametrize("max_tokens", [10])
-def test_int8_greedy_tokens_unchanged_by_the_padded_rows(trees, max_tokens,
+def test_int8_greedy_tokens_unchanged_by_the_padded_rows(trees, max_tokens, bits,
                                                          monkeypatch):
-    """Greedy decoding with the int8 cross-K/V: the port's tokens on the
-    padded rows equal those on contiguous rows and the reference's."""
+    """Greedy decoding with the int8 or packed int4 cross-K/V: the port's
+    tokens on the padded rows equal those on contiguous rows and the
+    reference's (greedy_decode with quant_kv_bits of the same width)."""
     jp, tp, xa = trees
     ref = jdec.greedy_decode(jp, jnp.asarray(xa), JCFG, jdec.DecodeOptions(
-        language="en", max_tokens=max_tokens, quant_kv=True))
-    opts = tdec.DecodeOptions(language="en", max_tokens=max_tokens, quant_kv=True)
+        language="en", max_tokens=max_tokens, quant_kv=True, quant_kv_bits=bits))
+    opts = tdec.DecodeOptions(language="en", max_tokens=max_tokens, quant_kv=True,
+                              quant_kv_bits=bits)
     padded = tdec.greedy_decode(tp, torch.from_numpy(xa), TCFG, opts)
     monkeypatch.setattr(tmod, "_cross_kv_buffer",
                         lambda key, a, n: a.new_empty((n, *a.shape)))

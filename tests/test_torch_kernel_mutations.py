@@ -1,8 +1,8 @@
 """Mutation check of the card tests of K2 (the W8A8 GEMM and its row
 quantizer), K3 and K6 (decode cross-attention over int8 and packed int4
-K/V; K3 on K11's kernel), K4 (the same over bf16 K/V, the bf16 instance
-of K11's kernel), K7 (int8-dot encoder attention on wgmma, resident and
-streamed), K1 and K8 (encoder
+K/V, the int8 and int4 instances of K11's kernel), K4 (the same over bf16
+K/V, its bf16 instance), K7 (int8-dot encoder attention on wgmma,
+resident and streamed), K1 and K8 (encoder
 attention, strided and packed heads), K5 (tiled flash attention), K9
 (head pairs) and K10 (the persistent, pipelined form), all five on the
 wgmma attention core, K11 (the slab-fed decode cross-attention over int8
@@ -30,7 +30,6 @@ import torch
 pytestmark = pytest.mark.cuda
 
 REPO = Path(__file__).resolve().parents[1]
-SRC = "spittle_tpu_torch/csrc/decode_cross_attention_q.cu"
 Q8_SRC = "spittle_tpu_torch/csrc/fullkv_attention_q8.cu"
 FULLKV_SRC = "spittle_tpu_torch/csrc/fullkv_attention.cu"
 # K1, K5, K8, K9 and K10 are instances of the attention core; their masks,
@@ -39,30 +38,20 @@ CORE_SRC = "spittle_tpu_torch/csrc/attention_sm90.cuh"
 CACHE_SRC = "spittle_tpu_torch/csrc/cache_col_write.cu"
 MH_SRC = "spittle_tpu_torch/csrc/decode_cross_attention_mh.cu"
 GEMM_SRC = "spittle_tpu_torch/csrc/w8a8_gemm.cu"
-WRAPPER = "spittle_tpu_torch/ops/attention.py"
 CARD_TESTS = "tests/test_torch_kernels_cuda.py"
 
 # name -> (pytest -k selection in CARD_TESTS, [(file, old text, new text)])
 MUTATIONS = {
-    # Pad columns enter the row max and are zeroed only after it: the
-    # blocks cover Tk instead of kv_len, and p is masked after exp.
-    # K6 in its source, K3 on K11's kernel: the pad columns' scales are
-    # read and their scores kept.
+    # Pad columns enter the row max: K3 and K6 (int8 and int4 instances of
+    # K11's kernel) read the pad columns' scales and keep their scores.
     "mask_after_max": ("quant_kernel_matches and 1300", [
-        (SRC, "const int t1 = min(t0 + kChunk, kv_len);",
-         "const int t1 = min(t0 + kChunk, Tk);"),
-        (SRC, "const int nchunks = (kv_len + kChunk - 1) / kChunk;",
-         "const int nchunks = (Tk + kChunk - 1) / kChunk;"),
-        (SRC, "const float p = live ? expf(s[r] - rmax[r]) : 0.f;",
-         "const float p = (live && t0 + tid < kv_len) ? expf(s[r] - rmax[r]) : 0.f;"),
-        (WRAPPER, "chunks = -(-kv_len // chunk)", "chunks = -(-tk // chunk)"),
         (MH_SRC, "ksc[j] = live[j] ? ks[at] : 0.f;", "ksc[j] = ks[at];"),
         (MH_SRC, "sc[r][j] = live[j] ? sj : -INFINITY;", "sc[r][j] = sj;"),
     ]),
-    # Nibbles shifted as unsigned values: 0..15, no sign extension.
+    # K6: nibbles read as unsigned values, 0..15, no sign extension.
     "nibble_unsigned": ("quant_kernel_matches and int4", [
-        (SRC, "static_cast<int>(b << 28) >> 28", "static_cast<int>((b << 28) >> 28)"),
-        (SRC, "static_cast<int>(b << 24) >> 28", "static_cast<int>((b << 24) >> 28)"),
+        (MH_SRC, "const uint32_t u = w ^ 0x88888888u;", "const uint32_t u = w;"),
+        (MH_SRC, "- 8388616.f", "- 8388608.f"),
     ]),
     # K7: V's per-position scales not folded into P (pv = p), in the pass
     # that takes P's scale and in the pass that quantizes P.
@@ -131,7 +120,7 @@ MUTATIONS = {
     # K4: the V words past kv_len of the last item not zeroed, so the NaN
     # and inf there reach PV (0 * inf).
     "k4_tail_unmasked": ("k4_on_decoder_layouts and 1300", [
-        (MH_SRC, "            w0 &= keep;\n            w1 &= keep;\n", ""),
+        (MH_SRC, "              w0 &= keep;\n              w1 &= keep;\n", ""),
     ]),
     # K9: warpgroup 1 reads head h0's V box instead of its own head's.
     "pair_v_box": ("packed_kernel_matches and pair", [
@@ -183,6 +172,12 @@ MUTATIONS = {
     "cache_neighbour_column": ("cache_col_write_matches", [
         (CACHE_SRC, "dst[r * row_stride + pos * pos_stride + j] = src[i];",
          "dst[r * row_stride + (pos > 0 ? pos - 1 : 1) * pos_stride + j] = src[i];"),
+    ]),
+    # K13 (and K12): the position rounded down to its 16-byte granule, so
+    # the element lands up to 7 positions off.
+    "cache_pos_granule_aligned": ("cache_col_write_at_sector_edges", [
+        (CACHE_SRC, "dst[r * row_stride + pos * pos_stride + j] = src[i];",
+         "dst[r * row_stride + (pos & ~7) * pos_stride + j] = src[i];"),
     ]),
 }
 

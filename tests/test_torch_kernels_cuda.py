@@ -253,12 +253,14 @@ def test_k4_at_the_turbo_batch(cuda):
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=2e-3)
 
 
-@pytest.mark.parametrize("kind,b,r", [("bf16", 48, 1), ("bf16", 48, 3), ("int8", 56, 3)])
+@pytest.mark.parametrize("kind,b,r", [("bf16", 48, 1), ("bf16", 48, 3), ("int8", 56, 3),
+                                      ("int4", 56, 3), ("int4", 8, 1)])
 def test_decode_cross_ring_stable_over_many_launches(cuda, kind, b, r):
-    """K4 and K3 (one persistent kernel) launched 600 times back to back at
-    bench.py's batches on the decoder's padded rows: every output equals
-    the first. Rings of more stages than consumer teams faulted or hung
-    within 50-750 such launches on an H100 (the source's kStages note)."""
+    """K4, K3 and K6 (one persistent kernel) launched 600 times back to
+    back at bench.py's batches on the decoder's padded rows: every output
+    equals the first. Rings of more stages than consumer teams faulted or
+    hung within 50-750 such launches on an H100 (the source's kStages
+    note)."""
     rng = np.random.default_rng(60 + b + r)
     h, tk = 20, 1500
     q = _randn(rng, (b, h, r, 64), cuda, scale=64 ** -0.5)
@@ -266,10 +268,12 @@ def test_decode_cross_ring_stable_over_many_launches(cuda, kind, b, r):
         k, v = (_k4_kv(rng, b, h, tk, tk, att.tma_pitch(tk, 2), cuda) for _ in range(2))
         run = lambda: att.decode_cross_attention(q, k, v)  # noqa: E731
     else:
-        qk, ks = _quant_kv(rng, b, h, tk, tk, 8, cuda)
-        qv, vs = _quant_kv(rng, b, h, tk, tk, 8, cuda)
+        bits = 8 if kind == "int8" else 4
+        qk, ks = _quant_kv(rng, b, h, tk, tk, bits, cuda)
+        qv, vs = _quant_kv(rng, b, h, tk, tk, bits, cuda)
         args = (q, _padded_rows(qk, 1504), ks, _padded_rows(qv, 1504), vs)
-        run = lambda: att.decode_cross_attention_q8(*args)  # noqa: E731
+        kernel = _QUANT_KERNELS[bits][0]
+        run = lambda: kernel(*args)  # noqa: E731
     first = run()
     outs = [run() for _ in range(600)]
     torch.cuda.synchronize()
@@ -340,10 +344,10 @@ def test_decode_cross_quant_kernel_matches_plain(cuda, bits, b, r, tk, kv_len):
     got = kernel(q, qk, ks, qv, vs, kv_len=kv_len)
     want = plain(q, qk, ks, qv, vs, kv_len=kv_len)
     torch.cuda.synchronize()
-    # The kernel rounds bf16(p * vs) with p scaled by its chunk's max (K3:
-    # each 128-position item's, on K11's kernel; K6: each 256-position
-    # block's) and rescales the chunk sums after; the plain version
-    # rounds with the global max. That moves each weight by up to a bf16
+    # The kernel rounds bf16(p * vs) with p scaled by its chunk's max (K3
+    # and K6: each work item's 128 positions, on K11's kernel) and
+    # rescales the chunk sums after; the plain version rounds with the
+    # global max. That moves each weight by up to a bf16
     # half-ulp (2**-9 relative), averaged over the sum, then one bf16
     # rounding of the output: K4's tolerance. A pad column in the max, or
     # nibbles read without sign extension, move outputs by far more.
@@ -388,6 +392,39 @@ def test_k3_on_decoder_layouts_matches_plain(cuda, layout, b, r):
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=2e-3)
 
 
+_K6_CASES = [  # (layout, B, Tk, kv_len)
+    ("padded", 8, 1500, 1500), ("contiguous", 8, 1500, 1500),
+    ("padded", 8, 1500, 1300), ("contiguous", 1, 1536, 1500),
+    ("padded", 2, 301, 301), ("contiguous", 2, 301, 257),
+    ("padded", 56, 1500, 1500), ("contiguous", 56, 1500, 1500),
+]
+
+
+@pytest.mark.parametrize("layout,b,tk,kv_len", _K6_CASES,
+                         ids=["-".join(map(str, c)) for c in _K6_CASES])
+@pytest.mark.parametrize("r", [1, 3, 4, 8])
+def test_k6_on_decoder_layouts_matches_plain(cuda, layout, b, tk, kv_len, r):
+    """K6 on the decoder's padded int4 rows (tma_pitch: 1504 bytes for Tk
+    1500, 304 for 301; the TMA path) and on contiguous rows (Tk 1500 and
+    301: cp.async covers; 1536: TMA), with pad columns past kv_len,
+    against its plain version."""
+    rng = np.random.default_rng(40 + r + b + tk)
+    h = 20
+    q = _randn(rng, (b, h, r, 64), cuda, scale=64 ** -0.5)
+    qk, ks = _quant_kv(rng, b, h, tk, kv_len, 4, cuda)
+    qv, vs = _quant_kv(rng, b, h, tk, kv_len, 4, cuda)
+    if layout == "padded":
+        qk, qv = (_padded_rows(x, att.tma_pitch(tk)) for x in (qk, qv))
+        assert qk.stride(2) % 16 == 0 and not qk.is_contiguous()
+    before = att.decode_cross_attention_q4.launches
+    got = att.decode_cross_attention_q4(q, qk, ks, qv, vs, kv_len=kv_len)
+    want = att.decode_cross_attention_q4_plain(q, qk, ks, qv, vs, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert att.decode_cross_attention_q4.launches == before + 1
+    # test_decode_cross_quant_kernel_matches_plain's tolerance.
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=2e-3)
+
+
 @pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
 def test_decode_cross_quant_wrapper_raises(cuda, bits):
     rng = np.random.default_rng(9)
@@ -400,10 +437,9 @@ def test_decode_cross_quant_wrapper_raises(cuda, bits):
         kernel(q, qk.float(), ks, qk, ks)
     with pytest.raises(ValueError, match="1..8 rows"):
         kernel(_randn(rng, (1, 2, 9, 64), cuda), qk, ks, qk, ks)
-    # Rows of a pitch that is no multiple of 16 bytes: K3 refuses them; K6
-    # takes only contiguous K/V.
+    # Rows of a pitch that is no multiple of 16 bytes: K3 and K6 refuse them.
     odd = torch.zeros((1, 2, qk.shape[2], 310), dtype=torch.int8, device=cuda)[..., :300]
-    with pytest.raises(ValueError, match="pitch" if bits == 8 else "contiguous"):
+    with pytest.raises(ValueError, match="pitch"):
         kernel(q, odd, ks, odd, ks)
     assert kernel(q, qk, ks, qk, ks).shape == (1, 2, 1, 64)
 
@@ -843,6 +879,44 @@ def test_cache_col_write_matches_slice_assignment(cuda, shape, pos):
     wrong = (_bits(got) != _bits(want)).sum().item()
     assert wrong == 0, (f"K13 not close to its plain version: {wrong} elements "
                         f"differ from the slice assignment")
+
+
+def _col_write_case(rng, rows, ctx, pos, offset, dev):
+    """A cache [rows, ctx] bf16 whose base lies `offset` elements into its
+    buffer, cols [rows], and the slice assignment's result."""
+    buf = _randn(rng, (rows * ctx + offset,), dev)
+    cache = buf[offset:].view(rows, ctx)
+    cols = _randn(rng, (rows,), dev)
+    want = cache.clone()
+    want[:, pos] = cols
+    return cache, cols, want
+
+
+_COL_WRITE_CASES = [  # (rows, ctx, offset)
+    (300, 128, 0), (300, 136, 0), (300, 16, 0), (300, 8, 0), (1, 24, 0),
+    (300, 100, 0), (300, 128, 1), (300, 136, 4),
+]
+
+
+@pytest.mark.parametrize("rows,ctx,offset", _COL_WRITE_CASES,
+                         ids=["-".join(map(str, c)) for c in _COL_WRITE_CASES])
+@pytest.mark.parametrize("pos", [0, 7, 8, 15, 16, -1])
+def test_cache_col_write_at_sector_edges(cuda, rows, ctx, offset, pos):
+    """K13 bit for bit against the slice assignment over the whole cache
+    and in place, at the edges of a row's 32-byte sectors (pos 0, 7, 8,
+    15, 16, the last): ctx 128, 136, 16, 8, 24 and 100, and a cache 2 or 8
+    bytes off a 16-byte boundary."""
+    rng = np.random.default_rng(19 + ctx + offset)
+    pos = pos % ctx
+    cache, cols, want = _col_write_case(rng, rows, ctx, pos, offset, cuda)
+    ptr = cache.data_ptr()
+    got = cw.alias_col_write(cache, cols, torch.tensor(pos, dtype=torch.int32,
+                                                       device=cuda))
+    torch.cuda.synchronize()
+    assert got is cache and cache.data_ptr() == ptr
+    wrong = (_bits(cache) != _bits(want)).sum().item()
+    assert wrong == 0, (f"K13 not close to its plain version: {wrong} "
+                        f"elements differ from the slice assignment")
 
 
 @pytest.mark.parametrize("rows,ctx,hd", [(7, 24, 128), (64, 128, 1280), (1, 1, 8)])
