@@ -14,7 +14,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    GEMMs of one encoder layer, its row quantizer and its persistent wgmma
    GEMM also timed apart), K4 decode cross-attention (bf16 K/V, the bf16
    instance of K3's kernel, on the decoder's rows padded to a 1504-position
-   pitch; R = 1, 3, 4, and once at B=48, bench.py's turbo batch), K3
+   pitch; R = 1, 3, 4, once at B=48, bench.py's turbo batch, and at
+   B=1, the app path's one window, with R = 1, 3 and 8), K3
    and K6 decode cross-attention over int8 and packed int4 K/V, the int8
    and int4 instances of the same kernel (R = 1, 3, 4, and once at B=56,
    bench.py's large-v3 batch; on the decoder's rows padded to a 1504-byte
@@ -29,10 +30,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    (K1's policy and tile) at [2, 20, 6000, 64] (kv_len 6000 and 5000,
    causal once, ragged shapes, once on contiguous [B, H, T, 64] tensors)
    and bit for bit against K1 on K1's inputs; K4 at an odd Tk, at
-   Tk = 6000 with 8 rows and at Tk = 6500 with 8 rows; K1, K2 and K4 again at the shapes
-   the reduced-context path gives them (256 positions: [8, 20, 256, 64],
-   M = 2048, Tk = 256; K1 timed, and K10 bit for bit against it and
-   timed) and K4 at the long window's prefill; K11 (K3's function over a
+   Tk = 6000 with 8 rows and at Tk = 6500 with 8 rows; K1, K2 and K4
+   again at the shapes the reduced-context path gives them (256
+   positions: [8, 20, 256, 64], M = 2048, Tk = 256) and the app path
+   gives them (one window: [1, 20, 1500, 64], M = 1500, Tk = 1500), K1
+   timed and K10 bit for bit against it and timed, and K4 at the long
+   window's prefill; K11 (K3's function over a
    batch item's K/V slab, a persistent grid fed by producer warps) at the
    decode cross-attention probe's shape on its TMA path (T 1536) and with
    T 1500 on its cp.async path, R = 1 and 3, each beside K3;
@@ -51,13 +54,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    decoder products of one decode step (plain matmuls, no kernel of
    their own), beside the same products on bf16 weights.
 3. The trained tiny checkpoint (tests/data/trained_tiny) through the
-   engine on the card must reproduce its golden greedy tokens.
+   engine on the card must reproduce its golden greedy tokens, through
+   transcribe_batch's parallel windows and through transcribe_samples
+   with TranscribeParams() (its detected language must be the goldens'
+   "en"; the rungs each case took are printed).
 4. End to end, each path with the launch counters set to 0 just before
    and read just after, and checked against the counts the path
-   predicts; every path runs a warm-up batch first, then
+   predicts; numpy-seeded weights (seed 0), W8A8 encoder and mu-law wire.
+   Paths a-f run a warm-up batch first, then
    transcribe_stream(overlap_fetch=True) over batches of 8 30 s int16
-   windows (max_tokens 96, temperature 0, language "en"), numpy-seeded
-   weights (seed 0), W8A8 encoder and mu-law wire:
+   windows (max_tokens 96, temperature 0, language "en"):
    a. turbo leg: random:large-v3-turbo, bf16 decoder, 2 batches (K1, K2,
       K4);
    b. large-v3 leg: random:large-v3, int8 decoder, int8 cross-K/V and
@@ -72,7 +78,17 @@ Phases, each printing its own lines; any failure exits non-zero:
       (K1, K2 and K4 at Tk = 256; K5 0);
    f. long window: large-v3-turbo with n_audio_ctx = 6000 (120 s
       windows), 2 batches of 2 x 120 s (K5 in place of K1, K2, K4 at
-      Tk = 6000).
+      Tk = 6000);
+   g. app path: the turbo leg's engine through transcribe_samples with
+      TranscribeParams() (the sequential seek loop, language detection,
+      the six-rung temperature ladder, the prompt carry; 224-token
+      budget) on a 5 s utterance, a 65 s item (three or more windows)
+      and the 5 s utterance with an initial prompt, no warm-up (K1, K2,
+      K4 in every rung's steps, in the prefill at up to 8 prefix rows and
+      in each call's detection step). Random weights fail every rung's
+      avg_logprob gate, so each window is expected to take all six rungs
+      at the full budget; the wall seconds, windows, rungs and steps of
+      each call are printed.
 5. The probes (spittle_tpu_torch.probes.decode_cross and .cache_dus):
    both main()s, their JSON lines printed; K11, K12 and K13 take their
    launch counts from here.
@@ -105,6 +121,8 @@ PEAK_EXP = 3.9e12
 
 SEED, N_BATCHES, BATCH = 0, 2, 8
 LV3_BATCH = 56  # bench.py's large-v3 batch, for the K3/K6 timing
+# The app path's initial prompt (the app's TranscribeParams.initial_prompt).
+APP_PROMPT = "Meeting notes, Tuesday."
 # The long-window model: large-v3-turbo with 6000 encoder positions.
 LONG_MODEL, LONG_CTX = "large-v3-turbo-ctx6000", 6000
 # Kernels whose launch counts come from the probes phase.
@@ -365,7 +383,8 @@ def kernel_phase(dev, rng):
 
     rows.append(k4_phase(dev, rng))
     rows[-1]["by_shape"].update(k4_shapes_phase(dev, rng))
-    reduced_shapes_phase(dev, rng)
+    path_shapes_phase(dev, rng, "reduced context", 8, 256)
+    path_shapes_phase(dev, rng, "app path", 1, 1500)
     rows += quant_cross_phase(dev)
     rows += flash_phase(dev, rng)
     rows.append(mh_phase(dev))
@@ -378,8 +397,10 @@ def k4_phase(dev, rng):
     """K4 against its plain version on the decoder's bf16 rows, padded to
     tma_pitch (1504 positions for Tk 1500: the TMA path), at B=8 with R =
     1 (a decode step), 3 (the main path's prefill: sot, language, task) and
-    4 (a prefill without timestamps), and at B=48, bench.py's turbo batch,
-    with R = 1; each timed over enough K/V sets that every call reads cold
+    4 (a prefill without timestamps), at B=48, bench.py's turbo batch,
+    with R = 1, and at B=1, the app path's one window, with R = 1 (a step
+    or the language detection), 3 and 8 (prefills; 8 is the most rows K4
+    takes); each timed over enough K/V sets that every call reads cold
     data. The row's numbers are B=8, R=1's; every case's go under
     "by_shape"."""
     from spittle_tpu_torch.ops import attention as att
@@ -389,7 +410,7 @@ def k4_phase(dev, rng):
     print("K4 decode_cross_attention k,v [B,20,64,1500] bf16 in rows of 1504 "
           "positions:")
     row = None
-    for b, rs in ((8, (1, 3, 4)), (48, (1,))):
+    for b, rs in ((8, (1, 3, 4)), (48, (1,)), (1, (1, 3, 8))):
         kvs = [(padded_rows(randn(rng, (b, h, d, t), dev)),
                 padded_rows(randn(rng, (b, h, d, t), dev)))
                for _ in range(n_cold_sets(2 * b * h * d * t * 2))]
@@ -463,23 +484,25 @@ def k4_shapes_phase(dev, rng):
     return cases
 
 
-def reduced_shapes_phase(dev, rng):
-    """K1, K2 and K4 against their plain versions at the shapes of the
-    reduced-context path (audio_ctx 256, batches of 8): K1 at [8, 20, 256,
-    64], K2's six GEMMs at M = 8 * 256 rows, K4 at Tk = 256 with the
-    decode step's one row and the prefill's three. Checks only, with the
-    tolerances of the full-context checks."""
+def path_shapes_phase(dev, rng, label: str, b: int, t: int):
+    """K1, K2 and K4 against their plain versions at the shapes of a path
+    that runs b windows of t encoder positions: the reduced context's (b
+    8, t 256) and the app path's (one window of 1500). K1 (and K10, bit
+    for bit) at [b, 20, t, 64], timed; K2's six GEMMs at M = b * t rows;
+    K4 at Tk = t on contiguous rows with the decode step's one row and the
+    prefill's three. Checks with the tolerances of the kernels phase."""
     from spittle_tpu_torch.ops import attention as att
     from spittle_tpu_torch.ops.quant import quantize_weight_w8a8
     from spittle_tpu_torch.ops.w8a8_gemm import w8a8_gemm, w8a8_gemm_plain
 
-    b, h, t, d = 8, 20, 256, 64
-    print("K1, K2, K4 at the reduced context's shapes (256 positions, B=8):")
+    h, d = 20, 64
+    shape = f"[{b},{h},{t},{d}]"
+    print(f"K1, K2, K4 at the {label}'s shapes ({t} positions, B={b}):")
     packed = [randn(rng, (b, t, h * d), dev, scale=d ** -0.25) for _ in range(3)]
     q, k, v = (att.split_heads(x, h) for x in packed)
     got = att.flash_attention_fullkv(q, k, v, kv_len=t)
     want = att.flash_attention_fullkv_plain(q, k, v, kv_len=t)
-    check("K1 [8,20,256,64]", (got.float() - want.float()).abs().max().item(),
+    check(f"K1 {shape}", (got.float() - want.float()).abs().max().item(),
           1e-2 * want.float().abs().max().item())
     kernel = lambda: att.flash_attention_fullkv(q, k, v, kv_len=t)  # noqa: E731
     ms, eager_ms = time_ms(kernel, 50), call_ms(kernel, 50)
@@ -490,12 +513,12 @@ def reduced_shapes_phase(dev, rng):
     print(f"    ms {ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s; eager call_ms "
           f"{eager_ms:.4f})  library_ms (F.scaled_dot_product_attention) "
           f"{lib_ms:.4f}  bound_ms {bms:.4f} ({by})")
-    # K10 (the "pipe" form) on the same inputs: 320 work items.
+    # K10 (the "pipe" form) on the same inputs.
     pipe = att.flash_attention_fullkv_pipe(q, k, v, kv_len=t)
     same = torch.equal(pipe, got)
-    print(f"  K10 [8,20,256,64]: bit-identical to K1: {same}")
+    print(f"  K10 {shape}: bit-identical to K1: {same}")
     if not same:
-        raise AssertionError("K10 [8,20,256,64] differs from K1's output")
+        raise AssertionError(f"K10 {shape} differs from K1's output")
     kernel = lambda: att.flash_attention_fullkv_pipe(q, k, v, kv_len=t)  # noqa: E731
     ms, eager_ms = time_ms(kernel, 50), call_ms(kernel, 50)
     print(f"    ms {ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s; eager call_ms "
@@ -1052,6 +1075,22 @@ def golden_phase():
           f"{len(cases)} token-identical")
     if bad:
         raise AssertionError(f"golden tokens differ for {bad}")
+    # The app's call: transcribe_samples with TranscribeParams() (the
+    # sequential seek loop, language detection, the six-rung ladder).
+    rungs, bad = [], []
+    for c in cases:
+        eng.last_decode_rungs.clear()
+        r = eng.transcribe_samples(tone_utterance(c["word_ids"]),
+                                   TranscribeParams())
+        rungs.append(list(eng.last_decode_rungs))
+        if (r.tokens != c["greedy_tokens"]
+                or r.language != goldens["language_detected"]):
+            bad.append((c["word_ids"], r.tokens, r.language))
+    print(f"trained_tiny goldens through transcribe_samples(TranscribeParams()): "
+          f"{len(cases) - len(bad)}/{len(cases)} token-identical with language "
+          f"{goldens['language_detected']!r}; rungs per case {rungs}")
+    if bad:
+        raise AssertionError(f"transcribe_samples differs from the goldens: {bad}")
 
 
 def load_engine(model: str, engine_opts: dict, seed: int):
@@ -1070,6 +1109,18 @@ def load_engine(model: str, engine_opts: dict, seed: int):
     return eng
 
 
+def synth_utterance(rng, seconds: float) -> np.ndarray:
+    """int16 PCM at 16 kHz: three tones at random pitches, amplitude
+    modulated at 0.5 Hz, with a little noise."""
+    n = int(seconds * 16000)
+    tt = np.arange(n) / 16000
+    f = rng.uniform(120.0, 400.0, size=3)
+    sig = sum(np.sin(2 * np.pi * fi * tt) for fi in f) / 3.0
+    sig = 0.3 * sig * (0.5 + 0.5 * np.sin(2 * np.pi * 0.5 * tt))
+    sig += 0.02 * rng.standard_normal(n)
+    return (np.clip(sig, -1, 1) * 32767).astype(np.int16)
+
+
 def e2e_phase(label: str, eng, n_batches: int, batch: int, seed: int, predict,
               seconds: float = 30.0, audio_ctx=None):
     """One end-to-end path on a loaded engine: warm up, then n_batches
@@ -1084,18 +1135,9 @@ def e2e_phase(label: str, eng, n_batches: int, batch: int, seed: int, predict,
     print(f"e2e {label}: encoder_attention={eng.encoder_attention!r} "
           f"n_audio_ctx={cfg.n_audio_ctx} audio_ctx={audio_ctx}")
     rng = np.random.default_rng(seed + 1)
-    sr, n = 16000, int(seconds * 16000)
-    tt = np.arange(n) / sr
 
     def make_batch():
-        out = []
-        for _ in range(batch):
-            f = rng.uniform(120.0, 400.0, size=3)
-            sig = sum(np.sin(2 * np.pi * fi * tt) for fi in f) / 3.0
-            sig = 0.3 * sig * (0.5 + 0.5 * np.sin(2 * np.pi * 0.5 * tt))
-            sig += 0.02 * rng.standard_normal(n)
-            out.append((np.clip(sig, -1, 1) * 32767).astype(np.int16))
-        return out
+        return [synth_utterance(rng, seconds) for _ in range(batch)]
 
     p = TranscribeParams(language="en", condition_on_previous_text=False,
                          parallel_windows=True, temperatures=(0.0,),
@@ -1136,6 +1178,82 @@ def e2e_phase(label: str, eng, n_batches: int, batch: int, seed: int, predict,
         for r in res:
             assert all(0 <= tok < cfg.n_vocab for tok in r.tokens)
     want = predict(cfg, steps)
+    if launches != want:
+        raise AssertionError(f"{label}: launch counts {launches} != predicted {want}")
+    del results
+    return launches
+
+
+def app_phase(label: str, eng, seed: int):
+    """The dictation app's path on a loaded engine: transcribe_samples with
+    TranscribeParams() (the sequential seek loop, language detection, the
+    six-rung ladder, the prompt carry) on a 5 s utterance, a 65 s item
+    (three or more windows, each conditioned on the text before it) and
+    the 5 s utterance again with an initial prompt, with every launch
+    counter set to 0 just before and read just after, checked against
+    the counts the path's shapes give: per window K1 once and K2 six
+    times per encoder layer; per decode call (every rung of every window)
+    K4 once per decoder layer for each step and, where the prefix has at
+    most 8 rows, for the prefill; per call one detection step, K4 once
+    per decoder layer. Returns the counts."""
+    from spittle_tpu_torch.engine.base import TranscribeParams
+
+    cfg = eng.cfg
+    rng = np.random.default_rng(seed + 2)
+    short, long_item = synth_utterance(rng, 5.0), synth_utterance(rng, 65.0)
+    calls = (("5 s", short, TranscribeParams()),
+             ("65 s", long_item, TranscribeParams()),
+             ("5 s, initial_prompt", short,
+              TranscribeParams(initial_prompt=APP_PROMPT)))
+    print(f"e2e {label}: encoder_attention={eng.encoder_attention!r}, "
+          f"TranscribeParams() (ladder {eng.FALLBACK_TEMPERATURES}, "
+          f"budget {cfg.n_text_ctx // 2} tokens)")
+    eng.stage_seconds.clear()
+    for trace in (eng.last_decode_steps, eng.last_prefix_rows,
+                  eng.last_decode_rungs):
+        trace.clear()
+    kernels = _kernels()
+    for fn in kernels:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    results = []
+    for name, audio, params in calls:
+        rungs0, calls0 = len(eng.last_decode_rungs), len(eng.last_decode_steps)
+        t0 = time.perf_counter()
+        res = eng.transcribe_samples(audio, params)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rungs = eng.last_decode_rungs[rungs0:]
+        steps = eng.last_decode_steps[calls0:]
+        print(f"e2e {label} {name}: {wall:.3f} s wall, {len(rungs)} windows, "
+              f"rungs per window {rungs}, steps per rung {steps}, language "
+              f"{res.language!r}, {len(res.tokens)} tokens kept")
+        results.append(res)
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    print(f"e2e {label}: stage seconds " + json.dumps(
+        {k: round(v, 4) for k, v in eng.stage_seconds.items()}))
+    print(f"e2e {label}: prefix rows per rung {eng.last_prefix_rows}; "
+          f"launches {json.dumps(launches)}")
+
+    # Output checks: tokens inside the vocabulary, a detected language,
+    # the 65 s item in at least three windows, every window through the
+    # ladder's first rung at least, and no more rungs than the ladder has.
+    for res in results:
+        assert all(0 <= tok < cfg.n_vocab for tok in res.tokens)
+        assert res.language in eng.tokenizer.languages, res.language
+    windows = len(eng.last_decode_rungs)
+    assert windows >= 1 + 3 + 1, eng.last_decode_rungs
+    assert all(1 <= r <= len(eng.FALLBACK_TEMPERATURES)
+               for r in eng.last_decode_rungs)
+    assert sum(eng.last_decode_rungs) == len(eng.last_decode_steps)
+    dec = sum(s + (rows <= 8) for s, rows in
+              zip(eng.last_decode_steps, eng.last_prefix_rows))
+    want = {fn.__name__: 0 for fn in kernels}
+    want.update({
+        "flash_attention_fullkv": windows * cfg.n_audio_layer,
+        "w8a8_gemm": windows * 6 * cfg.n_audio_layer,
+        "decode_cross_attention": cfg.n_text_layer * (dec + len(calls)),
+    })
     if launches != want:
         raise AssertionError(f"{label}: launch counts {launches} != predicted {want}")
     del results
@@ -1239,7 +1357,7 @@ def main() -> int:
     # large-v3 leg, K6 from the int4 variant; every path also checks that
     # the others stayed at 0. The form paths reuse the turbo leg's engine
     # and weights.
-    # The reduced-context path reuses the turbo leg's engine too; the
+    # The reduced-context and app paths reuse the turbo leg's engine too; the
     # long-window model is the turbo config with 6000 encoder positions
     # (120 s windows; the same weights, drawn from the same seed), whose
     # encoder self-attention goes to K5. K11, K12 and K13 run in the
@@ -1249,12 +1367,15 @@ def main() -> int:
     CONFIGS[LONG_MODEL] = dataclasses.replace(
         CONFIGS["large-v3-turbo"], name=LONG_MODEL, n_audio_ctx=LONG_CTX)
     paths = (  # (label, model, engine options, form, batches, predict,
-        #          kernels whose launches this path reports, e2e options)
+        #          kernels whose launches this path reports, e2e options;
+        #          "run": a phase of its own in place of e2e_phase)
         ("turbo leg", "random:large-v3-turbo", {}, "fullkv", N_BATCHES,
          _predict(k4=1), ("flash_attention_fullkv", "w8a8_gemm",
                           "decode_cross_attention"), {}),
         ("reduced context", "random:large-v3-turbo", {}, "fullkv", N_BATCHES,
          _predict(k4=1), (), dict(seconds=5.0, audio_ctx=256)),
+        ("app path", "random:large-v3-turbo", {}, "fullkv", None, None, (),
+         dict(run=app_phase)),
         *((f"turbo {form}", "random:large-v3-turbo", {}, form, 1,
            _predict(k4=1, form=form), (fn.__name__,), {})
           for form, fn in _form_kernels().items()),
@@ -1279,8 +1400,11 @@ def main() -> int:
             eng, loaded = load_engine(model, opts, SEED), (model, opts)
         eng.encoder_attention = form
         e2e = dict(e2e)
-        counts = e2e_phase(label, eng, n_batches, e2e.pop("batch", BATCH), SEED,
-                           predict, **e2e)
+        if "run" in e2e:
+            counts = e2e.pop("run")(label, eng, SEED)
+        else:
+            counts = e2e_phase(label, eng, n_batches, e2e.pop("batch", BATCH),
+                               SEED, predict, **e2e)
         print(f"phase e2e {label}: {time.perf_counter() - t0:.1f} s")
         by_path[label] = counts
         launches.update({name: counts[name] for name in owned})

@@ -1,21 +1,23 @@
-"""Whisper engine: batched long-form transcription on the card (port of
-spittle_tpu/engine/whisper_engine.py, parallel-windows path).
+"""Whisper engine: transcription on the card (port of
+spittle_tpu/engine/whisper_engine.py).
 
 What the port carries: `random:<config>` and spittle .npz models, the
 mu-law or int16 PCM wire, the W8A8 encoder, the bf16/f32 decoder or the
 weight-only int8 decoder with int8 or int4 cross-K/V (quantize_decoder)
 and an int8 self-cache (quantize_cache), the encoder-attention forms
-(encoder_attention), greedy temperature-0 decoding, parallel windows
-with overlap-stitch, `transcribe_batch` and the pipelined
-`transcribe_stream` (prefetch thread, overlap_fetch). A window is two mel
-frames per encoder position: 30 s for the stock 1500 positions, longer for
-a model with a larger n_audio_ctx (past 4096 positions the encoder's
-self-attention runs K5), shorter under TranscribeParams.audio_ctx (a
-push-to-talk utterance). Everything else raises NotImplementedError
-pointing at ROADMAP.md: the sequential seek path, temperature ladders
-longer than one rung, language detection, beam search, speculative
-decoding, word timestamps, the "w8a8" decoder, and the GGML/safetensors
-loaders.
+(encoder_attention), `transcribe_samples` (the dictation app's call) and
+`transcribe_batch` over the sequential seek loop (timestamp-guided seeks,
+the no-speech skip, a single item's prompt carry) or parallel windows
+with overlap-stitch, the pipelined `transcribe_stream` (prefetch thread,
+overlap_fetch), language detection, the temperature ladder (greedy at 0,
+sampled above it, gated on compression ratio and avg_logprob) and
+suppress_non_speech. A window is two mel frames per encoder position:
+30 s for the stock 1500 positions, longer for a model with a larger
+n_audio_ctx (past 4096 positions the encoder's self-attention runs K5),
+shorter under TranscribeParams.audio_ctx (a push-to-talk utterance).
+Still unported, raising NotImplementedError that points at ROADMAP.md:
+beam search, word timestamps, speculative decoding, the "w8a8" decoder,
+and the GGML/safetensors loaders.
 
 The engine runs on the card by default (device="cuda") and raises when
 there is none; the CPU is used only when the caller passes device="cpu".
@@ -23,9 +25,11 @@ there is none; the CPU is used only when the caller passes device="cpu".
 
 from __future__ import annotations
 
+import dataclasses
 import queue as _queue
 import threading
 import time
+import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -35,11 +39,16 @@ from spittle_tpu_torch.audio.mel import HOP_LENGTH, log_mel_spectrogram
 from spittle_tpu_torch.audio.mulaw import mulaw_decode, mulaw_encode
 from spittle_tpu_torch.device import resolve_device
 from spittle_tpu_torch.models.whisper.config import CONFIGS, WhisperConfig
-from spittle_tpu_torch.models.whisper.decode import DecodeOptions, greedy_decode
+from spittle_tpu_torch.models.whisper.decode import (
+    DecodeOptions,
+    detect_language,
+    greedy_decode,
+)
 from spittle_tpu_torch.models.whisper.model import encode, sinusoidal_positions
 from spittle_tpu_torch.models.whisper.tokenizer import (
     WhisperTokenizer,
     make_test_vocab,
+    non_speech_tokens,
 )
 from spittle_tpu_torch.models.whisper.weights import (
     cast_params,
@@ -96,8 +105,10 @@ def select_core_segments(segments, seek_s, window_s, overlap_s,
 class WhisperEngine:
     """Batched Whisper transcription in PyTorch."""
 
-    # The reference engine's default ladder and no-speech gate.
+    # The reference engine's quality-gated temperature ladder
+    # (whisper.cpp's fallback) and no-speech gate.
     FALLBACK_TEMPERATURES = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0)
+    COMPRESSION_RATIO_THRESHOLD = 2.4
     LOGPROB_THRESHOLD = -1.0
     NO_SPEECH_THRESHOLD = 0.6
 
@@ -110,6 +121,7 @@ class WhisperEngine:
         quantize_cache: bool = False,
         wire: str = "auto",
         encoder_attention: str = "fullkv",
+        suppress_non_speech: bool = False,
     ):
         """device: "cuda" (default; raises without a card) or "cpu".
         dtype: compute dtype of the weights (layer norms stay f32); by
@@ -130,7 +142,9 @@ class WhisperEngine:
         SPITTLE_PACKED_ATTENTION=1), "pair" (K9;
         SPITTLE_PACKED_ATTENTION=pair) or "pipe" (K10; SPITTLE_ATTN_PIPE=1).
         Anything else raises ValueError. It may be changed between
-        batches."""
+        batches.
+        suppress_non_speech: suppress the non-speech symbol tokens
+        (whisper.cpp's suppress_non_speech_tokens, off there too)."""
         self.device = resolve_device(device)
         self.encoder_attention = encoder_attention
         if wire not in ("auto", "mulaw"):
@@ -151,20 +165,28 @@ class WhisperEngine:
         self.quantize_decoder = quantize_decoder
         self.quantize_cache = quantize_cache
         self.wire = wire
+        self.suppress_non_speech = suppress_non_speech
         self.cfg: Optional[WhisperConfig] = None
         self.params = None
         # The encoder's position table on the device, made once per model.
         self._positions: Optional[torch.Tensor] = None
         self.tokenizer: Optional[WhisperTokenizer] = None
         self._space_token: Optional[int] = None
+        self._non_speech: Optional[Tuple[int, ...]] = None
         self._copy_stream = (
             torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         )
         # Wall seconds per stage of the most recent batches (frontend =
-        # mel + encoder, decode = cross-K/V + prefill + greedy loop,
-        # finalize = fetch + parse), summed until reset.
+        # mel + encoder; decode = language detection and every rung of the
+        # ladder: cross-K/V, prefill, decode loop, fetch and gates;
+        # finalize = parse), summed until reset.
         self.stage_seconds: Dict[str, float] = {}
+        # Per decode call (each rung of each window batch): the steps run
+        # after the prefill and the prefix rows; per window batch: the
+        # rungs of the ladder it took. Appended until reset.
         self.last_decode_steps: List[int] = []
+        self.last_prefix_rows: List[int] = []
+        self.last_decode_rungs: List[int] = []
 
     # -- lifecycle -------------------------------------------------------
 
@@ -195,6 +217,15 @@ class WhisperEngine:
             device=self.device, dtype=self.dtype)
         space = self.tokenizer.encode(" ")
         self._space_token = space[0] if space else None
+        self._non_speech = None
+
+    def unload_model(self) -> None:
+        self.cfg = None
+        self.params = None
+        self._positions = None
+        self.tokenizer = None
+        self._space_token = None
+        self._non_speech = None
 
     @property
     def is_loaded(self) -> bool:
@@ -231,24 +262,22 @@ class WhisperEngine:
         return self.window_frames, self.window_samples
 
     def _check_params(self, params: TranscribeParams) -> None:
-        if not params.parallel_windows or params.condition_on_previous_text:
-            raise _not_ported("the sequential seek path (prompt carry)")
-        if len(params.temperatures or self.FALLBACK_TEMPERATURES) > 1:
-            raise _not_ported("a temperature ladder longer than one rung")
-        if params.temperatures and params.temperatures[0] != 0.0:
-            raise _not_ported("temperature sampling")
-        if params.language is None and self.cfg.multilingual:
-            raise _not_ported("language detection")
         if params.beam_size > 1:
             raise _not_ported("beam search")
         if params.word_timestamps:
             raise _not_ported("word timestamps")
 
     def _decode_options(self, params: TranscribeParams) -> DecodeOptions:
+        suppress: Tuple[int, ...] = ()
+        if self.suppress_non_speech:
+            if self._non_speech is None:
+                self._non_speech = non_speech_tokens(self.tokenizer)
+            suppress = self._non_speech
         return DecodeOptions(
             task="translate" if params.translate else "transcribe",
             language=params.language,
             space_token=self._space_token,
+            suppress_tokens=suppress,
             max_tokens=params.max_tokens or self.cfg.n_text_ctx // 2,
             quant_kv=bool(self.quantize_decoder),
             quant_kv_bits=4 if self.quantize_decoder == "int4" else 8,
@@ -345,15 +374,35 @@ class WhisperEngine:
 
     # -- transcription ---------------------------------------------------
 
+    def transcribe_samples(self, samples,
+                           params: Optional[TranscribeParams] = None
+                           ) -> TranscriptionResult:
+        """One utterance (the dictation app's call): transcribe_batch of
+        one item."""
+        return self.transcribe_batch([samples], params)[0]
+
     def transcribe_batch(self, batch: Sequence[np.ndarray],
                          params: Optional[TranscribeParams] = None
                          ) -> List[TranscriptionResult]:
-        """Batched long-form transcription over parallel windows."""
+        """Batched long-form transcription. Each item is 16 kHz mono PCM
+        (float32 in [-1, 1] or int16) of any length. By default the
+        sequential seek loop: all items' current windows decode as one
+        batch, then items with audio left re-enter the next round at their
+        timestamp-guided seeks, a single item conditioned on its text so
+        far. parallel_windows decodes every window of every item in one
+        batch instead (condition_on_previous_text must be off)."""
         if not self.is_loaded:
             raise RuntimeError("no model loaded")
         params = params or TranscribeParams()
         self._check_params(params)
         audios = [_as_audio(a) for a in batch]
+        if not params.parallel_windows:
+            return self._transcribe_sequential(audios, params,
+                                               self._base_prompt(params))
+        if params.condition_on_previous_text:
+            raise ValueError(
+                "parallel_windows requires condition_on_previous_text=False "
+                "(windows decode independently)")
         plan, windows, content_frames, overlap = self._plan_parallel_windows(
             audios, params
         )
@@ -362,20 +411,127 @@ class WhisperEngine:
             audios, params, self._base_prompt(params), staged
         ))
 
+    def _transcribe_sequential(self, audios, params: TranscribeParams,
+                               base_prompt) -> List[TranscriptionResult]:
+        """The sequential seek loop (the reference's transcribe_batch
+        without parallel_windows): per round the frontend over the active
+        items' windows, language detection on round 0, the temperature
+        ladder, parse, seek advance and the prompt carry."""
+        cfg, tok = self.cfg, self.tokenizer
+        n = len(audios)
+        prompt_tokens = base_prompt
+        seeks = [0] * n  # in mel frames
+        wf, ws = self._window_geometry(params)
+        content_frames = [max(1, len(a) // HOP_LENGTH) for a in audios]
+        seg_tokens: List[List[int]] = [[] for _ in range(n)]
+        segments: List[List[Segment]] = [[] for _ in range(n)]
+        languages: List[Optional[str]] = [params.language] * n
+        lang_tokens: Optional[np.ndarray] = None  # [n], from round 0
+        opts = self._decode_options(params)
+        round_idx = 0
+        while True:
+            active = [i for i in range(n) if seeks[i] < content_frames[i]]
+            if not active:
+                break
+            windows = self._assemble_windows(
+                audios, [(i, seeks[i] * HOP_LENGTH) for i in active],
+                window_samples=ws,
+            )
+            with torch.inference_mode(), full_f32():
+                t0 = time.perf_counter()
+                xa = self._frontend(self._windows_ready(
+                    self._place_windows(windows)))
+                self._sync()
+                t1 = time.perf_counter()
+                lt = None
+                if cfg.multilingual:
+                    if params.language is None and round_idx == 0:
+                        probs = detect_language(self.params, xa, cfg)
+                        (det,) = self._fetch(probs.argmax(dim=-1))
+                        lang_tokens = np.full(n, cfg.lang_begin, np.int64)
+                        for bi, i in enumerate(active):
+                            lang_tokens[i] = cfg.lang_begin + det[bi]
+                            languages[i] = tok.lang_code(int(lang_tokens[i]))
+                    if lang_tokens is not None:
+                        lt = torch.from_numpy(lang_tokens[active]).to(self.device)
+                out = self._decode_with_fallback(xa, opts, params, lt,
+                                                 prompt_tokens)
+            t2 = time.perf_counter()
+            tokens = out["tokens"]
+            sb = out["sample_begin"]
+            for bi, i in enumerate(active):
+                gen = []
+                for t in tokens[bi, sb:]:
+                    if t == cfg.eot:
+                        break
+                    gen.append(int(t))
+                win_offset = seeks[i] / FRAMES_PER_SECOND
+                window_frames = min(wf, content_frames[i] - seeks[i])
+                # No-speech skip: a window that looks like silence with a
+                # weak decode is dropped and the seek moves a full window.
+                if (float(out["no_speech_prob"][bi]) > self.NO_SPEECH_THRESHOLD
+                        and float(out["avg_logprob"][bi]) < self.LOGPROB_THRESHOLD):
+                    seeks[i] += window_frames
+                    continue
+                segs, gen, advance = self._parse_window(
+                    gen, win_offset, window_sec=window_frames / FRAMES_PER_SECOND,
+                )
+                segments[i].extend(segs)
+                seg_tokens[i].extend(gen)
+                # Clamped to the encoded window: under audio_ctx the
+                # timestamp vocabulary still spans the full window.
+                seeks[i] += (min(advance, window_frames) if advance > 0
+                             else window_frames)
+            # Prompt carry: a single utterance's later windows condition
+            # on the text decoded so far.
+            if n == 1 and params.condition_on_previous_text and seg_tokens[0]:
+                prompt_tokens = self._carried_prompt(base_prompt, seg_tokens[0])
+            round_idx += 1
+            self._time("frontend", t1 - t0)
+            self._time("decode", t2 - t1)
+            self._time("finalize", time.perf_counter() - t2)
+        return [
+            TranscriptionResult(
+                text=tok.decode(seg_tokens[i]).strip(), segments=segments[i],
+                language=languages[i], tokens=list(seg_tokens[i]),
+            )
+            for i in range(n)
+        ]
+
+    def _carried_prompt(self, base_prompt, seg_tokens) -> Tuple[int, ...]:
+        """The next window's prompt: base prompt + text tokens so far,
+        truncated to n_text_ctx/2 - 1, then from 32 tokens on cut to the
+        last 32, 64, 128 or n_text_ctx/2 - 1 (the largest that fits: the
+        reference's buckets, which bound its recompiles)."""
+        cfg = self.cfg
+        max_prompt = cfg.n_text_ctx // 2 - 1
+        text_tokens = [t for t in seg_tokens if t < cfg.timestamp_begin]
+        combined = (list(base_prompt) + text_tokens)[-max_prompt:]
+        if len(combined) >= 32:
+            k = max(bb for bb in (32, 64, 128, max_prompt) if bb <= len(combined))
+            combined = combined[-k:]
+        return tuple(combined)
+
     def transcribe_stream(self, batches, params=None, prefetch: int = 1,
                           overlap_fetch: bool = False):
         """Pipelined batched transcription. A producer thread plans and
         assembles batch k+1's windows and starts their host->device copy
         while batch k computes. Yields List[TranscriptionResult] per batch,
-        in order. overlap_fetch: run batch k+1's device half before batch
-        k's fetch and parse (results still yield in order, one batch
-        later). Requires parallel windows without prompt carry."""
+        in order. overlap_fetch: run batch k+1's device half (frontend,
+        language detection, the ladder's first rung) before batch k's
+        fetch, retries and parse (results still yield in order, one batch
+        later). Always parallel windows; condition_on_previous_text must
+        be off."""
         if not self.is_loaded:
             raise RuntimeError("no model loaded")
         params = params or TranscribeParams(
             parallel_windows=True, condition_on_previous_text=False
         )
         self._check_params(params)
+        if params.condition_on_previous_text:
+            raise ValueError(
+                "transcribe_stream requires condition_on_previous_text=False "
+                "(windows decode independently)")
         base_prompt = self._base_prompt(params)
         q: _queue.Queue = _queue.Queue(maxsize=max(1, prefetch))
         done = object()
@@ -440,7 +596,11 @@ class WhisperEngine:
 
     def _dispatch_parallel_windows(self, audios, params: TranscribeParams,
                                    base_prompt, staged) -> dict:
-        """Device half: frontend + greedy decode of every window."""
+        """Device half: frontend, language detection on each item's first
+        window (kept on the device: the codes are resolved at the fetch in
+        _finalize_parallel_windows) and the ladder's first rung over every
+        window."""
+        cfg = self.cfg
         plan, placed, content_frames, overlap = staged
         wf, _ = self._window_geometry(params)
         # full_f32: an f32 model's products and stem convolutions must
@@ -450,32 +610,48 @@ class WhisperEngine:
             xa = self._frontend(self._windows_ready(placed))
             self._sync()
             t1 = time.perf_counter()
-            out = greedy_decode(self.params, xa, self.cfg,
-                                self._decode_options(params),
-                                prompt_tokens=base_prompt)
+            det = lt = None
+            if cfg.multilingual and params.language is None:
+                first = [next(w for w, (j, _) in enumerate(plan) if j == i)
+                         for i in range(len(audios))]
+                probs = detect_language(self.params, xa[first], cfg)
+                det = probs.argmax(dim=-1)  # [n]
+                lt = cfg.lang_begin + det[[i for i, _ in plan]]
+            opts = self._decode_options(params)
+            out0 = self._dispatch_decode(xa, opts, params, lt, base_prompt)
             self._sync()
             t2 = time.perf_counter()
         self._time("frontend", t1 - t0)
         self._time("decode", t2 - t1)
-        self.last_decode_steps.append(out["steps"])
-        return dict(out=out, params=params, plan=plan,
+        return dict(out0=out0, xa=xa, opts=opts, lt=lt, det=det,
+                    base_prompt=base_prompt, params=params, plan=plan,
                     content_frames=content_frames, overlap=overlap, wf=wf,
                     n=len(audios))
 
     def _finalize_parallel_windows(self, disp) -> List[TranscriptionResult]:
-        """Host half: fetch tokens, no-speech skip, parse and stitch."""
+        """Host half: fetch the first rung and run the ladder's other
+        rungs (timed as decode), resolve the language codes, then the
+        no-speech skip, parse and stitch (timed as finalize)."""
         t0 = time.perf_counter()
         cfg = self.cfg
-        out = disp["out"]
         params = disp["params"]
         plan = disp["plan"]
         content_frames = disp["content_frames"]
         overlap = disp["overlap"]
         wf = disp["wf"]
         n = disp["n"]
-        tokens = out["tokens"].cpu().numpy()
-        avg_lp = out["avg_logprob"].cpu().numpy()
-        ns_prob = out["no_speech_prob"].cpu().numpy()
+        languages: List[Optional[str]] = [params.language] * n
+        if disp["det"] is not None:
+            (det,) = self._fetch(disp["det"])
+            languages = [self.tokenizer.lang_code(int(cfg.lang_begin + d))
+                         for d in det]
+        out = self._finish_decode(disp["out0"], disp["xa"], disp["opts"],
+                                  params, disp["lt"], disp["base_prompt"])
+        t1 = time.perf_counter()
+        self._time("decode", t1 - t0)
+        tokens = out["tokens"]
+        avg_lp = out["avg_logprob"]
+        ns_prob = out["no_speech_prob"]
         sb = out["sample_begin"]
 
         seg_tokens: List[List[int]] = [[] for _ in range(n)]
@@ -519,12 +695,118 @@ class WhisperEngine:
         results = [
             TranscriptionResult(
                 text=item_text(i), segments=segments[i],
-                language=params.language, tokens=list(seg_tokens[i]),
+                language=languages[i], tokens=list(seg_tokens[i]),
             )
             for i in range(n)
         ]
-        self._time("finalize", time.perf_counter() - t0)
+        self._time("finalize", time.perf_counter() - t1)
         return results
+
+    # -- the temperature ladder ------------------------------------------
+
+    @staticmethod
+    def _compression_ratio(text: str) -> float:
+        if not text:
+            return 0.0
+        raw = text.encode("utf-8")
+        return len(raw) / len(zlib.compress(raw))
+
+    def _tokens_to_text(self, row, sample_begin: int) -> str:
+        gen = []
+        for t in row[sample_begin:]:
+            if t == self.cfg.eot:
+                break
+            gen.append(int(t))
+        return self.tokenizer.decode(gen)
+
+    def _fetch(self, *tensors: torch.Tensor) -> List[np.ndarray]:
+        """One device->host fetch of several tensors: on the card, copies
+        into pinned host memory queued on the current stream and one
+        wait."""
+        if self.device.type == "cpu":
+            return [t.numpy() for t in tensors]
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in tensors]
+        for h, t in zip(host, tensors):
+            h.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        return [h.numpy() for h in host]
+
+    def _decode_once(self, xa, opts: DecodeOptions, params: TranscribeParams,
+                     lt, prompt_tokens):
+        """One rung over xa: greedy at temperature 0, sampled above it.
+        Records the decode's steps and prefix rows."""
+        with torch.inference_mode(), full_f32():
+            out = greedy_decode(self.params, xa, self.cfg, opts,
+                                lang_tokens=lt, prompt_tokens=prompt_tokens)
+        self.last_decode_steps.append(out["steps"])
+        self.last_prefix_rows.append(out["sample_begin"])
+        return out
+
+    def _decode_with_fallback(self, xa, opts, params, lt, prompt_tokens):
+        """Per-item retry ladder: a window whose decode looks degenerate
+        (compression ratio > 2.4 or avg logprob < -1.0) re-decodes at the
+        next temperature."""
+        return self._finish_decode(
+            self._dispatch_decode(xa, opts, params, lt, prompt_tokens),
+            xa, opts, params, lt, prompt_tokens,
+        )
+
+    def _dispatch_decode(self, xa, opts, params, lt, prompt_tokens):
+        """The ladder's first rung, not fetched."""
+        ladder = params.temperatures or self.FALLBACK_TEMPERATURES
+        return self._decode_once(
+            xa, dataclasses.replace(opts, temperature=ladder[0]), params, lt,
+            prompt_tokens,
+        )
+
+    def _finish_decode(self, out, xa, opts, params, lt, prompt_tokens):
+        """Fetch the first rung and run the ladder's others: each rung
+        past 0 re-decodes only the pending items (their rows of xa and
+        lt), one fetch per rung. An item is accepted when its text's
+        compression ratio is <= 2.4 and its avg_logprob >= -1.0; every
+        rung overwrites the pending items' results, so an item that fails
+        every rung keeps the last rung's. Returns numpy "tokens",
+        "avg_logprob", "no_speech_prob" and "sample_begin"."""
+        n = xa.shape[0]
+        best = None
+        pending = list(range(n))
+        ladder = params.temperatures or self.FALLBACK_TEMPERATURES
+        rungs = 0
+        for ri, temp in enumerate(ladder):
+            if ri > 0:
+                t_opts = dataclasses.replace(opts, temperature=temp)
+                if len(pending) != n:
+                    rows = torch.tensor(pending, device=xa.device)
+                    out = self._decode_once(
+                        xa[rows], t_opts, params,
+                        lt[rows] if lt is not None else None, prompt_tokens)
+                else:
+                    out = self._decode_once(xa, t_opts, params, lt,
+                                            prompt_tokens)
+            rungs += 1
+            tokens, avg_lp, ns_prob = self._fetch(
+                out["tokens"], out["avg_logprob"], out["no_speech_prob"])
+            sb = out["sample_begin"]
+            if best is None:
+                best = {"tokens": tokens.copy(), "avg_logprob": avg_lp.copy(),
+                        "no_speech_prob": ns_prob.copy(), "sample_begin": sb}
+            still = []
+            for bi, item in enumerate(pending):
+                text = self._tokens_to_text(tokens[bi], sb)
+                ok = (self._compression_ratio(text)
+                      <= self.COMPRESSION_RATIO_THRESHOLD
+                      and avg_lp[bi] >= self.LOGPROB_THRESHOLD)
+                best["tokens"][item] = tokens[bi]
+                best["avg_logprob"][item] = avg_lp[bi]
+                best["no_speech_prob"][item] = ns_prob[bi]
+                if not ok:
+                    still.append(item)
+            pending = still
+            if not pending:
+                break
+        self.last_decode_rungs.append(rungs)
+        return best
 
     def _parse_window(
         self,

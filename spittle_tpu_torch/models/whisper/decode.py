@@ -1,7 +1,8 @@
-"""Greedy Whisper decoding with whisper.cpp's logits rules (port of
+"""Whisper decoding with whisper.cpp's logits rules (port of
 spittle_tpu/models/whisper/decode.py: DecodeOptions, sot_sequence,
-_static_suppress_mask, _process_logits, the temperature-0 greedy loop and
-the no_speech_prob / avg_logprob summaries).
+_static_suppress_mask, _process_logits, the greedy loop at temperature 0
+and its sampling form above it, the no_speech_prob / avg_logprob
+summaries, and detect_language).
 
 The loop is eager Python over device tensors of static shape (the token
 buffer, the KV cache and the per-row state never change shape), so a later
@@ -12,7 +13,7 @@ finished or the budget is spent.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -23,9 +24,11 @@ from .config import WhisperConfig
 from .model import (
     decode_step,
     decoder_prefill,
+    init_kv_cache,
     precompute_cross_kv,
     precompute_cross_kv_quant,
 )
+from .tokenizer import LANGUAGES, LANGUAGES_V3
 
 NEG_INF = -1e30
 
@@ -40,7 +43,8 @@ class DecodeOptions:
     suppress_tokens: Tuple[int, ...] = ()  # always-suppressed token ids
     space_token: Optional[int] = None  # id of " " for blank suppression
     max_tokens: int = 0  # decode budget; 0 -> n_text_ctx
-    temperature: float = 0.0  # only 0 (argmax) is ported
+    temperature: float = 0.0  # 0 = argmax; > 0 = categorical sampling
+    seed: int = 0  # seed of the sampling noise, drawn afresh per decode call
     # Quantized cross-attention K/V, int8 (K3 on the card) or int4 packed
     # two per byte (K6); quant_kv_bits is read only when quant_kv is set.
     quant_kv: bool = False
@@ -154,24 +158,43 @@ def _process_logits(
 def _prefix(cfg: WhisperConfig, opts: DecodeOptions, b: int,
             lang_tokens: Optional[torch.Tensor],
             prompt_tokens: Sequence[int], device) -> Tuple[torch.Tensor, int]:
-    """[B, P] prompt + SOT sequence (int64) and the SOT's position."""
-    if opts.language is not None and lang_tokens is None and cfg.multilingual:
-        from .tokenizer import LANGUAGES, LANGUAGES_V3
-
-        langs = LANGUAGES_V3 if cfg.n_langs == 100 else LANGUAGES
-        lang_tokens = torch.full((b,), cfg.lang_begin + langs.index(opts.language),
-                                 dtype=torch.int64)
+    """[B, P] prompt + SOT sequence (int64, on `device`) and the SOT's
+    position. lang_tokens [B] (from detect_language, on any device) fill
+    the language column; no device->host copy is made."""
     sot_seq = list(sot_sequence(cfg, lang_token=0, task=opts.task,
                                 timestamps=opts.timestamps))
     prompt_prefix = [cfg.sot_prev, *prompt_tokens] if prompt_tokens else []
     sot_pos = len(prompt_prefix)
-    prefix = torch.tensor(prompt_prefix + sot_seq, dtype=torch.int64)
-    prefix = prefix[None].repeat(b, 1)
+    prefix = torch.tensor(prompt_prefix + sot_seq, dtype=torch.int64,
+                          device=device)[None].repeat(b, 1)
     if cfg.multilingual:
         if lang_tokens is None:
-            lang_tokens = torch.full((b,), cfg.lang_begin, dtype=torch.int64)
-        prefix[:, sot_pos + 1] = lang_tokens.to(torch.int64).cpu()
-    return prefix.to(device), sot_pos
+            lang = cfg.lang_begin
+            if opts.language is not None:
+                langs = LANGUAGES_V3 if cfg.n_langs == 100 else LANGUAGES
+                lang += langs.index(opts.language)
+            prefix[:, sot_pos + 1] = lang
+        else:
+            prefix[:, sot_pos + 1] = lang_tokens.to(device=device,
+                                                    dtype=torch.int64)
+    return prefix, sot_pos
+
+
+def gumbel_noise(shape, seed: int, device) -> Callable[[int], torch.Tensor]:
+    """The sampling noise of one decode call: for each sampled position,
+    in loop order, a fresh f32 tensor -log(-log(u)) with u uniform on
+    [finfo(f32).tiny, 1), drawn from a torch.Generator on `device` seeded
+    with `seed` (the form of jax.random.categorical's Gumbel noise; its
+    values are torch's, not JAX's)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    tiny = torch.finfo(torch.float32).tiny
+
+    def draw(step: int) -> torch.Tensor:
+        u = torch.rand(shape, generator=gen, device=device).clamp_min_(tiny)
+        return -torch.log(-torch.log(u))
+
+    return draw
 
 
 @torch.inference_mode()
@@ -182,17 +205,30 @@ def greedy_decode(
     opts: DecodeOptions = DecodeOptions(),
     lang_tokens: Optional[torch.Tensor] = None,
     prompt_tokens: Sequence[int] = (),
+    noise: Optional[Callable[[int], torch.Tensor]] = None,
 ) -> Dict[str, Any]:
-    """Greedy-decode a batch of encoded windows xa [B, T, D].
+    """Decode a batch of encoded windows xa [B, T, D]: argmax at
+    temperature 0; above it, argmax(noise + logits / T) per position, a
+    categorical draw from softmax(logits / T), the step's log-prob still
+    taken from the unscaled logits.
+
+    noise: the sampled positions' [B, V] Gumbel noise, called with the
+    position's index from 0 in loop order; by default gumbel_noise seeded
+    with opts.seed on xa's device (a test passes the reference's noise).
+    Unused at temperature 0, which draws none.
 
     Returns "tokens" [B, L] (prefix + generated, EOT-padded, on xa's
     device), "sample_begin", "avg_logprob" [B], "no_speech_prob" [B] and
     "steps" (decode steps run after the prefill)."""
-    if opts.temperature != 0.0:
-        raise NotImplementedError(
-            "temperature sampling is not ported yet (ROADMAP queue 1, item 7)"
-        )
     b, dev = xa.shape[0], xa.device
+    sample = opts.temperature > 0
+    if sample:
+        # A device tensor: division by a Python scalar on CUDA is a
+        # reciprocal multiply, not the reference's division.
+        temperature = torch.tensor(max(opts.temperature, 1e-6),
+                                   dtype=torch.float32, device=dev)
+        if noise is None:
+            noise = gumbel_noise((b, cfg.n_vocab), opts.seed, dev)
     prefix, sot_pos = _prefix(cfg, opts, b, lang_tokens, prompt_tokens, dev)
     prefix_len = prefix.shape[1]
     # opts.max_tokens is the decode budget: the buffer holds prefix +
@@ -232,7 +268,11 @@ def greedy_decode(
             sample_begin=prefix_len, last_tok=last, penult_tok=penult,
             ts_floor=ts_floor,
         )
-        next_tok = torch.argmax(logits, dim=-1)
+        if sample:
+            next_tok = torch.argmax(noise(pos - prefix_len) + logits / temperature,
+                                    dim=-1)
+        else:
+            next_tok = torch.argmax(logits, dim=-1)
         step_lp = torch.log_softmax(logits, dim=-1).gather(
             1, next_tok[:, None])[:, 0]
         next_tok = torch.where(finished, cfg.eot, next_tok)
@@ -266,3 +306,20 @@ def greedy_decode(
         "length": length,
         "steps": steps,
     }
+
+
+@torch.inference_mode()
+def detect_language(params, xa: torch.Tensor, cfg: WhisperConfig) -> torch.Tensor:
+    """Language probabilities [B, n_langs] (f32) from one decode step of
+    [sot] at position 0. As in the reference, the cross-K/V and the
+    one-step cache (ctx 32) are unquantized whatever the decoder's
+    quantization, so on the card the step's cross-attention is K4 at
+    R = 1."""
+    b = xa.shape[0]
+    cross_kv = precompute_cross_kv(params, xa, cfg)
+    cache = init_kv_cache(cfg, b, dtype=xa.dtype, ctx=32, device=xa.device)
+    sot = torch.full((b,), cfg.sot, dtype=torch.int64, device=xa.device)
+    logits = decode_step(params, sot, 0, cache, cross_kv, cfg,
+                         audio_ctx=xa.shape[1])
+    lang = logits[:, cfg.lang_begin : cfg.lang_begin + cfg.n_langs]
+    return torch.softmax(lang.to(torch.float32), dim=-1)

@@ -138,7 +138,10 @@ def _encoder_stem(enc, mel: torch.Tensor, cfg: WhisperConfig,
     x = F.gelu(x + enc["conv1_b"][None, :, None])
     x = F.conv1d(x, enc["conv2_w"], stride=2, padding=1)
     x = F.gelu(x + enc["conv2_b"][None, :, None])
-    x = x.transpose(1, 2)  # [B, T, D]
+    # [B, T, D] in row-major order: the transposed view's strides would
+    # carry through every block, and at B = 1 a row view of them is not
+    # contiguous, which K2's row quantizer refuses.
+    x = x.transpose(1, 2).contiguous()
     pos = positions
     if pos is None:
         pos = torch.from_numpy(

@@ -3,8 +3,8 @@ spittle_tpu/models/whisper/tokenizer.py; no tiktoken dependency).
 
 Replicates the GPT-2-style byte-level BPE used by all Whisper models. The
 vocabulary comes from an .npz checkpoint's embedded table or from
-make_test_vocab; the reference's file loaders (tiktoken, HF vocab.json)
-are not ported yet.
+make_test_vocab; non_speech_tokens gives suppress_non_speech's list. The
+reference's file loaders (tiktoken, HF vocab.json) are not ported yet.
 
 Special tokens (sot/eot/languages/task/timestamps) are synthesized from the
 WhisperConfig token layout; see config.py.
@@ -13,7 +13,7 @@ WhisperConfig token layout; see config.py.
 from __future__ import annotations
 
 import re
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Tuple
 
 from .config import WhisperConfig
 
@@ -138,6 +138,26 @@ class WhisperTokenizer:
 
     def decode_with_timestamps(self, tokens: Iterable[int]) -> str:
         return self.decode(tokens, include_special=True)
+
+
+def non_speech_tokens(tokenizer: WhisperTokenizer) -> Tuple[int, ...]:
+    """Token ids suppressed by suppress_non_speech_tokens (the OpenAI /
+    whisper.cpp standard list): bracket/markup symbols and music notes,
+    with and without a leading space, plus lone dash/quote variants."""
+    symbols = list("\"#()*+/:;<=>@[\\]^_`{|}~「」『』") + (
+        "<< >> <<< >>> -- --- -( -[ (' (\" (( )) ((( ))) [[ ]] {{ }} ♪♪ ♪♪♪"
+    ).split()
+    miscellaneous = set("♩♪♫♬♭♮♯")
+    result = set()
+    # The ids of " -" and " '" lead the list upstream.
+    for tok in [tokenizer.encode(" -"), tokenizer.encode(" '")]:
+        if len(tok) == 1:
+            result.add(tok[0])
+    for symbol in symbols + list(miscellaneous):
+        for t in [tokenizer.encode(symbol), tokenizer.encode(" " + symbol)]:
+            if len(t) == 1 or (symbol in miscellaneous and t):
+                result.add(t[0])
+    return tuple(sorted(result))
 
 
 def make_test_vocab(n: int = 300) -> Dict[bytes, int]:

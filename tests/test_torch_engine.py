@@ -2,7 +2,8 @@
 CPU: the whole slice on the trained tiny checkpoint (goldens and the JAX
 engine's parallel-windows output), the weight loaders, the device rule,
 the paths that are not ported yet, and that the port imports neither JAX
-nor the JAX package.
+nor the JAX package. The app's path (transcribe_samples, the ladder and
+language detection) is held in tests/test_torch_app_path.py.
 """
 
 import json
@@ -156,22 +157,21 @@ def test_default_device_is_the_card():
     assert eng.dtype == torch.float32  # bf16 is the default on the card only
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(parallel_windows=False, condition_on_previous_text=False),
-    dict(parallel_windows=True, condition_on_previous_text=True),
-    dict(temperatures=None),
-    dict(temperatures=(0.2,)),
-    dict(language=None),
-    dict(beam_size=5),
-    dict(word_timestamps=True),
+@pytest.mark.parametrize("kwargs,exc,match", [
+    (dict(parallel_windows=True, condition_on_previous_text=True), ValueError,
+     "condition_on_previous_text"),
+    (dict(beam_size=5), NotImplementedError, "ROADMAP"),
+    (dict(word_timestamps=True), NotImplementedError, "ROADMAP"),
 ])
-def test_unported_paths_raise(kwargs):
+def test_unported_paths_raise(kwargs, exc, match):
+    """Beam search and word timestamps are not ported; parallel windows
+    with prompt carry is refused as the reference refuses it."""
     eng = WhisperEngine(device="cpu")
     eng.load_model(NPZ)
     base = dict(language="en", condition_on_previous_text=False,
                 temperatures=(0.0,), parallel_windows=True)
     base.update(kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(exc, match=match):
         eng.transcribe_batch([np.zeros(16000, np.float32)],
                              TranscribeParams(**base))
 

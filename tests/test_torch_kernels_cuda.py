@@ -5,7 +5,9 @@ byte for byte; K3 and K4, one kernel, also on the decoder's padded rows,
 K3 bit for bit against K11; K7 in both of its forms), and the engine's
 main paths (bf16 decoder; int8
 and int4 decoders; each encoder-attention form; a reduced and a long
-audio context) on a small config with every kernel counter moving.
+audio context; the app's transcribe_samples with language detection and
+the sampled ladder, its decode kept on the card) on a small config with
+every kernel counter moving.
 
 The kernels have no CPU mode, so every test here carries the `cuda`
 marker and skips without a card; whether a card is present is decided in
@@ -972,3 +974,125 @@ def test_cache_col_write_position_and_checks(cuda):
         cw.alias_col_write_sub(sub, _randn(rng, (4, 100), cuda), pos)
     with pytest.raises(ValueError, match="contiguous"):
         cw.alias_col_write(cache.transpose(0, 1), cols.transpose(0, 1), pos)
+
+
+# ---------------------------------------------------------------------------
+# The app's path: sampling, language detection and transcribe_samples
+# ---------------------------------------------------------------------------
+
+
+def _tiny_engine(**opts):
+    from spittle_tpu_torch.engine.whisper_engine import WhisperEngine
+
+    eng = WhisperEngine(device="cuda", dtype=torch.bfloat16,
+                        quantize_encoder=True, wire="mulaw", **opts)
+    eng.load_model("random:tiny")
+    return eng
+
+
+def test_sampled_decode_on_the_card_is_seeded(cuda):
+    """Temperature sampling on the card draws its noise from a generator
+    on the card: the same seed gives the same tokens on every call, another
+    seed other tokens, and the draws leave the argmax path."""
+    from spittle_tpu_torch.models.whisper.decode import (
+        DecodeOptions,
+        gumbel_noise,
+        greedy_decode,
+    )
+
+    eng = _tiny_engine()
+    rng = np.random.default_rng(5)
+    xa = _randn(rng, (2, eng.cfg.n_audio_ctx, eng.cfg.n_audio_state), cuda)
+    assert gumbel_noise((2, 8), 0, cuda)(0).device.type == "cuda"
+
+    def tokens(**kw):
+        return greedy_decode(eng.params, xa, eng.cfg,
+                             DecodeOptions(language="en", max_tokens=16, **kw)
+                             )["tokens"]
+
+    first = tokens(temperature=0.7, seed=5)
+    assert first.device.type == "cuda"
+    assert torch.equal(first, tokens(temperature=0.7, seed=5))
+    assert not torch.equal(first, tokens(temperature=0.7, seed=6))
+    assert not torch.equal(first, tokens())
+
+
+def _all_on_the_card(value, where):
+    """Every tensor inside value (tensors, dicts, tuples, lists) is on a
+    CUDA device."""
+    if isinstance(value, torch.Tensor):
+        assert value.device.type == "cuda", (where, value.shape, value.device)
+    elif isinstance(value, dict):
+        for v in value.values():
+            _all_on_the_card(v, where)
+    elif isinstance(value, (tuple, list)):
+        for v in value:
+            _all_on_the_card(v, where)
+
+
+def test_transcribe_samples_keeps_its_decode_on_the_card(cuda, monkeypatch):
+    """transcribe_samples with the app's defaults over 35 s (two windows,
+    language detection, the six-rung ladder at an 8-token budget, the
+    prompt carry): every tensor that reaches detection, the decode loop,
+    the prefill and each step lies on the card, and the kernel counters
+    move as the path's shapes say (K1 and K2 per window, K4 per decoder
+    layer for each step, each prefill of at most 8 rows and each
+    detection)."""
+    from spittle_tpu_torch.engine import whisper_engine as tengine
+    from spittle_tpu_torch.engine.base import TranscribeParams
+    from spittle_tpu_torch.models.whisper import decode as tdec
+
+    for module, name in ((tdec, "decode_step"), (tdec, "decoder_prefill"),
+                         (tengine, "greedy_decode"),
+                         (tengine, "detect_language")):
+        real = getattr(module, name)
+
+        def checked(*a, _real=real, _name=name, **kw):
+            _all_on_the_card((a, kw), _name)
+            out = _real(*a, **kw)
+            _all_on_the_card(out, _name)
+            return out
+
+        monkeypatch.setattr(module, name, checked)
+    eng = _tiny_engine()
+    rng = np.random.default_rng(4)
+    audio = (rng.standard_normal(16000 * 35) * 3000).astype(np.int16)
+    kernels = (att.flash_attention_fullkv, w8a8_gemm,
+               att.decode_cross_attention, att.decode_cross_attention_q8,
+               att.decode_cross_attention_q4)
+    for fn in kernels:
+        fn.launches = 0
+    res = eng.transcribe_samples(audio, TranscribeParams(max_tokens=8))
+    torch.cuda.synchronize()
+    assert res.language in eng.tokenizer.languages
+    windows = len(eng.last_decode_rungs)
+    assert windows >= 2
+    dec = sum(s + (rows <= 8) for s, rows in
+              zip(eng.last_decode_steps, eng.last_prefix_rows))
+    want = {fn.__name__: 0 for fn in kernels}
+    want.update({
+        "flash_attention_fullkv": windows * eng.cfg.n_audio_layer,
+        "w8a8_gemm": windows * 6 * eng.cfg.n_audio_layer,
+        "decode_cross_attention": eng.cfg.n_text_layer * (dec + 1),
+    })
+    assert {fn.__name__: fn.launches for fn in kernels} == want
+
+
+def test_detect_language_runs_k4_on_an_int8_engine(cuda):
+    """Under the int8 decoder and cache, detection still reads
+    unquantized cross-K/V: K4 once per decoder layer, never K3; the
+    probabilities are finite and sum to 1."""
+    from spittle_tpu_torch.models.whisper.decode import detect_language
+
+    eng = _tiny_engine(quantize_decoder="int8", quantize_cache=True)
+    rng = np.random.default_rng(6)
+    xa = _randn(rng, (3, eng.cfg.n_audio_ctx, eng.cfg.n_audio_state), cuda)
+    for fn in (att.decode_cross_attention, att.decode_cross_attention_q8):
+        fn.launches = 0
+    probs = detect_language(eng.params, xa, eng.cfg)
+    assert att.decode_cross_attention.launches == eng.cfg.n_text_layer
+    assert att.decode_cross_attention_q8.launches == 0
+    assert probs.shape == (3, eng.cfg.n_langs) and probs.dtype == torch.float32
+    assert torch.isfinite(probs).all()
+    torch.testing.assert_close(probs.sum(-1), torch.ones(3, device=cuda),
+                               rtol=0, atol=1e-5)
