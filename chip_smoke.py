@@ -14,10 +14,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    GEMMs of one encoder layer, its row quantizer and its persistent wgmma
    GEMM also timed apart), K4 decode cross-attention (bf16 K/V, the bf16
    instance of K3's kernel, on the decoder's rows padded to a 1504-position
-   pitch; R = 1, 3, 4, once at B=48, bench.py's turbo batch, and at
+   pitch; R = 1, 3, 4 and 5 (a beam step: five beams folded into an
+   item's rows), once at B=48, bench.py's turbo batch, and at
    B=1, the app path's one window, with R = 1, 3 and 8), K3
    and K6 decode cross-attention over int8 and packed int4 K/V, the int8
-   and int4 instances of the same kernel (R = 1, 3, 4, and once at B=56,
+   and int4 instances of the same kernel (R = 1, 3, 4, 5, and once at B=56,
    bench.py's large-v3 batch; on the decoder's rows padded to a 1504-byte
    pitch, K6 also on contiguous rows), and the
    encoder-attention forms K7 (int8 products on wgmma, its quantizers and
@@ -57,7 +58,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    engine on the card must reproduce its golden greedy tokens, through
    transcribe_batch's parallel windows and through transcribe_samples
    with TranscribeParams() (its detected language must be the goldens'
-   "en"; the rungs each case took are printed).
+   "en"; the rungs each case took are printed), and through
+   transcribe_samples with beam_size=5 (the beam_tokens goldens of the
+   first three cases) and word_timestamps=True (case 0's words), exact.
 4. End to end, each path with the launch counters set to 0 just before
    and read just after, and checked against the counts the path
    predicts; numpy-seeded weights (seed 0), W8A8 encoder and mu-law wire.
@@ -88,7 +91,20 @@ Phases, each printing its own lines; any failure exits non-zero:
       in each call's detection step). Random weights fail every rung's
       avg_logprob gate, so each window is expected to take all six rungs
       at the full budget; the wall seconds, windows, rungs and steps of
-      each call are printed.
+      each call are printed;
+   h. turbo beam: the turbo leg's engine, one batch of 8 x 30 s windows
+      through transcribe_batch with beam_size=5 (parallel windows, 96-token
+      budget): K4 at 5 rows per item in every step, the prefill's 15 rows
+      on plain ops; then the same windows greedy (not counted) for the ms
+      per step beside the beam's, and the beam step's cache gather and
+      top-k sort timed alone;
+   i. turbo word timestamps: the turbo leg's engine through
+      transcribe_samples on a 5 s utterance with word_timestamps=True (a
+      tokenizer in which every text id is a word); the alignment pass's
+      time is printed, and its words must be found, in order and inside
+      the utterance;
+   j. large-v3 beam: the large-v3 leg's engine, one batch of 2 windows
+      with beam_size=5 (K3 at 5 rows per item).
 5. The probes (spittle_tpu_torch.probes.decode_cross and .cache_dus):
    both main()s, their JSON lines printed; K11, K12 and K13 take their
    launch counts from here.
@@ -120,6 +136,7 @@ PEAK_BYTES = 3.35e12
 PEAK_EXP = 3.9e12
 
 SEED, N_BATCHES, BATCH = 0, 2, 8
+BEAM = 5  # beam_size of the beam paths: BEAM query rows per item in K3/K4
 LV3_BATCH = 56  # bench.py's large-v3 batch, for the K3/K6 timing
 # The app path's initial prompt (the app's TranscribeParams.initial_prompt).
 APP_PROMPT = "Meeting notes, Tuesday."
@@ -396,8 +413,9 @@ def kernel_phase(dev, rng):
 def k4_phase(dev, rng):
     """K4 against its plain version on the decoder's bf16 rows, padded to
     tma_pitch (1504 positions for Tk 1500: the TMA path), at B=8 with R =
-    1 (a decode step), 3 (the main path's prefill: sot, language, task) and
-    4 (a prefill without timestamps), at B=48, bench.py's turbo batch,
+    1 (a decode step), 3 (the main path's prefill: sot, language, task), 4
+    (a prefill without timestamps) and 5 (a beam step: five beams folded
+    into each item's query rows), at B=48, bench.py's turbo batch,
     with R = 1, and at B=1, the app path's one window, with R = 1 (a step
     or the language detection), 3 and 8 (prefills; 8 is the most rows K4
     takes); each timed over enough K/V sets that every call reads cold
@@ -410,7 +428,7 @@ def k4_phase(dev, rng):
     print("K4 decode_cross_attention k,v [B,20,64,1500] bf16 in rows of 1504 "
           "positions:")
     row = None
-    for b, rs in ((8, (1, 3, 4)), (48, (1,)), (1, (1, 3, 8))):
+    for b, rs in ((8, (1, 3, 4, BEAM)), (48, (1,)), (1, (1, 3, 8))):
         kvs = [(padded_rows(randn(rng, (b, h, d, t), dev)),
                 padded_rows(randn(rng, (b, h, d, t), dev)))
                for _ in range(n_cold_sets(2 * b * h * d * t * 2))]
@@ -916,7 +934,8 @@ def padded_rows(x):
 
 
 def quant_cross_phase(dev):
-    """K3 and K6 against their plain versions at B=8 (R = 1, 3, 4) and
+    """K3 and K6 against their plain versions at B=8 (R = 1, 3, 4, and 5:
+    a beam step's five beams folded into each item's rows) and
     B=56 (R = 1) on the decoder's padded rows (Tk 1500 at a pitch of 1504
     bytes: int8 codes, or packed int4 bytes), K6 also on contiguous rows
     (Tk 1500 bytes apart: the cp.async covers). Inputs come from a seeded
@@ -950,7 +969,7 @@ def quant_cross_phase(dev):
             layout = layouts[name]
             print(f"{kname} {fn.__name__} K/V {bits}-bit [B,20,{stored},1500] "
                   f"+ f32 scales, {name} rows:")
-            for b, rs in ((8, (1, 3, 4)), (LV3_BATCH, (1,))):
+            for b, rs in ((8, (1, 3, 4, BEAM)), (LV3_BATCH, (1,))):
                 kv_bytes = 2 * b * h * stored * t + 2 * b * h * t * 4
 
                 def make_set():
@@ -1091,6 +1110,24 @@ def golden_phase():
           f"{goldens['language_detected']!r}; rungs per case {rungs}")
     if bad:
         raise AssertionError(f"transcribe_samples differs from the goldens: {bad}")
+    # Beam search and word timestamps, as tests/test_trained_checkpoint.py
+    # holds the reference to them: exact.
+    base = dict(language="en", condition_on_previous_text=False, temperatures=(0.0,))
+    bad = [c["word_ids"] for c in cases[:3]
+           if eng.transcribe_samples(tone_utterance(c["word_ids"]), TranscribeParams(
+               beam_size=BEAM, **base)).tokens != c["beam_tokens"]]
+    print(f"trained_tiny beam_tokens goldens (beam_size={BEAM}): "
+          f"{3 - len(bad)}/3 token-identical")
+    if bad:
+        raise AssertionError(f"beam tokens differ from the goldens for {bad}")
+    res = eng.transcribe_samples(tone_utterance(cases[0]["word_ids"]),
+                                 TranscribeParams(word_timestamps=True, **base))
+    words = [{"word": w.word, "start": round(w.start, 4), "end": round(w.end, 4)}
+             for w in res.words]
+    print(f"trained_tiny word_timestamps golden (case 0): "
+          f"{'identical' if words == cases[0]['word_timestamps'] else 'DIFFERENT'}")
+    if words != cases[0]["word_timestamps"]:
+        raise AssertionError(f"word timestamps differ from the golden: {words}")
 
 
 def load_engine(model: str, engine_opts: dict, seed: int):
@@ -1260,6 +1297,150 @@ def app_phase(label: str, eng, seed: int):
     return launches
 
 
+def _cross_kernel(eng) -> str:
+    """The decode cross-attention kernel the engine's quantization runs."""
+    return {False: "decode_cross_attention", "int8": "decode_cross_attention_q8",
+            "int4": "decode_cross_attention_q4"}[eng.quantize_decoder]
+
+
+def beam_phase(label: str, eng, seed: int, n_windows: int = BATCH):
+    """Beam search on a loaded engine: one batch of n_windows 30 s windows
+    through transcribe_batch with TranscribeParams(language="en",
+    beam_size=BEAM, parallel_windows=True, temperatures=(0.0,),
+    max_tokens=96), every launch counter set to 0 just before and read
+    just after. Each item's BEAM beams share its cross-K/V, folded into
+    its query rows: the engine's cross-attention kernel (K4 bf16, K3 int8)
+    runs once per decoder layer and step at BEAM rows per item, and for
+    the prefill only where its BEAM x 3 rows are <= 8 (never: 15 go to
+    the plain math); K1 once and K2 six times per encoder layer; every
+    other kernel 0. Then the same windows greedy (not counted), for the
+    ms per step beside the beam's, and the beam step's two host-side
+    extras timed alone at this path's shapes: the cache gather along the
+    beam axis and the top-k sort over the vocabulary. Returns the
+    counts."""
+    from spittle_tpu_torch.engine.base import TranscribeParams
+    from spittle_tpu_torch.models.whisper import beam as tbeam
+    from spittle_tpu_torch.models.whisper.model import init_kv_cache
+
+    cfg = eng.cfg
+    rng = np.random.default_rng(seed + 3)
+    audio = [synth_utterance(rng, 30.0) for _ in range(n_windows)]
+    p = TranscribeParams(language="en", beam_size=BEAM, parallel_windows=True,
+                         condition_on_previous_text=False, temperatures=(0.0,),
+                         max_tokens=96)
+    per_step = {}
+    for mode in ("beam", "greedy"):
+        eng.stage_seconds.clear()
+        for trace in (eng.last_decode_steps, eng.last_prefix_rows):
+            trace.clear()
+        kernels = _kernels()
+        for fn in kernels:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.transcribe_batch(
+            audio, p if mode == "beam" else dataclasses.replace(p, beam_size=1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps, rows = list(eng.last_decode_steps), list(eng.last_prefix_rows)
+        decode_s = eng.stage_seconds["decode"]
+        per_step[mode] = 1e3 * decode_s / max(steps[0], 1)
+        print(f"e2e {label} ({mode}): {n_windows} x 30 s in {wall:.3f} s, decode "
+              f"{decode_s:.4f} s for {steps} steps (prefix rows {rows}): "
+              f"{per_step[mode]:.3f} ms per step")
+        assert len(res) == n_windows and len(steps) == 1
+        for r in res:
+            assert all(0 <= tok < cfg.n_vocab for tok in r.tokens)
+        if mode == "beam":
+            launches = {fn.__name__: fn.launches for fn in kernels}
+            print(f"e2e {label}: stage seconds " + json.dumps(
+                {k: round(v, 4) for k, v in eng.stage_seconds.items()}))
+            print(f"e2e {label}: launches {json.dumps(launches)}")
+            assert rows == [BEAM * 3], rows
+            want = {fn.__name__: 0 for fn in kernels}
+            want.update({
+                "flash_attention_fullkv": cfg.n_audio_layer,
+                "w8a8_gemm": 6 * cfg.n_audio_layer,
+                _cross_kernel(eng): cfg.n_text_layer * (steps[0] + (rows[0] <= 8)),
+            })
+            if launches != want:
+                raise AssertionError(
+                    f"{label}: launch counts {launches} != predicted {want}")
+    print(f"e2e {label}: ms per decode step, beam_size {BEAM} "
+          f"{per_step['beam']:.3f} against greedy {per_step['greedy']:.3f}")
+    # The beam step's extras at this path's shapes: the cache gather along
+    # axis 2 ([L, 2, B*K, H, ctx, Dh], ctx 128 for 3 + 96 positions) and
+    # the two top-k sorts' larger one, over [B*K, V] log-probs.
+    bk = n_windows * BEAM
+    cache = init_kv_cache(cfg, bk, dtype=torch.bfloat16, ctx=128, device="cuda",
+                          quant=bool(eng.quantize_cache))
+    src = torch.arange(bk, device="cuda").flip(0)
+    logprobs = torch.randn((bk, cfg.n_vocab), device="cuda")
+    parts = {}
+    for name, fn in (("cache gather", lambda: tbeam._gather_cache(cache, src)),
+                     ("top-k sort", lambda: tbeam.top_k(logprobs, BEAM))):
+        parts[name] = (time_ms(fn, 20), call_ms(fn, 20))
+    print(f"e2e {label}: beam step parts at B*K={bk}: " + "; ".join(
+        f"{name} ms {d:.4f} (eager call_ms {e:.4f})" for name, (d, e) in parts.items()))
+    del cache, logprobs
+    return launches
+
+
+def words_phase(label: str, eng, seed: int):
+    """Word timestamps on a loaded engine at full width:
+    transcribe_samples(5 s utterance, TranscribeParams(language="en",
+    word_timestamps=True, temperatures=(0.0,))) with every launch counter
+    set to 0 just before and read just after. The engine's random-weights
+    vocabulary decodes most ids to nothing (no words), so for this call
+    its tokenizer is one in which every text id is a word of its own. The
+    decode runs K1, K2 and K4 (per step and for the 3-row prefill); the
+    alignment pass is plain ops and launches nothing. Checks: words found,
+    starts in order, each inside the utterance. Returns the counts."""
+    from spittle_tpu_torch.engine.base import TranscribeParams
+    from spittle_tpu_torch.models.whisper.tokenizer import WhisperTokenizer
+
+    cfg = eng.cfg
+    short = synth_utterance(np.random.default_rng(seed + 4), 5.0)
+    tokenizer = eng.tokenizer
+    eng.tokenizer = WhisperTokenizer(cfg, {f" w{i}".encode(): i for i in range(cfg.eot)})
+    eng.stage_seconds.clear()
+    for trace in (eng.last_decode_steps, eng.last_prefix_rows):
+        trace.clear()
+    kernels = _kernels()
+    for fn in kernels:
+        fn.launches = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.transcribe_samples(short, TranscribeParams(
+            language="en", word_timestamps=True, temperatures=(0.0,)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        eng.tokenizer = tokenizer
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    steps = list(eng.last_decode_steps)
+    print(f"e2e {label}: 5 s in {wall:.3f} s, {len(res.words)} words from "
+          f"{len(res.tokens)} tokens ({steps} steps); alignment pass "
+          f"{eng.stage_seconds.get('align', 0.0):.4f} s; stage seconds " + json.dumps(
+              {k: round(v, 4) for k, v in eng.stage_seconds.items()}))
+    print(f"e2e {label}: first words " + json.dumps(
+        [(w.word, round(w.start, 2), round(w.end, 2)) for w in res.words[:6]]))
+    print(f"e2e {label}: launches {json.dumps(launches)}")
+    starts = [w.start for w in res.words]
+    assert res.words and starts == sorted(starts), starts
+    assert all(0.0 <= w.start <= w.end <= 5.0 and w.word for w in res.words)
+    want = {fn.__name__: 0 for fn in kernels}
+    want.update({
+        "flash_attention_fullkv": cfg.n_audio_layer,
+        "w8a8_gemm": 6 * cfg.n_audio_layer,
+        "decode_cross_attention": cfg.n_text_layer * (steps[0] + 1),
+    })
+    if launches != want:
+        raise AssertionError(f"{label}: launch counts {launches} != predicted {want}")
+    return launches
+
+
 def _predict(k4=0, k3=0, k6=0, form="fullkv", long_kv=False):
     """Launch counts of one path: the encoder-attention form's kernel (K1
     under "fullkv"; K5 under every form when the encoder's K/V is longer
@@ -1357,7 +1538,8 @@ def main() -> int:
     # large-v3 leg, K6 from the int4 variant; every path also checks that
     # the others stayed at 0. The form paths reuse the turbo leg's engine
     # and weights.
-    # The reduced-context and app paths reuse the turbo leg's engine too; the
+    # The reduced-context, app, beam and word-timestamp paths reuse the turbo
+    # leg's engine too (the large-v3 beam path the large-v3 leg's); the
     # long-window model is the turbo config with 6000 encoder positions
     # (120 s windows; the same weights, drawn from the same seed), whose
     # encoder self-attention goes to K5. K11, K12 and K13 run in the
@@ -1376,6 +1558,10 @@ def main() -> int:
          _predict(k4=1), (), dict(seconds=5.0, audio_ctx=256)),
         ("app path", "random:large-v3-turbo", {}, "fullkv", None, None, (),
          dict(run=app_phase)),
+        ("turbo beam", "random:large-v3-turbo", {}, "fullkv", None, None, (),
+         dict(run=beam_phase)),
+        ("turbo word timestamps", "random:large-v3-turbo", {}, "fullkv", None, None,
+         (), dict(run=words_phase)),
         *((f"turbo {form}", "random:large-v3-turbo", {}, form, 1,
            _predict(k4=1, form=form), (fn.__name__,), {})
           for form, fn in _form_kernels().items()),
@@ -1385,6 +1571,9 @@ def main() -> int:
         ("large-v3 leg", "random:large-v3",
          dict(quantize_decoder="int8", quantize_cache=True), "fullkv",
          N_BATCHES, _predict(k3=1), ("decode_cross_attention_q8",), {}),
+        ("large-v3 beam", "random:large-v3",
+         dict(quantize_decoder="int8", quantize_cache=True), "fullkv", None, None,
+         (), dict(run=lambda label, eng, seed: beam_phase(label, eng, seed, 2))),
         ("int4 variant", "random:large-v3-turbo",
          dict(quantize_decoder="int4", quantize_cache=True), "fullkv", 1,
          _predict(k6=1), ("decode_cross_attention_q4",), {}),

@@ -15,6 +15,7 @@ matmul that must run in full f32 on the card, so it runs under
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -94,9 +95,12 @@ def log_mel_spectrogram(
     n_mels: int = 80,
     n_fft: int = N_FFT,
     hop: int = HOP_LENGTH,
+    filters: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Batched Whisper log-mel: [..., T] float PCM -> [..., n_mels, T//hop]
-    float32, on the audio's device."""
+    float32, on the audio's device. filters: the mel filterbank [n_mels,
+    n_fft // 2 + 1] to project with (a GGML file's own); by default
+    mel_filterbank(n_mels, n_fft)."""
     audio = audio.to(torch.float32)
     lead, t = audio.shape[:-1], audio.shape[-1]
     dev = audio.device
@@ -107,7 +111,9 @@ def log_mel_spectrogram(
     )  # [N, bins, 1 + t // hop]
     spec = spec[..., : t // hop]  # Whisper drops the final frame
     power = spec.real.square() + spec.imag.square()
-    mel_w = torch.from_numpy(mel_filterbank(n_mels, n_fft)).to(dev)
+    if filters is None:
+        filters = torch.from_numpy(mel_filterbank(n_mels, n_fft))
+    mel_w = filters.to(device=dev, dtype=torch.float32)
     with full_f32():
         mel = torch.matmul(mel_w, power)  # [N, n_mels, F]
     log_spec = torch.log10(torch.clamp(mel, min=1e-10))
@@ -115,7 +121,7 @@ def log_mel_spectrogram(
     flat_max = log_spec.amax(dim=(-2, -1), keepdim=True)
     log_spec = torch.maximum(log_spec, flat_max - 8.0)
     log_spec = (log_spec + 4.0) / 4.0
-    return log_spec.reshape(*lead, n_mels, -1)
+    return log_spec.reshape(*lead, mel_w.shape[0], -1)
 
 
 def pad_or_trim(audio: torch.Tensor, length: int = N_SAMPLES) -> torch.Tensor:

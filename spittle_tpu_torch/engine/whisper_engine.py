@@ -1,23 +1,27 @@
 """Whisper engine: transcription on the card (port of
 spittle_tpu/engine/whisper_engine.py).
 
-What the port carries: `random:<config>` and spittle .npz models, the
-mu-law or int16 PCM wire, the W8A8 encoder, the bf16/f32 decoder or the
+What the port carries: `random:<config>` models and checkpoints (whisper.cpp
+GGML files with their own mel filterbank and vocabulary, HF safetensors
+directories read without the safetensors package, spittle .npz files,
+tokenizer files beside a checkpoint that embeds no vocabulary, and an
+alignment_heads.json sidecar), the mu-law or int16 PCM wire, the W8A8 encoder, the bf16/f32 decoder or the
 weight-only int8 decoder with int8 or int4 cross-K/V (quantize_decoder)
 and an int8 self-cache (quantize_cache), the encoder-attention forms
 (encoder_attention), `transcribe_samples` (the dictation app's call) and
 `transcribe_batch` over the sequential seek loop (timestamp-guided seeks,
 the no-speech skip, a single item's prompt carry) or parallel windows
 with overlap-stitch, the pipelined `transcribe_stream` (prefetch thread,
-overlap_fetch), language detection, the temperature ladder (greedy at 0,
-sampled above it, gated on compression ratio and avg_logprob) and
-suppress_non_speech. A window is two mel frames per encoder position:
+overlap_fetch), language detection, the temperature ladder (greedy at 0, or beam
+search under TranscribeParams.beam_size, sampled above it, gated on
+compression ratio and avg_logprob), word timestamps (cross-attention DTW)
+on both paths and suppress_non_speech. A window is two mel frames per encoder position:
 30 s for the stock 1500 positions, longer for a model with a larger
 n_audio_ctx (past 4096 positions the encoder's self-attention runs K5),
 shorter under TranscribeParams.audio_ctx (a push-to-talk utterance).
 Still unported, raising NotImplementedError that points at ROADMAP.md:
-beam search, word timestamps, speculative decoding, the "w8a8" decoder,
-and the GGML/safetensors loaders.
+speculative decoding (load_draft_model, load_self_draft) and the "w8a8"
+decoder.
 
 The engine runs on the card by default (device="cuda") and raises when
 there is none; the CPU is used only when the caller passes device="cpu".
@@ -26,6 +30,7 @@ there is none; the CPU is used only when the caller passes device="cpu".
 from __future__ import annotations
 
 import dataclasses
+import os
 import queue as _queue
 import threading
 import time
@@ -38,6 +43,11 @@ import torch
 from spittle_tpu_torch.audio.mel import HOP_LENGTH, log_mel_spectrogram
 from spittle_tpu_torch.audio.mulaw import mulaw_decode, mulaw_encode
 from spittle_tpu_torch.device import resolve_device
+from spittle_tpu_torch.models.whisper.alignment import (
+    load_alignment_heads,
+    word_timestamps,
+)
+from spittle_tpu_torch.models.whisper.beam import beam_decode
 from spittle_tpu_torch.models.whisper.config import CONFIGS, WhisperConfig
 from spittle_tpu_torch.models.whisper.decode import (
     DecodeOptions,
@@ -47,12 +57,13 @@ from spittle_tpu_torch.models.whisper.decode import (
 from spittle_tpu_torch.models.whisper.model import encode, sinusoidal_positions
 from spittle_tpu_torch.models.whisper.tokenizer import (
     WhisperTokenizer,
+    load_tokenizer,
     make_test_vocab,
     non_speech_tokens,
 )
 from spittle_tpu_torch.models.whisper.weights import (
     cast_params,
-    load_npz_checkpoint,
+    load_params,
     params_from_jax,
     random_params,
 )
@@ -63,15 +74,15 @@ from spittle_tpu_torch.ops.quant import (
     quantize_whisper_encoder_w8a8,
 )
 
-from .base import Segment, TranscribeParams, TranscriptionResult
+from .base import Segment, TranscribeParams, TranscriptionResult, Word
 
 FRAMES_PER_SECOND = 100
 
 
-def _not_ported(what: str) -> NotImplementedError:
+def _not_ported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to spittle_tpu_torch yet (see ROADMAP.md, "
-        "queue 1)"
+        f"queue 1 item {item})"
     )
 
 
@@ -132,7 +143,9 @@ class WhisperEngine:
         quantize_decoder: False, True or "int8", or "int4": weight-only
         int8 decoder block weights, and cross-attention K/V quantized to
         int8 (K3 on the card) or int4 packed two per byte (K6). "w8a8"
-        is not ported yet and raises NotImplementedError.
+        is not ported yet and raises NotImplementedError. word_timestamps
+        is refused under a quantized decoder (ValueError): the reference's
+        alignment pass cannot take its int8 weights.
         quantize_cache: int8 self-attention cache, one scale per position.
         wire: "auto" ships the input's own PCM dtype host->device; "mulaw"
         ships 8-bit mu-law codes, decoded on the device.
@@ -156,7 +169,7 @@ class WhisperEngine:
             quantize_decoder = "int8"
         if quantize_decoder == "w8a8":
             raise _not_ported('quantize_decoder="w8a8" (int8 x int8 '
-                              'cross-attention)')
+                              'cross-attention)', 3)
         if quantize_decoder not in (False, "int8", "int4"):
             raise ValueError(
                 "quantize_decoder must be False, True/'int8', 'int4' or "
@@ -173,17 +186,24 @@ class WhisperEngine:
         self.tokenizer: Optional[WhisperTokenizer] = None
         self._space_token: Optional[int] = None
         self._non_speech: Optional[Tuple[int, ...]] = None
+        # Per model: a GGML file's own mel filterbank on the device (None:
+        # librosa's), and the DTW heads of an alignment_heads.json sidecar
+        # (None: the upper half of the decoder layers).
+        self.mel_filters: Optional[torch.Tensor] = None
+        self.alignment_heads: Optional[List[Tuple[int, int]]] = None
         self._copy_stream = (
             torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         )
         # Wall seconds per stage of the most recent batches (frontend =
         # mel + encoder; decode = language detection and every rung of the
         # ladder: cross-K/V, prefill, decode loop, fetch and gates;
-        # finalize = parse), summed until reset.
+        # finalize = parse and stitch; align = its word-timestamp passes,
+        # counted in finalize too), summed until reset.
         self.stage_seconds: Dict[str, float] = {}
         # Per decode call (each rung of each window batch): the steps run
-        # after the prefill and the prefix rows; per window batch: the
-        # rungs of the ladder it took. Appended until reset.
+        # after the prefill and the prefix rows (beam_size x the prefix
+        # under beam search); per window batch: the rungs of the ladder it
+        # took. Appended until reset.
         self.last_decode_steps: List[int] = []
         self.last_prefix_rows: List[int] = []
         self.last_decode_rungs: List[int] = []
@@ -191,22 +211,37 @@ class WhisperEngine:
     # -- lifecycle -------------------------------------------------------
 
     def load_model(self, model_path: str, seed: int = 0) -> None:
-        """`random:<config>` (numpy-seeded weights) or a spittle .npz."""
+        """`random:<config>` (numpy-seeded weights), a whisper.cpp GGML
+        file, an HF safetensors directory or a spittle .npz. A checkpoint
+        that embeds no vocabulary takes the tokenizer files beside it
+        (load_tokenizer); a GGML file's mel filterbank replaces librosa's;
+        an alignment_heads.json beside the weights sets the DTW heads."""
+        # Every per-model cache is reset: a reload must not keep the last
+        # model's filterbank, suppression ids, heads or positions.
+        self._non_speech = None
+        self.mel_filters = None
+        self.alignment_heads = None
+        self._positions = None
         if model_path.startswith("random:"):
             self.cfg = CONFIGS[model_path.split(":", 1)[1]]
             self.params = random_params(self.cfg, seed=seed, dtype=self.dtype,
                                         device=self.device)
             self.tokenizer = WhisperTokenizer(self.cfg, make_test_vocab())
-        elif model_path.endswith(".npz"):
-            self.cfg, tree, extras = load_npz_checkpoint(model_path)
-            params = params_from_jax(tree, device=self.device)
-            self.params = cast_params(params, self.dtype)
-            if "vocab" not in extras:
-                raise _not_ported("tokenizer files beside an .npz")
-            vocab = {tok: i for i, tok in enumerate(extras["vocab"])}
-            self.tokenizer = WhisperTokenizer(self.cfg, vocab)
         else:
-            raise _not_ported("GGML and safetensors loading")
+            self.cfg, tree, extras = load_params(model_path)
+            self.params = cast_params(params_from_jax(tree, device=self.device),
+                                      self.dtype)
+            if "mel_filters" in extras:
+                self.mel_filters = torch.from_numpy(extras["mel_filters"]).to(
+                    self.device)
+            if "vocab" in extras:
+                vocab = {tok: i for i, tok in enumerate(extras["vocab"])}
+                self.tokenizer = WhisperTokenizer(self.cfg, vocab)
+            else:
+                self.tokenizer = load_tokenizer(
+                    self.cfg, model_path if os.path.isdir(model_path)
+                    else os.path.dirname(model_path))
+            self.alignment_heads = load_alignment_heads(model_path)
         # The reference's order: the decoder first, then the encoder.
         if self.quantize_decoder:
             self.params = quantize_whisper_decoder(self.params)
@@ -217,7 +252,6 @@ class WhisperEngine:
             device=self.device, dtype=self.dtype)
         space = self.tokenizer.encode(" ")
         self._space_token = space[0] if space else None
-        self._non_speech = None
 
     def unload_model(self) -> None:
         self.cfg = None
@@ -226,6 +260,16 @@ class WhisperEngine:
         self.tokenizer = None
         self._space_token = None
         self._non_speech = None
+        self.mel_filters = None
+        self.alignment_heads = None
+
+    def load_draft_model(self, model_path: str) -> None:
+        """Speculative decoding's draft model (not ported: raises)."""
+        raise _not_ported("speculative decoding (load_draft_model)", 4)
+
+    def load_self_draft(self, stride: int = 2) -> None:
+        """Speculative decoding's self-draft (not ported: raises)."""
+        raise _not_ported("speculative decoding (load_self_draft)", 4)
 
     @property
     def is_loaded(self) -> bool:
@@ -262,10 +306,13 @@ class WhisperEngine:
         return self.window_frames, self.window_samples
 
     def _check_params(self, params: TranscribeParams) -> None:
-        if params.beam_size > 1:
-            raise _not_ported("beam search")
-        if params.word_timestamps:
-            raise _not_ported("word timestamps")
+        # The reference's alignment pass multiplies by the decoder's
+        # weights as plain arrays, and a quantized decoder's are int8
+        # dicts: it raises TypeError there, so the port computes nothing.
+        if params.word_timestamps and self.quantize_decoder:
+            raise ValueError(
+                "word_timestamps needs an unquantized decoder: the alignment "
+                f"pass cannot take quantize_decoder={self.quantize_decoder!r}")
 
     def _decode_options(self, params: TranscribeParams) -> DecodeOptions:
         suppress: Tuple[int, ...] = ()
@@ -364,7 +411,8 @@ class WhisperEngine:
         """windows [B, samples] wire PCM on the device -> encoder output
         [B, samples / 320, D]: a window shorter than the model's encodes
         with the first positions."""
-        mel = log_mel_spectrogram(_pcm_f32(windows), n_mels=self.cfg.n_mels)
+        mel = log_mel_spectrogram(_pcm_f32(windows), n_mels=self.cfg.n_mels,
+                                  filters=self.mel_filters)
         return encode(self.params, mel, self.cfg, self.encoder_attention,
                       self._positions)
 
@@ -411,6 +459,21 @@ class WhisperEngine:
             audios, params, self._base_prompt(params), staged
         ))
 
+    def _words(self, gen, xa_row, prefix, window_frames: int,
+                win_offset: float) -> List[Word]:
+        """Word timings of one window's kept tokens `gen` (the alignment
+        pass over xa_row [1, T, D], replaying `prefix`), shifted by the
+        window's offset in seconds; timed as the "align" stage."""
+        t0 = time.perf_counter()
+        with full_f32():
+            timings = word_timestamps(
+                self.params, gen, xa_row, n_frames=window_frames // 2,
+                cfg=self.cfg, tokenizer=self.tokenizer,
+                prefix=tuple(int(t) for t in prefix), heads=self.alignment_heads)
+        self._time("align", time.perf_counter() - t0)
+        return [Word(w.word, w.start + win_offset, w.end + win_offset)
+                for w in timings]
+
     def _transcribe_sequential(self, audios, params: TranscribeParams,
                                base_prompt) -> List[TranscriptionResult]:
         """The sequential seek loop (the reference's transcribe_batch
@@ -425,6 +488,7 @@ class WhisperEngine:
         content_frames = [max(1, len(a) // HOP_LENGTH) for a in audios]
         seg_tokens: List[List[int]] = [[] for _ in range(n)]
         segments: List[List[Segment]] = [[] for _ in range(n)]
+        words: List[List[Word]] = [[] for _ in range(n)]
         languages: List[Optional[str]] = [params.language] * n
         lang_tokens: Optional[np.ndarray] = None  # [n], from round 0
         opts = self._decode_options(params)
@@ -476,6 +540,9 @@ class WhisperEngine:
                 segs, gen, advance = self._parse_window(
                     gen, win_offset, window_sec=window_frames / FRAMES_PER_SECOND,
                 )
+                if params.word_timestamps and gen:
+                    words[i].extend(self._words(gen, xa[bi:bi + 1], tokens[bi, :sb],
+                                                window_frames, win_offset))
                 segments[i].extend(segs)
                 seg_tokens[i].extend(gen)
                 # Clamped to the encoded window: under audio_ctx the
@@ -493,7 +560,7 @@ class WhisperEngine:
         return [
             TranscriptionResult(
                 text=tok.decode(seg_tokens[i]).strip(), segments=segments[i],
-                language=languages[i], tokens=list(seg_tokens[i]),
+                language=languages[i], words=words[i], tokens=list(seg_tokens[i]),
             )
             for i in range(n)
         ]
@@ -656,6 +723,7 @@ class WhisperEngine:
 
         seg_tokens: List[List[int]] = [[] for _ in range(n)]
         segments: List[List[Segment]] = [[] for _ in range(n)]
+        words: List[List[Word]] = [[] for _ in range(n)]
         # Stitch flags come from the ACTUAL plan (its last window may end
         # before seek + stride).
         last_seek: Dict[int, int] = {}
@@ -676,13 +744,18 @@ class WhisperEngine:
                 gen, win_offset, window_sec=window_frames / FRAMES_PER_SECOND,
                 keep_tail=True,
             )
+            win_words = []
+            if params.word_timestamps and gen:
+                win_words = self._words(gen, disp["xa"][wi:wi + 1], tokens[wi, :sb],
+                                        window_frames, win_offset)
             if overlap:
-                segs = select_core_segments(
-                    segs, win_offset, wf / FRAMES_PER_SECOND,
-                    overlap / FRAMES_PER_SECOND, seek == 0,
-                    seek == last_seek[i],
-                )
+                # Segments and words alike keep what lies in the core.
+                segs, win_words = (select_core_segments(
+                    items, win_offset, wf / FRAMES_PER_SECOND,
+                    overlap / FRAMES_PER_SECOND, seek == 0, seek == last_seek[i],
+                ) for items in (segs, win_words))
             segments[i].extend(segs)
+            words[i].extend(win_words)
             seg_tokens[i].extend(gen)
 
         def item_text(i: int) -> str:
@@ -695,7 +768,7 @@ class WhisperEngine:
         results = [
             TranscriptionResult(
                 text=item_text(i), segments=segments[i],
-                language=languages[i], tokens=list(seg_tokens[i]),
+                language=languages[i], words=words[i], tokens=list(seg_tokens[i]),
             )
             for i in range(n)
         ]
@@ -734,13 +807,21 @@ class WhisperEngine:
 
     def _decode_once(self, xa, opts: DecodeOptions, params: TranscribeParams,
                      lt, prompt_tokens):
-        """One rung over xa: greedy at temperature 0, sampled above it.
-        Records the decode's steps and prefix rows."""
+        """One rung over xa: beam search at temperature 0 when
+        params.beam_size > 1, else greedy; sampled above 0 (the reference's
+        rule). Records the decode's steps and prefix rows (beam_size x the
+        prefix under beam search)."""
+        beams = params.beam_size if opts.temperature == 0.0 else 1
         with torch.inference_mode(), full_f32():
-            out = greedy_decode(self.params, xa, self.cfg, opts,
-                                lang_tokens=lt, prompt_tokens=prompt_tokens)
+            if beams > 1:
+                out = beam_decode(self.params, xa, self.cfg, opts,
+                                  beam_size=beams, lang_tokens=lt,
+                                  prompt_tokens=prompt_tokens)
+            else:
+                out = greedy_decode(self.params, xa, self.cfg, opts,
+                                    lang_tokens=lt, prompt_tokens=prompt_tokens)
         self.last_decode_steps.append(out["steps"])
-        self.last_prefix_rows.append(out["sample_begin"])
+        self.last_prefix_rows.append(max(beams, 1) * out["sample_begin"])
         return out
 
     def _decode_with_fallback(self, xa, opts, params, lt, prompt_tokens):

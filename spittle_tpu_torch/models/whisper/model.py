@@ -290,9 +290,28 @@ def _cross_attention_quant(cq, ck, cv, dh: int, kv_len: int):
 def _cross_attention(cq, ck, cv, dh: int, kv_len: int = 0):
     """Cross-attention core for the decode and prefill paths.
 
-    cq: [B, H, q, Dh]; ck/cv: [B, H, Dh, T] in the decode layout, or
-    quantized dicts (see _cross_attention_quant).
+    cq: [Bq, H, q, Dh]; ck/cv: [Bc, H, Dh, T] in the decode layout, or
+    quantized dicts (see _cross_attention_quant), with Bq a multiple of
+    Bc. Beam search shares one K/V among an item's Bq / Bc beams, so the
+    beams fold into the query rows, [Bc, H, beams * q, Dh], before the
+    route is decided on the folded rows, and unfold after it.
     kv_len: real length of K/V (0 = all of T)."""
+    bq, h, q, d = cq.shape
+    kv = ck if not isinstance(ck, dict) else ck["qw4" if is_quant_kv4(ck) else "qw"]
+    beams = bq // kv.shape[0]
+    if beams > 1:
+        cq = (cq.reshape(bq // beams, beams, h, q, d).transpose(1, 2)
+              .reshape(bq // beams, h, beams * q, d))
+    co = _cross_attention_rows(cq, ck, cv, dh, kv_len)
+    if beams > 1:
+        co = (co.reshape(bq // beams, h, beams, q, d).transpose(1, 2)
+              .reshape(bq, h, q, d))
+    return co
+
+
+def _cross_attention_rows(cq, ck, cv, dh: int, kv_len: int):
+    """_cross_attention with one K/V per query item: the kernel for
+    decode-sized queries, else plain ops."""
     if isinstance(ck, dict):
         return _cross_attention_quant(cq, ck, cv, dh, kv_len)
     kvl = kv_len or ck.shape[-1]

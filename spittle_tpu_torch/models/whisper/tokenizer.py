@@ -2,9 +2,10 @@
 spittle_tpu/models/whisper/tokenizer.py; no tiktoken dependency).
 
 Replicates the GPT-2-style byte-level BPE used by all Whisper models. The
-vocabulary comes from an .npz checkpoint's embedded table or from
-make_test_vocab; non_speech_tokens gives suppress_non_speech's list. The
-reference's file loaders (tiktoken, HF vocab.json) are not ported yet.
+vocabulary comes from a checkpoint's embedded table (GGML, .npz), from
+files beside it (load_tokenizer: a `*.tiktoken` file of base64 token /
+rank lines, or an HF `vocab.json`), or from make_test_vocab;
+non_speech_tokens gives suppress_non_speech's list.
 
 Special tokens (sot/eot/languages/task/timestamps) are synthesized from the
 WhisperConfig token layout; see config.py.
@@ -12,6 +13,9 @@ WhisperConfig token layout; see config.py.
 
 from __future__ import annotations
 
+import base64
+import json
+import os
 import re
 from typing import Dict, Iterable, List, Tuple
 
@@ -138,6 +142,65 @@ class WhisperTokenizer:
 
     def decode_with_timestamps(self, tokens: Iterable[int]) -> str:
         return self.decode(tokens, include_special=True)
+
+
+def _bytes_to_unicode() -> Dict[int, str]:
+    """GPT-2's reversible byte <-> printable-unicode mapping (the alphabet
+    of HF vocab.json token strings)."""
+    bs = (
+        list(range(ord("!"), ord("~") + 1))
+        + list(range(ord("\xa1"), ord("\xac") + 1))
+        + list(range(ord("\xae"), ord("\xff") + 1))
+    )
+    cs = bs[:]
+    n = 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return dict(zip(bs, map(chr, cs)))
+
+
+def load_vocab_tiktoken(path: str) -> Dict[bytes, int]:
+    """tiktoken format: one `<base64-token> <rank>` per line."""
+    vocab: Dict[bytes, int] = {}
+    with open(path, "rb") as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            tok_b64, rank = line.split()
+            vocab[base64.b64decode(tok_b64)] = int(rank)
+    return vocab
+
+
+def load_vocab_hf(vocab_json: str) -> Dict[bytes, int]:
+    """HF vocab.json: printable-unicode token string -> id. Added special
+    tokens, whose strings lie outside the byte alphabet, are skipped."""
+    with open(vocab_json, encoding="utf-8") as f:
+        table = json.load(f)
+    dec = {c: b for b, c in _bytes_to_unicode().items()}
+    vocab: Dict[bytes, int] = {}
+    for tok_str, tid in table.items():
+        try:
+            vocab[bytes(dec[c] for c in tok_str)] = tid
+        except KeyError:
+            continue
+    return vocab
+
+
+def load_tokenizer(cfg: WhisperConfig, model_dir: str) -> WhisperTokenizer:
+    """The vocabulary beside a checkpoint: multilingual.tiktoken,
+    gpt2.tiktoken or vocab.tiktoken (first found), else vocab.json."""
+    for name in ("multilingual.tiktoken", "gpt2.tiktoken", "vocab.tiktoken"):
+        path = os.path.join(model_dir, name)
+        if os.path.exists(path):
+            return WhisperTokenizer(cfg, load_vocab_tiktoken(path))
+    vj = os.path.join(model_dir, "vocab.json")
+    if os.path.exists(vj):
+        return WhisperTokenizer(cfg, load_vocab_hf(vj))
+    raise FileNotFoundError(f"no tokenizer vocab found in {model_dir}")
 
 
 def non_speech_tokens(tokenizer: WhisperTokenizer) -> Tuple[int, ...]:

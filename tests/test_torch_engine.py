@@ -1,8 +1,8 @@
 """spittle_tpu_torch's engine and weights against the JAX reference on the
 CPU: the whole slice on the trained tiny checkpoint (goldens and the JAX
-engine's parallel-windows output), the weight loaders, the device rule,
-the paths that are not ported yet, and that the port imports neither JAX
-nor the JAX package. The app's path (transcribe_samples, the ladder and
+engine's parallel-windows output), the npz loader and the cast rule, the
+device rule, the paths that are not ported yet, and that the port imports
+neither JAX nor the JAX package. The app's path (transcribe_samples, the ladder and
 language detection) is held in tests/test_torch_app_path.py.
 """
 
@@ -109,7 +109,7 @@ def test_quantized_leg_on_trained_tiny_matches_reference(goldens, quantize_decod
     (8, ValueError),
 ])
 def test_quantize_decoder_option_checks(value, exc):
-    with pytest.raises(exc, match="ROADMAP" if exc is NotImplementedError
+    with pytest.raises(exc, match="ROADMAP.md, queue 1 item 3" if exc is NotImplementedError
                        else "quantize_decoder"):
         WhisperEngine(device="cpu", quantize_decoder=value)
 
@@ -160,20 +160,30 @@ def test_default_device_is_the_card():
 @pytest.mark.parametrize("kwargs,exc,match", [
     (dict(parallel_windows=True, condition_on_previous_text=True), ValueError,
      "condition_on_previous_text"),
-    (dict(beam_size=5), NotImplementedError, "ROADMAP"),
-    (dict(word_timestamps=True), NotImplementedError, "ROADMAP"),
+    (dict(draft="load_draft_model"), NotImplementedError, "ROADMAP"),
+    (dict(draft="load_self_draft"), NotImplementedError, "ROADMAP"),
 ])
 def test_unported_paths_raise(kwargs, exc, match):
-    """Beam search and word timestamps are not ported; parallel windows
-    with prompt carry is refused as the reference refuses it."""
+    """Speculative decoding (both ways of loading its draft) is not ported
+    and points at its ROADMAP item; parallel windows with prompt carry is
+    refused as the reference refuses it."""
     eng = WhisperEngine(device="cpu")
     eng.load_model(NPZ)
     base = dict(language="en", condition_on_previous_text=False,
                 temperatures=(0.0,), parallel_windows=True)
+    kwargs = dict(kwargs)
+    draft = kwargs.pop("draft", None)
     base.update(kwargs)
-    with pytest.raises(exc, match=match):
-        eng.transcribe_batch([np.zeros(16000, np.float32)],
-                             TranscribeParams(**base))
+    with pytest.raises(exc, match=match) as info:
+        if draft == "load_draft_model":
+            eng.load_draft_model(NPZ)
+        elif draft == "load_self_draft":
+            eng.load_self_draft()
+        else:
+            eng.transcribe_batch([np.zeros(16000, np.float32)],
+                                 TranscribeParams(**base))
+    if draft:
+        assert "ROADMAP.md, queue 1 item 4" in str(info.value)
 
 
 def test_npz_loader_and_cast_rule_match_reference():
