@@ -61,6 +61,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    "en"; the rungs each case took are printed), and through
    transcribe_samples with beam_size=5 (the beam_tokens goldens of the
    first three cases) and word_timestamps=True (case 0's words), exact.
+   Then the trained_families checkpoints (tests/data/trained_families:
+   Parakeet-TDT, SenseVoice, Moonshine; f32) through the port's three
+   other engines: all 10 cases' texts exact in each, and each Parakeet
+   case's detected language the case's.
 4. End to end, each path with the launch counters set to 0 just before
    and read just after, and checked against the counts the path
    predicts; numpy-seeded weights (seed 0), W8A8 encoder and mu-law wire.
@@ -105,6 +109,14 @@ Phases, each printing its own lines; any failure exits non-zero:
       the utterance;
    j. large-v3 beam: the large-v3 leg's engine, one batch of 2 windows
       with beam_size=5 (K3 at 5 rows per item).
+   k-m. the other engine families at full width, f32, seeded random
+      weights: random:parakeet-tdt-0.6b-v3 (TDT greedy loop),
+      random:sense-voice-small (CTC) and random:moonshine-base (KV-cache
+      greedy loop), each through transcribe_batch over 8 int16
+      utterances of 5 to 30 s after a warm-up, then transcribe_samples
+      on one 65 s item; wall, encoder and decode seconds, decode steps,
+      ms per step and peak memory printed. Plain PyTorch ops: every
+      kernel's launch count must read 0.
 5. The probes (spittle_tpu_torch.probes.decode_cross and .cache_dus):
    both main()s, their JSON lines printed; K11, K12 and K13 take their
    launch counts from here.
@@ -147,6 +159,14 @@ PROBE_KERNELS = ("decode_cross_attention_q8_mh", "alias_col_write_sub",
                  "alias_col_write")
 REPO = os.path.dirname(os.path.abspath(__file__))
 TINY = os.path.join(REPO, "tests", "data", "trained_tiny")
+FAMILIES = os.path.join(REPO, "tests", "data", "trained_families")
+# The other engine families' full-width models.
+FAMILY_MODELS = {"parakeet": "random:parakeet-tdt-0.6b-v3",
+                 "sensevoice": "random:sense-voice-small",
+                 "moonshine": "random:moonshine-base"}
+# Their batch: 8 utterances of mixed length (seconds), then one long item.
+FAMILY_SECONDS = (5.0, 30.0, 12.5, 20.0, 8.0, 25.0, 16.0, 27.5)
+FAMILY_LONG_S = 65.0
 
 
 def _kernels():
@@ -1130,6 +1150,122 @@ def golden_phase():
         raise AssertionError(f"word timestamps differ from the golden: {words}")
 
 
+def family_utterance(word_ids):
+    """The trained_families checkpoints' input: one 0.48 s tone per word on
+    a fixed frame grid in a 6 s window (a copy of
+    scripts/train_family_checkpoints.py:utterance and its constants)."""
+    sr, tone_s, gap_s, lead_s, utt_s = 16000, 0.48, 0.32, 0.16, 6.0
+    freqs = [float(f) for f in np.geomspace(210.0, 3500.0, 16).round(1)]
+    audio = np.zeros(int(utt_s * sr), np.float32)
+    pos = int(lead_s * sr)
+    n = int(tone_s * sr)
+    t = np.arange(n) / sr
+    ramp = np.minimum(1.0, np.arange(n) / (0.01 * sr))
+    env = (ramp * ramp[::-1]).astype(np.float32)
+    for w in word_ids:
+        tone = 0.4 * np.sin(2 * np.pi * freqs[w] * t).astype(np.float32)
+        audio[pos: pos + n] = tone * env
+        pos += n + int(gap_s * sr)
+    return audio
+
+
+def _family_engines():
+    """family -> the port's engine class."""
+    from spittle_tpu_torch.engine.moonshine_engine import MoonshineEngine
+    from spittle_tpu_torch.engine.parakeet_engine import ParakeetEngine
+    from spittle_tpu_torch.engine.sensevoice_engine import SenseVoiceEngine
+
+    return {"parakeet": ParakeetEngine, "sensevoice": SenseVoiceEngine,
+            "moonshine": MoonshineEngine}
+
+
+def family_golden_phase():
+    """The committed trained_families checkpoints (Parakeet-TDT, SenseVoice,
+    Moonshine) through the port's engines on the card, f32: every case's
+    text exact, and each Parakeet case's detected language the case's."""
+    from spittle_tpu_torch.engine.base import TranscribeParams
+
+    with open(os.path.join(FAMILIES, "goldens.json")) as f:
+        cases = json.load(f)["cases"]
+    audios = [family_utterance(c["word_ids"]) for c in cases]
+    for family, cls in _family_engines().items():
+        eng = cls(device="cuda")
+        eng.load_model(os.path.join(FAMILIES, f"{family}.npz"))
+        res = eng.transcribe_batch(audios, TranscribeParams(language=None))
+        bad = [(c["word_ids"], r.text, r.language) for c, r in zip(cases, res)
+               if r.text != c[family]["text"]
+               or (family == "parakeet" and r.language != c["language"])]
+        print(f"trained_families {family} goldens on the card: "
+              f"{len(cases) - len(bad)}/{len(cases)} exact"
+              + (" (with the detected language)" if family == "parakeet" else ""))
+        if bad:
+            raise AssertionError(f"{family} goldens differ: {bad}")
+
+
+def family_phase(label: str, model: str, seed: int):
+    """One of the other families at full width with random weights (f32):
+    transcribe_batch over FAMILY_SECONDS (8 utterances of 5 to 30 s, so the
+    valid-length masks differ), then transcribe_samples on one 65 s item,
+    with every launch counter set to 0 just before each call and read just
+    after: no kernel of the port's csrc runs on these paths, so all must
+    read 0. Prints wall, stage and per-step seconds and peak memory.
+    Returns the counts."""
+    t0 = time.perf_counter()
+    eng = _family_engines()[label](device="cuda")
+    eng.load_model(model, seed=seed)
+    torch.cuda.synchronize()
+    cfg = eng.cfg
+    print(f"engine: {model} ({cfg}) loaded in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(seed + 3)
+    batch = [synth_utterance(rng, s) for s in FAMILY_SECONDS]
+    long_item = synth_utterance(rng, FAMILY_LONG_S)
+    eng.transcribe_batch(batch[:2])  # warm-up (cuBLAS, cuFFT plans)
+    kernels = _kernels()
+    launches = {fn.__name__: 0 for fn in kernels}
+    for name, call, seconds in (
+            (f"{len(batch)} x {min(FAMILY_SECONDS):g}-{max(FAMILY_SECONDS):g} s",
+             lambda: eng.transcribe_batch(batch), FAMILY_SECONDS),
+            (f"1 x {FAMILY_LONG_S:g} s", lambda: [eng.transcribe_samples(long_item)],
+             (FAMILY_LONG_S,))):
+        eng.stage_seconds.clear()
+        eng.last_decode_steps.clear()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for fn in kernels:
+            launches[fn.__name__] += fn.launches
+        stages = {k: round(v, 4) for k, v in eng.stage_seconds.items()}
+        steps = sum(eng.last_decode_steps)
+        per_step = (f"{eng.stage_seconds['decode'] / steps * 1e3:.3f} ms per "
+                    f"decode step" if steps else "no decode loop (CTC)")
+        print(f"e2e {label} {name}: {wall:.3f} s wall, RTFx {sum(seconds) / wall:.1f}; "
+              f"encoder {eng.stage_seconds['encode']:.4f} s; decode steps "
+              f"{eng.last_decode_steps}, {per_step}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; stage "
+              f"seconds {json.dumps(stages)}")
+        print(f"e2e {label} {name}: first texts "
+              f"{json.dumps([r.text[:60] for r in results[:2]], ensure_ascii=False)}")
+        # Output checks: one result per item, segments inside the audio, a
+        # decode loop that ran where the family has one.
+        assert len(results) == len(seconds), (len(results), len(seconds))
+        for r, dur in zip(results, seconds):
+            assert isinstance(r.text, str)
+            assert all(0.0 <= seg.start <= seg.end <= dur
+                       for seg in r.segments), (dur, r.segments)
+        if label != "sensevoice":
+            assert steps > 0, eng.last_decode_steps
+    print(f"e2e {label}: launches {json.dumps(launches)}")
+    if any(launches.values()):
+        raise AssertionError(f"{label}: a kernel ran on this path: {launches}")
+    del eng
+    return launches
+
+
 def load_engine(model: str, engine_opts: dict, seed: int):
     """A W8A8-encoder, mu-law, bf16 engine with `model` loaded."""
     from spittle_tpu_torch.engine.whisper_engine import WhisperEngine
@@ -1531,6 +1667,7 @@ def main() -> int:
     print(f"phase kernels: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     golden_phase()
+    family_golden_phase()
     print(f"phase goldens: {time.perf_counter() - t0:.1f} s")
     # Each kernel's launches come from the path that runs it: K1, K2 and
     # K4 from the turbo leg, K7-K10 from the turbo engine under each
@@ -1600,6 +1737,12 @@ def main() -> int:
     del eng
     gc.collect()
     torch.cuda.empty_cache()
+    for label, model in FAMILY_MODELS.items():
+        t0 = time.perf_counter()
+        by_path[label] = family_phase(label, model, SEED)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"phase e2e {label}: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     by_path["probes"] = probes_phase()
     launches.update({name: by_path["probes"][name] for name in PROBE_KERNELS})

@@ -5,6 +5,8 @@ same functions with plain PyTorch ops and, on an NVIDIA Hopper card,
 hand-written CUDA kernels (spittle_tpu_torch/csrc) in place of the
 Pallas TPU kernels. It imports neither jax nor spittle_tpu.
 
-Entry point: spittle_tpu_torch.engine.whisper_engine.WhisperEngine, which
-runs on the card unless the caller passes device="cpu".
+Entry points: spittle_tpu_torch.engine.whisper_engine.WhisperEngine, and
+the plain-PyTorch ParakeetEngine, SenseVoiceEngine and MoonshineEngine
+(engine/parakeet_engine.py, sensevoice_engine.py, moonshine_engine.py).
+Each runs on the card unless the caller passes device="cpu".
 """

@@ -1,11 +1,13 @@
-"""Engine result and parameter types (the port's copy of
-spittle_tpu/engine/base.py: TranscribeParams, Segment, Word,
-TranscriptionResult, field for field)."""
+"""Engine result and parameter types and the PCM input contract (the
+port's copy of spittle_tpu/engine/base.py: TranscribeParams, Segment,
+Word, TranscriptionResult, field for field, and normalize_pcm)."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import List, Optional
+
+import numpy as np
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,3 +63,13 @@ class TranscriptionResult:
     # Raw decoded token ids (text + timestamp tokens, before tokenizer
     # decode).
     tokens: List[int] = dataclasses.field(default_factory=list)
+
+
+def normalize_pcm(a) -> np.ndarray:
+    """PCM input contract of the Parakeet, SenseVoice and Moonshine
+    engines: float32 in [-1, 1] passes through; int16 (the wire format)
+    scales by 1/32768."""
+    a = np.asarray(a)
+    if a.dtype == np.int16:
+        return a.astype(np.float32) / 32768.0
+    return a.astype(np.float32, copy=False)

@@ -228,8 +228,20 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "             or n.startswith('spittle_tpu.'))\n"
         "print(len([n for n in sys.modules if n.startswith('spittle_tpu_torch.')]))\n"
         "assert not bad, bad\n"
+        # The card machine has neither PyYAML nor the safetensors package.
+        "absent = sorted(n for n in sys.modules\n"
+        "                if n.split('.')[0] in ('yaml', 'safetensors'))\n"
+        "assert not absent, absent\n"
+        "for family in ('parakeet', 'sensevoice', 'moonshine'):\n"
+        "    assert 'spittle_tpu_torch.engine.%s_engine' % family in sys.modules\n"
+        "    for part in ('model', 'weights'):\n"
+        "        assert 'spittle_tpu_torch.models.%s.%s' % (family, part) in sys.modules\n"
+        "for name in ('models.parakeet.decode', 'models.parakeet.features',\n"
+        "             'models.parakeet.nemo', 'io.npz_checkpoint', 'io.protobuf',\n"
+        "             'text.lang_id'):\n"
+        "    assert 'spittle_tpu_torch.' + name in sys.modules, name\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15  # every submodule was imported
+    assert int(out.stdout.strip()) >= 40  # every submodule was imported
