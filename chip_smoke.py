@@ -61,6 +61,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    "en"; the rungs each case took are printed), and through
    transcribe_samples with beam_size=5 (the beam_tokens goldens of the
    first three cases) and word_timestamps=True (case 0's words), exact.
+   Then the same checkpoint behind BatchingTranscriptionServer and
+   TranscriptionHTTPServer (127.0.0.1, a free port): every case POSTed at
+   once as raw f32 with no headers; texts, the detected language and the
+   segments must equal the goldens.
    Then the trained_families checkpoints (tests/data/trained_families:
    Parakeet-TDT, SenseVoice, Moonshine; f32) through the port's three
    other engines: all 10 cases' texts exact in each, and each Parakeet
@@ -109,6 +113,25 @@ Phases, each printing its own lines; any failure exits non-zero:
       the utterance;
    j. large-v3 beam: the large-v3 leg's engine, one batch of 2 windows
       with beam_size=5 (K3 at 5 rows per item).
+   n. VAD (run after i, on the turbo leg's engine): 10 minutes of seeded
+      synthetic speech bursts in low noise at 44.1 kHz, made on the card;
+      resample to 16 kHz, Silero over all 20,000 frames and segment_speech
+      on the card, each held against the same function on CPU copies of
+      its inputs (resample within 1e-5 of the peak, probabilities within
+      1e-4, equal spans), every burst inside a span; then
+      transcribe_vad_segments (every span one window of one batch, greedy,
+      48 tokens): K1, K2 and K4 as the decode traces predict. Prints the
+      resample, Silero, segment_speech and whole-call ms and the spans;
+   o. serving (after n, the same engine): BatchingTranscriptionServer
+      (max_batch 32, overlap_transfers) behind TranscriptionHTTPServer;
+      its 5 s bucket's ladder warmed; 32 client threads POST 1-10 s
+      utterances at once as 48 kHz WAV, 16 kHz s16le and mu-law (the
+      front's params: the sequential seek loop, the six-rung ladder), then
+      the same utterances are submitted at once with parallel-window
+      params (24 tokens), which go through stage_batch on the stager
+      thread and transcribe_staged on the runner. Every request must
+      resolve; p50/p95 latency, requests/s and the batch sizes of each
+      round are printed; K1, K2 and K4 as the decode traces predict.
    k-m. the other engine families at full width, f32, seeded random
       weights: random:parakeet-tdt-0.6b-v3 (TDT greedy loop),
       random:sense-voice-small (CTC) and random:moonshine-base (KV-cache
@@ -130,11 +153,14 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import io
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
+import wave
 
 import numpy as np
 import torch
@@ -154,6 +180,13 @@ LV3_BATCH = 56  # bench.py's large-v3 batch, for the K3/K6 timing
 APP_PROMPT = "Meeting notes, Tuesday."
 # The long-window model: large-v3-turbo with 6000 encoder positions.
 LONG_MODEL, LONG_CTX = "large-v3-turbo-ctx6000", 6000
+# The VAD path (the long-form configuration: Silero + resample on 10
+# minutes): the recording's length and rate, and its decode budget.
+VAD_SECONDS, VAD_RATE, VAD_TOKENS = 600.0, 44100, 48
+# The serving path (32 concurrent push-to-talk sessions): clients, their
+# utterances' lengths (seconds) and the staged round's decode budget
+# (24 tokens at temperature 0, as the reference's serving bench sends).
+SERVE_CLIENTS, SERVE_SECONDS, SERVE_TOKENS = 32, (1.0, 10.0), 24
 # Kernels whose launch counts come from the probes phase.
 PROBE_KERNELS = ("decode_cross_attention_q8_mh", "alias_col_write_sub",
                  "alias_col_write")
@@ -1357,6 +1390,36 @@ def e2e_phase(label: str, eng, n_batches: int, batch: int, seed: int, predict,
     return launches
 
 
+def _traced_launches(eng, detections: int = 0):
+    """The launch counts the engine's decode traces since they were cleared
+    give: per window batch (one frontend, one ladder) K1 once and K2 six
+    times per encoder layer; per decode call K4 once per decoder layer for
+    each step and, where the prefix has at most 8 rows, for the prefill;
+    per language detection K4 once per decoder layer; the rest 0."""
+    cfg = eng.cfg
+    frontends = len(eng.last_decode_rungs)
+    dec = sum(s + (rows <= 8) for s, rows in
+              zip(eng.last_decode_steps, eng.last_prefix_rows))
+    want = {fn.__name__: 0 for fn in _kernels()}
+    want.update({
+        "flash_attention_fullkv": frontends * cfg.n_audio_layer,
+        "w8a8_gemm": frontends * 6 * cfg.n_audio_layer,
+        "decode_cross_attention": cfg.n_text_layer * (dec + detections),
+    })
+    return want
+
+
+def _reset_traces(eng):
+    eng.stage_seconds.clear()
+    for trace in (eng.last_decode_steps, eng.last_prefix_rows,
+                  eng.last_decode_rungs):
+        trace.clear()
+    kernels = _kernels()
+    for fn in kernels:
+        fn.launches = 0
+    return kernels
+
+
 def app_phase(label: str, eng, seed: int):
     """The dictation app's path on a loaded engine: transcribe_samples with
     TranscribeParams() (the sequential seek loop, language detection, the
@@ -1381,13 +1444,7 @@ def app_phase(label: str, eng, seed: int):
     print(f"e2e {label}: encoder_attention={eng.encoder_attention!r}, "
           f"TranscribeParams() (ladder {eng.FALLBACK_TEMPERATURES}, "
           f"budget {cfg.n_text_ctx // 2} tokens)")
-    eng.stage_seconds.clear()
-    for trace in (eng.last_decode_steps, eng.last_prefix_rows,
-                  eng.last_decode_rungs):
-        trace.clear()
-    kernels = _kernels()
-    for fn in kernels:
-        fn.launches = 0
+    kernels = _reset_traces(eng)
     torch.cuda.synchronize()
     results = []
     for name, audio, params in calls:
@@ -1419,18 +1476,334 @@ def app_phase(label: str, eng, seed: int):
     assert all(1 <= r <= len(eng.FALLBACK_TEMPERATURES)
                for r in eng.last_decode_rungs)
     assert sum(eng.last_decode_rungs) == len(eng.last_decode_steps)
-    dec = sum(s + (rows <= 8) for s, rows in
-              zip(eng.last_decode_steps, eng.last_prefix_rows))
-    want = {fn.__name__: 0 for fn in kernels}
-    want.update({
-        "flash_attention_fullkv": windows * cfg.n_audio_layer,
-        "w8a8_gemm": windows * 6 * cfg.n_audio_layer,
-        "decode_cross_attention": cfg.n_text_layer * (dec + len(calls)),
-    })
+    want = _traced_launches(eng, detections=len(calls))
     if launches != want:
         raise AssertionError(f"{label}: launch counts {launches} != predicted {want}")
     del results
     return launches
+
+
+def vad_phase(label: str, eng, seed: int):
+    """The long-form VAD path on a loaded engine: 10 minutes of seeded
+    synthetic speech bursts at 44.1 kHz made on the card, resampled to 16
+    kHz there, Silero over every 30 ms frame and the smoothed spans there;
+    the resample, the probabilities and the spans held against the same
+    functions on CPU copies of their inputs; then the engine's
+    transcribe_vad_segments over the 16 kHz audio (every span one window
+    of one batch, greedy, VAD_TOKENS tokens), with every launch counter
+    set to 0 just before and read just after. Returns the counts."""
+    from spittle_tpu_torch.audio.resample import resample
+    from spittle_tpu_torch.audio.vad.segmenter import segment_speech
+    from spittle_tpu_torch.audio.vad.silero import (
+        _conv_features,
+        load_silero_params,
+        silero_scan_frames,
+    )
+    from spittle_tpu_torch.audio.vad.smoothed import DEFAULT_THRESHOLD
+    from spittle_tpu_torch.engine.base import TranscribeParams
+    from spittle_tpu_torch.ops import full_f32
+    from spittle_tpu_torch.probes.synthetic import speech_bursts
+
+    dev = eng.device
+    x, bursts = speech_bursts(VAD_SECONDS, VAD_RATE, seed + 3, dev)
+    vad = load_silero_params(device=dev)
+    # Not timed: the first calls' cuDNN plans and allocations.
+    resample(x[: 2 * VAD_RATE], VAD_RATE)
+    segment_speech(torch.zeros(4800, device=dev), params=vad)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a16 = resample(x, VAD_RATE)
+    torch.cuda.synchronize()
+    resample_ms = (time.perf_counter() - t0) * 1e3
+    n = a16.shape[-1] // 480 * 480
+    t0 = time.perf_counter()
+    probs = silero_scan_frames(vad, a16[None, :n])
+    torch.cuda.synchronize()
+    scan_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    spans = segment_speech(a16, params=vad)
+    vad_ms = (time.perf_counter() - t0) * 1e3
+    print(f"e2e {label}: {VAD_SECONDS:g} s at {VAD_RATE} Hz, {len(bursts)} "
+          f"bursts: resample to 16 kHz {resample_ms:.3f} ms, Silero over "
+          f"{n // 480} frames {scan_ms:.3f} ms, segment_speech (Silero, one "
+          f"fetch, smoothing, spans) {vad_ms:.3f} ms: {len(spans)} spans")
+
+    # The same functions on CPU copies of their inputs.
+    cpu_vad = load_silero_params(device="cpu")
+    a16_cpu = resample(x.cpu(), VAD_RATE)
+    res_err = float((a16.cpu() - a16_cpu).abs().max() / a16_cpu.abs().max())
+    a16_host = a16.cpu()
+    probs_cpu = silero_scan_frames(cpu_vad, a16_host[None, :n])
+    p_err = float((probs.cpu() - probs_cpu).abs().max())
+    spans_cpu = segment_speech(a16_host, params=cpu_vad)
+    edge = float((probs_cpu - DEFAULT_THRESHOLD).abs().min())
+    print(f"e2e {label}: card vs CPU: resample max |err| {res_err:.3g} of the "
+          f"peak (tol 1e-5), probabilities max |err| {p_err:.3g} (tol 1e-4), "
+          f"spans {'equal' if spans == spans_cpu else 'DIFFERENT'}; nearest "
+          f"probability to the threshold {edge:.3g} away")
+    check(f"{label} resample", res_err, 1e-5)
+    check(f"{label} Silero", p_err, 1e-4)
+    if spans != spans_cpu:
+        raise AssertionError(f"{label}: spans differ between the card and the CPU")
+    # Where the card and the CPU part: the frame-local conv features (the
+    # STFT and encoder convs) against the whole chain through the LSTM.
+    with torch.inference_mode(), full_f32():
+        frames = a16[:n].reshape(-1, 480)
+        f_err = float((_conv_features(vad, frames, (2, 2, 2, 1)).cpu()
+                       - _conv_features(cpu_vad, frames.cpu(), (2, 2, 2, 1)))
+                      .abs().max())
+    print(f"e2e {label}: Silero's conv features (before the LSTM) card vs CPU "
+          f"max |err| {f_err:.3g}")
+    # The spans are the speech: each overlaps a burst widened by the
+    # pre-roll and hangover (0.5 s), and nine bursts in ten overlap a span
+    # (Silero passes over some synthetic bursts, and its probability falls
+    # during a long steady voicing, so a span may end before its burst).
+    b16 = [(a * 16000 // VAD_RATE, b * 16000 // VAD_RATE) for a, b in bursts]
+    found = sum(any(s.start_sample < b and a < s.end_sample for s in spans)
+                for a, b in b16)
+    stray = [s for s in spans if not any(s.start_sample < b + 8000
+                                         and a - 8000 < s.end_sample
+                                         for a, b in b16)]
+    print(f"e2e {label}: {found} of {len(bursts)} bursts overlap a span; "
+          f"{len(stray)} spans outside the bursts")
+    if stray or found < 0.9 * len(bursts):
+        raise AssertionError(f"{label}: {len(stray)} stray spans, {found} of "
+                             f"{len(bursts)} bursts found")
+
+    params = TranscribeParams(language="en", parallel_windows=True,
+                              condition_on_previous_text=False,
+                              temperatures=(0.0,), max_tokens=VAD_TOKENS)
+    audio = a16_host.numpy()
+    kernels = _reset_traces(eng)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.transcribe_vad_segments(audio, params)
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    print(f"e2e {label}: transcribe_vad_segments {call_ms:.3f} ms wall "
+          f"({len(spans)} spans as one batch, decode steps "
+          f"{eng.last_decode_steps}), {len(res.segments)} segments; stage "
+          f"seconds " + json.dumps({k: round(v, 4)
+                                    for k, v in eng.stage_seconds.items()}))
+    print(f"e2e {label}: launches {json.dumps(launches)}")
+    # Output checks: one window batch of every span, English, segment
+    # times inside the recording and its last window (random weights
+    # place timestamps anywhere in a span's 30 s window).
+    assert eng.last_decode_rungs == [1], eng.last_decode_rungs
+    assert res.language == "en", res.language
+    assert all(0.0 <= t <= VAD_SECONDS + 30.0
+               for g in res.segments for t in (g.start, g.end))
+    want = _traced_launches(eng)
+    if launches != want:
+        raise AssertionError(f"{label}: launch counts {launches} != predicted {want}")
+    return launches
+
+
+def wav_bytes(x: np.ndarray, rate: int) -> bytes:
+    """16-bit mono WAV file bytes of f32 samples in [-1, 1]."""
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(np.clip(x * 32767.0, -32768, 32767).astype("<i2").tobytes())
+    return buf.getvalue()
+
+
+def _post_all(host: str, port: int, bodies):
+    """POST every (body, headers) to /transcribe from its own thread, all
+    released at once. Returns ([(status, payload)], [seconds per request],
+    wall seconds)."""
+    import http.client
+
+    out = [None] * len(bodies)
+    lat = [0.0] * len(bodies)
+    go = threading.Barrier(len(bodies) + 1)
+
+    def client(i):
+        body, headers = bodies[i]
+        conn = http.client.HTTPConnection(host, port, timeout=600)
+        go.wait(timeout=60)
+        t0 = time.perf_counter()
+        conn.request("POST", "/transcribe", body, headers=headers)
+        resp = conn.getresponse()
+        out[i] = (resp.status, json.loads(resp.read()))
+        lat[i] = time.perf_counter() - t0
+        conn.close()
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    go.wait(timeout=60)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=900)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads) or None in out:
+        raise AssertionError("a client did not finish")
+    return out, lat, wall
+
+
+def _latency_line(lat, wall) -> str:
+    ms = np.asarray(lat) * 1e3
+    return (f"min {ms.min():.1f} ms, p50 {np.percentile(ms, 50):.1f} ms, p95 "
+            f"{np.percentile(ms, 95):.1f} ms, max {ms.max():.1f} ms; "
+            f"{len(lat) / wall:.2f} requests/s over {wall:.3f} s")
+
+
+def serving_phase(label: str, eng, seed: int):
+    """The serving path on a loaded engine: BatchingTranscriptionServer
+    (max_batch 32, overlap_transfers: stager and runner threads) behind
+    TranscriptionHTTPServer on 127.0.0.1:0. Round 1: SERVE_CLIENTS client
+    threads POST 1-10 s utterances at once, a third each as 48 kHz WAV
+    (resampled on the card), 16 kHz s16le and mu-law, with X-Language en
+    (the front's params: the sequential seek loop and the six-rung
+    ladder). Round 2: the same utterances submitted at once with
+    parallel-window params (SERVE_TOKENS tokens, temperature 0), which
+    the stager stages (stage_batch) and the runner computes
+    (transcribe_staged). The ladder shapes are warmed first; every launch
+    counter is set to 0 just before round 1 and read after round 2.
+    Returns the counts."""
+    from spittle_tpu_torch.audio.mulaw import mulaw_encode
+    from spittle_tpu_torch.engine.base import TranscribeParams
+    from spittle_tpu_torch.parallel.http_server import TranscriptionHTTPServer
+    from spittle_tpu_torch.parallel.serving import BatchingTranscriptionServer
+
+    rng = np.random.default_rng(seed + 4)
+    seconds = rng.uniform(*SERVE_SECONDS, SERVE_CLIENTS)
+    utts16 = [synth_utterance(rng, s) for s in seconds]  # int16, 16 kHz
+    bodies = []
+    for i, s in enumerate(seconds):
+        if i % 3 == 0:
+            x48 = synth_utterance(rng, s * 3.0).astype(np.float32) / 32768.0
+            bodies.append((wav_bytes(x48, 48000), {"X-Language": "en"}))
+        elif i % 3 == 1:
+            bodies.append((utts16[i].astype("<i2").tobytes(),
+                           {"X-Language": "en", "X-PCM-Format": "s16le"}))
+        else:
+            bodies.append((mulaw_encode(utts16[i]).tobytes(),
+                           {"X-Language": "en", "X-PCM-Format": "mulaw"}))
+    staged_params = TranscribeParams(language="en", parallel_windows=True,
+                                     condition_on_previous_text=False,
+                                     temperatures=(0.0,), max_tokens=SERVE_TOKENS)
+    srv = BatchingTranscriptionServer(eng, max_batch=32, max_wait_ms=200.0,
+                                      overlap_transfers=True)
+    front = TranscriptionHTTPServer(srv)
+    front.start()
+    staged_calls = []
+    orig_staged = eng.transcribe_staged
+
+    def counted_staged(handle):
+        staged_calls.append(len(handle[0]))
+        return orig_staged(handle)
+
+    try:
+        t0 = time.perf_counter()
+        srv.warmup(staged_params, bucket_s=5.0, dtypes=(np.int16,))
+        torch.cuda.synchronize()
+        print(f"e2e {label}: warmup of the 5 s bucket's ladder "
+              f"{srv._ladder_sizes()} in {time.perf_counter() - t0:.3f} s")
+        host, port = front.address
+        kernels = _reset_traces(eng)
+        out, lat, wall = _post_all(host, port, bodies)
+        sizes1 = list(srv.batch_sizes)
+        print(f"e2e {label} HTTP: {SERVE_CLIENTS} requests of "
+              f"{seconds.min():.2f}-{seconds.max():.2f} s (WAV 48 kHz, s16le, "
+              f"mu-law): {_latency_line(lat, wall)}; batch sizes {sizes1}")
+        # Random weights place timestamps anywhere in a window: a segment
+        # ends at most a window past the audio's last seek.
+        bad = [(st, p) for (st, p), sec in zip(out, seconds)
+               if st != 200 or p["language"] != "en"
+               or not all(0.0 <= g[k] <= sec + 30.0
+                          for g in p["segments"] for k in ("start", "end"))]
+        if bad:
+            raise AssertionError(f"{label}: {len(bad)} requests failed: {bad[:2]}")
+
+        eng.transcribe_staged = counted_staged
+        futs = [None] * SERVE_CLIENTS
+        lat2 = [0.0] * SERVE_CLIENTS
+        go = threading.Barrier(SERVE_CLIENTS + 1)
+
+        def client(i):
+            go.wait(timeout=60)
+            t_i = time.perf_counter()
+            futs[i] = srv.submit(utts16[i], staged_params)
+            futs[i].result(timeout=600)
+            lat2[i] = time.perf_counter() - t_i
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        go.wait(timeout=60)
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join(timeout=900)
+        wall2 = time.perf_counter() - t0
+        results = [f.result(timeout=1) for f in futs]
+        torch.cuda.synchronize()
+        print(f"e2e {label} staged: {SERVE_CLIENTS} submits of the same audio "
+              f"(16 kHz int16): {_latency_line(lat2, wall2)}; batch sizes "
+              f"{srv.batch_sizes[len(sizes1):]}, staged engine calls of "
+              f"{staged_calls} rows")
+    finally:
+        eng.transcribe_staged = orig_staged
+        front.stop()
+        srv.shutdown()
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    print(f"e2e {label}: rungs per window batch {eng.last_decode_rungs}; stage "
+          f"seconds " + json.dumps({k: round(v, 4)
+                                    for k, v in eng.stage_seconds.items()}))
+    print(f"e2e {label}: launches {json.dumps(launches)}")
+    # Output checks: every request resolved, round 2 through the staged
+    # seam only, tokens inside the vocabulary.
+    assert sum(srv.batch_sizes) == 2 * SERVE_CLIENTS, srv.batch_sizes
+    assert len(srv.batch_sizes) - len(sizes1) == len(staged_calls)
+    for r in results:
+        assert r.language == "en"
+        assert all(0 <= tok < eng.cfg.n_vocab for tok in r.tokens)
+    want = _traced_launches(eng)
+    if launches != want:
+        raise AssertionError(f"{label}: launch counts {launches} != predicted {want}")
+    return launches
+
+
+def golden_http_phase():
+    """The trained tiny goldens through the HTTP front on the card: the
+    checkpoint (f32) behind BatchingTranscriptionServer(overlap_transfers)
+    and TranscriptionHTTPServer, every case's 30 s window POSTed at once as
+    raw f32 with no headers (the front's defaults: the sequential seek
+    loop, language detection, the ladder). Text, language and segments
+    must equal the goldens."""
+    from spittle_tpu_torch.engine.whisper_engine import WhisperEngine
+    from spittle_tpu_torch.parallel.http_server import TranscriptionHTTPServer
+    from spittle_tpu_torch.parallel.serving import BatchingTranscriptionServer
+
+    with open(os.path.join(TINY, "goldens.json")) as f:
+        goldens = json.load(f)
+    cases = goldens["cases"]
+    eng = WhisperEngine(device="cuda", dtype=torch.float32)
+    eng.load_model(os.path.join(TINY, "params.npz"))
+    srv = BatchingTranscriptionServer(eng, max_batch=8, max_wait_ms=200.0,
+                                      overlap_transfers=True)
+    front = TranscriptionHTTPServer(srv)
+    front.start()
+    try:
+        out, lat, wall = _post_all(*front.address, [
+            (tone_utterance(c["word_ids"]).tobytes(), {}) for c in cases])
+    finally:
+        front.stop()
+        srv.shutdown()
+    bad = [(c["word_ids"], st, p) for (st, p), c in zip(out, cases)
+           if st != 200 or p["text"] != c["greedy_text"]
+           or p["language"] != goldens["language_detected"]
+           or p["segments"] != c["segments"]]
+    print(f"trained_tiny goldens through the HTTP front: {len(cases) - len(bad)}/"
+          f"{len(cases)} texts, languages and segments identical; batch sizes "
+          f"{srv.batch_sizes}; {_latency_line(lat, wall)}")
+    if bad:
+        raise AssertionError(f"HTTP results differ from the goldens: {bad}")
 
 
 def _cross_kernel(eng) -> str:
@@ -1667,6 +2040,7 @@ def main() -> int:
     print(f"phase kernels: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     golden_phase()
+    golden_http_phase()
     family_golden_phase()
     print(f"phase goldens: {time.perf_counter() - t0:.1f} s")
     # Each kernel's launches come from the path that runs it: K1, K2 and
@@ -1699,6 +2073,10 @@ def main() -> int:
          dict(run=beam_phase)),
         ("turbo word timestamps", "random:large-v3-turbo", {}, "fullkv", None, None,
          (), dict(run=words_phase)),
+        ("VAD", "random:large-v3-turbo", {}, "fullkv", None, None, (),
+         dict(run=vad_phase)),
+        ("serving", "random:large-v3-turbo", {}, "fullkv", None, None, (),
+         dict(run=serving_phase)),
         *((f"turbo {form}", "random:large-v3-turbo", {}, form, 1,
            _predict(k4=1, form=form), (fn.__name__,), {})
           for form, fn in _form_kernels().items()),

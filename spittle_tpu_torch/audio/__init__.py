@@ -1,1 +1,2 @@
-"""Audio frontend: mu-law wire decode and log-mel."""
+"""Audio frontend: mu-law wire decode, log-mel, resampling, WAV files and
+the Silero VAD chain (audio/vad)."""

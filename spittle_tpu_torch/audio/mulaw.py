@@ -6,7 +6,8 @@ spittle_tpu/audio/mulaw.py).
 
 Encode runs on the host over numpy (the reference's numpy expression, which
 its native encoder is bit-identical to); decode is a few elementwise torch
-ops on the device, ahead of the mel frontend.
+ops on the device, ahead of the mel frontend, or numpy on the host
+(mulaw_decode_np, for the HTTP front's mu-law bodies).
 """
 
 from __future__ import annotations
@@ -30,6 +31,13 @@ def mulaw_encode(audio: np.ndarray) -> np.ndarray:
     num = np.log1p(np.float32(MU) * np.abs(x)).astype(np.float64)
     y = np.sign(x).astype(np.float64) * (num / np.log1p(MU))
     return np.round((y + 1.0) * 127.5).astype(np.uint8)
+
+
+def mulaw_decode_np(codes: np.ndarray) -> np.ndarray:
+    """uint8 mu-law codes -> f32 [-1,1] on the host (the HTTP front's
+    mu-law bodies and tests)."""
+    y = codes.astype(np.float32) / 127.5 - 1.0
+    return np.sign(y) * (np.power(1.0 + MU, np.abs(y)) - 1.0) / MU
 
 
 def mulaw_decode(codes: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,8 @@ and an int8 self-cache (quantize_cache), the encoder-attention forms
 `transcribe_batch` over the sequential seek loop (timestamp-guided seeks,
 the no-speech skip, a single item's prompt carry) or parallel windows
 with overlap-stitch, the pipelined `transcribe_stream` (prefetch thread,
-overlap_fetch), language detection, the temperature ladder (greedy at 0, or beam
+overlap_fetch), the serving seam `stage_batch`/`transcribe_staged`, the
+VAD-gated `transcribe_vad_segments`, language detection, the temperature ladder (greedy at 0, or beam
 search under TranscribeParams.beam_size, sampled above it, gated on
 compression ratio and avg_logprob), word timestamps (cross-attention DTW)
 on both paths and suppress_non_speech. A window is two mel frames per encoder position:
@@ -42,6 +43,7 @@ import torch
 
 from spittle_tpu_torch.audio.mel import HOP_LENGTH, log_mel_spectrogram
 from spittle_tpu_torch.audio.mulaw import mulaw_decode, mulaw_encode
+from spittle_tpu_torch.audio.vad.segmenter import segment_speech
 from spittle_tpu_torch.device import resolve_device
 from spittle_tpu_torch.models.whisper.alignment import (
     load_alignment_heads,
@@ -74,7 +76,13 @@ from spittle_tpu_torch.ops.quant import (
     quantize_whisper_encoder_w8a8,
 )
 
-from .base import Segment, TranscribeParams, TranscriptionResult, Word
+from .base import (
+    Segment,
+    TranscribeParams,
+    TranscriptionResult,
+    Word,
+    normalize_pcm,
+)
 
 FRAMES_PER_SECOND = 100
 
@@ -451,13 +459,74 @@ class WhisperEngine:
             raise ValueError(
                 "parallel_windows requires condition_on_previous_text=False "
                 "(windows decode independently)")
+        return self.transcribe_staged(self.stage_batch(audios, params))
+
+    def stage_batch(self, batch, params: Optional[TranscribeParams] = None):
+        """Host + transfer half of a batched transcription: the window
+        plan, the PCM assembly and the host->device copy (pinned, on the
+        side stream), everything a stager thread can do while the previous
+        batch computes. Returns the handle transcribe_staged takes,
+        (audios, (plan, placed, content_frames, overlap), params), or None
+        when the params need the sequential path (prompt carry, or not
+        parallel_windows), which cannot be staged."""
+        params = params or TranscribeParams()
+        if not params.parallel_windows or params.condition_on_previous_text:
+            return None
+        if not self.is_loaded:
+            raise RuntimeError("no model loaded")
+        self._check_params(params)
+        return self._stage(batch, params)
+
+    def _stage(self, batch, params: TranscribeParams):
+        """The parallel-windows plan of `batch`, assembled and placed."""
+        audios = [_as_audio(a) for a in batch]
         plan, windows, content_frames, overlap = self._plan_parallel_windows(
             audios, params
         )
         staged = (plan, self._place_windows(windows), content_frames, overlap)
+        return (audios, staged, params)
+
+    def transcribe_staged(self, handle) -> List[TranscriptionResult]:
+        """Compute half for a stage_batch handle: the device half, then the
+        fetch, the ladder's other rungs, parse and stitch."""
+        audios, staged, params = handle
         return self._finalize_parallel_windows(self._dispatch_parallel_windows(
             audios, params, self._base_prompt(params), staged
         ))
+
+    def transcribe_vad_segments(self, audio, params: Optional[TranscribeParams] = None,
+                                vad_params=None) -> TranscriptionResult:
+        """Long-form transcription gated by the Silero + SmoothedVad chain:
+        the buffer's speech spans (Silero over every 30 ms frame on the
+        engine's device), all spans transcribed as one batch, the text
+        stitched with absolute timestamps. vad_params: Silero weights
+        (load_silero_params); by default the bundled ones on the engine's
+        device."""
+        audio = normalize_pcm(audio)
+        spans = segment_speech(audio, params=vad_params, device=self.device)
+        if not spans:
+            return TranscriptionResult(text="")
+        chunks = [audio[s.start_sample : s.end_sample] for s in spans]
+        results = self.transcribe_batch(chunks, params)
+        segments: List[Segment] = []
+        texts = []
+        words: List[Word] = []
+        for span, res in zip(spans, results):
+            if res.text:
+                texts.append(res.text)
+            for seg in res.segments:
+                segments.append(Segment(start=seg.start + span.start_sec,
+                                        end=seg.end + span.start_sec,
+                                        text=seg.text))
+            for w in res.words:
+                words.append(Word(w.word, w.start + span.start_sec,
+                                  w.end + span.start_sec))
+        return TranscriptionResult(
+            text=" ".join(texts).strip(),
+            segments=segments,
+            language=results[0].language if results else None,
+            words=words,
+        )
 
     def _words(self, gen, xa_row, prefix, window_frames: int,
                 win_offset: float) -> List[Word]:
@@ -621,13 +690,7 @@ class WhisperEngine:
                 for batch in batches:
                     if stop.is_set():
                         return
-                    audios = [_as_audio(a) for a in batch]
-                    plan, windows, content_frames, overlap = (
-                        self._plan_parallel_windows(audios, params)
-                    )
-                    staged = (plan, self._place_windows(windows),
-                              content_frames, overlap)
-                    if not _put((audios, staged)):
+                    if not _put(self._stage(batch, params)):
                         return
             except BaseException as e:  # noqa: BLE001 - re-raised by the consumer
                 _put(("__error__", e))
@@ -645,7 +708,7 @@ class WhisperEngine:
                     break
                 if isinstance(item, tuple) and item[0] == "__error__":
                     raise item[1]
-                audios, staged = item
+                audios, staged, _ = item
                 disp = self._dispatch_parallel_windows(
                     audios, params, base_prompt, staged
                 )
