@@ -43,7 +43,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    K12 and K13 (in-place cache column writes) at the cache probe's shape,
    bit for bit against a slice assignment on a clone at the edges of a
    row's 32-byte sectors (K13 beside the floor of a sector in and out per
-   row). Each prints its max
+   row); K14 (the "w8a8" decoder's cross-attention, both products int8
+   x int8; hand-written for an XLA product, not a TPU kernel) against
+   its plain version on CPU copies at large-v3's decoder shapes (B 8, H
+   20, T 1500 at a 1504-byte pitch; R = 1, 4, 8 and 228, and R 4 with
+   kv_len 1300). Each prints its max
    error and tolerance, its time (`ms`: device time per launch from a
    CUDA graph of launches replayed between CUDA events; `call_ms`: eager
    calls between CUDA events, the host's per-call cost included), the
@@ -65,6 +69,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    TranscriptionHTTPServer (127.0.0.1, a free port): every case POSTed at
    once as raw f32 with no headers; texts, the detected language and the
    segments must equal the goldens.
+   Then the same checkpoint with speculative decoding (a self-draft, then
+   the checkpoint loaded again as a draft): every case's greedy goldens,
+   with the mean last_spec_stats; and under quantize_decoder="w8a8" (K14
+   in f32 at Dh 8), token for token equal to the port's CPU run.
    Then the trained_families checkpoints (tests/data/trained_families:
    Parakeet-TDT, SenseVoice, Moonshine; f32) through the port's three
    other engines: all 10 cases' texts exact in each, and each Parakeet
@@ -132,6 +140,18 @@ Phases, each printing its own lines; any failure exits non-zero:
       thread and transcribe_staged on the runner. Every request must
       resolve; p50/p95 latency, requests/s and the batch sizes of each
       round are printed; K1, K2 and K4 as the decode traces predict.
+   p. turbo speculative (after o, the same engine): the turbo decoder in
+      f32 (TF32 off; the cross-attention in the "w8a8" form, since K1 and
+      K4 take bf16 only) greedy against speculative with its
+      load_self_draft(2) layers over 8 windows' encoder output: tokens
+      equal; then the bf16 engine greedy and with load_self_draft(2) on
+      the same 8 windows: agreement, last_spec_stats, ms per main-model
+      pass against ms per step, K4's launches as predicted (4 rows per
+      item in each verify);
+   q. large-v3 w8a8 (after j, the large-v3 leg's engine and weights,
+      switched to quantize_decoder="w8a8"): 2 batches as b (K14 32 x (1 +
+      steps) per batch), then one batch with load_self_draft(2) (K14 at 4
+      rows per item in every verify);
    k-m. the other engine families at full width, f32, seeded random
       weights: random:parakeet-tdt-0.6b-v3 (TDT greedy loop),
       random:sense-voice-small (CTC) and random:moonshine-base (KV-cache
@@ -140,6 +160,10 @@ Phases, each printing its own lines; any failure exits non-zero:
       on one 65 s item; wall, encoder and decode seconds, decode steps,
       ms per step and peak memory printed. Plain PyTorch ops: every
       kernel's launch count must read 0.
+   r. T5 (after k-m): flan-t5-small at full width on numpy-seeded
+      weights, f32, 8 ragged prompts: encoder states and logits within
+      1e-4 of a CPU copy, greedy_generate's tokens equal, ms per step;
+      plain ops, every kernel's count 0.
 5. The probes (spittle_tpu_torch.probes.decode_cross and .cache_dus):
    both main()s, their JSON lines printed; K11, K12 and K13 take their
    launch counts from here.
@@ -212,7 +236,7 @@ def _kernels():
             att.decode_cross_attention_q8, att.decode_cross_attention_q4,
             *_form_kernels().values(), att.flash_attention,
             att.decode_cross_attention_q8_mh, cw.alias_col_write_sub,
-            cw.alias_col_write)
+            cw.alias_col_write, att.decode_cross_attention_w8a8)
 
 
 def _form_kernels():
@@ -456,6 +480,7 @@ def kernel_phase(dev, rng):
     path_shapes_phase(dev, rng, "reduced context", 8, 256)
     path_shapes_phase(dev, rng, "app path", 1, 1500)
     rows += quant_cross_phase(dev)
+    rows.append(w8a8_phase(dev))
     rows += flash_phase(dev, rng)
     rows.append(mh_phase(dev))
     rows += cache_write_phase(dev)
@@ -1086,6 +1111,99 @@ def quant_cross_phase(dev):
     return rows
 
 
+def w8a8_phase(dev):
+    """K14 (the "w8a8" decoder's cross-attention, both products int8 x
+    int8) against its plain version computed on CPU copies of the same
+    inputs, at large-v3's decoder shapes: B 8, H 20, Dh 64, T 1500 on the
+    decoder's rows (a 1504-byte pitch), R 1 (a greedy step), 4 (a
+    speculative verify), 8 and 228 (a prefill tile with a carried
+    prompt), and R 4 with kv_len 1300 (the pad's scales large: only a mask
+    before the max keeps them out). Each: device ms (a CUDA graph over
+    input sets larger than the L2), eager call ms, the plain version's ms
+    on the card (its products in f64, exact), the bound (the int8 K/V and
+    the scales once, q and the output once, at 3.35 TB/s; or the int8
+    products at 1,979 TOP/s, whichever is longer) and the nearest library
+    call, F.scaled_dot_product_attention over the same K/V dequantized to
+    bf16 beforehand (a bf16 attention, not the same function). Tolerance:
+    one bf16 ulp of each output plus one P code per row (w8a8_code_step),
+    at most 1% of the rows past one ulp. The row's numbers are R 1's."""
+    from spittle_tpu_torch.ops import attention as att
+    from spittle_tpu_torch.ops.quant import dequantize_kv, quantize_kv_w8a8
+
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 14)
+    b, h, d, t = BATCH, 20, 64, 1500
+    kv_bytes = 2 * b * h * d * t + 2 * b * h * t * 4
+
+    def make_set(kv_len):
+        kv = [quantize_kv_w8a8(torch.randn((b, h, d, t), generator=gen, device=dev))
+              for _ in range(2)]
+        for q in kv:
+            if kv_len < t:
+                q["qw8"][..., kv_len:] = torch.randint(
+                    -127, 128, q["qw8"][..., kv_len:].shape, generator=gen,
+                    device=dev, dtype=torch.int8)
+                q["scale"][..., kv_len:] = 1e3
+        deq = tuple(dequantize_kv(q).transpose(-1, -2).contiguous() for q in kv)
+        return (padded_rows(kv[0]["qw8"]), kv[0]["scale"], padded_rows(kv[1]["qw8"]),
+                kv[1]["scale"]), deq
+
+    print(f"K14 decode_cross_attention_w8a8 K/V int8 [{b},{h},{d},{t}] rows of 1504 "
+          f"bytes + f32 scales:")
+    row = None
+    for r, kv_len in ((1, t), (4, t), (8, t), (228, t), (4, 1300)):
+        sets = [make_set(kv_len) for _ in range(n_cold_sets(kv_bytes))]
+        qd = (torch.randn((b, h, r, d), generator=gen, device=dev) * d ** -0.5).to(
+            torch.bfloat16)
+        args = (qd, *sets[0][0])
+        got = att.decode_cross_attention_w8a8(*args, kv_len=kv_len)
+        cpu = [a.cpu() for a in args]
+        want = att.decode_cross_attention_w8a8_plain(*cpu, kv_len=kv_len)
+        step = att.w8a8_code_step(*cpu, kv_len=kv_len)
+        diff = (got.cpu().float() - want.float()).abs()
+        err = diff.max().item()
+        excess = (diff - (2.0 ** -7 * want.float().abs() + 1e-5)).amax(dim=-1)
+        worst = (excess - 1.001 * step).max().item()
+        share = (excess > 0).float().mean().item()
+        label = f"K14 R={r} kv_len={kv_len}"
+        print(f"  {label}: max_abs_err {err:.3e}; past one bf16 ulp + one P code "
+              f"{worst:.3e} (<= 0), rows past one ulp {share:.2%} (<= 1%)")
+        if not (worst <= 0 and share <= 0.01):
+            raise AssertionError(f"{label}: kernel disagrees with its plain version")
+        kernel = [lambda kv=kv: att.decode_cross_attention_w8a8(qd, *kv, kv_len=kv_len)
+                  for kv, _ in sets]
+        ms, eager_ms = time_ms(kernel, 50), call_ms(kernel, 50)
+        plain_ms = time_ms([lambda kv=kv: att.decode_cross_attention_w8a8_plain(
+            qd, *kv, kv_len=kv_len) for kv, _ in sets], 3, 1)
+        lib_ms = time_ms([lambda kd=kd, vd=vd: F.scaled_dot_product_attention(
+            qd, kd, vd, scale=1.0) for _, (kd, vd) in sets], 50)
+        nbytes = kv_bytes + 2 * (2 * b * h * r * d)
+        bms, by = bound(4.0 * b * h * r * t * d, PEAK_INT8_OPS, nbytes)
+        print(f"  {label} ({len(sets)} input sets): ms {ms:.4f} (eager call_ms "
+              f"{eager_ms:.4f})  plain_ms {plain_ms:.4f}  library_ms "
+              f"(F.scaled_dot_product_attention on bf16 K/V dequantized "
+              f"beforehand) {lib_ms:.4f}  bound_ms {bms:.4f} ({by})")
+        shape = dict(ms=ms, call_ms=eager_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                     bound_ms=bms, max_abs_err=err)
+        if row is None:
+            row = dict(
+                name="decode_cross_attention_w8a8", route="cuda",
+                source="spittle_tpu_torch/csrc/decode_cross_attention_w8a8.cu",
+                replaces="spittle_tpu/models/whisper/model.py:550",
+                work="q [8,20,1,64] (a decode step), int8 K/V rows of 1504 bytes; "
+                     "hand-written for an XLA product, not a TPU kernel",
+                max_abs_err=err, ms=ms, call_ms=eager_ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                library="F.scaled_dot_product_attention on bf16 K/V dequantized "
+                        "beforehand", by_shape={})
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["by_shape"][f"R{r}" + ("" if kv_len == t else f"kv{kv_len}")] = shape
+        del sets, kernel
+        torch.cuda.empty_cache()
+    return row
+
+
 def weight_only_phase(dev, rng):
     """One decode step's weight-only int8 decoder products at large-v3
     width and B=8 (8 per layer: wq, wk, wv, wo, cross_wq, cross_wo, fc1,
@@ -1181,6 +1299,311 @@ def golden_phase():
           f"{'identical' if words == cases[0]['word_timestamps'] else 'DIFFERENT'}")
     if words != cases[0]["word_timestamps"]:
         raise AssertionError(f"word timestamps differ from the golden: {words}")
+
+
+def golden_spec_w8a8_phase():
+    """The trained tiny checkpoint (f32, Dh 8) on the card: its greedy
+    goldens through transcribe_samples with a self-draft (load_self_draft:
+    both of its decoder layers) and with a loaded draft (the same
+    checkpoint through load_draft_model, which encodes each window itself):
+    speculative decoding must give the greedy tokens exactly; then the
+    checkpoint under quantize_decoder="w8a8" (K14 at Dh 8 in f32 for every
+    cross-attention) through parallel windows, token for token equal to
+    the port's run of the same on the CPU."""
+    from spittle_tpu_torch.engine.base import TranscribeParams
+    from spittle_tpu_torch.engine.whisper_engine import WhisperEngine
+    from spittle_tpu_torch.ops import attention as att
+
+    with open(os.path.join(TINY, "goldens.json")) as f:
+        cases = json.load(f)["cases"]
+    npz = os.path.join(TINY, "params.npz")
+    base = dict(language="en", condition_on_previous_text=False, temperatures=(0.0,))
+    for how in ("load_self_draft", "load_draft_model"):
+        eng = WhisperEngine(device="cuda", dtype=torch.float32)
+        eng.load_model(npz)
+        getattr(eng, how)(*((npz,) if how == "load_draft_model" else ()))
+        bad, stats = [], []
+        for c in cases:
+            r = eng.transcribe_samples(tone_utterance(c["word_ids"]),
+                                       TranscribeParams(**base))
+            stats.append(eng.last_spec_stats)
+            if r.tokens != c["greedy_tokens"]:
+                bad.append((c["word_ids"], r.tokens))
+        mean = {k: round(float(np.mean([s[k] for s in stats])), 3) for k in stats[0]}
+        print(f"trained_tiny goldens with speculative decoding ({how}): "
+              f"{len(cases) - len(bad)}/{len(cases)} token-identical to greedy; "
+              f"mean last_spec_stats {json.dumps(mean)}")
+        if bad:
+            raise AssertionError(f"speculative tokens differ from the goldens: {bad}")
+    audio = [tone_utterance(c["word_ids"]) for c in cases]
+    p = TranscribeParams(parallel_windows=True, **base)
+    tokens = {}
+    for device in ("cuda", "cpu"):
+        eng = WhisperEngine(device=device, dtype=torch.float32, quantize_decoder="w8a8")
+        eng.load_model(npz)
+        att.decode_cross_attention_w8a8.launches = 0
+        tokens[device] = [r.tokens for r in eng.transcribe_batch(audio, p)]
+        if device == "cuda":
+            k14 = att.decode_cross_attention_w8a8.launches
+    same = sum(a == b for a, b in zip(tokens["cuda"], tokens["cpu"]))
+    print(f"trained_tiny under quantize_decoder='w8a8' (K14 launches {k14}): "
+          f"{same}/{len(cases)} token-identical to the CPU run")
+    if same != len(cases) or k14 == 0:
+        raise AssertionError("w8a8 on the card differs from the CPU run")
+
+
+def _spec_launches(eng, k_main: str, k_draft: str, rounds, draft_k=4):
+    """Launch counts of speculative decodes on `eng` with its draft: per
+    window batch K1 once and K2 six times per encoder layer (the draft
+    shares the encoder); per decode call, the main model's cross kernel
+    once per main layer for the prefill and each round's verify, the
+    draft's once per draft layer for its prefill and each of a round's
+    draft_k steps; the rest 0."""
+    cfg, dcfg = eng.cfg, eng.draft_cfg
+    want = {fn.__name__: 0 for fn in _kernels()}
+    want["flash_attention_fullkv"] = len(rounds) * cfg.n_audio_layer
+    want["w8a8_gemm"] = len(rounds) * 6 * cfg.n_audio_layer
+    want[k_main] += cfg.n_text_layer * sum(1 + r for r in rounds)
+    want[k_draft] += dcfg.n_text_layer * sum(1 + draft_k * r for r in rounds)
+    return want
+
+
+def _windows_run(eng, audio, p, label):
+    """transcribe_batch of `audio` with every counter set to 0 just before
+    and read just after: (results, launches, decode steps or rounds,
+    decode seconds, wall seconds)."""
+    kernels = _reset_traces(eng)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.transcribe_batch(audio, p)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    steps = list(eng.last_decode_steps)
+    decode_s = eng.stage_seconds["decode"]
+    print(f"e2e {label}: {len(audio)} x 30 s in {wall:.3f} s; decode {decode_s:.4f} s "
+          f"over {steps} passes: {1e3 * decode_s / max(sum(steps), 1):.3f} ms per "
+          f"pass; launches {json.dumps(launches)}")
+    return res, launches, steps, decode_s, wall
+
+
+def w8a8_leg_phase(label: str, eng, seed: int):
+    """The large-v3 leg's engine under quantize_decoder="w8a8": its weights
+    are the int8 leg's (the decoder is quantized weight-only as "int8"
+    does; only the cross-K/V's form and route differ), so the engine is
+    switched in place. 2 batches of 8 x 30 s through transcribe_stream:
+    K14 once per decoder layer per step and per prefill (3 rows), K1/K2
+    per batch, nothing else. Then one batch with load_self_draft(2):
+    K14 at 4 rows per item in every verify, 1 row in the draft's steps,
+    as _spec_launches predicts. Returns the first run's counts."""
+    from spittle_tpu_torch.engine.base import TranscribeParams
+
+    eng.quantize_decoder = "w8a8"
+    counts = e2e_phase(label, eng, N_BATCHES, BATCH, seed, _predict(k14=1))
+    rng = np.random.default_rng(seed + 5)
+    audio = [synth_utterance(rng, 30.0) for _ in range(BATCH)]
+    p = TranscribeParams(language="en", parallel_windows=True, max_tokens=96,
+                         condition_on_previous_text=False, temperatures=(0.0,))
+    eng.load_self_draft(2)
+    try:
+        res, launches, rounds, _, _ = _windows_run(eng, audio, p,
+                                                   f"{label} speculative")
+        want = _spec_launches(eng, "decode_cross_attention_w8a8",
+                              "decode_cross_attention_w8a8", rounds)
+    finally:
+        eng.draft_params = eng.draft_cfg = None  # back to greedy decoding
+    print(f"e2e {label} speculative: last_spec_stats {json.dumps(eng.last_spec_stats)}")
+    if launches != want:
+        raise AssertionError(f"{label} speculative: launch counts {launches} != "
+                             f"predicted {want}")
+    assert len(res) == BATCH and all(
+        0 <= tok < eng.cfg.n_vocab for r in res for tok in r.tokens)
+    return counts
+
+
+def turbo_speculative_phase(label: str, eng, seed: int):
+    """Speculative decoding on the turbo leg's engine (bf16, K4), 8 x 30 s
+    windows, 96-token budget, temperature 0.
+
+    1. Exactness at full width: the turbo decoder cast to f32 with TF32
+       off, greedy_decode and speculative_greedy_decode with its
+       load_self_draft(2) layers over the same encoder output (the engine's
+       bf16 encode, cast to f32). K1 and K4 take bf16 only, so the f32
+       decoder runs the cross-attention in the "w8a8" form (the decoder's
+       weights int8 weight-only, "qw8" cross-K/V: K14 takes f32 q), the
+       one f32 decode cross-attention the port has on the card. The tokens
+       must be equal.
+    2. The engine in bf16 with load_self_draft(2) against the same windows
+       greedy: token agreement (bf16 products over 4 rows and over 1 round
+       differently, so near-ties may part), last_spec_stats, ms per
+       main-model pass against greedy's ms per step, and the launches
+       _spec_launches predicts (K4 at 4 rows per item in every verify)."""
+    from spittle_tpu_torch.engine.base import TranscribeParams
+    from spittle_tpu_torch.engine.whisper_engine import WhisperEngine
+    from spittle_tpu_torch.models.whisper.decode import DecodeOptions, greedy_decode
+    from spittle_tpu_torch.models.whisper.speculative import speculative_greedy_decode
+    from spittle_tpu_torch.ops import full_f32
+    from spittle_tpu_torch.ops.quant import quantize_whisper_decoder
+
+    cfg = eng.cfg
+    rng = np.random.default_rng(seed + 7)
+    audio = [synth_utterance(rng, 30.0) for _ in range(BATCH)]
+    p = TranscribeParams(language="en", parallel_windows=True, max_tokens=96,
+                         condition_on_previous_text=False, temperatures=(0.0,))
+    # 1. f32 at full width.
+    windows = torch.from_numpy(eng._assemble_windows(
+        [a for a in audio], [(i, 0) for i in range(BATCH)])).to("cuda")
+    with torch.inference_mode():
+        xa = eng._frontend(windows).float()
+    p32 = quantize_whisper_decoder({"decoder": _to_f32(eng.params["decoder"])})
+    shim = WhisperEngine(device="cuda")  # the engine's own layer pick
+    shim.cfg, shim.params = cfg, p32
+    shim.load_self_draft(2)
+    d32, dcfg = shim.draft_params, shim.draft_cfg
+    opts = DecodeOptions(language="en", max_tokens=96, quant_kv=True, quant_kv_w8a8=True)
+    kernels = _reset_traces(eng)
+    with full_f32():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        greedy = greedy_decode(p32, xa, cfg, opts)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        spec = speculative_greedy_decode(p32, d32, xa, xa, cfg, dcfg, opts)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    k14 = {fn.__name__: fn.launches for fn in kernels}["decode_cross_attention_w8a8"]
+    want = (cfg.n_text_layer * (1 + greedy["steps"])
+            + cfg.n_text_layer * (1 + spec["rounds"])
+            + dcfg.n_text_layer * (1 + 4 * spec["rounds"]))
+    same = torch.equal(greedy["tokens"], spec["tokens"])
+    print(f"e2e {label} f32 (w8a8 cross-attention, K14 launches {k14}, predicted "
+          f"{want}): speculative tokens {'identical' if same else 'DIFFERENT'} to "
+          f"greedy's over {BATCH} windows; greedy {greedy['steps']} steps in "
+          f"{t1 - t0:.3f} s ({1e3 * (t1 - t0) / max(greedy['steps'], 1):.3f} ms per "
+          f"step), speculative {spec['rounds']} passes, {spec['accepted_total']} "
+          f"positions in {t2 - t1:.3f} s")
+    if not same:
+        diff = (greedy["tokens"] != spec["tokens"]).nonzero()[:4].tolist()
+        raise AssertionError(f"{label}: f32 speculative tokens differ from greedy at {diff}")
+    if k14 != want:
+        raise AssertionError(f"{label}: K14 launches {k14} != predicted {want}")
+    del p32, d32, shim, xa, greedy, spec
+    # 2. The bf16 engine, greedy then with its self-draft.
+    g_res, _, g_steps, g_dec, _ = _windows_run(eng, audio, p, f"{label} greedy")
+    eng.load_self_draft(2)
+    try:
+        s_res, launches, rounds, s_dec, _ = _windows_run(eng, audio, p,
+                                                         f"{label} speculative")
+        want = _spec_launches(eng, "decode_cross_attention", "decode_cross_attention",
+                              rounds)
+    finally:
+        eng.draft_params = eng.draft_cfg = None  # back to greedy decoding
+    agree = sum(a.tokens == b.tokens for a, b in zip(g_res, s_res))
+    print(f"e2e {label} bf16: {agree}/{BATCH} windows token-identical to greedy; "
+          f"last_spec_stats {json.dumps(eng.last_spec_stats)}; ms per main-model "
+          f"pass {1e3 * s_dec / max(sum(rounds), 1):.3f} against greedy's ms per "
+          f"step {1e3 * g_dec / max(sum(g_steps), 1):.3f}")
+    if launches != want:
+        raise AssertionError(f"{label}: launch counts {launches} != predicted {want}")
+    return launches
+
+
+def t5_tensors(cfg, seed: int):
+    """HF-named flan-T5 tensors drawn from numpy at HF's initialisation
+    scales (T5PreTrainedModel._init_weights with factor 1): the embedding
+    and LM head N(0, 1) and N(0, d^-0.5), q N(0, (d*d_kv)^-0.5), k/v/o and
+    wi N(0, d^-0.5) (o: (H*d_kv)^-0.5), wo N(0, d_ff^-0.5), the position
+    tables N(0, d^-0.5), norms 1."""
+    rng = np.random.default_rng(seed)
+    d, inner, ff = cfg.d_model, cfg.inner, cfg.d_ff
+
+    def w(out, inn, std):
+        return (rng.standard_normal((out, inn), dtype=np.float32) * np.float32(std))
+
+    t = {"shared.weight": w(cfg.vocab_size, d, 1.0),
+         "lm_head.weight": w(cfg.vocab_size, d, d ** -0.5),
+         "encoder.final_layer_norm.weight": np.ones(d, np.float32),
+         "decoder.final_layer_norm.weight": np.ones(d, np.float32)}
+    for side in ("encoder", "decoder"):
+        t[f"{side}.block.0.layer.0.SelfAttention.relative_attention_bias.weight"] =             w(cfg.rel_buckets, cfg.num_heads, d ** -0.5)
+        for i in range(cfg.num_layers):
+            pre = f"{side}.block.{i}.layer"
+            attns = [("0.SelfAttention", 0)] + ([("1.EncDecAttention", 1)]
+                                                if side == "decoder" else [])
+            for name, idx in attns:
+                t[f"{pre}.{name}.q.weight"] = w(inner, d, (d * cfg.d_kv) ** -0.5)
+                t[f"{pre}.{name}.k.weight"] = w(inner, d, d ** -0.5)
+                t[f"{pre}.{name}.v.weight"] = w(inner, d, d ** -0.5)
+                t[f"{pre}.{name}.o.weight"] = w(d, inner, inner ** -0.5)
+                t[f"{pre}.{idx}.layer_norm.weight"] = np.ones(d, np.float32)
+            f = 2 if side == "decoder" else 1
+            t[f"{pre}.{f}.DenseReluDense.wi_0.weight"] = w(ff, d, d ** -0.5)
+            t[f"{pre}.{f}.DenseReluDense.wi_1.weight"] = w(ff, d, d ** -0.5)
+            t[f"{pre}.{f}.DenseReluDense.wo.weight"] = w(d, ff, ff ** -0.5)
+            t[f"{pre}.{f}.layer_norm.weight"] = np.ones(d, np.float32)
+    return t
+
+
+def t5_phase():
+    """flan-t5-small at full width (FLAN_T5_SMALL: d 512, 8+8 layers, 6
+    heads, 32,128 tokens) on numpy-seeded weights, f32, TF32 off, on a
+    batch of 8 ragged prompts (12 to 64 tokens): the encoder states and
+    teacher-forced logits within 1e-4 of the same functions on a CPU
+    copy, greedy_generate's tokens (32 steps at most) equal to the CPU's,
+    and its ms per step on the card. Plain ops: every kernel's count must
+    read 0."""
+    from spittle_tpu_torch.models import t5
+    from spittle_tpu_torch.ops import full_f32
+
+    cfg = t5.FLAN_T5_SMALL
+    tensors = t5_tensors(cfg, SEED + 5)
+    where = {"card": "cuda", "cpu": "cpu"}
+    params = {name: t5.params_from_hf_tensors(tensors, cfg, device=dev)
+              for name, dev in where.items()}
+    rng = np.random.default_rng(SEED + 6)
+    lens = [12, 64, 30, 45, 20, 64, 33, 50]
+    tokens = np.zeros((len(lens), max(lens)), np.int64)
+    for i, n in enumerate(lens):
+        tokens[i, :n - 1] = rng.integers(2, cfg.vocab_size, n - 1)
+        tokens[i, n - 1] = cfg.eos_id
+    dec = rng.integers(2, cfg.vocab_size, (len(lens), 16))
+    kernels = _zero_counters()
+    out = {}
+    with full_f32():
+        for name, prm in params.items():
+            dev = where[name]
+            tok = torch.from_numpy(tokens).to(dev)
+            mask = tok != cfg.pad_id
+            enc = t5.t5_encode(prm, tok, mask, cfg)
+            logits = t5.t5_decoder_forward(prm, torch.from_numpy(dec).to(dev), enc,
+                                           mask, cfg)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gen = t5.greedy_generate(prm, tokens, cfg, max_tokens=32)
+            torch.cuda.synchronize()
+            out[name] = (enc.cpu(), logits.cpu(), gen, time.perf_counter() - t0)
+    enc_err = (out["card"][0] - out["cpu"][0]).abs().max().item()
+    log_err = (out["card"][1] - out["cpu"][1]).abs().max().item()
+    same = np.array_equal(out["card"][2], out["cpu"][2])
+    steps = out["card"][2].shape[1]
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    print(f"e2e T5 flan-t5-small (B={len(lens)}, prompts {min(lens)}-{max(lens)} "
+          f"tokens): encoder states max |card - CPU| {enc_err:.3e}, logits "
+          f"{log_err:.3e} (tolerance 1e-4); greedy_generate {steps} steps "
+          f"{'identical' if same else 'DIFFERENT'} to the CPU's, "
+          f"{1e3 * out['card'][3] / steps:.3f} ms per step on the card")
+    if not (enc_err <= 1e-4 and log_err <= 1e-4 and same):
+        raise AssertionError("T5 on the card differs from its CPU run")
+    if any(launches.values()):
+        raise AssertionError(f"T5: a kernel ran on this path: {launches}")
+    return launches
+
+
+def _to_f32(tree):
+    """Every floating tensor of a parameter tree in f32."""
+    if isinstance(tree, dict):
+        return {k: _to_f32(v) for k, v in tree.items()}
+    return tree.float() if tree.is_floating_point() else tree
 
 
 def family_utterance(word_ids):
@@ -1409,15 +1832,20 @@ def _traced_launches(eng, detections: int = 0):
     return want
 
 
+def _zero_counters():
+    """Every kernel wrapper's launch count set to 0; returns the wrappers."""
+    kernels = _kernels()
+    for fn in kernels:
+        fn.launches = 0
+    return kernels
+
+
 def _reset_traces(eng):
     eng.stage_seconds.clear()
     for trace in (eng.last_decode_steps, eng.last_prefix_rows,
                   eng.last_decode_rungs):
         trace.clear()
-    kernels = _kernels()
-    for fn in kernels:
-        fn.launches = 0
-    return kernels
+    return _zero_counters()
 
 
 def app_phase(label: str, eng, seed: int):
@@ -1950,7 +2378,7 @@ def words_phase(label: str, eng, seed: int):
     return launches
 
 
-def _predict(k4=0, k3=0, k6=0, form="fullkv", long_kv=False):
+def _predict(k4=0, k3=0, k6=0, k14=0, form="fullkv", long_kv=False):
     """Launch counts of one path: the encoder-attention form's kernel (K1
     under "fullkv"; K5 under every form when the encoder's K/V is longer
     than 4096, long_kv) once and K2 six times per encoder layer and batch;
@@ -1968,6 +2396,7 @@ def _predict(k4=0, k3=0, k6=0, form="fullkv", long_kv=False):
             "decode_cross_attention": dec * k4,
             "decode_cross_attention_q8": dec * k3,
             "decode_cross_attention_q4": dec * k6,
+            "decode_cross_attention_w8a8": dec * k14,
         })
         return enc
     return predict
@@ -2040,6 +2469,7 @@ def main() -> int:
     print(f"phase kernels: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     golden_phase()
+    golden_spec_w8a8_phase()
     golden_http_phase()
     family_golden_phase()
     print(f"phase goldens: {time.perf_counter() - t0:.1f} s")
@@ -2077,6 +2507,8 @@ def main() -> int:
          dict(run=vad_phase)),
         ("serving", "random:large-v3-turbo", {}, "fullkv", None, None, (),
          dict(run=serving_phase)),
+        ("turbo speculative", "random:large-v3-turbo", {}, "fullkv", None, None, (),
+         dict(run=turbo_speculative_phase)),
         *((f"turbo {form}", "random:large-v3-turbo", {}, form, 1,
            _predict(k4=1, form=form), (fn.__name__,), {})
           for form, fn in _form_kernels().items()),
@@ -2089,6 +2521,9 @@ def main() -> int:
         ("large-v3 beam", "random:large-v3",
          dict(quantize_decoder="int8", quantize_cache=True), "fullkv", None, None,
          (), dict(run=lambda label, eng, seed: beam_phase(label, eng, seed, 2))),
+        ("large-v3 w8a8", "random:large-v3",
+         dict(quantize_decoder="int8", quantize_cache=True), "fullkv", None, None,
+         ("decode_cross_attention_w8a8",), dict(run=w8a8_leg_phase)),
         ("int4 variant", "random:large-v3-turbo",
          dict(quantize_decoder="int4", quantize_cache=True), "fullkv", 1,
          _predict(k6=1), ("decode_cross_attention_q4",), {}),
@@ -2121,6 +2556,11 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         print(f"phase e2e {label}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path["T5"] = t5_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase e2e T5: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     by_path["probes"] = probes_phase()
     launches.update({name: by_path["probes"][name] for name in PROBE_KERNELS})

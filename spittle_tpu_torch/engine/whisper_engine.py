@@ -6,8 +6,11 @@ GGML files with their own mel filterbank and vocabulary, HF safetensors
 directories read without the safetensors package, spittle .npz files,
 tokenizer files beside a checkpoint that embeds no vocabulary, and an
 alignment_heads.json sidecar), the mu-law or int16 PCM wire, the W8A8 encoder, the bf16/f32 decoder or the
-weight-only int8 decoder with int8 or int4 cross-K/V (quantize_decoder)
-and an int8 self-cache (quantize_cache), the encoder-attention forms
+weight-only int8 decoder with int8, int4 or "w8a8" cross-K/V
+(quantize_decoder; "w8a8" runs both cross-attention products int8 x int8,
+K14 on the card) and an int8 self-cache (quantize_cache), speculative
+decoding at temperature 0 with a draft model (load_draft_model) or a
+layer subset of the main decoder (load_self_draft), the encoder-attention forms
 (encoder_attention), `transcribe_samples` (the dictation app's call) and
 `transcribe_batch` over the sequential seek loop (timestamp-guided seeks,
 the no-speech skip, a single item's prompt carry) or parallel windows
@@ -20,9 +23,6 @@ on both paths and suppress_non_speech. A window is two mel frames per encoder po
 30 s for the stock 1500 positions, longer for a model with a larger
 n_audio_ctx (past 4096 positions the encoder's self-attention runs K5),
 shorter under TranscribeParams.audio_ctx (a push-to-talk utterance).
-Still unported, raising NotImplementedError that points at ROADMAP.md:
-speculative decoding (load_draft_model, load_self_draft) and the "w8a8"
-decoder.
 
 The engine runs on the card by default (device="cuda") and raises when
 there is none; the CPU is used only when the caller passes device="cpu".
@@ -57,6 +57,7 @@ from spittle_tpu_torch.models.whisper.decode import (
     greedy_decode,
 )
 from spittle_tpu_torch.models.whisper.model import encode, sinusoidal_positions
+from spittle_tpu_torch.models.whisper.speculative import speculative_greedy_decode
 from spittle_tpu_torch.models.whisper.tokenizer import (
     WhisperTokenizer,
     load_tokenizer,
@@ -85,13 +86,9 @@ from .base import (
 )
 
 FRAMES_PER_SECOND = 100
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to spittle_tpu_torch yet (see ROADMAP.md, "
-        f"queue 1 item {item})"
-    )
+# The config attributes a loaded draft must share with the main model.
+DRAFT_ATTRS = ("n_vocab", "sot", "eot", "timestamp_begin", "lang_begin",
+               "n_audio_ctx")
 
 
 def _pcm_f32(w: torch.Tensor) -> torch.Tensor:
@@ -148,10 +145,12 @@ class WhisperEngine:
         f32 on the CPU. An f32 model whose attention shapes reach a kernel
         raises on the card.
         quantize_encoder: W8A8 int8 encoder GEMMs (kernel K2 on the card).
-        quantize_decoder: False, True or "int8", or "int4": weight-only
-        int8 decoder block weights, and cross-attention K/V quantized to
-        int8 (K3 on the card) or int4 packed two per byte (K6). "w8a8"
-        is not ported yet and raises NotImplementedError. word_timestamps
+        quantize_decoder: False, True or "int8", "int4" or "w8a8":
+        weight-only int8 decoder block weights, and cross-attention K/V
+        quantized to int8 (K3 on the card), int4 packed two per byte (K6),
+        or int8 with both cross-attention products int8 x int8, q and P
+        quantized per row ("w8a8": K14 on the card, at every row count;
+        beam search takes plain int8, K3, as the reference). word_timestamps
         is refused under a quantized decoder (ValueError): the reference's
         alignment pass cannot take its int8 weights.
         quantize_cache: int8 self-attention cache, one scale per position.
@@ -175,10 +174,7 @@ class WhisperEngine:
         self.dtype = dtype
         if quantize_decoder is True:
             quantize_decoder = "int8"
-        if quantize_decoder == "w8a8":
-            raise _not_ported('quantize_decoder="w8a8" (int8 x int8 '
-                              'cross-attention)', 3)
-        if quantize_decoder not in (False, "int8", "int4"):
+        if quantize_decoder not in (False, "int8", "int4", "w8a8"):
             raise ValueError(
                 "quantize_decoder must be False, True/'int8', 'int4' or "
                 f"'w8a8', got {quantize_decoder!r}")
@@ -199,6 +195,15 @@ class WhisperEngine:
         # (None: the upper half of the decoder layers).
         self.mel_filters: Optional[torch.Tensor] = None
         self.alignment_heads: Optional[List[Tuple[int, int]]] = None
+        # Speculative decoding's draft (load_draft_model, load_self_draft):
+        # its config and weights, whether it is the main model's own layer
+        # subset (which shares the main encoder's output), and the mean
+        # rounds / accepted positions / emitted tokens of the latest
+        # speculative decode.
+        self.draft_cfg: Optional[WhisperConfig] = None
+        self.draft_params = None
+        self._self_draft = False
+        self.last_spec_stats: Optional[Dict[str, float]] = None
         self._copy_stream = (
             torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         )
@@ -270,14 +275,59 @@ class WhisperEngine:
         self._non_speech = None
         self.mel_filters = None
         self.alignment_heads = None
+        self.draft_cfg = None
+        self.draft_params = None
+        self._self_draft = False
 
     def load_draft_model(self, model_path: str) -> None:
-        """Speculative decoding's draft model (not ported: raises)."""
-        raise _not_ported("speculative decoding (load_draft_model)", 4)
+        """A draft Whisper for speculative decoding: `random:<config>`
+        (numpy-seeded weights, seed 1) or a checkpoint, in the engine's
+        dtype, unquantized. It must share the main model's token table and
+        audio context (DRAFT_ATTRS; ValueError otherwise). Greedy decodes
+        at temperature 0 then verify draft tokens four at a time and still
+        give the main model's transcript. The draft encodes each window
+        itself, with librosa's filterbank at its own n_mels."""
+        if not self.is_loaded:
+            raise RuntimeError("load the main model before the draft")
+        if model_path.startswith("random:"):
+            draft_cfg = CONFIGS[model_path.split(":", 1)[1]]
+            draft_params = random_params(draft_cfg, seed=1, dtype=self.dtype,
+                                         device=self.device)
+        else:
+            draft_cfg, tree, _ = load_params(model_path)
+            draft_params = cast_params(params_from_jax(tree, device=self.device),
+                                       self.dtype)
+        for attr in DRAFT_ATTRS:
+            if getattr(self.cfg, attr) != getattr(draft_cfg, attr):
+                raise ValueError(f"draft incompatible with main model on {attr}")
+        self.draft_cfg = draft_cfg
+        self.draft_params = draft_params
+        self._self_draft = False
 
     def load_self_draft(self, stride: int = 2) -> None:
-        """Speculative decoding's self-draft (not ported: raises)."""
-        raise _not_ported("speculative decoding (load_self_draft)", 4)
+        """A layer-dropped self-draft for speculative decoding: the main
+        decoder's blocks 0, stride, 2*stride, ... and always the last, as
+        the main model holds them (quantized or not), sharing its
+        embeddings, final norm, encoder and the encoder's output (no
+        second encode)."""
+        if not self.is_loaded:
+            raise RuntimeError("load the main model first")
+        n = self.cfg.n_text_layer
+        idx = sorted(set(range(0, n, max(stride, 1))) | {n - 1})
+        take = torch.tensor(idx, device=self.device)
+
+        def pick(node):
+            if isinstance(node, dict):
+                return {k: pick(v) for k, v in node.items()}
+            return node.index_select(0, take)
+
+        dec = dict(self.params["decoder"])
+        dec["blocks"] = pick(dec["blocks"])
+        self.draft_params = {**self.params, "decoder": dec}
+        self.draft_cfg = dataclasses.replace(
+            self.cfg, name=f"{self.cfg.name}-selfdraft{stride}",
+            n_text_layer=len(idx))
+        self._self_draft = True
 
     @property
     def is_loaded(self) -> bool:
@@ -336,6 +386,7 @@ class WhisperEngine:
             max_tokens=params.max_tokens or self.cfg.n_text_ctx // 2,
             quant_kv=bool(self.quantize_decoder),
             quant_kv_bits=4 if self.quantize_decoder == "int4" else 8,
+            quant_kv_w8a8=self.quantize_decoder == "w8a8",
             quant_cache=self.quantize_cache,
         )
 
@@ -423,6 +474,18 @@ class WhisperEngine:
                                   filters=self.mel_filters)
         return encode(self.params, mel, self.cfg, self.encoder_attention,
                       self._positions)
+
+    def _draft_frontend(self, windows: torch.Tensor, xa: torch.Tensor):
+        """The draft's encoder output for the same windows: None without a
+        draft, xa itself for a self-draft, else the draft's own encode of
+        its own mel (its n_mels, librosa's filterbank: a GGML file's
+        filters are not used, as in the reference)."""
+        if self.draft_params is None:
+            return None
+        if self._self_draft:
+            return xa
+        mel = log_mel_spectrogram(_pcm_f32(windows), n_mels=self.draft_cfg.n_mels)
+        return encode(self.draft_params, mel, self.draft_cfg, self.encoder_attention)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -572,8 +635,9 @@ class WhisperEngine:
             )
             with torch.inference_mode(), full_f32():
                 t0 = time.perf_counter()
-                xa = self._frontend(self._windows_ready(
-                    self._place_windows(windows)))
+                placed = self._windows_ready(self._place_windows(windows))
+                xa = self._frontend(placed)
+                draft_xa = self._draft_frontend(placed, xa)
                 self._sync()
                 t1 = time.perf_counter()
                 lt = None
@@ -588,7 +652,7 @@ class WhisperEngine:
                     if lang_tokens is not None:
                         lt = torch.from_numpy(lang_tokens[active]).to(self.device)
                 out = self._decode_with_fallback(xa, opts, params, lt,
-                                                 prompt_tokens)
+                                                 prompt_tokens, draft_xa=draft_xa)
             t2 = time.perf_counter()
             tokens = out["tokens"]
             sb = out["sample_begin"]
@@ -737,7 +801,9 @@ class WhisperEngine:
         # match the reference's f32 arithmetic, so TF32 stays off here.
         with torch.inference_mode(), full_f32():
             t0 = time.perf_counter()
-            xa = self._frontend(self._windows_ready(placed))
+            windows = self._windows_ready(placed)
+            xa = self._frontend(windows)
+            draft_xa = self._draft_frontend(windows, xa)
             self._sync()
             t1 = time.perf_counter()
             det = lt = None
@@ -748,12 +814,13 @@ class WhisperEngine:
                 det = probs.argmax(dim=-1)  # [n]
                 lt = cfg.lang_begin + det[[i for i, _ in plan]]
             opts = self._decode_options(params)
-            out0 = self._dispatch_decode(xa, opts, params, lt, base_prompt)
+            out0 = self._dispatch_decode(xa, opts, params, lt, base_prompt,
+                                         draft_xa=draft_xa)
             self._sync()
             t2 = time.perf_counter()
         self._time("frontend", t1 - t0)
         self._time("decode", t2 - t1)
-        return dict(out0=out0, xa=xa, opts=opts, lt=lt, det=det,
+        return dict(out0=out0, xa=xa, draft_xa=draft_xa, opts=opts, lt=lt, det=det,
                     base_prompt=base_prompt, params=params, plan=plan,
                     content_frames=content_frames, overlap=overlap, wf=wf,
                     n=len(audios))
@@ -776,7 +843,8 @@ class WhisperEngine:
             languages = [self.tokenizer.lang_code(int(cfg.lang_begin + d))
                          for d in det]
         out = self._finish_decode(disp["out0"], disp["xa"], disp["opts"],
-                                  params, disp["lt"], disp["base_prompt"])
+                                  params, disp["lt"], disp["base_prompt"],
+                                  draft_xa=disp["draft_xa"])
         t1 = time.perf_counter()
         self._time("decode", t1 - t0)
         tokens = out["tokens"]
@@ -869,17 +937,24 @@ class WhisperEngine:
         return [h.numpy() for h in host]
 
     def _decode_once(self, xa, opts: DecodeOptions, params: TranscribeParams,
-                     lt, prompt_tokens):
-        """One rung over xa: beam search at temperature 0 when
-        params.beam_size > 1, else greedy; sampled above 0 (the reference's
-        rule). Records the decode's steps and prefix rows (beam_size x the
-        prefix under beam search)."""
+                     lt, prompt_tokens, draft_xa=None):
+        """One rung over xa: at temperature 0 beam search when
+        params.beam_size > 1, else speculative decoding when there is a
+        draft (draft_xa, its encoder output), else greedy; sampled above 0
+        (the reference's rule). Records the decode's steps (main-model
+        passes under speculative decoding) and prefix rows (beam_size x
+        the prefix under beam search)."""
         beams = params.beam_size if opts.temperature == 0.0 else 1
         with torch.inference_mode(), full_f32():
             if beams > 1:
                 out = beam_decode(self.params, xa, self.cfg, opts,
                                   beam_size=beams, lang_tokens=lt,
                                   prompt_tokens=prompt_tokens)
+            elif draft_xa is not None and opts.temperature == 0.0:
+                out = speculative_greedy_decode(
+                    self.params, self.draft_params, xa, draft_xa, self.cfg,
+                    self.draft_cfg, opts, lang_tokens=lt,
+                    prompt_tokens=prompt_tokens)
             else:
                 out = greedy_decode(self.params, xa, self.cfg, opts,
                                     lang_tokens=lt, prompt_tokens=prompt_tokens)
@@ -887,31 +962,37 @@ class WhisperEngine:
         self.last_prefix_rows.append(max(beams, 1) * out["sample_begin"])
         return out
 
-    def _decode_with_fallback(self, xa, opts, params, lt, prompt_tokens):
+    def _decode_with_fallback(self, xa, opts, params, lt, prompt_tokens,
+                              draft_xa=None):
         """Per-item retry ladder: a window whose decode looks degenerate
         (compression ratio > 2.4 or avg logprob < -1.0) re-decodes at the
         next temperature."""
         return self._finish_decode(
-            self._dispatch_decode(xa, opts, params, lt, prompt_tokens),
-            xa, opts, params, lt, prompt_tokens,
+            self._dispatch_decode(xa, opts, params, lt, prompt_tokens,
+                                  draft_xa=draft_xa),
+            xa, opts, params, lt, prompt_tokens, draft_xa=draft_xa,
         )
 
-    def _dispatch_decode(self, xa, opts, params, lt, prompt_tokens):
+    def _dispatch_decode(self, xa, opts, params, lt, prompt_tokens,
+                         draft_xa=None):
         """The ladder's first rung, not fetched."""
         ladder = params.temperatures or self.FALLBACK_TEMPERATURES
         return self._decode_once(
             xa, dataclasses.replace(opts, temperature=ladder[0]), params, lt,
-            prompt_tokens,
+            prompt_tokens, draft_xa=draft_xa,
         )
 
-    def _finish_decode(self, out, xa, opts, params, lt, prompt_tokens):
+    def _finish_decode(self, out, xa, opts, params, lt, prompt_tokens,
+                       draft_xa=None):
         """Fetch the first rung and run the ladder's others: each rung
         past 0 re-decodes only the pending items (their rows of xa and
         lt), one fetch per rung. An item is accepted when its text's
         compression ratio is <= 2.4 and its avg_logprob >= -1.0; every
         rung overwrites the pending items' results, so an item that fails
-        every rung keeps the last rung's. Returns numpy "tokens",
-        "avg_logprob", "no_speech_prob" and "sample_begin"."""
+        every rung keeps the last rung's. A speculative rung's mean rounds,
+        accepted positions and emitted tokens go to last_spec_stats.
+        Returns numpy "tokens", "avg_logprob", "no_speech_prob" and
+        "sample_begin"."""
         n = xa.shape[0]
         best = None
         pending = list(range(n))
@@ -924,13 +1005,23 @@ class WhisperEngine:
                     rows = torch.tensor(pending, device=xa.device)
                     out = self._decode_once(
                         xa[rows], t_opts, params,
-                        lt[rows] if lt is not None else None, prompt_tokens)
+                        lt[rows] if lt is not None else None, prompt_tokens,
+                        draft_xa=draft_xa[rows] if draft_xa is not None else None)
                 else:
                     out = self._decode_once(xa, t_opts, params, lt,
-                                            prompt_tokens)
+                                            prompt_tokens, draft_xa=draft_xa)
             rungs += 1
-            tokens, avg_lp, ns_prob = self._fetch(
-                out["tokens"], out["avg_logprob"], out["no_speech_prob"])
+            spec = "rounds" in out
+            fetched = self._fetch(out["tokens"], out["avg_logprob"],
+                                  out["no_speech_prob"],
+                                  *((out["length"],) if spec else ()))
+            tokens, avg_lp, ns_prob = fetched[:3]
+            if spec:
+                self.last_spec_stats = {
+                    "rounds": float(out["rounds"]),
+                    "accepted_total": float(out["accepted_total"]),
+                    "emitted": float(np.mean(fetched[3])),
+                }
             sb = out["sample_begin"]
             if best is None:
                 best = {"tokens": tokens.copy(), "avg_logprob": avg_lp.copy(),

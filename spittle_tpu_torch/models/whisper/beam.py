@@ -12,8 +12,9 @@ its length-normalised score.
 
 The cross-K/V is computed once per item: the cross-attention folds an
 item's beams into its query rows (model.py:_cross_attention), so on the
-card a step reads each item's K/V once, in K4 (bf16), K3 (int8) or K6
-(int4) at beam_size rows per item.
+card a step reads each item's K/V once, in K4 (bf16), K3 (int8, the
+"w8a8" decoder's too: the reference's beam search quantizes to plain int8
+whatever quant_kv_w8a8 says) or K6 (int4) at beam_size rows per item.
 """
 
 from __future__ import annotations
@@ -85,7 +86,8 @@ def beam_decode(
     audio_ctx = xa.shape[1]
     static_mask = torch.from_numpy(
         _static_suppress_mask(cfg, opts, audio_ctx=audio_ctx)).to(dev)
-    # One cross-K/V per item, shared by its beams.
+    # One cross-K/V per item, shared by its beams. Under quant_kv_w8a8
+    # too the int8 K/V is plain "qw" (K3), as the reference routes it.
     if opts.quant_kv:
         quant = quantize_kv if opts.quant_kv_bits == 8 else quantize_kv_int4
         cross_kv = precompute_cross_kv_quant(params, xa, cfg, quant)

@@ -18,7 +18,11 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from spittle_tpu_torch.ops.quant import quantize_kv, quantize_kv_int4
+from spittle_tpu_torch.ops.quant import (
+    quantize_kv,
+    quantize_kv_int4,
+    quantize_kv_w8a8,
+)
 
 from .config import WhisperConfig
 from .model import (
@@ -49,8 +53,19 @@ class DecodeOptions:
     # two per byte (K6); quant_kv_bits is read only when quant_kv is set.
     quant_kv: bool = False
     quant_kv_bits: int = 8
+    # int8 cross-attention with both products int8 x int8, q and P
+    # quantized per row (K14 on the card); read only when quant_kv is set
+    # and quant_kv_bits is 8. Beam search ignores it (the reference's
+    # route: plain int8 K/V, K3).
+    quant_kv_w8a8: bool = False
     # int8 self-attention cache, one scale per position.
     quant_cache: bool = False
+    # Speculative decoding's timing rig: when non-zero, every round
+    # advances min(rig_advance, draft_k) positions whatever the draft and
+    # the main model agree on, so the tokens are NOT the main model's
+    # greedy transcript. Never set by the engine (the reference's engine
+    # reads it from SPITTLE_SPEC_RIG; the port reads no environment).
+    rig_advance: int = 0
 
     def __post_init__(self):
         # Only 4 or 8: the reference reads any other width as int4.
@@ -180,6 +195,19 @@ def _prefix(cfg: WhisperConfig, opts: DecodeOptions, b: int,
     return prefix, sot_pos
 
 
+def precompute_cross_kv_for(params, xa: torch.Tensor, cfg: WhisperConfig,
+                            opts: DecodeOptions):
+    """The cross-K/V greedy and speculative decoding read under opts: the
+    model's dtype, or quantized one layer at a time (the full bf16 pair
+    never exists) to int8 ("qw"), int8 for the int8 x int8 products
+    ("qw8", quant_kv_w8a8) or packed int4 ("qw4")."""
+    if not opts.quant_kv:
+        return precompute_cross_kv(params, xa, cfg)
+    quant = (quantize_kv_int4 if opts.quant_kv_bits == 4
+             else quantize_kv_w8a8 if opts.quant_kv_w8a8 else quantize_kv)
+    return precompute_cross_kv_quant(params, xa, cfg, quant)
+
+
 def gumbel_noise(shape, seed: int, device) -> Callable[[int], torch.Tensor]:
     """The sampling noise of one decode call: for each sampled position,
     in loop order, a fresh f32 tensor -log(-log(u)) with u uniform on
@@ -236,13 +264,7 @@ def greedy_decode(
     max_len = min(cfg.n_text_ctx, prefix_len + (opts.max_tokens or cfg.n_text_ctx))
     ctx = min(cfg.n_text_ctx, -(-max_len // 32) * 32)
     audio_ctx = xa.shape[1]
-    if opts.quant_kv:
-        # Fused per-layer projection and quantization: the full bf16
-        # cross-K/V pair never exists.
-        quant = quantize_kv if opts.quant_kv_bits == 8 else quantize_kv_int4
-        cross_kv = precompute_cross_kv_quant(params, xa, cfg, quant)
-    else:
-        cross_kv = precompute_cross_kv(params, xa, cfg)
+    cross_kv = precompute_cross_kv_for(params, xa, cfg, opts)
     static_mask = torch.from_numpy(
         _static_suppress_mask(cfg, opts, audio_ctx=audio_ctx)
     ).to(dev)

@@ -18,9 +18,19 @@ Layouts:
   the same function).
 
 Quantized forms (the large-v3 leg): cross-K/V as int8 dicts {"qw" [L, B,
-H, Dh, T], "scale" [L, B, H, T]} (K3 on the card) or packed int4 {"qw4"
-[L, B, H, Dh/2, T], "scale"} (K6), and an int8 self-cache {"qw" [L, 2, B,
-H, ctx, Dh], "scale" [L, 2, B, H, ctx]}, one f32 scale per position.
+H, Dh, T], "scale" [L, B, H, T]} (K3 on the card), the same bytes as
+{"qw8", "scale"} for the "w8a8" decoder, whose two cross-attention
+products are int8 x int8 with q and P quantized per row (K14 on the card,
+at any number of rows), or packed int4 {"qw4" [L, B, H, Dh/2, T],
+"scale"} (K6), and an int8 self-cache {"qw" [L, 2, B, H, ctx, Dh],
+"scale" [L, 2, B, H, ctx]}, one f32 scale per position.
+
+decode_block scores K positions in one pass (speculative decoding's
+verify). Its start position is clamped as JAX's dynamic_slice and
+dynamic_update_slice clamp theirs: the position embeddings are read from
+min(pos, n_text_ctx - K) and the columns written from min(pos, ctx - K),
+while the causal mask keeps the unclamped pos + j; decode_step clamps the
+same way (K = 1).
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ from spittle_tpu_torch.ops.attention import (
     decode_cross_attention,
     decode_cross_attention_q4,
     decode_cross_attention_q8,
+    decode_cross_attention_w8a8,
     merge_heads,
     multihead_attention,
     multihead_attention_packed,
@@ -44,6 +55,7 @@ from spittle_tpu_torch.ops.attention import (
 from spittle_tpu_torch.ops.quant import (
     is_quant_kv4,
     is_quant_w8a8,
+    kv_codes,
     mm,
     mm_bias,
     quantize_kv_t,
@@ -207,9 +219,9 @@ def precompute_cross_kv(params: Params, xa: torch.Tensor, cfg: WhisperConfig):
 
 def _cross_kv_buffer(key: str, a: torch.Tensor, n: int) -> torch.Tensor:
     """An uninitialised [n, *a.shape] buffer for n layers of `a`; for the
-    int8 "qw" and the packed int4 "qw4" a view of one whose rows are
-    tma_pitch(T) apart."""
-    if key not in ("qw", "qw4"):
+    int8 "qw" and "qw8" and the packed int4 "qw4" a view of one whose rows
+    are tma_pitch(T) apart."""
+    if key not in ("qw", "qw8", "qw4"):
         return a.new_empty((n, *a.shape))
     return _padded_rows(a, n)
 
@@ -219,15 +231,17 @@ def precompute_cross_kv_quant(params: Params, xa: torch.Tensor,
     """precompute_cross_kv fused with K/V quantization, one layer at a
     time (the reference's fused precompute_cross_kv_q8): only one layer's
     bf16/f32 intermediates are ever live. quant is quantize_kv (int8:
-    {"qw" int8 [L, B, H, Dh, T], "scale" f32 [L, B, H, T]}) or
-    quantize_kv_int4 ({"qw4" int8 [L, B, H, Dh/2, T], "scale"}). Returns
-    the K dict and the V dict.
+    {"qw" int8 [L, B, H, Dh, T], "scale" f32 [L, B, H, T]}),
+    quantize_kv_w8a8 (the same bytes as {"qw8", "scale"}; the reference
+    quantizes the stacked precompute_cross_kv, the same numbers per layer)
+    or quantize_kv_int4 ({"qw4" int8 [L, B, H, Dh/2, T], "scale"}).
+    Returns the K dict and the V dict.
 
-    The int8 "qw" and packed int4 "qw4" rows are stored tma_pitch(T)
-    bytes apart (1504 for T 1500: 0.27% more bytes, never read past T)
-    and returned as views of the logical shape, so that K3 and K6 can
-    load them by TMA; the values are those of quant's. The scales are
-    contiguous."""
+    The int8 "qw"/"qw8" and packed int4 "qw4" rows are stored
+    tma_pitch(T) bytes apart (1504 for T 1500: 0.27% more bytes, never
+    read past T) and returned as views of the logical shape, so that K3
+    and K6 can load them by TMA; the values are those of quant's. The
+    scales are contiguous."""
     blocks = params["decoder"]["blocks"]
     h = cfg.n_text_head
     n = n_layers(blocks)
@@ -264,9 +278,15 @@ def init_kv_cache(cfg: WhisperConfig, batch: int, dtype=torch.float32,
 
 
 def _cross_attention_quant(cq, ck, cv, dh: int, kv_len: int):
-    """Cross-attention over int8 or packed int4 K/V dicts (qw/qw4 [B, H,
-    Dh or Dh/2, T], scale [B, H, T]). K3 or K6 for decode-sized queries,
-    on shape alone; otherwise the reference's plain int8 math."""
+    """Cross-attention over int8 or packed int4 K/V dicts (qw/qw8/qw4
+    [B, H, Dh or Dh/2, T], scale [B, H, T]). "qw8": K14 for any number of
+    rows (int8 x int8 products; its plain version on the CPU). "qw" and
+    "qw4": K3 or K6 for decode-sized queries, on shape alone; otherwise
+    the reference's plain int8 math."""
+    if is_quant_w8a8(ck):
+        return decode_cross_attention_w8a8(
+            cq * (dh ** -0.5), ck["qw8"], ck["scale"], cv["qw8"], cv["scale"],
+            kv_len=kv_len or ck["qw8"].shape[-1])
     int4 = is_quant_kv4(ck)
     key = "qw4" if int4 else "qw"
     kvl = kv_len or ck[key].shape[-1]
@@ -297,8 +317,7 @@ def _cross_attention(cq, ck, cv, dh: int, kv_len: int = 0):
     route is decided on the folded rows, and unfold after it.
     kv_len: real length of K/V (0 = all of T)."""
     bq, h, q, d = cq.shape
-    kv = ck if not isinstance(ck, dict) else ck["qw4" if is_quant_kv4(ck) else "qw"]
-    beams = bq // kv.shape[0]
+    beams = bq // kv_codes(ck).shape[0]
     if beams > 1:
         cq = (cq.reshape(bq // beams, beams, h, q, d).transpose(1, 2)
               .reshape(bq // beams, h, beams * q, d))
@@ -365,9 +384,22 @@ def _cache_write(cache, layer: int, k, v, start: int) -> None:
     cache[layer, 1, :, :, start:start + p].copy_(v)
 
 
-def _cache_attend(q, cache_l, pos: int):
-    """q [B, H, 1, Dh] over cache columns 0..pos of cache_l
-    [2, B, H, ctx, Dh]: f32 scores, masked softmax, PV in the cache dtype.
+def _causal_mask(n_ctx: int, pos: int, rows: int, device) -> torch.Tensor:
+    """[rows, n_ctx]: row j (position pos + j) sees columns <= pos + j."""
+    col = torch.arange(n_ctx, device=device)
+    return col[None, :] <= pos + torch.arange(rows, device=device)[:, None]
+
+
+def _clamped_start(pos: int, rows: int, n: int) -> int:
+    """JAX's dynamic_slice / dynamic_update_slice start: pos clamped to
+    [0, n - rows], so that `rows` entries fit below n."""
+    return max(0, min(pos, n - rows))
+
+
+def _cache_attend(q, cache_l, mask: torch.Tensor):
+    """q [B, H, Q, Dh] over the columns of cache_l [2, B, H, ctx, Dh] that
+    mask [Q, ctx] (_causal_mask) lets each row see: f32 scores, masked
+    softmax, PV in the cache dtype.
     An int8 cache_l {"qw", "scale" [2, B, H, ctx]} scores (q . qK) * ks
     and takes ((p * vs) in q's dtype) . qV: the scales factor out of both
     products exactly."""
@@ -376,15 +408,13 @@ def _cache_attend(q, cache_l, pos: int):
         ks, vs = cache_l["scale"][0], cache_l["scale"][1]
         scores = torch.matmul(q.float(), qk.float().transpose(-1, -2)) \
             * ks[:, :, None, :]
-        col = torch.arange(qk.shape[-2], device=q.device)
-        scores = torch.where(col <= pos, scores, _NEG_INF)
+        scores = torch.where(mask, scores, _NEG_INF)
         probs = torch.softmax(scores, dim=-1)
         return torch.matmul((probs * vs[:, :, None, :]).to(q.dtype),
                             qv.to(q.dtype))
     k_all, v_all = cache_l[0], cache_l[1]
     scores = torch.matmul(q.float(), k_all.float().transpose(-1, -2))
-    col = torch.arange(k_all.shape[-2], device=q.device)
-    scores = torch.where(col <= pos, scores, _NEG_INF)
+    scores = torch.where(mask, scores, _NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v_all.dtype)
     return torch.matmul(probs, v_all)
 
@@ -402,22 +432,41 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: int,
     decode_step_tmajor): embeds `tokens` [B] at position `pos`, writes each
     layer's new K/V column into kv_cache [L, 2, B, H, ctx, Dh] (or the
     int8 dict) IN PLACE, attends over columns 0..pos, and returns logits
-    [B, V] (f32)."""
+    [B, V] (f32). decode_block with K = 1, clamps and all."""
+    return decode_block(params, tokens[:, None], pos, kv_cache, cross_kv, cfg,
+                        audio_ctx)[:, 0]
+
+
+def decode_block(params: Params, tokens: torch.Tensor, pos: int,
+                 kv_cache, cross_kv, cfg: WhisperConfig,
+                 audio_ctx: int = 0) -> torch.Tensor:
+    """K-position decode (speculative decoding's verify pass): tokens
+    [B, K] at positions pos..pos+K-1 write their K/V columns into kv_cache
+    IN PLACE and attend causally (row j over columns <= pos + j); returns
+    logits [B, K, V] (f32). Past the end, the reference's clamps: the
+    position embeddings start at min(pos, n_text_ctx - K) and the columns
+    at min(pos, ctx - K), the mask keeping pos + j. Columns above the
+    accepted point hold stale draft K/V that later blocks overwrite."""
     dec = params["decoder"]
-    x = dec["tok_emb"][tokens][:, None, :]
-    x = (x + dec["pos_emb"][pos][None, None]).to(dec["tok_emb"].dtype)
+    b, kk = tokens.shape
     n_head = cfg.n_text_head
-    scale = (x.shape[-1] // n_head) ** -0.25
+    scale = (cfg.n_text_state // n_head) ** -0.25
+    n_ctx = (kv_cache["qw"] if isinstance(kv_cache, dict) else kv_cache).shape[4]
+    emb = _clamped_start(pos, kk, dec["pos_emb"].shape[0])
+    x = (dec["tok_emb"][tokens] + dec["pos_emb"][None, emb:emb + kk]).to(
+        dec["tok_emb"].dtype)
+    start = _clamped_start(pos, kk, n_ctx)
+    mask = _causal_mask(n_ctx, pos, kk, x.device)
     blocks = dec["blocks"]
     for layer in range(n_layers(blocks)):
         blk = layer_params(blocks, layer)
         q, k_new, v_new = _proj_qkv(x, blk, n_head, scale)
-        _cache_write(kv_cache, layer, k_new, v_new, pos)
-        o = _cache_attend(q, layer_params(kv_cache, layer), pos)
+        _cache_write(kv_cache, layer, k_new, v_new, start)
+        o = _cache_attend(q, layer_params(kv_cache, layer), mask)
         x = _layer_rest(x, o, blk, layer_params(cross_kv[0], layer),
                         layer_params(cross_kv[1], layer), n_head,
                         audio_ctx or cfg.n_audio_ctx)
-    return logits_from_hidden(params, x)[:, 0]
+    return logits_from_hidden(params, x)
 
 
 def decoder_prefill(params: Params, tokens: torch.Tensor, cross_kv,

@@ -1,4 +1,4 @@
-"""Attention ops: the port's kernels K1, K3–K11 with their plain versions
+"""Attention ops: the port's kernels K1, K3–K11 and K14 with their plain versions
 (port of spittle_tpu/ops/attention.py, and of the decode cross-attention
 probe's kernel).
 
@@ -35,6 +35,11 @@ probe's kernel).
   byte, with one f32 scale per position, the int4 instance of that
   kernel, on the decoder's padded rows; replaces the Pallas
   `decode_cross_attention_q4`.
+- decode_cross_attention_w8a8 (K14, csrc/decode_cross_attention_w8a8.cu):
+  the "w8a8" decoder's cross-attention over int8 K/V with both products
+  int8 x int8 -> int32, q and P quantized per row, for any number of
+  rows. It replaces no TPU kernel: the reference leaves these products to
+  XLA, and PyTorch has no integer matmul on CUDA.
 - multihead_attention_packed and multihead_attention: the dispatchers.
   They pick a kernel from the shapes and the encoder-attention form, an
   argument (ENCODER_ATTENTION_FORMS), never the environment.
@@ -877,3 +882,138 @@ def decode_cross_attention_q8_mh(q, qk, ks, qv, vs,
 
 
 decode_cross_attention_q8_mh.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K14: cross-attention with both products int8 x int8 -> int32 ("w8a8")
+# ---------------------------------------------------------------------------
+
+
+def _exact_int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of integer-valued operands as the int32 product rounded once
+    to f32: f64 holds every partial sum exactly (|sum| < 2**53), on any
+    device (CUDA has no integer matmul)."""
+    return torch.matmul(a.double(), b.double()).float()
+
+
+def _w8a8_probs(q, qk, ks, vs, kv_len: int):
+    """K14's first steps in the reference's order (spittle_tpu/models/
+    whisper/model.py, the "qw8" branch of _cross_attention): q's rows
+    quantized per row over Dh (amax/127, round half to even), the scores
+    f32(int32 qq . qK) * sq * ks masked to t < kv_len before the max, the
+    softmax e / sum(e), and pv = p * vs. Returns pv [B, H, R, T]."""
+    from .quant import _scale
+
+    q32 = q.float()
+    sq = _scale(q32.abs().amax(dim=-1, keepdim=True), 127.0)
+    qq = torch.clamp(torch.round(q32 / sq), -127, 127)
+    s = _exact_int_dot(qq, qk) * sq * ks[..., None, :]
+    tk = qk.shape[-1]
+    if kv_len < tk:
+        s = torch.where(torch.arange(tk, device=s.device) < kv_len, s, _NEG_INF)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True) * vs[..., None, :]
+
+
+def decode_cross_attention_w8a8_plain(q, qk, ks, qv, vs,
+                                      kv_len: Optional[int] = None) -> torch.Tensor:
+    """Plain K14: the reference's "qw8" cross-attention step by step. q
+    [B, H, R, Dh] pre-scaled by Dh^-0.5; qk/qv int8 [B, H, Dh, T]; ks/vs
+    f32 [B, H, T]. pv's rows are quantized over T (pa/127 with pa its
+    max, codes 0..127), and the output is f32(int32 qp . qV) * sp in q's
+    dtype. Both products are exact."""
+    from .quant import _scale
+
+    kv_len = qk.shape[-1] if kv_len is None else kv_len
+    pv = _w8a8_probs(q, qk, ks, vs, kv_len)
+    sp = _scale(pv.amax(dim=-1, keepdim=True), 127.0)
+    qp = torch.clamp(torch.round(pv / sp), 0, 127)
+    return (_exact_int_dot(qp, qv.transpose(-1, -2)) * sp).to(q.dtype)
+
+
+def w8a8_code_step(q, qk, ks, qv, vs, kv_len: Optional[int] = None) -> torch.Tensor:
+    """Per query row [B, H, R]: pa = max(p * vs), the most that one of
+    K14's P codes moved by one shifts that row's outputs (|qV| <= 127
+    times sp = pa/127). Two computations whose exp or sum differs in the
+    last bit differ by this step where pv/sp lands on a rounding boundary;
+    comparisons of K14 allow one per row."""
+    kv_len = qk.shape[-1] if kv_len is None else kv_len
+    return _w8a8_probs(q, qk, ks, vs, kv_len).amax(dim=-1)
+
+
+# Dynamic shared memory a K14 block may use (csrc/
+# decode_cross_attention_w8a8.cu:kSmemBudget): per query row, f32 scores
+# and int8 P codes over T rounded up to 4 positions.
+W8A8_SMEM_BUDGET = 224 * 1024
+W8A8_MAX_ROWS = 8
+
+
+def w8a8_rows_per_block(tk: int) -> int:
+    """Query rows per K14 block for K/V of tk positions: up to 8, as many
+    as the shared-memory budget holds (0: tk too long for one row)."""
+    return min(W8A8_MAX_ROWS, W8A8_SMEM_BUDGET // (5 * (-(-tk // 4) * 4)))
+
+
+def _check_w8a8(q, k, ks, v, vs, kv_len):
+    """K14's checks on CUDA: q [B, H, R, Dh] bf16 or f32 with its head dim
+    contiguous, Dh a multiple of 4 up to 256; k/v int8 [B, H, Dh, T] with
+    T contiguous (rows of any pitch, as the decoder's tma_pitch); ks/vs
+    contiguous f32 [B, H, T]. Returns (kv_len, rows per block)."""
+    name = "decode_cross_attention_w8a8"
+    b, h, r, d = q.shape
+    tk = k.shape[3]
+    kv_len = tk if kv_len is None else kv_len
+    if d % 4 or not 4 <= d <= 256 or r < 1:
+        raise ValueError(f"{name}: needs Dh a multiple of 4 up to 256 and R >= 1, "
+                         f"got {tuple(q.shape)}")
+    if any(t.shape != (b, h, d, tk) for t in (k, v)) or \
+            any(t.shape != (b, h, tk) for t in (ks, vs)):
+        raise ValueError(f"{name}: K/V must be [{b}, {h}, {d}, T] and their scales "
+                         f"[{b}, {h}, T], got {[tuple(t.shape) for t in (k, v, ks, vs)]}")
+    if not 1 <= kv_len <= tk:
+        raise ValueError(f"{name}: kv_len={kv_len} not in [1, {tk}]")
+    rows = w8a8_rows_per_block(tk)
+    if rows == 0:
+        raise ValueError(f"{name}: T={tk} does not fit one row's scores in shared memory")
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: q must be bf16 or f32, got {q.dtype}")
+    for label, t, dtype in (("k", k, torch.int8), ("v", v, torch.int8),
+                            ("k scale", ks, torch.float32),
+                            ("v scale", vs, torch.float32)):
+        if t.dtype != dtype or t.device != q.device:
+            raise TypeError(f"{name}: {label} must be {dtype} on {q.device}, "
+                            f"got {t.dtype} on {t.device}")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1 or \
+            not (ks.is_contiguous() and vs.is_contiguous()):
+        raise ValueError(f"{name}: q's head dim, K/V's positions and the scales "
+                         "must be contiguous")
+    return kv_len, rows
+
+
+def decode_cross_attention_w8a8(q, qk, ks, qv, vs,
+                                kv_len: Optional[int] = None) -> torch.Tensor:
+    """K14 (csrc/decode_cross_attention_w8a8.cu): cross-attention whose two
+    products are int8 x int8 -> int32 with q and P quantized per row, for
+    any number of query rows R (a decode step's, a speculative verify's
+    block, a prefill's prompt). q [B, H, R, Dh] bf16 or f32 pre-scaled by
+    Dh^-0.5; qk/qv int8 [B, H, Dh, T], rows of any pitch (the decoder's
+    tma_pitch); ks/vs f32 [B, H, T] -> contiguous [B, H, R, Dh] in q's
+    dtype. The JAX package leaves these products to XLA; PyTorch has no
+    integer matmul on CUDA, so on the card nothing else computes them."""
+    if q.device.type == "cpu":
+        return decode_cross_attention_w8a8_plain(q, qk, ks, qv, vs, kv_len)
+    kv_len, rows = _check_w8a8(q, qk, ks, qv, vs, kv_len)
+    b, h, r, d = q.shape
+    out = torch.empty((b, h, r, d), dtype=q.dtype, device=q.device)
+    lib = _build.load_library()
+    _build.check(lib.spt_decode_cross_attention_w8a8(
+        q.data_ptr(), qk.data_ptr(), ks.data_ptr(), qv.data_ptr(), vs.data_ptr(),
+        out.data_ptr(), b, h, r, d, qk.shape[3], kv_len, rows,
+        int(q.dtype == torch.bfloat16), *q.stride()[:3], *qk.stride()[:3],
+        *qv.stride()[:3], _build.stream_ptr(q.device),
+    ), "spt_decode_cross_attention_w8a8")
+    decode_cross_attention_w8a8.launches += 1
+    return out
+
+
+decode_cross_attention_w8a8.launches = 0

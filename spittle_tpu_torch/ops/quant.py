@@ -1,15 +1,17 @@
 """Weight and K/V quantization and the matmul dispatch (port of
 spittle_tpu/ops/quant.py: quantize_weight, quantize_weight_w8a8,
 quantize_tree, quantize_whisper_encoder_w8a8, quantize_whisper_decoder,
-quantize_kv, quantize_kv_t, quantize_kv_int4, unpack_kv_int4, mm,
-mm_bias).
+quantize_kv, quantize_kv_t, quantize_kv_w8a8, quantize_kv_int4,
+unpack_kv_int4, mm, mm_bias).
 
 A quantized weight is a dict: {"qw": int8 [.., in, out], "scale": f32
 [.., out]} (weight-only) or {"qw8": ..., "scale": ...} (W8A8 compute).
 The rule is the reference's exactly: scale = amax/127 per output channel
 (1 where amax is 0), round-half-even, clip to +-127. Quantized attention
-K/V are {"qw": int8 [.., Dh, T], "scale": f32 [.., T]} or, packed two
-per byte, {"qw4": int8 [.., Dh/2, T], "scale": ...} with amax/7 scales.
+K/V are {"qw": int8 [.., Dh, T], "scale": f32 [.., T]}, the same bytes
+tagged {"qw8": ..., "scale": ...} for the int8 x int8 cross-attention
+(K14 on the card) or, packed two per byte, {"qw4": int8 [.., Dh/2, T],
+"scale": ...} with amax/7 scales.
 Every scale is an IEEE division by a device tensor: on CUDA, PyTorch
 turns division by a Python scalar into a reciprocal multiply, which
 moves int8 codes away from the reference's.
@@ -146,11 +148,29 @@ def quantize_kv_t(kv: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 
 def dequantize_kv(q: Dict[str, torch.Tensor], dtype=torch.bfloat16) -> torch.Tensor:
-    return (q["qw"].to(torch.float32) * q["scale"].unsqueeze(-2)).to(dtype)
+    """An int8 K/V dict ("qw" or "qw8") back to dtype."""
+    qw = q["qw8"] if "qw8" in q else q["qw"]
+    return (qw.to(torch.float32) * q["scale"].unsqueeze(-2)).to(dtype)
+
+
+def quantize_kv_w8a8(kv: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """quantize_kv's bytes and scales under the "qw8" key: K/V for the
+    cross-attention whose two products are both int8 x int8 -> int32
+    (ops.attention.decode_cross_attention_w8a8, K14 on the card)."""
+    q = quantize_kv(kv)
+    return {"qw8": q["qw"], "scale": q["scale"]}
 
 
 def is_quant_kv4(w: Any) -> bool:
     return isinstance(w, dict) and "qw4" in w and "scale" in w
+
+
+def kv_codes(kv: Any) -> torch.Tensor:
+    """The code tensor of a quantized K/V dict ("qw4", "qw8" or "qw"), or
+    a plain K/V tensor itself."""
+    if not isinstance(kv, dict):
+        return kv
+    return kv["qw4" if "qw4" in kv else "qw8" if "qw8" in kv else "qw"]
 
 
 def quantize_kv_int4(kv: torch.Tensor) -> Dict[str, torch.Tensor]:

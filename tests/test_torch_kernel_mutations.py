@@ -6,7 +6,8 @@ resident and streamed), K1 and K8 (encoder
 attention, strided and packed heads), K5 (tiled flash attention), K9
 (head pairs) and K10 (the persistent, pipelined form), all five on the
 wgmma attention core, K11 (the slab-fed decode cross-attention over int8
-K/V) and K13 (cache column write): each case breaks the kernel in a copy
+K/V), K13 (cache column write) and K14 (the "w8a8" decoder's int8 x int8
+cross-attention): each case breaks the kernel in a copy
 of the package under a temporary directory, where the copy builds its own
 kernel library, and the card tests of tests/test_torch_kernels_cuda.py
 must then fail on the kernel's values. Each edit names the exact text it
@@ -38,6 +39,7 @@ CORE_SRC = "spittle_tpu_torch/csrc/attention_sm90.cuh"
 CACHE_SRC = "spittle_tpu_torch/csrc/cache_col_write.cu"
 MH_SRC = "spittle_tpu_torch/csrc/decode_cross_attention_mh.cu"
 GEMM_SRC = "spittle_tpu_torch/csrc/w8a8_gemm.cu"
+W8A8_SRC = "spittle_tpu_torch/csrc/decode_cross_attention_w8a8.cu"
 CARD_TESTS = "tests/test_torch_kernels_cuda.py"
 
 # name -> (pytest -k selection in CARD_TESTS, [(file, old text, new text)])
@@ -167,6 +169,28 @@ MUTATIONS = {
     "quantizer_reciprocal": ("w8a8_quantizer_bytes_equal_plain", [
         (GEMM_SRC, "const float v = rintf(at(4 * i + j) / s);",
          "const float v = rintf(at(4 * i + j) * (1.0f / s));"),
+    ]),
+    # K14: q's codes rounded half away from zero (roundf) instead of half
+    # to even, on q rows whose entries sit on .5.
+    "w8a8_round_half_away": ("k14_kernel_matches_plain_on_ties", [
+        (W8A8_SRC, "rintf(to_f32(qr[d]) / scale)", "roundf(to_f32(qr[d]) / scale)"),
+    ]),
+    # K14: the row max taken before the kv_len mask, so the pad's huge
+    # scores set it and the real positions' exponentials vanish.
+    "w8a8_mask_after_max": ("k14_kernel_matches_plain and kv1300", [
+        (W8A8_SRC, "m = fmaxf(m, t < kv_len ? sr[t] : -1e30f);", "m = fmaxf(m, sr[t]);"),
+    ]),
+    # K14: each row's scores scaled by its neighbour row's q scale.
+    "w8a8_neighbour_sq": ("k14_kernel_matches_plain and R4-T1500-padded", [
+        (W8A8_SRC, "static_cast<float>(acc[r][j]) * sq[r] * ksr[t + j]",
+         "static_cast<float>(acc[r][j]) * sq[r ^ 1] * ksr[t + j]"),
+    ]),
+    # K14: the K and V slabs' row pitch read as T (1500) instead of the
+    # decoder's padded pitch (1504).
+    "w8a8_pitch_as_t": ("k14_kernel_matches_plain and R1-T1500-padded", [
+        (W8A8_SRC, "load_4x4(kb + d0 * k_ld, k_ld, t, Tk, kvec, kc);",
+         "load_4x4(kb + d0 * Tk, Tk, t, Tk, kvec, kc);"),
+        (W8A8_SRC, "const int8_t* vr = vb + d * v_ld;", "const int8_t* vr = vb + d * Tk;"),
     ]),
     # K13 (and K12, the same body): a neighbouring position written.
     "cache_neighbour_column": ("cache_col_write_matches", [

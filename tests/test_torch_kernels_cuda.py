@@ -1,5 +1,6 @@
 """Card-only tests: the port's CUDA kernels (K1-K6, the encoder-attention
-forms K7-K10, and the probe kernels K11-K13) against their plain PyTorch
+forms K7-K10, the probe kernels K11-K13, and K14, the "w8a8" decoder's
+int8 x int8 cross-attention) against their plain PyTorch
 versions on CUDA tensors (K2 also at the encoder's widths, its quantizer
 byte for byte; K3 and K4, one kernel, also on the decoder's padded rows,
 K3 bit for bit against K11; K7 in both of its forms), and the engine's
@@ -446,7 +447,7 @@ def test_decode_cross_quant_wrapper_raises(cuda, bits):
     assert kernel(q, qk, ks, qk, ks).shape == (1, 2, 1, 64)
 
 
-@pytest.mark.parametrize("quantize_decoder", ["int8", "int4"])
+@pytest.mark.parametrize("quantize_decoder", ["int8", "int4", "w8a8"])
 def test_engine_quantized_decoder_runs_its_kernel(cuda, quantize_decoder):
     from spittle_tpu_torch.engine.base import TranscribeParams
     from spittle_tpu_torch.engine.whisper_engine import WhisperEngine
@@ -462,15 +463,17 @@ def test_engine_quantized_decoder_runs_its_kernel(cuda, quantize_decoder):
                          condition_on_previous_text=False,
                          temperatures=(0.0,), max_tokens=8)
     kernels = (att.decode_cross_attention, att.decode_cross_attention_q8,
-               att.decode_cross_attention_q4)
+               att.decode_cross_attention_q4, att.decode_cross_attention_w8a8)
     for fn in kernels:
         fn.launches = 0
     results = list(eng.transcribe_stream([audio, audio], p,
                                          overlap_fetch=True))
     assert len(results) == 2 and all(len(r) == 2 for r in results)
+    # Per decoder layer: each batch's prefill (3 prefix rows) and steps.
     want = eng.cfg.n_text_layer * (2 + sum(eng.last_decode_steps))
-    used = (att.decode_cross_attention_q8 if quantize_decoder == "int8"
-            else att.decode_cross_attention_q4)
+    used = {"int8": att.decode_cross_attention_q8,
+            "int4": att.decode_cross_attention_q4,
+            "w8a8": att.decode_cross_attention_w8a8}[quantize_decoder]
     assert {fn.__name__: fn.launches for fn in kernels} == {
         fn.__name__: (want if fn is used else 0) for fn in kernels}
 
@@ -1096,3 +1099,166 @@ def test_detect_language_runs_k4_on_an_int8_engine(cuda):
     assert torch.isfinite(probs).all()
     torch.testing.assert_close(probs.sum(-1), torch.ones(3, device=cuda),
                                rtol=0, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# K14: the "w8a8" decoder's cross-attention, both products int8 x int8
+# ---------------------------------------------------------------------------
+
+
+def _w8a8_inputs(rng, b, h, r, dh, t, dev, dtype=torch.bfloat16, pitch=None,
+                 kv_len=None, ties=False):
+    """q (pre-scaled by Dh^-0.5) and the decoder's "qw8" K/V with f32
+    scales, K/V rows `pitch` bytes apart (random codes in the padding,
+    which K14 may read but must not use). With kv_len < t the pad
+    positions carry random codes and scales 1e3: their scores dwarf the
+    real ones, so only a mask before the max keeps them out. ties: q rows
+    of half-integers with amax 127 (sq = 1), where rounding half to even
+    and half away differ."""
+    from spittle_tpu_torch.ops.quant import quantize_kv_w8a8
+
+    kv = [quantize_kv_w8a8(_randn(rng, (b, h, dh, t), dev, torch.float32))
+          for _ in range(2)]
+    if kv_len is not None and kv_len < t:
+        for d in kv:
+            d["qw8"][..., kv_len:] = torch.randint(-127, 128, d["qw8"][..., kv_len:].shape,
+                                                   dtype=torch.int8, device=dev)
+            d["scale"][..., kv_len:] = 1e3
+    if pitch is not None:
+        for d in kv:
+            d["qw8"] = _padded_rows(d["qw8"], pitch)
+    if ties:
+        q = torch.from_numpy(rng.integers(-126, 126, (b, h, r, dh)).astype(np.float32)
+                             + 0.5).to(dev)
+        q[..., 0] = 127.0
+        q = q.to(dtype)
+    else:
+        q = _randn(rng, (b, h, r, dh), dev, dtype, dh ** -0.5)
+    return q, kv[0]["qw8"], kv[0]["scale"], kv[1]["qw8"], kv[1]["scale"]
+
+
+def _assert_k14_close(got, args, kv_len):
+    """K14 against its plain version on CPU copies of the same inputs: the
+    same q codes and scales (IEEE division, round half to even), exact
+    int32 sums and the same f32 operations in the same order; exp's last
+    bit and the sum's order differ, and where that lands pv/sp on the
+    other side of a rounding boundary one P code moves by one, moving the
+    row by at most max(p * vs) (att.w8a8_code_step). So: within one
+    output ulp (2**-7 relative in bf16, 1e-5 in f32) plus one such step
+    per row, and at most 1% of the rows beyond one ulp. A code rounded
+    half away, a row's scores taken with a neighbour's q scale, the pad
+    let into the max or the rows read at the wrong pitch move rows by far
+    more."""
+    cpu = [a.cpu() for a in args]
+    want = att.decode_cross_attention_w8a8_plain(*cpu, kv_len=kv_len)
+    step = att.w8a8_code_step(*cpu, kv_len=kv_len)
+    assert got.shape == want.shape and got.dtype == want.dtype and got.is_contiguous()
+    rel = 2.0 ** -7 if got.dtype == torch.bfloat16 else 1e-5
+    err = (got.cpu().float() - want.float()).abs()
+    tol = rel * want.float().abs() + 1e-5
+    excess = (err - tol).amax(dim=-1)
+    worst = (excess - 1.001 * step).max().item()
+    share = (excess > 0).float().mean().item()
+    assert worst <= 0 and share <= 0.01, (
+        f"K14 not close to its plain version: {worst:.3e} past the bound, "
+        f"{share:.2%} of the rows past one ulp")
+
+
+# (B, R, T, kv_len, pitch, dtype, Dh): chip_smoke's large-v3 shapes (B 8,
+# H 20, Dh 64, T 1500 at a 1504-byte pitch) at a greedy step (R 1), a
+# speculative verify (4), K3's most rows (8) and a prefill tile (228);
+# kv_len < T; contiguous rows, an odd T (byte loads), f32 q and the
+# trained tiny checkpoint's Dh 8; a long T (7 rows per block).
+_K14_CASES = {
+    "B8-R1-T1500-padded": (8, 1, 1500, 1500, 1504, torch.bfloat16, 64),
+    "B8-R4-T1500-padded": (8, 4, 1500, 1500, 1504, torch.bfloat16, 64),
+    "B8-R8-T1500-padded": (8, 8, 1500, 1500, 1504, torch.bfloat16, 64),
+    "B8-R228-T1500-padded": (8, 228, 1500, 1500, 1504, torch.bfloat16, 64),
+    "B8-R4-T1500-kv1300-padded": (8, 4, 1500, 1300, 1504, torch.bfloat16, 64),
+    "B2-R3-T1500-contiguous": (2, 3, 1500, 1500, None, torch.bfloat16, 64),
+    "B2-R5-T301-kv257-contiguous": (2, 5, 301, 257, None, torch.bfloat16, 64),
+    "B2-R4-T1500-f32": (2, 4, 1500, 1500, 1504, torch.float32, 64),
+    "B2-R13-T96-dh8-f32": (2, 13, 96, 96, None, torch.float32, 8),
+    "B1-R9-T6000": (1, 9, 6000, 6000, None, torch.bfloat16, 64),
+}
+
+
+@pytest.mark.parametrize("case", list(_K14_CASES))
+def test_k14_kernel_matches_plain(cuda, case):
+    b, r, t, kv_len, pitch, dtype, dh = _K14_CASES[case]
+    rng = np.random.default_rng(14)
+    h = 20 if b == 8 else 3
+    args = _w8a8_inputs(rng, b, h, r, dh, t, cuda, dtype, pitch, kv_len)
+    got = att.decode_cross_attention_w8a8(*args, kv_len=kv_len)
+    torch.cuda.synchronize()
+    _assert_k14_close(got, args, kv_len)
+
+
+def test_k14_kernel_matches_plain_on_ties(cuda):
+    """q / sq on .5 for most entries: the codes round half to even."""
+    rng = np.random.default_rng(15)
+    args = _w8a8_inputs(rng, 2, 4, 4, 64, 1500, cuda, ties=True, pitch=1504)
+    got = att.decode_cross_attention_w8a8(*args)
+    torch.cuda.synchronize()
+    _assert_k14_close(got, args, 1500)
+
+
+def test_k14_stable_over_many_launches(cuda):
+    """200 launches at the large-v3 step's shape, alternating two input
+    sets: each set's output is the same bits every time (no atomics, no
+    state kept between launches) and close to its plain version."""
+    rng = np.random.default_rng(16)
+    sets = [_w8a8_inputs(rng, 8, 20, 4, 64, 1500, cuda, pitch=1504) for _ in range(2)]
+    first = [att.decode_cross_attention_w8a8(*a) for a in sets]
+    for i in range(200):
+        got = att.decode_cross_attention_w8a8(*sets[i % 2])
+        assert torch.equal(got, first[i % 2]), f"launch {i} differs"
+    torch.cuda.synchronize()
+    for out, args in zip(first, sets):
+        _assert_k14_close(out, args, 1500)
+
+
+def test_k14_wrapper_raises(cuda):
+    """On the card the wrapper launches K14 or raises: no fallback for a
+    head dim that is not a multiple of 4, int8 K/V of another dtype, f16
+    q, or T too long for one row's scores in shared memory."""
+    rng = np.random.default_rng(17)
+    q, qk, ks, qv, vs = _w8a8_inputs(rng, 1, 2, 3, 64, 100, cuda)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        att.decode_cross_attention_w8a8(q[..., :62], qk[:, :, :62], ks, qv[:, :, :62], vs)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        att.decode_cross_attention_w8a8(q.half(), qk, ks, qv, vs)
+    with pytest.raises(TypeError, match="int8"):
+        att.decode_cross_attention_w8a8(q, qk.float(), ks, qv, vs)
+    big = torch.zeros((1, 1, 64, 50000), dtype=torch.int8, device=cuda)
+    sc = torch.ones((1, 1, 50000), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        att.decode_cross_attention_w8a8(q[:, :1], big, sc, big, sc)
+    assert att.decode_cross_attention_w8a8(q, qk, ks, qv, vs).shape == q.shape
+
+
+def test_engine_speculative_verifies_k_rows(cuda):
+    """A bf16 engine with a self-draft: every main-model pass verifies
+    draft_k = 4 rows per item through K4, the draft's steps one row each:
+    K4 runs once per main layer for the prefill and each round, and once
+    per draft layer for the prefill and each of a round's 4 draft steps."""
+    from spittle_tpu_torch.engine.base import TranscribeParams
+    from spittle_tpu_torch.engine.whisper_engine import WhisperEngine
+
+    eng = WhisperEngine(device="cuda", dtype=torch.bfloat16)
+    eng.load_model("random:tiny")
+    eng.load_self_draft(2)
+    rng = np.random.default_rng(18)
+    audio = [(rng.standard_normal(16000 * 30) * 3000).astype(np.int16) for _ in range(2)]
+    p = TranscribeParams(language="en", parallel_windows=True,
+                         condition_on_previous_text=False, temperatures=(0.0,),
+                         max_tokens=12)
+    att.decode_cross_attention.launches = 0
+    eng.last_decode_steps.clear()
+    res = eng.transcribe_batch(audio, p)
+    assert len(res) == 2
+    (rounds,) = eng.last_decode_steps
+    assert rounds == eng.last_spec_stats["rounds"] > 0
+    main, draft = eng.cfg.n_text_layer, eng.draft_cfg.n_text_layer
+    assert att.decode_cross_attention.launches == (
+        main * (1 + rounds) + draft * (1 + 4 * rounds))
