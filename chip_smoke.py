@@ -46,8 +46,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    row); K14 (the "w8a8" decoder's cross-attention, both products int8
    x int8; hand-written for an XLA product, not a TPU kernel) against
    its plain version on CPU copies at large-v3's decoder shapes (B 8, H
-   20, T 1500 at a 1504-byte pitch; R = 1, 4, 8 and 228, and R 4 with
-   kv_len 1300). Each prints its max
+   20, T 1500 at a 1504-byte pitch; R = 1, 4, 8 and 228, R 4 with
+   kv_len 1300 and 100, and R 1 at B 56), with its plan (regime, cluster
+   size) per shape. Each prints its max
    error and tolerance, its time (`ms`: device time per launch from a
    CUDA graph of launches replayed between CUDA events; `call_ms`: eager
    calls between CUDA events, the host's per-call cost included), the
@@ -1117,8 +1118,11 @@ def w8a8_phase(dev):
     inputs, at large-v3's decoder shapes: B 8, H 20, Dh 64, T 1500 on the
     decoder's rows (a 1504-byte pitch), R 1 (a greedy step), 4 (a
     speculative verify), 8 and 228 (a prefill tile with a carried
-    prompt), and R 4 with kv_len 1300 (the pad's scales large: only a mask
-    before the max keeps them out). Each: device ms (a CUDA graph over
+    prompt), R 4 with kv_len 1300 (the pad's scales large: only a mask
+    before the max keeps them out) and with kv_len 100 (ranks 1-7 of each
+    cluster hold only pad), and R 1 at bench.py's large-v3 batch of 56.
+    Each prints K14's plan (regime, cluster, positions per rank, rows per
+    CTA: ops.attention.w8a8_plan) and: device ms (a CUDA graph over
     input sets larger than the L2), eager call ms, the plain version's ms
     on the card (its products in f64, exact), the bound (the int8 K/V and
     the scales once, q and the output once, at 3.35 TB/s; or the int8
@@ -1133,10 +1137,9 @@ def w8a8_phase(dev):
     F = torch.nn.functional
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 14)
-    b, h, d, t = BATCH, 20, 64, 1500
-    kv_bytes = 2 * b * h * d * t + 2 * b * h * t * 4
+    h, d, t = 20, 64, 1500
 
-    def make_set(kv_len):
+    def make_set(b, kv_len):
         kv = [quantize_kv_w8a8(torch.randn((b, h, d, t), generator=gen, device=dev))
               for _ in range(2)]
         for q in kv:
@@ -1149,11 +1152,14 @@ def w8a8_phase(dev):
         return (padded_rows(kv[0]["qw8"]), kv[0]["scale"], padded_rows(kv[1]["qw8"]),
                 kv[1]["scale"]), deq
 
-    print(f"K14 decode_cross_attention_w8a8 K/V int8 [{b},{h},{d},{t}] rows of 1504 "
+    print(f"K14 decode_cross_attention_w8a8 K/V int8 [B,{h},{d},{t}] rows of 1504 "
           f"bytes + f32 scales:")
     row = None
-    for r, kv_len in ((1, t), (4, t), (8, t), (228, t), (4, 1300)):
-        sets = [make_set(kv_len) for _ in range(n_cold_sets(kv_bytes))]
+    for b, r, kv_len in ((BATCH, 1, t), (BATCH, 4, t), (BATCH, 8, t), (BATCH, 228, t),
+                         (BATCH, 4, 1300), (BATCH, 4, 100), (LV3_BATCH, 1, t)):
+        kv_bytes = 2 * b * h * d * t + 2 * b * h * t * 4
+        plan = att.w8a8_plan(t, r, d)
+        sets = [make_set(b, kv_len) for _ in range(n_cold_sets(kv_bytes))]
         qd = (torch.randn((b, h, r, d), generator=gen, device=dev) * d ** -0.5).to(
             torch.bfloat16)
         args = (qd, *sets[0][0])
@@ -1166,7 +1172,10 @@ def w8a8_phase(dev):
         excess = (diff - (2.0 ** -7 * want.float().abs() + 1e-5)).amax(dim=-1)
         worst = (excess - 1.001 * step).max().item()
         share = (excess > 0).float().mean().item()
-        label = f"K14 R={r} kv_len={kv_len}"
+        label = f"K14 B={b} R={r} kv_len={kv_len}"
+        print(f"  {label}: plan {plan.regime}, cluster {plan.cluster} x {plan.slice} "
+              f"positions, {plan.row_tile} rows per CTA ({plan.row_tiles(r)} tiles), "
+              f"{plan.smem} bytes of shared memory")
         print(f"  {label}: max_abs_err {err:.3e}; past one bf16 ulp + one P code "
               f"{worst:.3e} (<= 0), rows past one ulp {share:.2%} (<= 1%)")
         if not (worst <= 0 and share <= 0.01):
@@ -1185,7 +1194,8 @@ def w8a8_phase(dev):
               f"(F.scaled_dot_product_attention on bf16 K/V dequantized "
               f"beforehand) {lib_ms:.4f}  bound_ms {bms:.4f} ({by})")
         shape = dict(ms=ms, call_ms=eager_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                     bound_ms=bms, max_abs_err=err)
+                     bound_ms=bms, max_abs_err=err, regime=plan.regime,
+                     cluster=plan.cluster)
         if row is None:
             row = dict(
                 name="decode_cross_attention_w8a8", route="cuda",
@@ -1198,7 +1208,9 @@ def w8a8_phase(dev):
                 library="F.scaled_dot_product_attention on bf16 K/V dequantized "
                         "beforehand", by_shape={})
         row["max_abs_err"] = max(row["max_abs_err"], err)
-        row["by_shape"][f"R{r}" + ("" if kv_len == t else f"kv{kv_len}")] = shape
+        key = (f"R{r}" + ("" if kv_len == t else f"kv{kv_len}")
+               + ("" if b == BATCH else f"B{b}"))
+        row["by_shape"][key] = shape
         del sets, kernel
         torch.cuda.empty_cache()
     return row

@@ -1,8 +1,9 @@
 // PTX wrappers and host helpers shared by the port's Hopper (sm_90a)
 // kernels that run on TMA loads, mbarrier rings and wgmma: the attention
 // core (attention_sm90.cuh), the slab-fed decode cross-attention
-// (decode_cross_attention_mh.cu), the W8A8 GEMM (w8a8_gemm.cu) and the
-// int8-dot encoder attention (fullkv_attention_q8.cu).
+// (decode_cross_attention_mh.cu), the W8A8 GEMM (w8a8_gemm.cu), the
+// int8-dot encoder attention (fullkv_attention_q8.cu) and the "w8a8"
+// decoder's cross-attention (decode_cross_attention_w8a8.cu: mbarriers).
 //
 // Device side: shared-memory addresses, mbarriers (init, expect-tx,
 // arrive, a parity wait that traps instead of spinning forever), TMA loads

@@ -52,7 +52,7 @@ launches in `<wrapper>.launches`.
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -941,24 +941,100 @@ def w8a8_code_step(q, qk, ks, qv, vs, kv_len: Optional[int] = None) -> torch.Ten
     return _w8a8_probs(q, qk, ks, vs, kv_len).amax(dim=-1)
 
 
-# Dynamic shared memory a K14 block may use (csrc/
-# decode_cross_attention_w8a8.cu:kSmemBudget): per query row, f32 scores
-# and int8 P codes over T rounded up to 4 positions.
-W8A8_SMEM_BUDGET = 224 * 1024
-W8A8_MAX_ROWS = 8
+# K14's launch plan (csrc/decode_cross_attention_w8a8.cu): shared memory a
+# CTA may use (kSmemBudget, 227 KB), the largest portable cluster, the
+# fewest positions per rank worth a CTA of their own, and the query rows
+# per CTA at most on each regime.
+W8A8_SMEM_BUDGET = 232448
+W8A8_MAX_CLUSTER = 8
+W8A8_MIN_SLICE = 128
+W8A8_DP4A_ROWS = 8
 
 
-def w8a8_rows_per_block(tk: int) -> int:
-    """Query rows per K14 block for K/V of tk positions: up to 8, as many
-    as the shared-memory budget holds (0: tk too long for one row)."""
-    return min(W8A8_MAX_ROWS, W8A8_SMEM_BUDGET // (5 * (-(-tk // 4) * 4)))
+class W8A8Plan(NamedTuple):
+    """How K14 runs at one (T, R, Dh): `mma` the regime (int8 tensor-core
+    tiles past 8 rows when Dh is a multiple of 32, else __dp4a), `cluster`
+    CTAs per (item, head, row tile), rank c taking positions [c * slice,
+    (c + 1) * slice) of T, `row_tile` query rows per CTA and `smem` bytes
+    of dynamic shared memory per CTA."""
+
+    mma: bool
+    cluster: int
+    slice: int
+    row_tile: int
+    smem: int
+
+    @property
+    def regime(self) -> str:
+        return "mma" if self.mma else "dp4a"
+
+    def row_tiles(self, r: int) -> int:
+        return -(-r // self.row_tile)
+
+
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def w8a8_smem_bytes(mma: bool, slice_: int, row_tile: int, dh: int, cluster: int) -> int:
+    """A K14 CTA's dynamic shared memory (the kernel's Layout): K and V's
+    slice rows (slice + 16 bytes each); f32 scores (slice + 16 floats per
+    row; then this CTA's int32 partials), which under mma take K's space
+    as loaded; the transposed K (mma); the partials peers store for this
+    rank's rows ([cluster][ceil(row_tile / cluster)][dh] int32, in K's or
+    the transposed K's space); q's and P's codes (room for 8 rows under
+    __dp4a); both scale slices; the row slots (two scales and three
+    [cluster] reduction slots per row); four mbarriers (the three
+    reductions, the partials)."""
+    sp, dhp, sf = slice_ + 16, dh + 16, slice_ + 16
+    kbytes, sbytes = dh * sp, max(row_tile * sf, row_tile * dh) * 4
+    rbytes = cluster * -(-row_tile // cluster) * dh * 4
+    if mma:
+        total = (_align16(max(kbytes, sbytes)) + _align16(kbytes)
+                 + _align16(max(slice_ * dhp, rbytes)))
+    else:
+        total = _align16(max(kbytes, rbytes)) + _align16(sbytes) + _align16(kbytes)
+    crows = row_tile if mma else W8A8_DP4A_ROWS  # rows of q's and P's codes
+    total += _align16(crows * dhp) + _align16(crows * sp)
+    total += 2 * _align16(slice_ * 4) + _align16((2 + 3 * cluster) * row_tile * 4)
+    return total + 32  # four mbarriers
+
+
+def w8a8_plan(tk: int, r: int, dh: int) -> W8A8Plan:
+    """K14's plan for K/V of tk positions, r query rows and head dim dh.
+    The regime follows r and dh alone. The cluster is the largest power of
+    two up to 8 that leaves each rank W8A8_MIN_SLICE positions (1 below
+    that); the slice is T over the ranks rounded up to 16 positions (32
+    under mma, a k-step of the tensor cores); the row tile is 64 under mma
+    (32 for up to 32 rows: a tile of 16 keeps too few of the CTA's 16
+    warps busy), halved down to 16 until the CTA fits the budget, and
+    under __dp4a as many of r's rows, up to 8, as fit. Raises
+    ValueError where even the smallest tile does not fit.
+    probes/w8a8_cluster.py times K14 under the other clusters and tiles."""
+    mma = r > W8A8_DP4A_ROWS and dh % 32 == 0
+    cluster = 1
+    while 2 * cluster <= W8A8_MAX_CLUSTER and 2 * cluster * W8A8_MIN_SLICE <= tk:
+        cluster *= 2
+    gran = 32 if mma else 16
+    slice_ = -(-(-(-tk // cluster)) // gran) * gran
+    if mma:
+        tiles = [t for t in (64, 32, 16) if t <= max(32, -(-r // 16) * 16)]
+    else:
+        tiles = list(range(min(r, W8A8_DP4A_ROWS), 0, -1))
+    for rt in tiles:
+        smem = w8a8_smem_bytes(mma, slice_, rt, dh, cluster)
+        if smem <= W8A8_SMEM_BUDGET:
+            return W8A8Plan(mma, cluster, slice_, rt, smem)
+    raise ValueError(f"decode_cross_attention_w8a8: T={tk} at Dh {dh} does not fit "
+                     f"{slice_} positions per CTA in shared memory")
 
 
 def _check_w8a8(q, k, ks, v, vs, kv_len):
     """K14's checks on CUDA: q [B, H, R, Dh] bf16 or f32 with its head dim
     contiguous, Dh a multiple of 4 up to 256; k/v int8 [B, H, Dh, T] with
     T contiguous (rows of any pitch, as the decoder's tma_pitch); ks/vs
-    contiguous f32 [B, H, T]. Returns (kv_len, rows per block)."""
+    contiguous f32 [B, H, T]; B * H and the row tiles within the grid's
+    65535. Returns (kv_len, plan)."""
     name = "decode_cross_attention_w8a8"
     b, h, r, d = q.shape
     tk = k.shape[3]
@@ -972,9 +1048,10 @@ def _check_w8a8(q, k, ks, v, vs, kv_len):
                          f"[{b}, {h}, T], got {[tuple(t.shape) for t in (k, v, ks, vs)]}")
     if not 1 <= kv_len <= tk:
         raise ValueError(f"{name}: kv_len={kv_len} not in [1, {tk}]")
-    rows = w8a8_rows_per_block(tk)
-    if rows == 0:
-        raise ValueError(f"{name}: T={tk} does not fit one row's scores in shared memory")
+    plan = w8a8_plan(tk, r, d)
+    if b * h > 65535 or plan.row_tiles(r) > 65535:
+        raise ValueError(f"{name}: B*H={b * h} and {plan.row_tiles(r)} row tiles must "
+                         "each be at most 65535 (the grid's z and y)")
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"{name}: q must be bf16 or f32, got {q.dtype}")
     for label, t, dtype in (("k", k, torch.int8), ("v", v, torch.int8),
@@ -987,7 +1064,7 @@ def _check_w8a8(q, k, ks, v, vs, kv_len):
             not (ks.is_contiguous() and vs.is_contiguous()):
         raise ValueError(f"{name}: q's head dim, K/V's positions and the scales "
                          "must be contiguous")
-    return kv_len, rows
+    return kv_len, plan
 
 
 def decode_cross_attention_w8a8(q, qk, ks, qv, vs,
@@ -999,20 +1076,28 @@ def decode_cross_attention_w8a8(q, qk, ks, qv, vs,
     Dh^-0.5; qk/qv int8 [B, H, Dh, T], rows of any pitch (the decoder's
     tma_pitch); ks/vs f32 [B, H, T] -> contiguous [B, H, R, Dh] in q's
     dtype. The JAX package leaves these products to XLA; PyTorch has no
-    integer matmul on CUDA, so on the card nothing else computes them."""
+    integer matmul on CUDA, so on the card nothing else computes them.
+    One launch of a cluster per (item, head, row tile) as w8a8_plan says."""
     if q.device.type == "cpu":
         return decode_cross_attention_w8a8_plain(q, qk, ks, qv, vs, kv_len)
-    kv_len, rows = _check_w8a8(q, qk, ks, qv, vs, kv_len)
+    kv_len, plan = _check_w8a8(q, qk, ks, qv, vs, kv_len)
+    out = _launch_w8a8(q, qk, ks, qv, vs, kv_len, plan)
+    decode_cross_attention_w8a8.launches += 1
+    return out
+
+
+def _launch_w8a8(q, qk, ks, qv, vs, kv_len: int, plan: W8A8Plan) -> torch.Tensor:
+    """One K14 launch under `plan` (checked inputs; probes pass other plans)."""
     b, h, r, d = q.shape
     out = torch.empty((b, h, r, d), dtype=q.dtype, device=q.device)
     lib = _build.load_library()
     _build.check(lib.spt_decode_cross_attention_w8a8(
         q.data_ptr(), qk.data_ptr(), ks.data_ptr(), qv.data_ptr(), vs.data_ptr(),
-        out.data_ptr(), b, h, r, d, qk.shape[3], kv_len, rows,
-        int(q.dtype == torch.bfloat16), *q.stride()[:3], *qk.stride()[:3],
-        *qv.stride()[:3], _build.stream_ptr(q.device),
+        out.data_ptr(), b, h, r, d, qk.shape[3], kv_len, int(plan.mma), plan.cluster,
+        plan.slice, plan.row_tile, plan.smem, int(q.dtype == torch.bfloat16),
+        *q.stride()[:3], *qk.stride()[:3], *qv.stride()[:3],
+        _build.stream_ptr(q.device),
     ), "spt_decode_cross_attention_w8a8")
-    decode_cross_attention_w8a8.launches += 1
     return out
 
 

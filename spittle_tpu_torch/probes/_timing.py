@@ -48,3 +48,25 @@ def timed_ms(fn, dev: torch.device, iters: int, reps: int = 1) -> float:
 def time_key(dev: torch.device) -> str:
     """Device times go under "ms"; a CPU run's host clock under "host_ms"."""
     return "ms" if dev.type == "cuda" else "host_ms"
+
+
+def graph_ms(fns, iters: int) -> float:
+    """Mean device ms per call of `fns` (callables on separate input sets,
+    taken in turn) from `iters` calls captured in one CUDA graph and
+    replayed between CUDA events: no host cost per call in the number."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters

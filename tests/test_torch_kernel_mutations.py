@@ -175,22 +175,38 @@ MUTATIONS = {
     "w8a8_round_half_away": ("k14_kernel_matches_plain_on_ties", [
         (W8A8_SRC, "rintf(to_f32(qr[d]) / scale)", "roundf(to_f32(qr[d]) / scale)"),
     ]),
-    # K14: the row max taken before the kv_len mask, so the pad's huge
-    # scores set it and the real positions' exponentials vanish.
+    # K14: the scores past kv_len kept (the mask dropped), so the pad's
+    # huge scores set the row max and the real positions' exponentials
+    # vanish.
     "w8a8_mask_after_max": ("k14_kernel_matches_plain and kv1300", [
-        (W8A8_SRC, "m = fmaxf(m, t < kv_len ? sr[t] : -1e30f);", "m = fmaxf(m, sr[t]);"),
+        (W8A8_SRC, "return tt < live ? sc : -INFINITY;", "return sc;"),
     ]),
     # K14: each row's scores scaled by its neighbour row's q scale.
     "w8a8_neighbour_sq": ("k14_kernel_matches_plain and R4-T1500-padded", [
-        (W8A8_SRC, "static_cast<float>(acc[r][j]) * sq[r] * ksr[t + j]",
-         "static_cast<float>(acc[r][j]) * sq[r ^ 1] * ksr[t + j]"),
+        (W8A8_SRC, "score(acc[r][j], sq[r], kss[tt + j], tt + j, live)",
+         "score(acc[r][j], sq[r ^ 1], kss[tt + j], tt + j, live)"),
     ]),
     # K14: the K and V slabs' row pitch read as T (1500) instead of the
-    # decoder's padded pitch (1504).
+    # decoder's padded pitch (1504); the loads then take 4-byte chunks.
     "w8a8_pitch_as_t": ("k14_kernel_matches_plain and R1-T1500-padded", [
-        (W8A8_SRC, "load_4x4(kb + d0 * k_ld, k_ld, t, Tk, kvec, kc);",
-         "load_4x4(kb + d0 * Tk, Tk, t, Tk, kvec, kc);"),
-        (W8A8_SRC, "const int8_t* vr = vb + d * v_ld;", "const int8_t* vr = vb + d * Tk;"),
+        (W8A8_SRC, "p.k_ld = k_ld;", "p.k_ld = Tk;"),
+        (W8A8_SRC, "p.v_ld = v_ld;", "p.v_ld = Tk;"),
+    ]),
+    # K14's cluster: each CTA exponentiates against its own slice's max
+    # instead of the cluster's row max.
+    "w8a8_local_max": ("k14_kernel_matches_plain and R1-T1500-padded", [
+        (W8A8_SRC, "m = fmaxf(m, red_m[i * RT + r]);", "m = fmaxf(m, red_m[rank * RT + r]);"),
+    ]),
+    # K14's cluster: each CTA takes P's scale from its own slice's
+    # max(p * vs) instead of the cluster's.
+    "w8a8_local_pv_max": ("k14_kernel_matches_plain and R1-T1500-padded", [
+        (W8A8_SRC, "pa = fmaxf(pa, red_p[i * RT + r]);",
+         "pa = fmaxf(pa, red_p[rank * RT + r]);"),
+    ]),
+    # K14's cluster: rank 0's int32 partial left out of the combine's sum.
+    "w8a8_partial_left_out": ("k14_kernel_matches_plain and R1-T1500-padded", [
+        (W8A8_SRC, "for (int peer = 0; peer < C; ++peer)",
+         "for (int peer = 1; peer < C; ++peer)"),
     ]),
     # K13 (and K12, the same body): a neighbouring position written.
     "cache_neighbour_column": ("cache_col_write_matches", [

@@ -1168,7 +1168,11 @@ def _assert_k14_close(got, args, kv_len):
 # H 20, Dh 64, T 1500 at a 1504-byte pitch) at a greedy step (R 1), a
 # speculative verify (4), K3's most rows (8) and a prefill tile (228);
 # kv_len < T; contiguous rows, an odd T (byte loads), f32 q and the
-# trained tiny checkpoint's Dh 8; a long T (7 rows per block).
+# trained tiny checkpoint's Dh 8; a long T (tiles of 16 rows on the tensor
+# cores); bench.py's large-v3 batch (B 56, H 20); kv_len 100, so that
+# ranks 1-7 of the cluster hold only pad; R 64 and 65 at a tensor-core row
+# tile's edge; a prefill with kv_len < T; Dh 8 past 8 rows (the __dp4a
+# regime in row tiles of 8).
 _K14_CASES = {
     "B8-R1-T1500-padded": (8, 1, 1500, 1500, 1504, torch.bfloat16, 64),
     "B8-R4-T1500-padded": (8, 4, 1500, 1500, 1504, torch.bfloat16, 64),
@@ -1180,6 +1184,12 @@ _K14_CASES = {
     "B2-R4-T1500-f32": (2, 4, 1500, 1500, 1504, torch.float32, 64),
     "B2-R13-T96-dh8-f32": (2, 13, 96, 96, None, torch.float32, 8),
     "B1-R9-T6000": (1, 9, 6000, 6000, None, torch.bfloat16, 64),
+    "B56-R1-T1500-padded": (56, 1, 1500, 1500, 1504, torch.bfloat16, 64),
+    "B8-R4-T1500-kv100-padded": (8, 4, 1500, 100, 1504, torch.bfloat16, 64),
+    "B8-R64-T1500-padded": (8, 64, 1500, 1500, 1504, torch.bfloat16, 64),
+    "B8-R65-T1500-padded": (8, 65, 1500, 1500, 1504, torch.bfloat16, 64),
+    "B8-R228-T1500-kv1300-padded": (8, 228, 1500, 1300, 1504, torch.bfloat16, 64),
+    "B2-R16-T1500-dh8-f32": (2, 16, 1500, 1500, 1504, torch.float32, 8),
 }
 
 
@@ -1187,7 +1197,7 @@ _K14_CASES = {
 def test_k14_kernel_matches_plain(cuda, case):
     b, r, t, kv_len, pitch, dtype, dh = _K14_CASES[case]
     rng = np.random.default_rng(14)
-    h = 20 if b == 8 else 3
+    h = 20 if b >= 8 else 3
     args = _w8a8_inputs(rng, b, h, r, dh, t, cuda, dtype, pitch, kv_len)
     got = att.decode_cross_attention_w8a8(*args, kv_len=kv_len)
     torch.cuda.synchronize()

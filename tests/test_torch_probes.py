@@ -251,10 +251,11 @@ def test_cache_layouts_hold_the_same_values():
     assert torch.equal(back, cache)
 
 
-@pytest.mark.parametrize("name", ["decode_cross_host", "q8_parts", "step_profile"])
+@pytest.mark.parametrize("name", ["decode_cross_host", "q8_parts", "step_profile",
+                                  "w8a8_cluster", "w8a8_cross_parts"])
 def test_card_only_probes_raise_without_a_card(name):
-    """The probes that time host submission, K7's parts or a profiled
-    turbo leg run only on a card, and say so."""
+    """The probes that time host submission, K7's parts, a profiled turbo
+    leg, or K14's plans and parts run only on a card, and say so."""
     if torch.cuda.is_available():
         return
     probe = importlib.import_module(f"spittle_tpu_torch.probes.{name}")

@@ -234,6 +234,45 @@ def test_speculative_matches_reference(models, case):
         assert torch.equal(got["tokens"], greedy["tokens"])
 
 
+def test_speculative_matches_reference_bf16(models):
+    """The self-draft case in bf16: both packages cast the weights by
+    their engines' rule (layer norms f32, every other f32 leaf bf16) and
+    take a bf16 encoder output. The port's speculative decode emits its
+    own greedy_decode's tokens and lengths exactly, and advances by the
+    reference's rule (rounds and accepted positions consistent with its
+    tokens). Against the reference: the port's bf16 decoder logits on the
+    reference's speculative tokens within 4e-3 (four bf16 ulps at the
+    logits' scale of ~0.24). Token for token the two packages may part
+    at a near tie: XLA and torch round bf16 products at other places
+    (ROADMAP queue 3, "Reference behaviours")."""
+    from spittle_tpu.engine.whisper_engine import _cast_params_bf16
+    from spittle_tpu_torch.models.whisper.weights import cast_params
+
+    jc, tc, main, _, xa = models
+    dtree, jdc = _self_draft(main, jc)
+    tdc = tcfg.WhisperConfig(**jdc.__dict__)
+    kw = dict(language="en", timestamps=True, max_tokens=MAX_TOKENS)
+    jp, jd = (_cast_params_bf16(jax.tree.map(jnp.asarray, t)) for t in (main, dtree))
+    tp, td = (cast_params(params_from_jax(t), torch.bfloat16) for t in (main, dtree))
+    jxa, txa = jnp.asarray(xa, jnp.bfloat16), _t(xa).to(torch.bfloat16)
+    got = tspec.speculative_greedy_decode(tp, td, txa, txa, tc, tdc,
+                                          tdec.DecodeOptions(**kw), draft_k=4)
+    greedy = tdec.greedy_decode(tp, txa, tc, tdec.DecodeOptions(**kw))
+    assert torch.equal(got["tokens"], greedy["tokens"])
+    assert torch.equal(got["length"], greedy["length"])
+    assert got["accepted_total"] >= got["rounds"] >= 1
+    assert got["sample_begin"] + got["accepted_total"] >= got["tokens"].shape[1]
+    ref = jspec.speculative_greedy_decode(jp, jd, jxa, jxa, jc, jdc,
+                                          jdec.DecodeOptions(**kw), draft_k=4)
+    toks = np.asarray(ref["tokens"])[:, :-1]
+    jl, _ = jmod.decoder_prefill(jp, jnp.asarray(toks, jnp.int32),
+                                 jmod.precompute_cross_kv(jp, jxa, jc), jc, 32)
+    tl, _ = tmod.decoder_prefill(tp, _t(toks), tmod.precompute_cross_kv(tp, txa, tc),
+                                 tc, 32)
+    np.testing.assert_allclose(tl.float().numpy(), np.asarray(jl, np.float32),
+                               rtol=0, atol=4e-3)
+
+
 @pytest.mark.parametrize("what", ["temperature", "token table"])
 def test_speculative_refusals(models, what):
     jc, tc, main, _, xa = models

@@ -196,15 +196,21 @@ def test_k14_plain_ties_round_half_to_even():
 
 
 def test_k14_rows_per_block_fit_shared_memory():
-    """The tiling of K14's rows by T: 8 rows up to T 5734, fewer past it,
-    none past what one row's scores and codes fit."""
-    assert tatt.w8a8_rows_per_block(1500) == 8
-    assert tatt.w8a8_rows_per_block(6000) == 7
-    assert tatt.w8a8_rows_per_block(45000) == 1
-    assert tatt.w8a8_rows_per_block(50000) == 0
-    for tk in (1, 1500, 1501, 6000, 45000):
-        rows = tatt.w8a8_rows_per_block(tk)
-        assert rows * 5 * (-(-tk // 4) * 4) <= tatt.W8A8_SMEM_BUDGET
+    """The tiling of K14's rows by T and R (w8a8_plan): up to 8 rows per
+    CTA under __dp4a, 64 under the tensor cores, fewer where a rank's
+    slice of T would not fit beside them; none past what one row fits."""
+    assert tatt.w8a8_plan(1500, 8, 64).row_tile == 8
+    assert tatt.w8a8_plan(1500, 228, 64).row_tile == 64
+    assert tatt.w8a8_plan(6000, 228, 64).row_tile == 16
+    assert tatt.w8a8_plan(12000, 1, 64).row_tile == 1
+    with pytest.raises(ValueError, match="shared memory"):
+        tatt.w8a8_plan(50000, 1, 64)
+    for tk in (1, 1500, 1501, 6000):
+        for r in (1, 8, 228):
+            plan = tatt.w8a8_plan(tk, r, 64)
+            assert plan.smem == tatt.w8a8_smem_bytes(plan.mma, plan.slice,
+                                                     plan.row_tile, 64, plan.cluster)
+            assert plan.smem <= tatt.W8A8_SMEM_BUDGET
 
 
 # ---------------------------------------------------------------------------
