@@ -37,7 +37,12 @@
 //    tma_pitch), else 4, else 1: K and the scales in one group, V in a
 //    second, which stays in flight through the scores and the three
 //    reductions. (One bulk copy per row, cp.async.bulk on an mbarrier,
-//    timed no faster.)
+//    timed no faster.) Where a slice of K and V does not fit beside the
+//    scores (T past ~12,000 at Dh 64 and 8 rows), the plan streams them:
+//    only the scales are copied, and the __dp4a products read K and V
+//    from global memory (4-byte words where the granule is 4 or 16, else
+//    bytes), so that a CTA's shared memory is ~13 bytes per position and
+//    row (T up to ~140,000 at one row per CTA).
 //  - Scores, two regimes of one kernel. Up to 8 rows, or any head dim
 //    that is not a multiple of 32 (in row tiles of up to 8): __dp4a, each
 //    thread reading a 4 x 4 byte block (4 head dims x 4 positions) and
@@ -94,7 +99,8 @@ __host__ __device__ constexpr int align16(int x) { return (x + 15) & ~15; }
 __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 
 // The CTA's shared memory, in bytes from the base (ops/attention.py:
-// w8a8_smem_bytes computes the same total). Rows of int8 K, V and P codes
+// w8a8_smem_bytes computes the same total for the plan, and the card tests
+// hold it to spt_w8a8_smem_bytes). Rows of int8 K, V and P codes
 // are the slice + 16 bytes long, rows of q codes and of the transposed K
 // Dh + 16, rows of f32 scores the slice + 16 floats: with these pitches
 // the tensor cores' fragment loads and the row passes' 16-byte loads hit
@@ -105,11 +111,17 @@ __host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
 // tensor-core regime, whose K as loaded gives way to the scores). The row
 // slots: q's and P's scales, and the three reductions' [C][RT] arrays;
 // then four mbarriers. On the __dp4a regime q's and P's codes have room for
-// kDp4aRows rows whatever RT is.
+// RT rows rounded up to 1, 2, 4 or 8 (pow2_rows). Streamed (stream, on
+// __dp4a only), K and V stay in global memory: the scores, then the
+// peers' partials, then the rest.
+__host__ __device__ constexpr int pow2_rows(int nr) {
+  return nr <= 1 ? 1 : nr <= 2 ? 2 : nr <= 4 ? 4 : 8;
+}
+
 struct Layout {
   int sp, dhp, sf, rpo;
   int k, v, kt, s, recv, qq, codes, kss, vss, rows, bars, total;
-  __host__ __device__ Layout(bool mma, int S, int RT, int Dh, int C) {
+  __host__ __device__ Layout(bool mma, bool stream, int S, int RT, int Dh, int C) {
     sp = S + 16;
     dhp = Dh + 16;
     sf = S + 16;
@@ -117,24 +129,28 @@ struct Layout {
     const int kbytes = Dh * sp, sbytes = imax(RT * sf * 4, RT * Dh * 4);
     const int rbytes = C * rpo * Dh * 4;
     int o = 0;
-    k = o;
-    if (mma) {
+    k = v = kt = 0;
+    if (mma) {  // K (then the scores), V, the transposed K (then the partials)
+      s = o;
       o += align16(imax(kbytes, sbytes));
-      s = k;
-    } else {
-      o += align16(imax(kbytes, rbytes));
-      recv = k;
+      v = o;
+      o += align16(kbytes);
+      kt = recv = o;
+      o += align16(imax(S * dhp, rbytes));
+    } else if (stream) {  // the scores, the partials
       s = o;
       o += align16(sbytes);
+      recv = o;
+      o += align16(rbytes);
+    } else {  // K (then the partials), the scores, V
+      k = recv = o;
+      o += align16(imax(kbytes, rbytes));
+      s = o;
+      o += align16(sbytes);
+      v = o;
+      o += align16(kbytes);
     }
-    v = o;
-    o += align16(kbytes);
-    kt = o;
-    if (mma) {
-      o += align16(imax(S * dhp, rbytes));
-      recv = kt;
-    }
-    const int crows = mma ? RT : kDp4aRows;  // rows of q's and P's codes
+    const int crows = mma ? RT : pow2_rows(RT);  // rows of q's and P's codes
     qq = o;
     o += align16(crows * dhp);
     codes = o;
@@ -160,7 +176,7 @@ struct Params {
   void* out;
   int H, R, Dh, Tk, kv_len;
   int slice, row_tile;
-  int k_gran, v_gran;  // cp.async granule in bytes: 16, 4 or 1
+  int k_gran, v_gran;  // the rows' granule in bytes: 16, 4 or 1
   long long q_sb, q_sh, q_sr, k_sb, k_sh, k_ld, v_sb, v_sh, v_ld;
 };
 
@@ -301,7 +317,7 @@ __device__ __forceinline__ void load_f32(float* dst, const float* src, int n,
 
 // Four positions of four rows (pitch bytes apart, 4-byte aligned) -> one
 // word per position holding its four codes, the first row in the low byte.
-__device__ __forceinline__ void transpose_4x4(const int8_t* p, int pitch, uint32_t c[4]) {
+__device__ __forceinline__ void transpose_4x4(const int8_t* p, long long pitch, uint32_t c[4]) {
   const uint32_t a0 = spt::ld_u32(p), a1 = spt::ld_u32(p + pitch);
   const uint32_t a2 = spt::ld_u32(p + 2 * pitch), a3 = spt::ld_u32(p + 3 * pitch);
   const uint32_t x0 = __byte_perm(a0, a1, 0x5140);  // a0.b0 a1.b0 a0.b1 a1.b1
@@ -314,6 +330,32 @@ __device__ __forceinline__ void transpose_4x4(const int8_t* p, int pitch, uint32
   c[3] = __byte_perm(x1, y1, 0x7632);
 }
 
+// The same from rows without 4-byte alignment (streamed from global
+// memory), byte by byte; positions from `left` on read as 0.
+__device__ __forceinline__ void transpose_4x4_bytes(const int8_t* p, long long pitch, int left,
+                                                    uint32_t c[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint32_t w = 0;
+    if (j < left) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        w |= static_cast<uint32_t>(static_cast<uint8_t>(p[i * pitch + j])) << (8 * i);
+    }
+    c[j] = w;
+  }
+}
+
+// Four positions of one row: a 4-byte word, or bytes (0 from `left` on).
+__device__ __forceinline__ int ld_word(const int8_t* p, bool bytes, int left) {
+  if (!bytes) return *reinterpret_cast<const int*>(p);
+  uint32_t w = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (j < left) w |= static_cast<uint32_t>(static_cast<uint8_t>(p[j])) << (8 * j);
+  return static_cast<int>(w);
+}
+
 // A score as the reference forms it, -inf past kv_len (tt, live: the
 // position and the live positions, both from the slice's start).
 __device__ __forceinline__ float score(int acc, float sqr, float ksv, int tt, int live) {
@@ -323,25 +365,27 @@ __device__ __forceinline__ float score(int acc, float sqr, float ksv, int tt, in
 
 // ---- the __dp4a regime's products -----------------------------------------------
 
-// Rows rounded up to 1, 2, 4 or 8: the __dp4a loops run that many rows
-// unconditionally (q's and P's codes have kDp4aRows rows of room; rows
+// The __dp4a loops run the rows rounded up to 1, 2, 4 or 8 (pow2_rows)
+// unconditionally (q's and P's codes have that many rows of room; rows
 // past nr are made and dropped).
-__device__ __forceinline__ int pow2_rows(int nr) {
-  return nr <= 1 ? 1 : nr <= 2 ? 2 : nr <= 4 ? 4 : 8;
-}
 
-// The scores of NR rows, a thread per word of four positions.
+// The scores of NR rows, a thread per word of four positions, from K's
+// slice at kbuf with rows ld bytes apart (shared memory, or global memory
+// when streamed; bytes: rows without 4-byte alignment).
 template <int NR>
-__device__ __forceinline__ void scores_dp4a(const int8_t* kbuf, const int8_t* qq,
-                                            const float* sq, const float* kss, float* s,
-                                            const Layout& L, int Dh, int n, int nr, int live,
-                                            int nthreads) {
+__device__ __forceinline__ void scores_dp4a(const int8_t* kbuf, long long ld, bool bytes,
+                                            const int8_t* qq, const float* sq, const float* kss,
+                                            float* s, const Layout& L, int Dh, int n, int nr,
+                                            int live, int nthreads) {
   for (int w = threadIdx.x; 4 * w < n; w += nthreads) {
     const int tt = 4 * w;
     int acc[NR][4] = {};
     for (int d0 = 0; d0 < Dh; d0 += 4) {
       uint32_t kc[4];
-      transpose_4x4(kbuf + d0 * L.sp + tt, L.sp, kc);
+      if (bytes)
+        transpose_4x4_bytes(kbuf + d0 * ld + tt, ld, n - tt, kc);
+      else
+        transpose_4x4(kbuf + d0 * ld + tt, ld, kc);
 #pragma unroll
       for (int r = 0; r < NR; ++r) {
         const int qa = *reinterpret_cast<const int*>(qq + r * L.dhp + d0);
@@ -365,11 +409,12 @@ __device__ __forceinline__ void scores_dp4a(const int8_t* kbuf, const int8_t* qq
 
 // This rank's partials qp . V of NR rows into part [nr][Dh]: ns lanes
 // per head dim (a power of two), each over every ns-th word of four
-// positions up to the live ones.
+// positions up to the live ones. V's rows are ld bytes apart (bytes: as
+// in scores_dp4a), P's codes' sp.
 template <int NR>
-__device__ __forceinline__ void pv_dp4a(const int8_t* vbuf, const int8_t* codes, int* part,
-                                        int sp, int Dh, int nr, int live, int warp, int lane,
-                                        int nthreads) {
+__device__ __forceinline__ void pv_dp4a(const int8_t* vbuf, long long ld, bool bytes,
+                                        const int8_t* codes, int* part, int sp, int Dh, int nr,
+                                        int live, int warp, int lane, int nthreads) {
   int ns = 1;
   while (ns < 32 && 2 * ns * Dh <= nthreads) ns *= 2;
   const int words = (live + 3) >> 2;
@@ -378,9 +423,9 @@ __device__ __forceinline__ void pv_dp4a(const int8_t* vbuf, const int8_t* codes,
     const bool on = u < Dh * ns;
     int acc[NR] = {};
     if (on) {
-      const int8_t* vr = vbuf + d * sp;
+      const int8_t* vr = vbuf + d * ld;
       for (int w = sub; w < words; w += ns) {
-        const int vw = *reinterpret_cast<const int*>(vr + 4 * w);
+        const int vw = ld_word(vr + 4 * w, bytes, live - 4 * w);
 #pragma unroll
         for (int r = 0; r < NR; ++r)
           acc[r] = __dp4a(*reinterpret_cast<const int*>(codes + r * sp + 4 * w), vw, acc[r]);
@@ -558,7 +603,7 @@ __device__ __forceinline__ void row_passes(const Rows& w, int G, int warp, int l
 
 // ---- the kernel ----------------------------------------------------------------
 
-template <typename T, bool kMma>
+template <typename T, bool kMma, bool kStream>
 __global__ void __launch_bounds__(SPT_W8A8_THREADS(kMma))
     w8a8_cross_kernel(const Params p) {
   constexpr int kThreads = SPT_W8A8_THREADS(kMma);
@@ -566,7 +611,8 @@ __global__ void __launch_bounds__(SPT_W8A8_THREADS(kMma))
   extern __shared__ __align__(16) unsigned char smem[];
   const int S = p.slice, RT = p.row_tile, Dh = p.Dh;
   const int rank = cluster_rank(), C = cluster_size();
-  const Layout L(kMma, S, RT, Dh, C);
+  constexpr bool stream = kStream && !kMma;
+  const Layout L(kMma, stream, S, RT, Dh, C);
   int8_t* kbuf = reinterpret_cast<int8_t*>(smem + L.k);
   int8_t* vbuf = reinterpret_cast<int8_t*>(smem + L.v);
   int8_t* kt = reinterpret_cast<int8_t*>(smem + L.kt);
@@ -607,16 +653,21 @@ __global__ void __launch_bounds__(SPT_W8A8_THREADS(kMma))
   cluster_arrive();
 
   // 1. Loads: K and the two scale slices, then V (still in flight through
-  //    the scores and the reductions).
+  //    the scores and the reductions). Streamed, the scales alone, and
+  //    the products read K and V where they lie.
   const int8_t* kb = p.k + b * p.k_sb + h * p.k_sh + t0;
   const int8_t* vb = p.v + b * p.v_sb + h * p.v_sh + t0;
   const long long so = static_cast<long long>(bh) * p.Tk + t0;
-  load_rows(kbuf, L.sp, kb, p.k_ld, Dh, n, p.k_gran, kThreads);
+  if (!stream) load_rows(kbuf, L.sp, kb, p.k_ld, Dh, n, p.k_gran, kThreads);
   load_f32(kss, p.ks + so, n, kThreads);
   load_f32(vss, p.vs + so, n, kThreads);
   cp_async_commit();
-  load_rows(vbuf, L.sp, vb, p.v_ld, Dh, n, p.v_gran, kThreads);
+  if (!stream) load_rows(vbuf, L.sp, vb, p.v_ld, Dh, n, p.v_gran, kThreads);
   cp_async_commit();
+  const int8_t* ksrc = stream ? kb : kbuf;
+  const int8_t* vsrc = stream ? vb : vbuf;
+  const long long kld = stream ? p.k_ld : L.sp, vld = stream ? p.v_ld : L.sp;
+  const bool kbytes = stream && p.k_gran == 1, vbytes = stream && p.v_gran == 1;
 
   // 2. q's rows quantized over Dh, a group of lanes per row, every row of
   //    a warp at once; rows past R get codes 0 (they are never stored).
@@ -678,12 +729,15 @@ __global__ void __launch_bounds__(SPT_W8A8_THREADS(kMma))
     }
   } else {
     // A thread per word of four positions, every row at once.
+#define SPT_W8A8_SCORES(NR) \
+  scores_dp4a<NR>(ksrc, kld, kbytes, qq, sq, kss, s, L, Dh, n, nr, live, kThreads)
     switch (pow2_rows(nr)) {
-      case 1: scores_dp4a<1>(kbuf, qq, sq, kss, s, L, Dh, n, nr, live, kThreads); break;
-      case 2: scores_dp4a<2>(kbuf, qq, sq, kss, s, L, Dh, n, nr, live, kThreads); break;
-      case 4: scores_dp4a<4>(kbuf, qq, sq, kss, s, L, Dh, n, nr, live, kThreads); break;
-      default: scores_dp4a<8>(kbuf, qq, sq, kss, s, L, Dh, n, nr, live, kThreads);
+      case 1: SPT_W8A8_SCORES(1); break;
+      case 2: SPT_W8A8_SCORES(2); break;
+      case 4: SPT_W8A8_SCORES(4); break;
+      default: SPT_W8A8_SCORES(8);
     }
+#undef SPT_W8A8_SCORES
   }
   __syncthreads();
 
@@ -720,12 +774,15 @@ __global__ void __launch_bounds__(SPT_W8A8_THREADS(kMma))
       *reinterpret_cast<int2*>(part + (ra + 8) * Dh + d) = make_int2(acc[2], acc[3]);
     }
   } else {
+#define SPT_W8A8_PV(NR) \
+  pv_dp4a<NR>(vsrc, vld, vbytes, codes, part, L.sp, Dh, nr, live, warp, lane, kThreads)
     switch (pow2_rows(nr)) {
-      case 1: pv_dp4a<1>(vbuf, codes, part, L.sp, Dh, nr, live, warp, lane, kThreads); break;
-      case 2: pv_dp4a<2>(vbuf, codes, part, L.sp, Dh, nr, live, warp, lane, kThreads); break;
-      case 4: pv_dp4a<4>(vbuf, codes, part, L.sp, Dh, nr, live, warp, lane, kThreads); break;
-      default: pv_dp4a<8>(vbuf, codes, part, L.sp, Dh, nr, live, warp, lane, kThreads);
+      case 1: SPT_W8A8_PV(1); break;
+      case 2: SPT_W8A8_PV(2); break;
+      case 4: SPT_W8A8_PV(4); break;
+      default: SPT_W8A8_PV(8);
     }
+#undef SPT_W8A8_PV
   }
   __syncthreads();
   //    Each row's partials, four head dims at a time, into its owner (rank
@@ -768,9 +825,9 @@ int granule(const void* ptr, long long sb, long long sh, long long ld) {
   return a % 16 == 0 ? 16 : a % 4 == 0 ? 4 : 1;
 }
 
-template <typename T, bool kMma>
+template <typename T, bool kMma, bool kStream = false>
 int launch(const Params& p, int B, int cluster, int smem, cudaStream_t st) {
-  auto kernel = w8a8_cross_kernel<T, kMma>;
+  auto kernel = w8a8_cross_kernel<T, kMma, kStream>;
   static bool sized = false;
   if (!sized) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -797,30 +854,38 @@ int launch(const Params& p, int B, int cluster, int smem, cudaStream_t st) {
 
 }  // namespace
 
+// A K14 CTA's dynamic shared memory under a plan (the Layout's total).
+SPT_API int spt_w8a8_smem_bytes(int mma, int stream, int slice, int row_tile, int Dh,
+                                int cluster) {
+  return Layout(mma != 0, stream != 0 && mma == 0, slice, row_tile, Dh, cluster).total;
+}
+
 // K14. q [B, H, R, Dh] (bf16 when q_bf16, else f32) with strides
 // (q_sb, q_sh, q_sr, 1); k/v int8 [B, H, Dh, Tk] with strides (sb, sh,
 // ld, 1), ld >= Tk; ks/vs contiguous f32 [B, H, Tk]; out contiguous
 // [B, H, R, Dh] of q's type. Strides in elements. The plan (ops/
 // attention.py:w8a8_plan): mma (the tensor-core regime), the cluster
-// size, the positions per rank, the rows per CTA and the dynamic shared
-// memory, which must equal the kernel's layout.
+// size, the positions per rank, the rows per CTA and kv_stream (K and V
+// read from global memory, on __dp4a); the shared memory is the Layout's.
 SPT_API int spt_decode_cross_attention_w8a8(
     const void* q, const void* k, const void* ks, const void* v,
     const void* vs, void* out, int B, int H, int R, int Dh, int Tk,
-    int kv_len, int mma, int cluster, int slice, int row_tile, int smem,
+    int kv_len, int mma, int cluster, int slice, int row_tile, int kv_stream,
     int q_bf16, long long q_sb, long long q_sh, long long q_sr, long long k_sb,
     long long k_sh, long long k_ld, long long v_sb, long long v_sh,
     long long v_ld, void* stream) {
   const bool ok_regime =
-      mma ? (Dh % 32 == 0 && row_tile % 16 == 0 && row_tile <= 128 && slice % 32 == 0)
+      mma ? (Dh % 32 == 0 && row_tile % 16 == 0 && row_tile <= 128 && slice % 32 == 0 &&
+             !kv_stream)
           : (row_tile <= kDp4aRows && slice % 16 == 0);
   if (!ok_regime || B < 1 || H < 1 || R < 1 || row_tile < 1 || Dh % 4 != 0 ||
       Dh > kMaxDh || cluster < 1 || cluster > kMaxCluster || slice < 16 ||
-      static_cast<long long>(cluster) * slice < Tk || kv_len < 1 || kv_len > Tk ||
-      k_ld < Tk || v_ld < Tk || static_cast<long long>(B) * H > 65535 ||
-      (R + row_tile - 1) / row_tile > 65535 || smem > kSmemBudget ||
-      smem != Layout(mma != 0, slice, row_tile, Dh, cluster).total)
+      slice > (1 << 20) || static_cast<long long>(cluster) * slice < Tk || kv_len < 1 ||
+      kv_len > Tk || k_ld < Tk || v_ld < Tk || static_cast<long long>(B) * H > 65535 ||
+      (R + row_tile - 1) / row_tile > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = spt_w8a8_smem_bytes(mma, kv_stream, slice, row_tile, Dh, cluster);
+  if (smem > kSmemBudget) return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.q = q;
   p.k = static_cast<const int8_t*>(k);
@@ -848,8 +913,10 @@ SPT_API int spt_decode_cross_attention_w8a8(
   p.v_gran = granule(v, p.v_sb, p.v_sh, p.v_ld);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_bf16)
-    return mma ? launch<__nv_bfloat16, true>(p, B, cluster, smem, st)
-               : launch<__nv_bfloat16, false>(p, B, cluster, smem, st);
-  return mma ? launch<float, true>(p, B, cluster, smem, st)
-             : launch<float, false>(p, B, cluster, smem, st);
+    return mma         ? launch<__nv_bfloat16, true>(p, B, cluster, smem, st)
+           : kv_stream ? launch<__nv_bfloat16, false, true>(p, B, cluster, smem, st)
+                       : launch<__nv_bfloat16, false>(p, B, cluster, smem, st);
+  return mma         ? launch<float, true>(p, B, cluster, smem, st)
+         : kv_stream ? launch<float, false, true>(p, B, cluster, smem, st)
+                     : launch<float, false>(p, B, cluster, smem, st);
 }

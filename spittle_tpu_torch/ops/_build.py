@@ -52,6 +52,7 @@ SIGNATURES = {
     "spt_decode_cross_attention_q8": [_P] * 7 + [_I] * 7 + [_L] * 7 + [_P],
     "spt_decode_cross_attention_q4": [_P] * 7 + [_I] * 7 + [_L] * 7 + [_P],
     "spt_decode_cross_attention_w8a8": [_P] * 6 + [_I] * 12 + [_L] * 9 + [_P],
+    "spt_w8a8_smem_bytes": [_I] * 6,
     "spt_cache_col_write": [_P, _P, _P, _L, _I, _P],
     "spt_cache_col_write_rows": [_P, _P, _P, _L, _I, _I, _P],
 }

@@ -955,18 +955,21 @@ class W8A8Plan(NamedTuple):
     """How K14 runs at one (T, R, Dh): `mma` the regime (int8 tensor-core
     tiles past 8 rows when Dh is a multiple of 32, else __dp4a), `cluster`
     CTAs per (item, head, row tile), rank c taking positions [c * slice,
-    (c + 1) * slice) of T, `row_tile` query rows per CTA and `smem` bytes
-    of dynamic shared memory per CTA."""
+    (c + 1) * slice) of T, `row_tile` query rows per CTA, `smem` bytes
+    of dynamic shared memory per CTA (the kernel's Layout: the C entry
+    computes its own, spt_w8a8_smem_bytes) and `stream` (__dp4a only): K
+    and V read from global memory, not held in shared memory."""
 
     mma: bool
     cluster: int
     slice: int
     row_tile: int
     smem: int
+    stream: bool = False
 
     @property
     def regime(self) -> str:
-        return "mma" if self.mma else "dp4a"
+        return "mma" if self.mma else "dp4a_stream" if self.stream else "dp4a"
 
     def row_tiles(self, r: int) -> int:
         return -(-r // self.row_tile)
@@ -976,25 +979,31 @@ def _align16(x: int) -> int:
     return (x + 15) & ~15
 
 
-def w8a8_smem_bytes(mma: bool, slice_: int, row_tile: int, dh: int, cluster: int) -> int:
-    """A K14 CTA's dynamic shared memory (the kernel's Layout): K and V's
-    slice rows (slice + 16 bytes each); f32 scores (slice + 16 floats per
-    row; then this CTA's int32 partials), which under mma take K's space
-    as loaded; the transposed K (mma); the partials peers store for this
-    rank's rows ([cluster][ceil(row_tile / cluster)][dh] int32, in K's or
-    the transposed K's space); q's and P's codes (room for 8 rows under
-    __dp4a); both scale slices; the row slots (two scales and three
-    [cluster] reduction slots per row); four mbarriers (the three
-    reductions, the partials)."""
+def w8a8_smem_bytes(mma: bool, slice_: int, row_tile: int, dh: int, cluster: int,
+                    stream: bool = False) -> int:
+    """A K14 CTA's dynamic shared memory (the kernel's Layout, which the
+    C entry computes for itself and spt_w8a8_smem_bytes exports; the card
+    tests hold the two equal): K and V's slice rows (slice + 16 bytes
+    each; none when streamed); f32 scores (slice + 16 floats per row; then
+    this CTA's int32 partials), which under mma take K's space as loaded;
+    the transposed K (mma); the partials peers store for this rank's rows
+    ([cluster][ceil(row_tile / cluster)][dh] int32, in K's or the
+    transposed K's space, else their own); q's and P's codes (room for the
+    row tile rounded up to 1, 2, 4 or 8 under __dp4a); both scale slices;
+    the row slots (two scales and three [cluster] reduction slots per
+    row); four mbarriers (the three reductions, the partials)."""
     sp, dhp, sf = slice_ + 16, dh + 16, slice_ + 16
     kbytes, sbytes = dh * sp, max(row_tile * sf, row_tile * dh) * 4
     rbytes = cluster * -(-row_tile // cluster) * dh * 4
     if mma:
         total = (_align16(max(kbytes, sbytes)) + _align16(kbytes)
                  + _align16(max(slice_ * dhp, rbytes)))
+    elif stream:
+        total = _align16(sbytes) + _align16(rbytes)
     else:
         total = _align16(max(kbytes, rbytes)) + _align16(sbytes) + _align16(kbytes)
-    crows = row_tile if mma else W8A8_DP4A_ROWS  # rows of q's and P's codes
+    # rows of q's and P's codes
+    crows = row_tile if mma else next(n for n in (1, 2, 4, 8) if n >= row_tile)
     total += _align16(crows * dhp) + _align16(crows * sp)
     total += 2 * _align16(slice_ * 4) + _align16((2 + 3 * cluster) * row_tile * 4)
     return total + 32  # four mbarriers
@@ -1002,29 +1011,34 @@ def w8a8_smem_bytes(mma: bool, slice_: int, row_tile: int, dh: int, cluster: int
 
 def w8a8_plan(tk: int, r: int, dh: int) -> W8A8Plan:
     """K14's plan for K/V of tk positions, r query rows and head dim dh.
-    The regime follows r and dh alone. The cluster is the largest power of
-    two up to 8 that leaves each rank W8A8_MIN_SLICE positions (1 below
-    that); the slice is T over the ranks rounded up to 16 positions (32
-    under mma, a k-step of the tensor cores); the row tile is 64 under mma
-    (32 for up to 32 rows: a tile of 16 keeps too few of the CTA's 16
-    warps busy), halved down to 16 until the CTA fits the budget, and
-    under __dp4a as many of r's rows, up to 8, as fit. Raises
-    ValueError where even the smallest tile does not fit.
+    The regime follows r and dh while a slice of K and V fits in shared
+    memory: the tensor cores past 8 rows with dh a multiple of 32, else
+    __dp4a. The cluster is the largest power of two up to 8 that leaves
+    each rank W8A8_MIN_SLICE positions (1 below that); the slice is T over
+    the ranks rounded up to 16 positions (32 under mma, a k-step of the
+    tensor cores); the row tile is 64 under mma (32 for up to 32 rows: a
+    tile of 16 keeps too few of the CTA's 16 warps busy), halved down to
+    16 until the CTA fits the budget, and under __dp4a as many of r's
+    rows, up to 8, as fit. Where no tile fits (T past ~12,000 at Dh 64 and
+    8 rows, ~7,700 at 228), K and V are streamed from global memory on
+    __dp4a, as many rows as fit (one row fits up to T ~140,000). Raises
+    ValueError where even that does not fit.
     probes/w8a8_cluster.py times K14 under the other clusters and tiles."""
-    mma = r > W8A8_DP4A_ROWS and dh % 32 == 0
     cluster = 1
     while 2 * cluster <= W8A8_MAX_CLUSTER and 2 * cluster * W8A8_MIN_SLICE <= tk:
         cluster *= 2
-    gran = 32 if mma else 16
-    slice_ = -(-(-(-tk // cluster)) // gran) * gran
-    if mma:
-        tiles = [t for t in (64, 32, 16) if t <= max(32, -(-r // 16) * 16)]
-    else:
-        tiles = list(range(min(r, W8A8_DP4A_ROWS), 0, -1))
-    for rt in tiles:
-        smem = w8a8_smem_bytes(mma, slice_, rt, dh, cluster)
-        if smem <= W8A8_SMEM_BUDGET:
-            return W8A8Plan(mma, cluster, slice_, rt, smem)
+    mma = r > W8A8_DP4A_ROWS and dh % 32 == 0
+    for mma, stream in ((mma, False), (False, True)):
+        gran = 32 if mma else 16
+        slice_ = -(-(-(-tk // cluster)) // gran) * gran
+        if mma:
+            tiles = [t for t in (64, 32, 16) if t <= max(32, -(-r // 16) * 16)]
+        else:
+            tiles = list(range(min(r, W8A8_DP4A_ROWS), 0, -1))
+        for rt in tiles:
+            smem = w8a8_smem_bytes(mma, slice_, rt, dh, cluster, stream)
+            if smem <= W8A8_SMEM_BUDGET:
+                return W8A8Plan(mma, cluster, slice_, rt, smem, stream)
     raise ValueError(f"decode_cross_attention_w8a8: T={tk} at Dh {dh} does not fit "
                      f"{slice_} positions per CTA in shared memory")
 
@@ -1094,7 +1108,7 @@ def _launch_w8a8(q, qk, ks, qv, vs, kv_len: int, plan: W8A8Plan) -> torch.Tensor
     _build.check(lib.spt_decode_cross_attention_w8a8(
         q.data_ptr(), qk.data_ptr(), ks.data_ptr(), qv.data_ptr(), vs.data_ptr(),
         out.data_ptr(), b, h, r, d, qk.shape[3], kv_len, int(plan.mma), plan.cluster,
-        plan.slice, plan.row_tile, plan.smem, int(q.dtype == torch.bfloat16),
+        plan.slice, plan.row_tile, int(plan.stream), int(q.dtype == torch.bfloat16),
         *q.stride()[:3], *qk.stride()[:3], *qv.stride()[:3],
         _build.stream_ptr(q.device),
     ), "spt_decode_cross_attention_w8a8")

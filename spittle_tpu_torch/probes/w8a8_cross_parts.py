@@ -74,7 +74,7 @@ VARIANTS = {
     "no_passes": [("c < nc; c += G)", "c < 0; c += G)"), ("c < lc; c += G)", "c < 0; c += G)"),
                   ("c < (w.S >> 2); c += G)", "c < 0; c += G)")],
     "no_pv": [("spt::mma_s8_16832(acc, af, bf);", ""),
-              ("const int vw = *reinterpret_cast<const int*>(vr + 4 * w);",
+              ("const int vw = ld_word(vr + 4 * w, bytes, live - 4 * w);",
                "const int vw = 0;")],
     "timeline": TIMELINE,
     "loads_only": [(_LOADED, "  cp_async_wait<0>();\n  cluster_wait();\n"
@@ -130,7 +130,7 @@ def _launch(fn, args, out, plan):
     _build.check(fn(
         q.data_ptr(), qk.data_ptr(), ks.data_ptr(), qv.data_ptr(), vs.data_ptr(),
         out.data_ptr(), b, h, r, d, T, T, int(plan.mma), plan.cluster, plan.slice,
-        plan.row_tile, plan.smem, 1, *q.stride()[:3], *qk.stride()[:3],
+        plan.row_tile, int(plan.stream), 1, *q.stride()[:3], *qk.stride()[:3],
         *qv.stride()[:3], torch.cuda.current_stream().cuda_stream), ENTRY)
 
 

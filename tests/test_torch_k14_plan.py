@@ -1,10 +1,11 @@
 """K14's launch plan (spittle_tpu_torch/ops/attention.py:w8a8_plan) on the
 CPU: at every shape of the card tests' _K14_CASES, chip_smoke's K14
 shapes and the engines' (T 1500 on rows of 1504, T 6000, the trained tiny
-checkpoint's T 96 at Dh 8; R 1, 4, 8, 13, 228), the ranks' slices tile
-[0, T) exactly from aligned starts, the cluster is a power of two up to
-8, the CTA's shared memory fits the budget and is the kernel's layout, and
-the regime follows R and Dh alone. On tensors that are not on the CPU
+checkpoint's T 96 at Dh 8; R 1, 4, 8, 13, 228; T 13000 to 45000, where K
+and V are streamed), the ranks' slices tile [0, T) exactly from aligned
+starts, the cluster is a power of two up to 8, the CTA's shared memory
+fits the budget and is the kernel's layout, and the regime follows R and
+Dh while K and V fit, streamed __dp4a past that. On tensors that are not on the CPU
 (meta tensors here, with the kernel library replaced by a recorder), the
 wrapper raises ValueError for shapes the kernel cannot take and never
 calls the plain version; a shape it can take reaches the C entry once
@@ -28,6 +29,10 @@ SHAPES = sorted({
     (1504, 1, 64), (1504, 228, 64), (6000, 1, 64), (6000, 4, 64), (6000, 8, 64),
     (6000, 13, 64), (6000, 228, 64), (96, 1, 8), (96, 4, 8), (96, 8, 8),
     (96, 228, 8), (1500, 13, 64),
+    # long K/V: streamed past what a slice of K and V fits (the card tests'
+    # T 45000 at R 1 and 228, and an odd T read byte by byte)
+    (45000, 1, 64), (45000, 228, 64), (20001, 3, 64), (13000, 8, 64), (8000, 228, 64),
+    (45000, 4, 256),
 })
 
 
@@ -71,18 +76,28 @@ def test_shared_memory_fits(shape):
     tk, r, dh = shape
     plan = att.w8a8_plan(tk, r, dh)
     assert plan.smem == att.w8a8_smem_bytes(plan.mma, plan.slice, plan.row_tile, dh,
-                                             plan.cluster)
+                                             plan.cluster, plan.stream)
     assert 0 < plan.smem <= att.W8A8_SMEM_BUDGET
-    # The scores of every row of the tile over the slice are in it.
-    assert plan.smem >= plan.row_tile * plan.slice * 4 + 2 * dh * plan.slice
+    # The scores of every row of the tile over the slice are in it, with
+    # both scale slices, and K and V's slices unless they are streamed.
+    kv = 0 if plan.stream else 2 * dh * plan.slice
+    assert plan.smem >= plan.row_tile * plan.slice * 4 + 8 * plan.slice + kv
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=_id)
 def test_regime_follows_rows_and_head_dim(shape):
     tk, r, dh = shape
     plan = att.w8a8_plan(tk, r, dh)
-    assert plan.mma == (r > 8 and dh % 32 == 0)
-    assert plan.regime == ("mma" if plan.mma else "dp4a")
+    mma = r > 8 and dh % 32 == 0
+    assert plan.mma == (mma and not plan.stream)
+    assert not (plan.mma and plan.stream)
+    assert plan.regime == ("mma" if plan.mma else "dp4a_stream" if plan.stream else "dp4a")
+    # Streamed only where the regime's smallest tile, K and V held, does
+    # not fit.
+    gran = 32 if mma else 16
+    slice_ = -(-(-(-tk // plan.cluster)) // gran) * gran
+    held = att.w8a8_smem_bytes(mma, slice_, 16 if mma else 1, dh, plan.cluster)
+    assert plan.stream == (held > att.W8A8_SMEM_BUDGET)
     if plan.mma:
         assert plan.row_tile in (16, 32, 64)
     else:
@@ -99,6 +114,9 @@ def test_plan_at_the_decoder_shapes():
     assert att.w8a8_plan(1500, 228, 64)[:4] == (True, 8, 192, 64)
     assert att.w8a8_plan(96, 13, 8)[:4] == (False, 1, 96, 8)
     assert att.w8a8_plan(6000, 9, 64)[:4] == (True, 8, 768, 16)
+    assert att.w8a8_plan(45000, 1, 64)[:4] == (False, 8, 5632, 1)
+    assert att.w8a8_plan(45000, 228, 64)[:4] == (False, 8, 5632, 6)
+    assert att.w8a8_plan(45000, 1, 64).stream and att.w8a8_plan(45000, 228, 64).stream
 
 
 @pytest.fixture
@@ -131,7 +149,7 @@ def _meta(b, h, r, dh, t, pitch=None, dtype=torch.bfloat16):
 _UNFIT = {
     "dh62": ((1, 2, 3, 62, 100), {}, "multiple of 4"),
     "dh260": ((1, 2, 3, 260, 100), {}, "multiple of 4"),
-    "T50000": ((1, 2, 3, 64, 50000), {}, "shared memory"),
+    "T150000": ((1, 2, 3, 64, 150000), {}, "shared memory"),
     "BH65536": ((65536, 1, 1, 64, 16), {}, "65535"),
     "kv_len0": ((1, 2, 3, 64, 100), dict(kv_len=0), "kv_len"),
     "kv_len_past_T": ((1, 2, 3, 64, 100), dict(kv_len=101), "kv_len"),
@@ -155,19 +173,21 @@ def test_mismatched_kv_raises_off_the_cpu(recorder):
     assert recorder == []
 
 
-@pytest.mark.parametrize("r", [1, 4, 228])
-def test_fit_shape_reaches_the_entry_with_the_plan(recorder, r):
-    """B 8, H 20, T 1500 on rows of 1504: one C call, whose arguments are
-    the signature's count and carry the plan and the row pitch."""
+@pytest.mark.parametrize("t, r", [(1500, 1), (1500, 4), (1500, 228), (45000, 1),
+                                  (45000, 228)])
+def test_fit_shape_reaches_the_entry_with_the_plan(recorder, t, r):
+    """B 8, H 20 on rows 4 bytes past T: one C call, whose arguments are
+    the signature's count and carry the plan (the C entry lays out the
+    shared memory itself) and the row pitch."""
     before = att.decode_cross_attention_w8a8.launches
-    out = att.decode_cross_attention_w8a8(*_meta(8, 20, r, 64, 1500, pitch=1504))
+    out = att.decode_cross_attention_w8a8(*_meta(8, 20, r, 64, t, pitch=t + 4))
     assert out.shape == (8, 20, r, 64) and out.dtype == torch.bfloat16
     assert att.decode_cross_attention_w8a8.launches == before + 1
     (args,) = recorder
     assert len(args) == len(_build.SIGNATURES["spt_decode_cross_attention_w8a8"])
-    plan = att.w8a8_plan(1500, r, 64)
-    b, h, rr, dh, tk, kv_len, mma, cluster, slice_, row_tile, smem, bf16 = args[6:18]
-    assert (b, h, rr, dh, tk, kv_len, bf16) == (8, 20, r, 64, 1500, 1500, 1)
-    assert (bool(mma), cluster, slice_, row_tile, smem) == \
-        (plan.mma, plan.cluster, plan.slice, plan.row_tile, plan.smem)
-    assert args[23] == 1504 and args[26] == 1504  # k_ld, v_ld
+    plan = att.w8a8_plan(t, r, 64)
+    b, h, rr, dh, tk, kv_len, mma, cluster, slice_, row_tile, stream, bf16 = args[6:18]
+    assert (b, h, rr, dh, tk, kv_len, bf16) == (8, 20, r, 64, t, t, 1)
+    assert (bool(mma), cluster, slice_, row_tile, bool(stream)) == \
+        (plan.mma, plan.cluster, plan.slice, plan.row_tile, plan.stream)
+    assert args[23] == t + 4 and args[26] == t + 4  # k_ld, v_ld

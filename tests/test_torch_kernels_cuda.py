@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from spittle_tpu_torch.ops import _build
 from spittle_tpu_torch.ops import attention as att
 from spittle_tpu_torch.ops import cache_write as cw
 from spittle_tpu_torch.ops.quant import (
@@ -1172,7 +1173,9 @@ def _assert_k14_close(got, args, kv_len):
 # cores); bench.py's large-v3 batch (B 56, H 20); kv_len 100, so that
 # ranks 1-7 of the cluster hold only pad; R 64 and 65 at a tensor-core row
 # tile's edge; a prefill with kv_len < T; Dh 8 past 8 rows (the __dp4a
-# regime in row tiles of 8).
+# regime in row tiles of 8); K/V streamed from global memory (T 45000 at a
+# step's row and a prefill's 228 rows, with kv_len < T; an odd T whose
+# rows are read byte by byte).
 _K14_CASES = {
     "B8-R1-T1500-padded": (8, 1, 1500, 1500, 1504, torch.bfloat16, 64),
     "B8-R4-T1500-padded": (8, 4, 1500, 1500, 1504, torch.bfloat16, 64),
@@ -1190,6 +1193,9 @@ _K14_CASES = {
     "B8-R65-T1500-padded": (8, 65, 1500, 1500, 1504, torch.bfloat16, 64),
     "B8-R228-T1500-kv1300-padded": (8, 228, 1500, 1300, 1504, torch.bfloat16, 64),
     "B2-R16-T1500-dh8-f32": (2, 16, 1500, 1500, 1504, torch.float32, 8),
+    "B1-R1-T45000-stream": (1, 1, 45000, 45000, None, torch.bfloat16, 64),
+    "B1-R228-T45000-kv44000-stream": (1, 228, 45000, 44000, 45008, torch.bfloat16, 64),
+    "B1-R3-T20001-kv19999-stream-contiguous": (1, 3, 20001, 19999, None, torch.bfloat16, 64),
 }
 
 
@@ -1228,6 +1234,21 @@ def test_k14_stable_over_many_launches(cuda):
         _assert_k14_close(out, args, 1500)
 
 
+def test_k14_plan_smem_is_the_kernels_layout(cuda):
+    """The plan's shared-memory bytes (ops.attention.w8a8_smem_bytes, which
+    fits the row tile on the host) equal the kernel's own Layout, which the
+    C entry launches with (spt_w8a8_smem_bytes), at every plan from T 1 to
+    T 100000 (streamed), every R and Dh 8 to 256."""
+    lib = _build.load_library()
+    for tk in (1, 96, 301, 1500, 6000, 8000, 13000, 20001, 45000, 100000):
+        for r in (1, 3, 4, 8, 9, 13, 64, 65, 228):
+            for dh in (8, 32, 64, 256):
+                p = att.w8a8_plan(tk, r, dh)
+                want = lib.spt_w8a8_smem_bytes(int(p.mma), int(p.stream), p.slice,
+                                               p.row_tile, dh, p.cluster)
+                assert p.smem == want, (tk, r, dh, p)
+
+
 def test_k14_wrapper_raises(cuda):
     """On the card the wrapper launches K14 or raises: no fallback for a
     head dim that is not a multiple of 4, int8 K/V of another dtype, f16
@@ -1240,8 +1261,8 @@ def test_k14_wrapper_raises(cuda):
         att.decode_cross_attention_w8a8(q.half(), qk, ks, qv, vs)
     with pytest.raises(TypeError, match="int8"):
         att.decode_cross_attention_w8a8(q, qk.float(), ks, qv, vs)
-    big = torch.zeros((1, 1, 64, 50000), dtype=torch.int8, device=cuda)
-    sc = torch.ones((1, 1, 50000), device=cuda)
+    big = torch.zeros((1, 1, 64, 150000), dtype=torch.int8, device=cuda)
+    sc = torch.ones((1, 1, 150000), device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         att.decode_cross_attention_w8a8(q[:, :1], big, sc, big, sc)
     assert att.decode_cross_attention_w8a8(q, qk, ks, qv, vs).shape == q.shape

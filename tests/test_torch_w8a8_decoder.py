@@ -198,18 +198,24 @@ def test_k14_plain_ties_round_half_to_even():
 def test_k14_rows_per_block_fit_shared_memory():
     """The tiling of K14's rows by T and R (w8a8_plan): up to 8 rows per
     CTA under __dp4a, 64 under the tensor cores, fewer where a rank's
-    slice of T would not fit beside them; none past what one row fits."""
+    slice of T would not fit beside them; past that K and V are streamed
+    from global memory, and one row per CTA still runs at T 45000 (the
+    most the first design took) at a step's R 1 and a prefill's R 228;
+    none past what one row fits."""
     assert tatt.w8a8_plan(1500, 8, 64).row_tile == 8
     assert tatt.w8a8_plan(1500, 228, 64).row_tile == 64
     assert tatt.w8a8_plan(6000, 228, 64).row_tile == 16
     assert tatt.w8a8_plan(12000, 1, 64).row_tile == 1
+    for r in (1, 228):
+        plan = tatt.w8a8_plan(45000, r, 64)
+        assert plan.stream and not plan.mma and plan.row_tile >= 1
     with pytest.raises(ValueError, match="shared memory"):
-        tatt.w8a8_plan(50000, 1, 64)
-    for tk in (1, 1500, 1501, 6000):
+        tatt.w8a8_plan(150000, 1, 64)
+    for tk in (1, 1500, 1501, 6000, 45000):
         for r in (1, 8, 228):
             plan = tatt.w8a8_plan(tk, r, 64)
-            assert plan.smem == tatt.w8a8_smem_bytes(plan.mma, plan.slice,
-                                                     plan.row_tile, 64, plan.cluster)
+            assert plan.smem == tatt.w8a8_smem_bytes(plan.mma, plan.slice, plan.row_tile,
+                                                     64, plan.cluster, plan.stream)
             assert plan.smem <= tatt.W8A8_SMEM_BUDGET
 
 
