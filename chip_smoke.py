@@ -58,7 +58,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    units).
    Then the weight-only int8
    decoder products of one decode step (plain matmuls, no kernel of
-   their own), beside the same products on bf16 weights.
+   their own), beside the same products on bf16 weights. Then K1 at
+   [8, 10, 1500, 64] and [8, 5, 1500, 64], and K4 and K3 at 10 and 5 heads
+   (B 8, R 1, rows of 1504): the heads one rank holds when tensor
+   parallelism splits 20 over 2 or 4 ranks, each against its plain
+   version, ms beside the 20-head ms (each row's "by_heads").
 3. The trained tiny checkpoint (tests/data/trained_tiny) through the
    engine on the card must reproduce its golden greedy tokens, through
    transcribe_batch's parallel windows and through transcribe_samples
@@ -86,8 +90,22 @@ Phases, each printing its own lines; any failure exits non-zero:
    windows (max_tokens 96, temperature 0, language "en"):
    a. turbo leg: random:large-v3-turbo, bf16 decoder, 2 batches (K1, K2,
       K4);
+   s. turbo MoE (after a, the same engine): the encoder's MLP replaced by
+      a routed MoE FFN of 8 experts (MOE_MODEL, ~6.25 GiB of experts drawn
+      on the card), 1 batch (K1 32, K2 4 per layer: fc1/fc2 are gone, K4
+      per step); the encoder seconds beside a's, each layer's expert
+      counts and dropped tokens, peak memory; then one layer's moe_ffn on
+      the card against CPU f32 copies at 1,500 and 12,000 tokens (routing
+      exact, outputs within 2e-2 of the largest);
+   t. mesh (after s, the same engine): a one-rank NCCL process group and
+      make_mesh(1, tp=1): shard_params, then sharded encode and greedy
+      decode of 8 windows must give the unsharded tokens; the server with
+      mesh= the engine's tokens; moe_ffn under the ep mesh the
+      single-device call's output; pipeline_apply with one stage over 4
+      encoder blocks the sequential loop's; the unsharded references run
+      first, and the sharded runs' launches are held to their prediction;
    b. large-v3 leg: random:large-v3, int8 decoder, int8 cross-K/V and
-      int8 self-cache, 2 batches (K1, K2, K3);
+      int8 self-cache, 1 batch (K1, K2, K3);
    c. the encoder-attention forms: the turbo leg's engine (its weights
       drawn once) with encoder_attention set to "q8", "packed", "pair"
       and "pipe" in turn, 1 batch each (K7, K8, K9, K10 in place of K1);
@@ -102,8 +120,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    g. app path: the turbo leg's engine through transcribe_samples with
       TranscribeParams() (the sequential seek loop, language detection,
       the six-rung temperature ladder, the prompt carry; 224-token
-      budget) on a 5 s utterance, a 65 s item (three or more windows)
-      and the 5 s utterance with an initial prompt, no warm-up (K1, K2,
+      budget) on a 5 s utterance and a 65 s item with an initial prompt
+      (three or more windows), no warm-up (K1, K2,
       K4 in every rung's steps, in the prefill at up to 8 prefix rows and
       in each call's detection step). Random weights fail every rung's
       avg_logprob gate, so each window is expected to take all six rungs
@@ -150,9 +168,9 @@ Phases, each printing its own lines; any failure exits non-zero:
       pass against ms per step, K4's launches as predicted (4 rows per
       item in each verify);
    q. large-v3 w8a8 (after j, the large-v3 leg's engine and weights,
-      switched to quantize_decoder="w8a8"): 2 batches as b (K14 32 x (1 +
-      steps) per batch), then one batch with load_self_draft(2) (K14 at 4
-      rows per item in every verify);
+      switched to quantize_decoder="w8a8"): 1 batch as b (K14 32 x (1 +
+      steps) per batch), then one batch with load_self_draft(2) and a
+      budget of SPEC_TOKENS (K14 at 4 rows per item in every verify);
    k-m. the other engine families at full width, f32, seeded random
       weights: random:parakeet-tdt-0.6b-v3 (TDT greedy loop),
       random:sense-voice-small (CTC) and random:moonshine-base (KV-cache
@@ -212,6 +230,17 @@ VAD_SECONDS, VAD_RATE, VAD_TOKENS = 600.0, 44100, 48
 # utterances' lengths (seconds) and the staged round's decode budget
 # (24 tokens at temperature 0, as the reference's serving bench sends).
 SERVE_CLIENTS, SERVE_SECONDS, SERVE_TOKENS = 32, (1.0, 10.0), 24
+# The "turbo MoE" path: large-v3-turbo with a routed MoE encoder FFN of
+# this many experts (a CONFIGS entry, as LONG_MODEL is).
+MOE_MODEL = "large-v3-turbo-moe8"
+MOE_EXPERTS = 8
+# The "large-v3 w8a8" path's speculative batch: its decode budget (the
+# draft's and verify's rounds are host-bound at ~0.2 s each).
+SPEC_TOKENS = 48
+# e2e_phase's stage seconds and batches by path label; one MoE layer's
+# tree and input for the mesh phase.
+STAGE_SECONDS: dict = {}
+MOE_LAYER: dict = {}
 # Kernels whose launch counts come from the probes phase.
 PROBE_KERNELS = ("decode_cross_attention_q8_mh", "alias_col_write_sub",
                  "alias_col_write")
@@ -999,6 +1028,348 @@ def encoder_forms_phase(dev, rng):
     return rows
 
 
+
+def heads_phase(dev, rng, rows):
+    """K1, K4 and K3 at the head counts one rank holds when tensor
+    parallelism splits turbo's and large-v3's 20 heads (tp 2: 10, tp 4:
+    5), the main path's other dims (B 8, T 1500; K4/K3 at R 1 on rows of
+    1504 positions), each against its plain version with the tolerance of
+    the kernels phase; ms beside the 20-head ms, under each row's
+    "by_heads"."""
+    from spittle_tpu_torch.ops import attention as att
+    from spittle_tpu_torch.ops.quant import quantize_kv
+
+    by = {r["name"]: r for r in rows}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    b, t, d = 8, 1500, 64
+    ref_ms = {"flash_attention_fullkv": by["flash_attention_fullkv"]["ms"],
+              "decode_cross_attention":
+                  by["decode_cross_attention"]["by_shape"]["B8R1"]["ms"],
+              "decode_cross_attention_q8":
+                  by["decode_cross_attention_q8"]["by_shape"]["B8R1"]["ms"]}
+    print("kernels at per-rank head counts (tp 2: 10 heads, tp 4: 5):")
+    for h in (10, 5):
+        packed = [randn(rng, (b, t, h * d), dev, scale=d ** -0.25) for _ in range(3)]
+        q, k, v = (x.view(b, t, h, d).permute(0, 2, 1, 3) for x in packed)
+        cases = [("flash_attention_fullkv", "K1", f"[8,{h},1500,64]",
+                  lambda: att.flash_attention_fullkv(q, k, v, kv_len=t),
+                  lambda: att.flash_attention_fullkv_plain(q, k, v, kv_len=t),
+                  None, 20)]
+        kvs = [(padded_rows(randn(rng, (b, h, d, t), dev)),
+                padded_rows(randn(rng, (b, h, d, t), dev)))
+               for _ in range(n_cold_sets(2 * b * h * d * t * 2))]
+        qd = randn(rng, (b, h, 1, d), dev, scale=d ** -0.5)
+        cases.append(("decode_cross_attention", "K4", f"B 8 H {h} R 1",
+                      lambda: att.decode_cross_attention(qd, *kvs[0], kv_len=t),
+                      lambda: att.decode_cross_attention_plain(qd, *kvs[0], kv_len=t),
+                      [lambda kv=kv: att.decode_cross_attention(qd, *kv, kv_len=t)
+                       for kv in kvs], 100))
+        q8 = []
+        for _ in range(n_cold_sets(2 * b * h * d * t + 2 * b * h * t * 4)):
+            kq, vq = (quantize_kv(torch.randn((b, h, d, t), generator=gen,
+                                              device=dev)) for _ in range(2))
+            q8.append((padded_rows(kq["qw"]), kq["scale"], padded_rows(vq["qw"]),
+                       vq["scale"]))
+        cases.append(("decode_cross_attention_q8", "K3", f"B 8 H {h} R 1",
+                      lambda: att.decode_cross_attention_q8(qd, *q8[0], kv_len=t),
+                      lambda: att.decode_cross_attention_q8_plain(qd, *q8[0], kv_len=t),
+                      [lambda kv=kv: att.decode_cross_attention_q8(qd, *kv, kv_len=t)
+                       for kv in q8], 100))
+        for name, label, shape, kernel, plain, timed, iters in cases:
+            got, want = kernel(), plain()
+            err = (got.float() - want.float()).abs().max().item()
+            # K1: two bf16 ulps of the largest output; K4/K3: the kernels
+            # phase's 2e-3 + 1e-2 of the largest output.
+            tol = (1e-2 * want.float().abs().max().item() if label == "K1"
+                   else 2e-3 + 1e-2 * want.float().abs().max().item())
+            check(f"{label} {shape}", err, tol)
+            ms = time_ms(timed or kernel, iters)
+            plain_ms = time_ms(plain, 3, 1)
+            print(f"  {label} {shape}: ms {ms:.4f} (20 heads {ref_ms[name]:.4f})  "
+                  f"plain_ms {plain_ms:.4f}")
+            by[name].setdefault("by_heads", {})[str(h)] = dict(
+                ms=ms, plain_ms=plain_ms, max_abs_err=err)
+        del packed, q, k, v, kvs, q8
+        torch.cuda.empty_cache()
+
+
+def _moe_blocks(eng, experts: int, seed: int):
+    """The turbo engine's encoder blocks with the dense MLP replaced by a
+    routed MoE FFN of `experts` experts at random_params' shapes and
+    scales (weights.moe_leaf_init), drawn on the card from a seeded
+    generator: a 32 x 8 x 1280 x 5120 expert tree from numpy would take
+    about a minute on the host."""
+    from spittle_tpu_torch.models.whisper.weights import moe_leaf_init
+
+    cfg = eng.cfg
+    blocks = {k: v for k, v in eng.params["encoder"]["blocks"].items()
+              if not k.startswith(("fc1_", "fc2_"))}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    for name, (shape, scale, f32) in moe_leaf_init(
+            cfg.n_audio_state, experts, cfg.n_audio_layer).items():
+        out = torch.empty(shape, dtype=torch.float32 if f32 else eng.dtype,
+                          device="cuda")
+        for i in range(shape[0]):  # one layer's f32 draw at a time
+            out[i] = torch.randn(shape[1:], generator=gen, device="cuda") * scale
+        blocks[name] = out
+    return blocks
+
+
+def moe_ffn_check(blocks, layer: int, n_tokens: int, seed: int):
+    """One layer's moe_ffn on the card (bf16 experts) against the same
+    function on CPU f32 copies of its inputs: equal routing (counts and
+    drops exact) and outputs within the stated tolerance. Returns the
+    card's [n, D] output and its inputs for the mesh phase."""
+    from spittle_tpu_torch.parallel.expert_parallel import moe_ffn
+
+    p = {"router_w": blocks["moe_router"][layer], "w_in": blocks["moe_w_in"][layer],
+         "w_out": blocks["moe_w_out"][layer]}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    x = torch.randn((n_tokens, p["w_in"].shape[1]), generator=gen,
+                    device="cuda").to(p["w_in"].dtype)
+    with torch.inference_mode():
+        out, aux = moe_ffn(p, x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        moe_ffn(p, x)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        cpu = {k: v.float().cpu() for k, v in p.items()}
+        ref, ref_aux = moe_ffn(cpu, x.float().cpu())
+    err = (out.float().cpu() - ref).abs()
+    scale = ref.abs().max().item()
+    print(f"  moe_ffn layer {layer} at N {n_tokens} (capacity factor 1.25, "
+          f"{p['w_in'].shape[0]} experts): card {ms:.2f} ms (wall, one call); "
+          f"expert counts {[int(c) for c in aux['expert_counts'].tolist()]}, "
+          f"dropped {int(aux['dropped'])} (CPU f32: "
+          f"{[int(c) for c in ref_aux['expert_counts'].tolist()]}, "
+          f"{int(ref_aux['dropped'])}); max |card - CPU f32| "
+          f"{err.max().item():.3e}, mean {err.mean().item():.3e} of a max "
+          f"|out| {scale:.3f}")
+    if not (torch.equal(aux["expert_counts"].cpu(), ref_aux["expert_counts"])
+            and float(aux["dropped"]) == float(ref_aux["dropped"])):
+        raise AssertionError("moe_ffn: the card's routing differs from the CPU's")
+    # The card runs both expert products and the GELU in bf16 (the
+    # weights' dtype, as the reference does), the CPU copy in f32: three
+    # bf16 roundings of O(1) activations, 2^-8 each, over 5120-term sums.
+    tol = 2e-2 * max(scale, 1.0)
+    check(f"moe_ffn N={n_tokens}", err.max().item(), tol)
+    return p, x, out
+
+
+def moe_phase(label: str, eng, seed: int):
+    """The turbo engine (W8A8 encoder, bf16 decoder) with a MoE encoder of
+    MOE_EXPERTS experts drawn on the card (its CONFIGS entry MOE_MODEL):
+    one batch of 8 x 30 s through e2e_phase (warm-up first), K2 at 4
+    GEMMs per layer (no fc1/fc2); the encoder seconds beside the dense
+    turbo leg's; per layer the expert counts and dropped tokens of the
+    timed batch; then one layer's moe_ffn on the card against CPU f32
+    copies at 1 window's 1,500 tokens and B 8's 12,000. The dense engine's
+    tree and config are restored after. Leaves the layer's tree for the
+    mesh phase in MOE_LAYER."""
+    from spittle_tpu_torch.models.whisper.config import CONFIGS
+    from spittle_tpu_torch.parallel import expert_parallel as ep
+
+    dense_cfg, dense_params = eng.cfg, eng.params
+    t0 = time.perf_counter()
+    blocks = _moe_blocks(eng, MOE_EXPERTS, seed + 11)
+    torch.cuda.synchronize()
+    moe_bytes = sum(blocks[k].numel() * blocks[k].element_size()
+                    for k in ("moe_w_in", "moe_w_out"))
+    print(f"{label}: {MOE_MODEL}: {MOE_EXPERTS} experts x "
+          f"{dense_cfg.n_audio_layer} layers drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s ({moe_bytes / 2**30:.2f} GiB of "
+          f"experts)")
+    params = dict(dense_params)
+    params["encoder"] = {**dense_params["encoder"], "blocks": blocks}
+    eng.params, eng.cfg = params, CONFIGS[MOE_MODEL]
+    calls = []
+    real = ep.moe_ffn_local
+
+    def recording(*a, **kw):
+        out, aux = real(*a, **kw)
+        calls.append(aux)
+        return out, aux
+
+    ep.moe_ffn_local = recording
+    try:
+        counts = e2e_phase(label, eng, 1, BATCH, seed, _predict(k4=1, gemms=4))
+    finally:
+        ep.moe_ffn_local = real
+        eng.params, eng.cfg = dense_params, dense_cfg
+    timed = calls[-dense_cfg.n_audio_layer:]
+    for layer, aux in enumerate(timed):
+        print(f"  layer {layer}: expert counts "
+              f"{[int(c) for c in aux['expert_counts'].tolist()]}, dropped "
+              f"{int(aux['dropped'])}, aux_loss {float(aux['aux_loss']):.4f}")
+    moe_s = STAGE_SECONDS[label][0]["frontend"] / STAGE_SECONDS[label][1]
+    dense = STAGE_SECONDS.get("turbo leg")
+    dense_s = dense[0]["frontend"] / dense[1] if dense else float("nan")
+    print(f"{label}: encoder (frontend) seconds per batch of 8 {moe_s:.4f} "
+          f"against the dense turbo leg's {dense_s:.4f}")
+    for n_tokens in (1500, BATCH * 1500):
+        layer_p, x, out = moe_ffn_check(blocks, 0, n_tokens, seed + 12)
+    MOE_LAYER.update(p=layer_p, x=x, out=out)
+    del blocks, params, calls, timed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def mesh_phase(label: str, eng, seed: int):
+    """The mesh layer on the card, one rank: an NCCL process group (no
+    gloo on the card: a failure to initialize fails the phase) and
+    make_mesh(1, tp=1). On the turbo leg's weights and 8 windows,
+    shard_params then sharded encode and greedy decode must give the
+    unsharded tokens, and BatchingTranscriptionServer(mesh=) those of the
+    engine alone; moe_ffn under the ep mesh must equal the single-device
+    call on the MoE phase's layer; pipeline_apply with one stage over 4
+    encoder blocks must equal the sequential loop. The unsharded
+    references run first; every launch counter is set to 0 just before
+    the sharded runs and read just after, and held to their prediction:
+    the sharded encode and decode as _predict(k4=1) gives, the server's
+    batches as _traced_launches gives, and the pipeline's M + S - 1 = 2
+    steps of 4 blocks, K1 once and K2 six times per block. Returns the
+    counts."""
+    import socket
+
+    import torch.distributed as dist
+
+    from spittle_tpu_torch.audio.mel import log_mel_spectrogram
+    from spittle_tpu_torch.engine.base import TranscribeParams
+    from spittle_tpu_torch.models.whisper.decode import DecodeOptions, greedy_decode
+    from spittle_tpu_torch.models.whisper.model import (
+        encode, encoder_block_body, layer_params, n_layers,
+    )
+    from spittle_tpu_torch.parallel.expert_parallel import moe_ffn, shard_moe_params
+    from spittle_tpu_torch.parallel.mesh import P, make_mesh, shard_leaf, shard_params
+    from spittle_tpu_torch.parallel.multihost import (
+        global_batch_from_local, initialize_distributed,
+    )
+    from spittle_tpu_torch.parallel.pipeline_parallel import (
+        pipeline_apply, stack_to_stages,
+    )
+    from spittle_tpu_torch.parallel.serving import BatchingTranscriptionServer
+    from torch.distributed.device_mesh import DeviceMesh
+
+    cfg = eng.cfg
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    initialize_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        print(f"{label}: process group backend {dist.get_backend()!r}, world "
+              f"{dist.get_world_size()}")
+        mesh = make_mesh(1, tp=1)
+        rng = np.random.default_rng(seed + 13)
+        audio = [synth_utterance(rng, 30.0) for _ in range(BATCH)]
+        pcm = torch.from_numpy(np.stack(audio).astype(np.float32) / 32768.0).cuda()
+        opts = DecodeOptions(language="en", max_tokens=96)
+        p = TranscribeParams(language="en", condition_on_previous_text=False,
+                             parallel_windows=True, temperatures=(0.0,),
+                             max_tokens=96)
+        stage_mesh = DeviceMesh("cuda", np.arange(1), mesh_dim_names=("stage",))
+        blocks = {k: (v[:4] if torch.is_tensor(v) else {kk: vv[:4] for kk, vv in v.items()})
+                  for k, v in eng.params["encoder"]["blocks"].items()}
+        xmb = torch.randn((2, 2, cfg.n_audio_ctx, cfg.n_audio_state), device="cuda",
+                          generator=torch.Generator(device="cuda").manual_seed(seed)
+                          ).to(eng.dtype)
+
+        def block_fn(stage_blocks, x):
+            for layer in range(n_layers(stage_blocks)):
+                x = encoder_block_body(x, layer_params(stage_blocks, layer),
+                                       cfg.n_audio_head)
+            return x
+
+        def place(node):
+            if isinstance(node, dict):
+                return {k: place(v) for k, v in node.items()}
+            return shard_leaf(node, stage_mesh, P("stage"))
+
+        # The unsharded references, before the counted runs.
+        with torch.inference_mode():
+            mel = log_mel_spectrogram(pcm, n_mels=cfg.n_mels)
+            xa = encode(eng.params, mel, cfg)
+            ref = greedy_decode(eng.params, xa, cfg, opts)
+            single = moe_ffn(MOE_LAYER["p"], MOE_LAYER["x"])[0] if MOE_LAYER else None
+            seq = torch.stack([block_fn(blocks, xmb[i]) for i in range(2)])
+        want = eng.transcribe_batch(audio, p)
+
+        kernels = _reset_traces(eng)
+        torch.cuda.synchronize()
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            sharded = shard_params(eng.params, mesh)
+            xs = encode(sharded, global_batch_from_local(mel, mesh), cfg)
+            got = greedy_decode(sharded, xs.to_local(), cfg, opts)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        same = torch.equal(got["tokens"], ref["tokens"])
+        print(f"{label}: sharded encode + greedy decode of {BATCH} windows in "
+              f"{wall:.2f} s, {got['steps']} steps: tokens equal to the "
+              f"unsharded run: {same}; max |xa - unsharded| "
+              f"{(xs.to_local().float() - xa.float()).abs().max().item():.3e}")
+        if not same:
+            raise AssertionError(f"{label}: sharded tokens differ")
+        del sharded, xs, xa, mel
+
+        srv = BatchingTranscriptionServer(eng, max_batch=BATCH, max_wait_ms=200.0,
+                                          mesh=mesh, overlap_transfers=True)
+        try:
+            futs = [srv.submit(a, p) for a in audio]
+            served = [f.result(timeout=600) for f in futs]
+            sizes = list(srv.batch_sizes)
+        finally:
+            srv.shutdown()
+            eng.mesh = None
+        same = [r.tokens for r in served] == [r.tokens for r in want]
+        print(f"{label}: BatchingTranscriptionServer(mesh=) batch sizes {sizes}: "
+              f"tokens equal to the engine's: {same}")
+        if not same:
+            raise AssertionError(f"{label}: served tokens under the mesh differ")
+
+        if MOE_LAYER:
+            with torch.inference_mode():
+                out, _ = moe_ffn(shard_moe_params(MOE_LAYER["p"], mesh),
+                                 global_batch_from_local(MOE_LAYER["x"], mesh))
+            same = torch.equal(out.to_local(), single)
+            print(f"{label}: moe_ffn under the ep mesh at N "
+                  f"{MOE_LAYER['x'].shape[0]}: equal to the single-device call: "
+                  f"{same}")
+            if not same:
+                raise AssertionError(f"{label}: moe_ffn under the mesh differs")
+
+        with torch.inference_mode():
+            out = pipeline_apply(stage_mesh, "stage", block_fn,
+                                 place(stack_to_stages(blocks, 1)), xmb)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        same = torch.equal(out, seq)
+        print(f"{label}: pipeline_apply, one stage of 4 encoder blocks, 2 "
+              f"microbatches of 2 windows: equal to the sequential loop: {same}")
+        if not same:
+            raise AssertionError(f"{label}: the pipeline differs from the loop")
+        predict = _predict(k4=1)(cfg, [got["steps"]])
+        for name, n in _traced_launches(eng).items():
+            predict[name] += n
+        microbatches, stages = xmb.shape[0], 1
+        pipe_blocks = (microbatches + stages - 1) * n_layers(blocks)
+        predict["flash_attention_fullkv"] += pipe_blocks
+        predict["w8a8_gemm"] += 6 * pipe_blocks
+        print(f"{label}: launches {json.dumps(launches)}")
+        print(f"{label}: predicted launches " + json.dumps(
+            {k: v for k, v in predict.items() if v}))
+        if launches != predict:
+            raise AssertionError(f"{label}: launch counts {launches} != "
+                                 f"predicted {predict}")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
 def padded_rows(x):
     """x [..., Tk] (int8 or bf16) copied into rows tma_pitch(Tk) elements
     apart, as the decoder stores its cross-K/V (models/whisper/model.py:
@@ -1403,18 +1774,20 @@ def w8a8_leg_phase(label: str, eng, seed: int):
     """The large-v3 leg's engine under quantize_decoder="w8a8": its weights
     are the int8 leg's (the decoder is quantized weight-only as "int8"
     does; only the cross-K/V's form and route differ), so the engine is
-    switched in place. 2 batches of 8 x 30 s through transcribe_stream:
+    switched in place. One batch of 8 x 30 s through transcribe_stream:
     K14 once per decoder layer per step and per prefill (3 rows), K1/K2
-    per batch, nothing else. Then one batch with load_self_draft(2):
-    K14 at 4 rows per item in every verify, 1 row in the draft's steps,
-    as _spec_launches predicts. Returns the first run's counts."""
+    per batch, nothing else. Then one batch with load_self_draft(2) and a
+    budget of SPEC_TOKENS: K14 at 4 rows per item in every verify, 1 row
+    in the draft's steps, as _spec_launches predicts. Returns the first
+    run's counts."""
     from spittle_tpu_torch.engine.base import TranscribeParams
 
     eng.quantize_decoder = "w8a8"
-    counts = e2e_phase(label, eng, N_BATCHES, BATCH, seed, _predict(k14=1))
+    counts = e2e_phase(label, eng, 1, BATCH, seed, _predict(k14=1))
     rng = np.random.default_rng(seed + 5)
     audio = [synth_utterance(rng, 30.0) for _ in range(BATCH)]
-    p = TranscribeParams(language="en", parallel_windows=True, max_tokens=96,
+    p = TranscribeParams(language="en", parallel_windows=True,
+                         max_tokens=SPEC_TOKENS,
                          condition_on_previous_text=False, temperatures=(0.0,))
     eng.load_self_draft(2)
     try:
@@ -1798,6 +2171,7 @@ def e2e_phase(label: str, eng, n_batches: int, batch: int, seed: int, predict,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in kernels}
+    STAGE_SECONDS[label] = (dict(eng.stage_seconds), n_batches)
 
     audio_s = n_batches * batch * seconds
     steps = list(eng.last_decode_steps)
@@ -1819,6 +2193,8 @@ def e2e_phase(label: str, eng, n_batches: int, batch: int, seed: int, predict,
         for r in res:
             assert all(0 <= tok < cfg.n_vocab for tok in r.tokens)
     want = predict(cfg, steps)
+    print(f"e2e {label}: predicted launches " + json.dumps(
+        {k: v for k, v in want.items() if v}))
     if launches != want:
         raise AssertionError(f"{label}: launch counts {launches} != predicted {want}")
     del results
@@ -1863,9 +2239,9 @@ def _reset_traces(eng):
 def app_phase(label: str, eng, seed: int):
     """The dictation app's path on a loaded engine: transcribe_samples with
     TranscribeParams() (the sequential seek loop, language detection, the
-    six-rung ladder, the prompt carry) on a 5 s utterance, a 65 s item
-    (three or more windows, each conditioned on the text before it) and
-    the 5 s utterance again with an initial prompt, with every launch
+    six-rung ladder, the prompt carry) on a 5 s utterance and a 65 s item
+    with an initial prompt (three or more windows, the first conditioned
+    on the prompt, each later one on the text before it), with every launch
     counter set to 0 just before and read just after, checked against
     the counts the path's shapes give: per window K1 once and K2 six
     times per encoder layer; per decode call (every rung of every window)
@@ -1878,8 +2254,7 @@ def app_phase(label: str, eng, seed: int):
     rng = np.random.default_rng(seed + 2)
     short, long_item = synth_utterance(rng, 5.0), synth_utterance(rng, 65.0)
     calls = (("5 s", short, TranscribeParams()),
-             ("65 s", long_item, TranscribeParams()),
-             ("5 s, initial_prompt", short,
+             ("65 s, initial_prompt", long_item,
               TranscribeParams(initial_prompt=APP_PROMPT)))
     print(f"e2e {label}: encoder_attention={eng.encoder_attention!r}, "
           f"TranscribeParams() (ladder {eng.FALLBACK_TEMPERATURES}, "
@@ -1912,7 +2287,7 @@ def app_phase(label: str, eng, seed: int):
         assert all(0 <= tok < cfg.n_vocab for tok in res.tokens)
         assert res.language in eng.tokenizer.languages, res.language
     windows = len(eng.last_decode_rungs)
-    assert windows >= 1 + 3 + 1, eng.last_decode_rungs
+    assert windows >= 1 + 3, eng.last_decode_rungs
     assert all(1 <= r <= len(eng.FALLBACK_TEMPERATURES)
                for r in eng.last_decode_rungs)
     assert sum(eng.last_decode_rungs) == len(eng.last_decode_steps)
@@ -2390,10 +2765,11 @@ def words_phase(label: str, eng, seed: int):
     return launches
 
 
-def _predict(k4=0, k3=0, k6=0, k14=0, form="fullkv", long_kv=False):
+def _predict(k4=0, k3=0, k6=0, k14=0, form="fullkv", long_kv=False, gemms=6):
     """Launch counts of one path: the encoder-attention form's kernel (K1
     under "fullkv"; K5 under every form when the encoder's K/V is longer
-    than 4096, long_kv) once and K2 six times per encoder layer and batch;
+    than 4096, long_kv) once and K2 `gemms` times per encoder layer and
+    batch (6; 4 in a MoE encoder, whose experts are torch products);
     each cross-attention kernel once per decoder layer for the prefill and
     for every step; every other kernel 0."""
     def predict(cfg, steps):
@@ -2404,7 +2780,7 @@ def _predict(k4=0, k3=0, k6=0, k14=0, form="fullkv", long_kv=False):
         dec = cfg.n_text_layer * (len(steps) + sum(steps))
         enc.update({
             attn: len(steps) * cfg.n_audio_layer,
-            "w8a8_gemm": len(steps) * 6 * cfg.n_audio_layer,
+            "w8a8_gemm": len(steps) * gemms * cfg.n_audio_layer,
             "decode_cross_attention": dec * k4,
             "decode_cross_attention_q8": dec * k3,
             "decode_cross_attention_q4": dec * k6,
@@ -2477,6 +2853,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     rows = kernel_phase(dev, np.random.default_rng(SEED))
+    heads_phase(dev, np.random.default_rng(SEED + 1), rows)
     torch.cuda.empty_cache()
     print(f"phase kernels: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -2501,12 +2878,18 @@ def main() -> int:
 
     CONFIGS[LONG_MODEL] = dataclasses.replace(
         CONFIGS["large-v3-turbo"], name=LONG_MODEL, n_audio_ctx=LONG_CTX)
+    CONFIGS[MOE_MODEL] = dataclasses.replace(
+        CONFIGS["large-v3-turbo"], name=MOE_MODEL, moe_experts=MOE_EXPERTS)
     paths = (  # (label, model, engine options, form, batches, predict,
         #          kernels whose launches this path reports, e2e options;
         #          "run": a phase of its own in place of e2e_phase)
         ("turbo leg", "random:large-v3-turbo", {}, "fullkv", N_BATCHES,
          _predict(k4=1), ("flash_attention_fullkv", "w8a8_gemm",
                           "decode_cross_attention"), {}),
+        ("turbo MoE", "random:large-v3-turbo", {}, "fullkv", None, None, (),
+         dict(run=moe_phase)),
+        ("mesh", "random:large-v3-turbo", {}, "fullkv", None, None, (),
+         dict(run=mesh_phase)),
         ("reduced context", "random:large-v3-turbo", {}, "fullkv", N_BATCHES,
          _predict(k4=1), (), dict(seconds=5.0, audio_ctx=256)),
         ("app path", "random:large-v3-turbo", {}, "fullkv", None, None, (),
@@ -2529,7 +2912,7 @@ def main() -> int:
          dict(seconds=LONG_CTX / 50.0, batch=2)),
         ("large-v3 leg", "random:large-v3",
          dict(quantize_decoder="int8", quantize_cache=True), "fullkv",
-         N_BATCHES, _predict(k3=1), ("decode_cross_attention_q8",), {}),
+         1, _predict(k3=1), ("decode_cross_attention_q8",), {}),
         ("large-v3 beam", "random:large-v3",
          dict(quantize_decoder="int8", quantize_cache=True), "fullkv", None, None,
          (), dict(run=lambda label, eng, seed: beam_phase(label, eng, seed, 2))),

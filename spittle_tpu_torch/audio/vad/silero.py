@@ -50,18 +50,19 @@ MIN_SAMPLES = 256
 _GATE_ORDER = (0, 2, 3, 1)
 
 
-def load_silero_params(path: Optional[str] = None, device="cuda") -> Dict:
+def load_silero_params(path: Optional[str] = None, branch: str = "16k",
+                       device="cuda") -> Dict:
     """Silero v4 weights on `device` ("cuda" by default; raises without a
-    card): the bundled .npz by default. Reading an .onnx file is not
-    ported."""
+    card): the bundled .npz by default; any path that does not end in
+    .npz is read as the .onnx graph, whose `branch` ("16k" or "8k") is
+    taken."""
     if path is None:
         path = BUNDLED_NPZ
-    if not path.endswith(".npz"):
-        raise NotImplementedError(
-            "reading Silero weights from an .onnx file is not ported to "
-            "spittle_tpu_torch yet (see ROADMAP.md, queue 1 item 5); pass "
-            "the bundled .npz")
-    return silero_params_from_jax(_params_from_npz(path), device=device)
+    if path.endswith(".npz"):
+        tree = _params_from_npz(path)
+    else:
+        tree = _params_from_onnx(path, branch)
+    return silero_params_from_jax(tree, device=device)
 
 
 def _params_from_npz(path: str) -> Dict:
@@ -83,6 +84,74 @@ def _params_from_npz(path: str) -> Dict:
                 if isinstance(node, dict):
                     node = node.setdefault(part, default)
         node[parts[-1]] = flat[key]
+    return params
+
+
+# The anonymous initializers of each sample-rate branch, in the order
+# (inter-block 1x1 convs: w, b x 4; LSTM layers: W, R, B x 2). They are
+# the same in the zero-state and carried-state subgraphs.
+_ONNX_ANON = {
+    "16k": ("1110", "1111", "1113", "1114", "1116", "1117", "1119", "1120",
+            "343", "345", "347", "415", "417", "419"),
+    "8k": ("1122", "1123", "1125", "1126", "1128", "1129", "1131", "1132",
+           "833", "835", "837", "905", "907", "909"),
+}
+
+
+def _params_from_onnx(path: str, branch: str = "16k") -> Dict:
+    """One sample-rate branch of the Silero v4 .onnx graph -> the
+    reference's nested tree of numpy arrays: the initializers of the
+    top-level If's then_branch (16k) or else_branch (8k), and of the Ifs
+    nested in it, under their model.* / model_8k.* and numbered names."""
+    from spittle_tpu_torch.io.onnx_proto import load_onnx
+
+    g = load_onnx(path)
+    if_node = next(n for n in g.nodes if n.op_type == "If")
+    sub = if_node.attr("then_branch" if branch == "16k" else "else_branch")
+    pool = dict(g.initializers)
+    pool.update(sub.initializers)
+    for n in sub.nodes:
+        if n.op_type == "If":
+            for br in ("then_branch", "else_branch"):
+                pool.update(n.attr(br).initializers)
+    prefix = "model." if branch == "16k" else "model_8k."
+
+    def p(name):
+        return np.asarray(pool[prefix + name], dtype=np.float32)
+
+    (c0w, c0b, c1w, c1b, c2w, c2b, c3w, c3b,
+     l0w, l0r, l0b, l1w, l1r, l1b) = (
+        np.asarray(pool[k], dtype=np.float32) for k in _ONNX_ANON[branch])
+    params = {
+        "stft_basis": p("feature_extractor.forward_basis_buffer"),
+        "norm_filter": p("adaptive_normalization.filter_"),
+        "first": {
+            "dw_w": p("first_layer.0.dw_conv.0.weight"),
+            "dw_b": p("first_layer.0.dw_conv.0.bias"),
+            "pw_w": p("first_layer.0.pw_conv.0.weight"),
+            "pw_b": p("first_layer.0.pw_conv.0.bias"),
+            "proj_w": p("first_layer.0.proj.weight"),
+            "proj_b": p("first_layer.0.proj.bias"),
+        },
+        "blocks": [],
+        "between": [{"w": c0w, "b": c0b}, {"w": c1w, "b": c1b},
+                    {"w": c2w, "b": c2b}, {"w": c3w, "b": c3b}],
+        "lstm": [{"w": l0w[0], "r": l0r[0], "b": l0b[0]},
+                 {"w": l1w[0], "r": l1r[0], "b": l1b[0]}],
+        "head_w": p("decoder.decoder.1.weight"),
+        "head_b": p("decoder.decoder.1.bias"),
+    }
+    for enc in ("3", "7", "11"):
+        blk = {
+            "dw_w": p(f"encoder.{enc}.0.dw_conv.0.weight"),
+            "dw_b": p(f"encoder.{enc}.0.dw_conv.0.bias"),
+            "pw_w": p(f"encoder.{enc}.0.pw_conv.0.weight"),
+            "pw_b": p(f"encoder.{enc}.0.pw_conv.0.bias"),
+        }
+        if prefix + f"encoder.{enc}.0.proj.weight" in pool:
+            blk["proj_w"] = p(f"encoder.{enc}.0.proj.weight")
+            blk["proj_b"] = p(f"encoder.{enc}.0.proj.bias")
+        params["blocks"].append(blk)  # encoder.7: identity residual
     return params
 
 

@@ -40,6 +40,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from spittle_tpu_torch.audio.mel import HOP_LENGTH, log_mel_spectrogram
 from spittle_tpu_torch.audio.mulaw import mulaw_decode, mulaw_encode
@@ -76,6 +77,7 @@ from spittle_tpu_torch.ops.quant import (
     quantize_whisper_decoder,
     quantize_whisper_encoder_w8a8,
 )
+from spittle_tpu_torch.parallel.multihost import global_batch_from_local
 
 from .base import (
     Segment,
@@ -220,6 +222,12 @@ class WhisperEngine:
         self.last_decode_steps: List[int] = []
         self.last_prefix_rows: List[int] = []
         self.last_decode_rungs: List[int] = []
+        # A device mesh (parallel/mesh.py) over whose first ("data") dim the
+        # parallel-windows path splits its window batches; the weights stay
+        # whole on every rank, as the reference's engine keeps them. Every
+        # rank of the mesh must make the same calls (parallel/serving.py's
+        # follow loop does so behind a server).
+        self.mesh = None
 
     # -- lifecycle -------------------------------------------------------
 
@@ -444,11 +452,29 @@ class WhisperEngine:
         )
         return plan, windows, content_frames, overlap
 
-    def _place_windows(self, windows: np.ndarray):
-        """Host->device transfer of a window batch. On the card the copy
-        runs from pinned memory on a side stream; the returned event
-        orders it before the consumer's use (_windows_ready)."""
-        host = torch.from_numpy(windows)
+    def _data_split(self, b: int) -> Optional[Tuple[int, int]]:
+        """This rank's rows [lo, hi) of a batch of b windows split over the
+        mesh's data dim; None without a mesh, or where the data dim does
+        not divide b (the batch is then replicated, as the reference
+        places it)."""
+        if self.mesh is None:
+            return None
+        m = self.mesh.size(0)
+        if b % m:
+            return None
+        r = self.mesh.get_local_rank(self.mesh.mesh_dim_names[0])
+        return r * b // m, (r + 1) * b // m
+
+    def _place_windows(self, windows: np.ndarray, split: bool = True):
+        """Host->device transfer of a window batch: (rows, ready event).
+        With a mesh (and split), only this rank's rows of the data dim
+        (_data_split of the batch size, which the consumer works out
+        again). On the card the copy runs from pinned memory on a side
+        stream; the event orders it before the consumer's use
+        (_windows_ready)."""
+        rows = self._data_split(windows.shape[0]) if split else None
+        host = torch.from_numpy(windows if rows is None
+                                else windows[rows[0]:rows[1]])
         if self.device.type == "cpu":
             return host, None
         host = host.pin_memory()
@@ -466,14 +492,41 @@ class WhisperEngine:
             dev.record_stream(stream)
         return dev
 
-    def _frontend(self, windows: torch.Tensor) -> torch.Tensor:
+    def _frontend(self, windows: torch.Tensor, split=None) -> torch.Tensor:
         """windows [B, samples] wire PCM on the device -> encoder output
         [B, samples / 320, D]: a window shorter than the model's encodes
-        with the first positions."""
+        with the first positions. split: the windows are this rank's rows
+        of the mesh's data dim; the global batch is assembled from every
+        rank's rows (global_batch_from_local) so that the encoder computes
+        the global function (a MoE encoder routes over the whole batch)."""
         mel = log_mel_spectrogram(_pcm_f32(windows), n_mels=self.cfg.n_mels,
                                   filters=self.mel_filters)
-        return encode(self.params, mel, self.cfg, self.encoder_attention,
-                      self._positions)
+        if split is not None:
+            mel = global_batch_from_local(mel, self.mesh)
+        xa = encode(self.params, mel, self.cfg, self.encoder_attention,
+                    self._positions)
+        return xa.to_local() if split is not None else xa
+
+    def _gather_rows(self, *arrays: np.ndarray) -> List[np.ndarray]:
+        """Every data rank's rows of each array, concatenated in rank order
+        (all_gather over the mesh's data dim); arrays of tokens are padded
+        with EOT to the longest rank's length first."""
+        group = self.mesh.get_group(self.mesh.mesh_dim_names[0])
+        m = self.mesh.size(0)
+        out = []
+        for a in arrays:
+            t = torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            if t.dim() == 2:
+                n = torch.tensor([t.shape[1]], device=self.device)
+                lens = [torch.empty_like(n) for _ in range(m)]
+                dist.all_gather(lens, n, group=group)
+                width = int(max(int(x) for x in lens))
+                t = torch.nn.functional.pad(t, (0, width - t.shape[1]),
+                                            value=self.cfg.eot)
+            parts = [torch.empty_like(t) for _ in range(m)]
+            dist.all_gather(parts, t, group=group)
+            out.append(torch.cat(parts).cpu().numpy())
+        return out
 
     def _draft_frontend(self, windows: torch.Tensor, xa: torch.Tensor):
         """The draft's encoder output for the same windows: None without a
@@ -635,7 +688,8 @@ class WhisperEngine:
             )
             with torch.inference_mode(), full_f32():
                 t0 = time.perf_counter()
-                placed = self._windows_ready(self._place_windows(windows))
+                placed = self._windows_ready(self._place_windows(windows,
+                                                                 split=False))
                 xa = self._frontend(placed)
                 draft_xa = self._draft_frontend(placed, xa)
                 self._sync()
@@ -793,16 +847,20 @@ class WhisperEngine:
         """Device half: frontend, language detection on each item's first
         window (kept on the device: the codes are resolved at the fetch in
         _finalize_parallel_windows) and the ladder's first rung over every
-        window."""
+        window. Under a mesh that splits the batch, this rank's rows only;
+        each item's language is detected on the rank that holds its first
+        window and summed over the data dim."""
         cfg = self.cfg
         plan, placed, content_frames, overlap = staged
+        split = self._data_split(len(plan))
+        lo, hi = split if split is not None else (0, len(plan))
         wf, _ = self._window_geometry(params)
         # full_f32: an f32 model's products and stem convolutions must
         # match the reference's f32 arithmetic, so TF32 stays off here.
         with torch.inference_mode(), full_f32():
             t0 = time.perf_counter()
             windows = self._windows_ready(placed)
-            xa = self._frontend(windows)
+            xa = self._frontend(windows, split)
             draft_xa = self._draft_frontend(windows, xa)
             self._sync()
             t1 = time.perf_counter()
@@ -810,9 +868,19 @@ class WhisperEngine:
             if cfg.multilingual and params.language is None:
                 first = [next(w for w, (j, _) in enumerate(plan) if j == i)
                          for i in range(len(audios))]
-                probs = detect_language(self.params, xa[first], cfg)
-                det = probs.argmax(dim=-1)  # [n]
-                lt = cfg.lang_begin + det[[i for i, _ in plan]]
+                if split is None:
+                    det = detect_language(self.params, xa[first], cfg).argmax(dim=-1)
+                else:
+                    mine = [i for i, w in enumerate(first) if lo <= w < hi]
+                    det = torch.zeros(len(audios), dtype=torch.int64,
+                                      device=xa.device)
+                    if mine:
+                        det[mine] = detect_language(
+                            self.params, xa[[first[i] - lo for i in mine]],
+                            cfg).argmax(dim=-1)
+                    dist.all_reduce(det, group=self.mesh.get_group(
+                        self.mesh.mesh_dim_names[0]))
+                lt = cfg.lang_begin + det[[i for i, _ in plan[lo:hi]]]
             opts = self._decode_options(params)
             out0 = self._dispatch_decode(xa, opts, params, lt, base_prompt,
                                          draft_xa=draft_xa)
@@ -823,7 +891,7 @@ class WhisperEngine:
         return dict(out0=out0, xa=xa, draft_xa=draft_xa, opts=opts, lt=lt, det=det,
                     base_prompt=base_prompt, params=params, plan=plan,
                     content_frames=content_frames, overlap=overlap, wf=wf,
-                    n=len(audios))
+                    n=len(audios), split=split)
 
     def _finalize_parallel_windows(self, disp) -> List[TranscriptionResult]:
         """Host half: fetch the first rung and run the ladder's other
@@ -845,6 +913,15 @@ class WhisperEngine:
         out = self._finish_decode(disp["out0"], disp["xa"], disp["opts"],
                                   params, disp["lt"], disp["base_prompt"],
                                   draft_xa=disp["draft_xa"])
+        xa = disp["xa"]
+        if disp["split"] is not None:
+            # The caller gets every row: the data ranks' rows in rank order.
+            out["tokens"], out["avg_logprob"], out["no_speech_prob"] = (
+                self._gather_rows(out["tokens"], out["avg_logprob"],
+                                  out["no_speech_prob"]))
+            if params.word_timestamps:
+                (xa,) = self._gather_rows(xa.float().cpu().numpy())
+                xa = torch.from_numpy(xa).to(self.device, disp["xa"].dtype)
         t1 = time.perf_counter()
         self._time("decode", t1 - t0)
         tokens = out["tokens"]
@@ -877,7 +954,7 @@ class WhisperEngine:
             )
             win_words = []
             if params.word_timestamps and gen:
-                win_words = self._words(gen, disp["xa"][wi:wi + 1], tokens[wi, :sb],
+                win_words = self._words(gen, xa[wi:wi + 1], tokens[wi, :sb],
                                         window_frames, win_offset)
             if overlap:
                 # Segments and words alike keep what lies in the core.

@@ -24,6 +24,7 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 
 from spittle_tpu_torch.ops.quant import quantize_kv, quantize_kv_int4
+from spittle_tpu_torch.parallel.mesh import local_params
 
 from .config import WhisperConfig
 from .decode import (
@@ -74,6 +75,7 @@ def beam_decode(
     EOT-padded), "sample_begin", "avg_logprob" [B] (its sum log-prob over
     its length), "no_speech_prob" [B] (from the prefill's logits at the
     SOT position) and "steps" (decode steps run after the prefill)."""
+    params = local_params(params)
     b, dev = xa.shape[0], xa.device
     k = beam_size
     bk = b * k

@@ -23,6 +23,7 @@ from spittle_tpu_torch.ops.quant import (
     quantize_kv_int4,
     quantize_kv_w8a8,
 )
+from spittle_tpu_torch.parallel.mesh import local_params
 
 from .config import WhisperConfig
 from .model import (
@@ -31,6 +32,7 @@ from .model import (
     init_kv_cache,
     precompute_cross_kv,
     precompute_cross_kv_quant,
+    self_heads,
 )
 from .tokenizer import LANGUAGES, LANGUAGES_V3
 
@@ -247,7 +249,9 @@ def greedy_decode(
 
     Returns "tokens" [B, L] (prefix + generated, EOT-padded, on xa's
     device), "sample_begin", "avg_logprob" [B], "no_speech_prob" [B] and
-    "steps" (decode steps run after the prefill)."""
+    "steps" (decode steps run after the prefill). params may be a sharded
+    tree (parallel/mesh.py): localized once, here."""
+    params = local_params(params)
     b, dev = xa.shape[0], xa.device
     sample = opts.temperature > 0
     if sample:
@@ -337,9 +341,11 @@ def detect_language(params, xa: torch.Tensor, cfg: WhisperConfig) -> torch.Tenso
     one-step cache (ctx 32) are unquantized whatever the decoder's
     quantization, so on the card the step's cross-attention is K4 at
     R = 1."""
+    params = local_params(params)
     b = xa.shape[0]
     cross_kv = precompute_cross_kv(params, xa, cfg)
-    cache = init_kv_cache(cfg, b, dtype=xa.dtype, ctx=32, device=xa.device)
+    cache = init_kv_cache(cfg, b, dtype=xa.dtype, ctx=32, device=xa.device,
+                          heads=self_heads(params, cfg))
     sot = torch.full((b,), cfg.sot, dtype=torch.int64, device=xa.device)
     logits = decode_step(params, sot, 0, cache, cross_kv, cfg,
                          audio_ctx=xa.shape[1])

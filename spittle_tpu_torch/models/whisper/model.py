@@ -25,6 +25,15 @@ at any number of rows), or packed int4 {"qw4" [L, B, H, Dh/2, T],
 "scale"} (K6), and an int8 self-cache {"qw" [L, 2, B, H, ctx, Dh],
 "scale" [L, 2, B, H, ctx]}, one f32 scale per position.
 
+Under a mesh (parallel/mesh.py: a tree from shard_params, a batch split
+over "data" as a DTensor), every entry point computes the global
+function, as GSPMD gives the reference's: it runs on local_params' local
+shards and calls the collectives itself (a group split over "model" holds
+its own heads or columns, its row-parallel product is summed over "model"
+before the bias, the vocab-sharded embedding is masked and summed and the
+logits gathered; the MoE FFN is parallel/expert_parallel.py's). The
+self-cache and cross-K/V then hold this rank's heads.
+
 decode_block scores K positions in one pass (speculative decoding's
 verify). Its start position is clamped as JAX's dynamic_slice and
 dynamic_update_slice clamp theirs: the position embeddings are read from
@@ -62,6 +71,13 @@ from spittle_tpu_torch.ops.quant import (
     unpack_kv_int4,
 )
 from spittle_tpu_torch.ops.w8a8_gemm import quantize_for_gemm
+from spittle_tpu_torch.parallel.mesh import (
+    ShardGroups,
+    like_rows,
+    local_params,
+    local_rows,
+    shard_groups,
+)
 
 from .config import WhisperConfig
 
@@ -105,38 +121,103 @@ def n_layers(blocks: Params) -> int:
     return leaf.shape[0]
 
 
+def _split(sh: Optional[ShardGroups], stack: str, group: str
+           ) -> Optional[ShardGroups]:
+    """sh when `group` of the `stack` blocks runs split over "model"."""
+    return sh if sh is not None and sh.splits(stack, group) else None
+
+
+def _heads(n_head: int, tp: Optional[ShardGroups]) -> int:
+    """The heads this rank holds of a group (all of them unsplit)."""
+    return n_head if tp is None else n_head // tp.tp
+
+
+def _row_parallel(x, w, b, tp: Optional[ShardGroups]):
+    """x @ w + b; split over "model", the partial products are summed
+    before the replicated bias is added (a bias before the sum would
+    count tp times)."""
+    if tp is None:
+        return mm_bias(x, w, b)
+    return tp.reduce(mm(x, w)) + b
+
+
 # ---------------------------------------------------------------------------
 # Encoder
 # ---------------------------------------------------------------------------
 
 
-def _attn_full(x, blk, n_head: int, causal: bool, attention: str = "fullkv"):
+def _attn_full(x, blk, n_head: int, causal: bool, attention: str = "fullkv",
+               tp: Optional[ShardGroups] = None):
     """Self-attention over a full sequence. q and k carry Whisper's split
     Dh^-0.25 scaling (folded into the projection epilogue). attention: the
-    encoder-attention form (ops.attention.ENCODER_ATTENTION_FORMS)."""
+    encoder-attention form (ops.attention.ENCODER_ATTENTION_FORMS). tp:
+    the block's attention split over "model" (this rank's heads)."""
     scale = (x.shape[-1] // n_head) ** -0.25
     if all(is_quant_w8a8(blk[key]) for key in ("wq", "wk", "wv")):
         x = quantize_for_gemm(x)  # one row quantizer for the three GEMMs
     q = mm_bias(x, blk["wq"], blk["bq"], out_scale=scale)
     k = mm_bias(x, blk["wk"], out_scale=scale)
     v = mm_bias(x, blk["wv"], blk["bv"])
-    o = multihead_attention_packed(q, k, v, n_head, causal=causal,
-                                   form=attention)
-    return mm_bias(o, blk["wo"], blk["bo"])
+    o = multihead_attention_packed(q, k, v, _heads(n_head, tp),
+                                   causal=causal, form=attention)
+    return _row_parallel(o, blk["wo"], blk["bo"], tp)
 
 
-def _mlp(x, blk):
+def _mlp(x, blk, tp: Optional[ShardGroups] = None):
     h = mm_bias(x, blk["fc1_w"], blk["fc1_b"], act="gelu")
-    return mm_bias(h, blk["fc2_w"], blk["fc2_b"])
+    return _row_parallel(h, blk["fc2_w"], blk["fc2_b"], tp)
+
+
+def _moe_mlp_aux(x: torch.Tensor, blk, tp: Optional[ShardGroups] = None,
+                 data_group=None):
+    """The Switch top-1 routed MoE FFN of a MoE encoder block over all
+    B * T tokens of the call at once (capacity and drops depend on the
+    whole batch): (out [B, T, D], the load-balancing aux loss). tp: the
+    experts split over "model"; data_group: the "data" group when x's rows
+    are this rank's shard of a batch split over "data"."""
+    from spittle_tpu_torch.parallel.expert_parallel import moe_ffn_local
+
+    b, t, d = x.shape
+    out, aux = moe_ffn_local(
+        blk["moe_router"], blk["moe_w_in"], blk["moe_w_out"],
+        x.reshape(-1, d), data_group=data_group,
+        model_group=None if tp is None else tp.model_group,
+        model_rank=0 if tp is None else tp.model_rank)
+    return out.reshape(b, t, d), aux["aux_loss"]
+
+
+def _moe_mlp(x: torch.Tensor, blk, tp: Optional[ShardGroups] = None,
+             data_group=None) -> torch.Tensor:
+    return _moe_mlp_aux(x, blk, tp, data_group)[0]
+
+
+def encoder_block_body_aux(h: torch.Tensor, blk, n_head: int,
+                           attention: str = "fullkv",
+                           sh: Optional[ShardGroups] = None,
+                           data_group=None):
+    """One encoder block (pre-LN attention + MLP residuals): (h, the MoE
+    FFN's Switch load-balancing loss, or None for a dense block). A block
+    that carries moe_* leaves takes the routed MoE FFN in place of the
+    dense MLP. sh: the ShardGroups of a sharded tree; data_group: see
+    _moe_mlp_aux."""
+    h = h + _attn_full(layer_norm(h, blk["attn_ln_g"], blk["attn_ln_b"]),
+                       blk, n_head, causal=False, attention=attention,
+                       tp=_split(sh, "encoder", "attn"))
+    xn = layer_norm(h, blk["mlp_ln_g"], blk["mlp_ln_b"])
+    if "moe_w_in" in blk:
+        out, aux = _moe_mlp_aux(xn, blk, _split(sh, "encoder", "moe"),
+                                data_group)
+        return h + out, aux
+    return h + _mlp(xn, blk, _split(sh, "encoder", "mlp")), None
 
 
 def encoder_block_body(h: torch.Tensor, blk, n_head: int,
-                       attention: str = "fullkv") -> torch.Tensor:
-    """One encoder block (pre-LN attention + MLP residuals)."""
-    h = h + _attn_full(layer_norm(h, blk["attn_ln_g"], blk["attn_ln_b"]),
-                       blk, n_head, causal=False, attention=attention)
-    xn = layer_norm(h, blk["mlp_ln_g"], blk["mlp_ln_b"])
-    return h + _mlp(xn, blk)
+                       attention: str = "fullkv",
+                       sh: Optional[ShardGroups] = None,
+                       data_group=None) -> torch.Tensor:
+    """encoder_block_body_aux's h alone; pipeline_apply's stages run it as
+    it is."""
+    return encoder_block_body_aux(h, blk, n_head, attention, sh, data_group)[0]
 
 
 def _encoder_stem(enc, mel: torch.Tensor, cfg: WhisperConfig,
@@ -163,6 +244,24 @@ def _encoder_stem(enc, mel: torch.Tensor, cfg: WhisperConfig,
     return x + pos[None, : x.shape[1]]
 
 
+def _encode(params: Params, mel, cfg: WhisperConfig, attention: str,
+            positions: Optional[torch.Tensor]):
+    params = local_params(params)
+    sh = shard_groups(params)
+    mel, spec, data_group = local_rows(mel)
+    enc = params["encoder"]
+    x = _encoder_stem(enc, mel, cfg, positions)
+    blocks = enc["blocks"]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer in range(n_layers(blocks)):
+        x, layer_aux = encoder_block_body_aux(
+            x, layer_params(blocks, layer), cfg.n_audio_head, attention, sh,
+            data_group)
+        if layer_aux is not None:
+            aux = aux + layer_aux
+    return like_rows(layer_norm(x, enc["ln_g"], enc["ln_b"]), spec), aux
+
+
 def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
            attention: str = "fullkv",
            positions: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -170,14 +269,18 @@ def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
     most cfg.n_audio_ctx positions (1500 for the stock models). attention:
     the encoder-attention form, one of ops.attention.ENCODER_ATTENTION_FORMS
     (the reference reads it from the environment). positions: see
-    _encoder_stem."""
-    enc = params["encoder"]
-    x = _encoder_stem(enc, mel, cfg, positions)
-    blocks = enc["blocks"]
-    for layer in range(n_layers(blocks)):
-        x = encoder_block_body(x, layer_params(blocks, layer), cfg.n_audio_head,
-                               attention)
-    return layer_norm(x, enc["ln_g"], enc["ln_b"])
+    _encoder_stem. A mel that is a DTensor split over "data" gives the
+    features as one (the MoE FFN then routes over the global batch)."""
+    return _encode(params, mel, cfg, attention, positions)[0]
+
+
+def encode_with_aux(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
+                    attention: str = "fullkv",
+                    positions: Optional[torch.Tensor] = None):
+    """encode() that also returns the MoE aux loss SUMMED over layers (the
+    training objective's: Switch applies alpha to each layer's loss); 0
+    for a dense config."""
+    return _encode(params, mel, cfg, attention, positions)
 
 
 # ---------------------------------------------------------------------------
@@ -193,6 +296,18 @@ def _padded_rows(a: torch.Tensor, n: int) -> torch.Tensor:
     return a.new_empty((n, *a.shape[:-1], tma_pitch(t, a.element_size())))[..., :t]
 
 
+def cross_heads(params: Params, cfg: WhisperConfig) -> int:
+    """The cross-attention heads this rank holds (all of them unsharded)."""
+    return _heads(cfg.n_text_head, _split(shard_groups(params), "decoder",
+                                          "cross"))
+
+
+def self_heads(params: Params, cfg: WhisperConfig) -> int:
+    """The self-attention heads (and self-cache heads) this rank holds."""
+    return _heads(cfg.n_text_head, _split(shard_groups(params), "decoder",
+                                          "attn"))
+
+
 def precompute_cross_kv(params: Params, xa: torch.Tensor, cfg: WhisperConfig):
     """Per-layer cross-attention K/V from the encoder output, each
     [L, B, H, Dh, T]: the decode layout (time minor) that K4 streams.
@@ -200,9 +315,11 @@ def precompute_cross_kv(params: Params, xa: torch.Tensor, cfg: WhisperConfig):
     The rows are stored tma_pitch(T) elements apart (1504 for T 1500: a
     multiple of 16 bytes, 0.27% more bytes, never read past T) and
     returned as views of the logical shape, so that K4 can load them by
-    TMA; the values are the stacked projections'."""
+    TMA; the values are the stacked projections'. Under a mesh, this
+    rank's heads."""
+    params = local_params(params)
     blocks = params["decoder"]["blocks"]
-    h = cfg.n_text_head
+    h = cross_heads(params, cfg)
     n = n_layers(blocks)
     out = None
     for layer in range(n):
@@ -242,8 +359,9 @@ def precompute_cross_kv_quant(params: Params, xa: torch.Tensor,
     read past T) and returned as views of the logical shape, so that K3
     and K6 can load them by TMA; the values are those of quant's. The
     scales are contiguous."""
+    params = local_params(params)
     blocks = params["decoder"]["blocks"]
-    h = cfg.n_text_head
+    h = cross_heads(params, cfg)
     n = n_layers(blocks)
     out = None
     for layer in range(n):
@@ -262,13 +380,15 @@ def precompute_cross_kv_quant(params: Params, xa: torch.Tensor,
 
 
 def init_kv_cache(cfg: WhisperConfig, batch: int, dtype=torch.float32,
-                  ctx: int = 0, device="cpu", quant: bool = False):
+                  ctx: int = 0, device="cpu", quant: bool = False,
+                  heads: int = 0):
     """Self-attention cache [L, 2, B, H, ctx, Dh], zeros (ctx-major).
     quant: the int8 dict {"qw" int8 zeros, "scale" f32 ones [L, 2, B, H,
-    ctx]}; columns are quantized as they are written."""
+    ctx]}; columns are quantized as they are written. heads: H (default
+    cfg.n_text_head; self_heads() under a mesh)."""
     shape = (
-        cfg.n_text_layer, 2, batch, cfg.n_text_head, ctx or cfg.n_text_ctx,
-        cfg.n_text_state // cfg.n_text_head,
+        cfg.n_text_layer, 2, batch, heads or cfg.n_text_head,
+        ctx or cfg.n_text_ctx, cfg.n_text_state // cfg.n_text_head,
     )
     if quant:
         return {"qw": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -358,16 +478,26 @@ def _proj_qkv(h, blk, n_head: int, scale: float):
     return q, k, v
 
 
-def _layer_rest(h, o, blk, ck, cv, n_head: int, cross_kv_len: int):
+def _reduced(y, tp: Optional[ShardGroups]):
+    return y if tp is None else tp.reduce(y)
+
+
+def _layer_rest(h, o, blk, ck, cv, n_head: int, cross_kv_len: int,
+                sh: Optional[ShardGroups] = None):
     """Post-self-attention remainder of a decoder layer: output projection
-    and residual, cross-attention, MLP."""
-    h = h + mm(merge_heads(o), blk["wo"]) + blk["bo"]
+    and residual, cross-attention, MLP. n_head: the model's; sh: the
+    ShardGroups of a sharded tree."""
+    h = h + _reduced(mm(merge_heads(o), blk["wo"]), _split(sh, "decoder", "attn")
+                     ) + blk["bo"]
     xn = layer_norm(h, blk["cross_ln_g"], blk["cross_ln_b"])
     dh = xn.shape[-1] // n_head
-    cq = split_heads(mm(xn, blk["cross_wq"]) + blk["cross_bq"], n_head)
+    cross = _split(sh, "decoder", "cross")
+    cq = split_heads(mm(xn, blk["cross_wq"]) + blk["cross_bq"],
+                     _heads(n_head, cross))
     co = _cross_attention(cq, ck, cv, dh, kv_len=cross_kv_len)
-    h = h + mm(merge_heads(co), blk["cross_wo"]) + blk["cross_bo"]
-    return h + _mlp(layer_norm(h, blk["mlp_ln_g"], blk["mlp_ln_b"]), blk)
+    h = h + _reduced(mm(merge_heads(co), blk["cross_wo"]), cross) + blk["cross_bo"]
+    return h + _mlp(layer_norm(h, blk["mlp_ln_g"], blk["mlp_ln_b"]), blk,
+                    _split(sh, "decoder", "mlp"))
 
 
 def _cache_write(cache, layer: int, k, v, start: int) -> None:
@@ -419,10 +549,32 @@ def _cache_attend(q, cache_l, mask: torch.Tensor):
     return torch.matmul(probs, v_all)
 
 
+def _embed(dec, tokens: torch.Tensor, start: int, n: int,
+           sh: Optional[ShardGroups]) -> torch.Tensor:
+    """Token embeddings of tokens [B, n] plus the position embeddings from
+    `start`. A vocab-sharded table: each rank looks up the tokens in its
+    rows, zeros elsewhere, and the lookups are summed over "model"."""
+    table = dec["tok_emb"]
+    if sh is None or not sh.vocab:
+        emb = table[tokens]
+    else:
+        lo = sh.model_rank * table.shape[0]
+        mine = (tokens >= lo) & (tokens < lo + table.shape[0])
+        emb = sh.reduce(table[torch.where(mine, tokens - lo, 0)]
+                        * mine[..., None].to(table.dtype))
+    return (emb + dec["pos_emb"][None, start:start + n]).to(table.dtype)
+
+
 def logits_from_hidden(params: Params, h: torch.Tensor) -> torch.Tensor:
+    """f32 logits [..., V]; a vocab-sharded table's shards gathered."""
+    params = local_params(params)
+    sh = shard_groups(params)
     dec = params["decoder"]
     h = layer_norm(h, dec["ln_g"], dec["ln_b"])
-    return (h @ dec["tok_emb"].T.to(h.dtype)).to(torch.float32)
+    logits = (h @ dec["tok_emb"].T.to(h.dtype)).to(torch.float32)
+    if sh is not None and sh.vocab:
+        logits = sh.gather(logits, -1)
+    return logits
 
 
 def decode_step(params: Params, tokens: torch.Tensor, pos: int,
@@ -447,25 +599,27 @@ def decode_block(params: Params, tokens: torch.Tensor, pos: int,
     position embeddings start at min(pos, n_text_ctx - K) and the columns
     at min(pos, ctx - K), the mask keeping pos + j. Columns above the
     accepted point hold stale draft K/V that later blocks overwrite."""
+    params = local_params(params)
+    sh = shard_groups(params)
     dec = params["decoder"]
     b, kk = tokens.shape
     n_head = cfg.n_text_head
     scale = (cfg.n_text_state // n_head) ** -0.25
     n_ctx = (kv_cache["qw"] if isinstance(kv_cache, dict) else kv_cache).shape[4]
-    emb = _clamped_start(pos, kk, dec["pos_emb"].shape[0])
-    x = (dec["tok_emb"][tokens] + dec["pos_emb"][None, emb:emb + kk]).to(
-        dec["tok_emb"].dtype)
+    x = _embed(dec, tokens, _clamped_start(pos, kk, dec["pos_emb"].shape[0]),
+               kk, sh)
     start = _clamped_start(pos, kk, n_ctx)
     mask = _causal_mask(n_ctx, pos, kk, x.device)
+    heads = self_heads(params, cfg)
     blocks = dec["blocks"]
     for layer in range(n_layers(blocks)):
         blk = layer_params(blocks, layer)
-        q, k_new, v_new = _proj_qkv(x, blk, n_head, scale)
+        q, k_new, v_new = _proj_qkv(x, blk, heads, scale)
         _cache_write(kv_cache, layer, k_new, v_new, start)
         o = _cache_attend(q, layer_params(kv_cache, layer), mask)
         x = _layer_rest(x, o, blk, layer_params(cross_kv[0], layer),
                         layer_params(cross_kv[1], layer), n_head,
-                        audio_ctx or cfg.n_audio_ctx)
+                        audio_ctx or cfg.n_audio_ctx, sh)
     return logits_from_hidden(params, x)
 
 
@@ -476,21 +630,22 @@ def decoder_prefill(params: Params, tokens: torch.Tensor, cross_kv,
     cache [L, 2, B, H, ctx, Dh] holding positions 0..P-1, K pre-scaled).
     quant_cache: the int8 dict cache, each prefix column quantized over
     Dh; the prefix's own attention uses the unquantized K/V."""
+    params = local_params(params)
+    sh = shard_groups(params)
     dec = params["decoder"]
     b, p = tokens.shape
     h = cfg.n_text_head
-    x = (dec["tok_emb"][tokens] + dec["pos_emb"][None, :p]).to(
-        dec["tok_emb"].dtype
-    )
+    x = _embed(dec, tokens, 0, p, sh)
     scale = (cfg.n_text_state // h) ** -0.25
+    heads = self_heads(params, cfg)
     cache = init_kv_cache(cfg, b, dtype=x.dtype, ctx=ctx, device=x.device,
-                          quant=quant_cache)
+                          quant=quant_cache, heads=heads)
     blocks = dec["blocks"]
     for layer in range(n_layers(blocks)):
         blk = layer_params(blocks, layer)
-        q, k, v = _proj_qkv(x, blk, h, scale)
+        q, k, v = _proj_qkv(x, blk, heads, scale)
         o = multihead_attention(q, k, v, causal=True)
         _cache_write(cache, layer, k, v, 0)
         x = _layer_rest(x, o, blk, layer_params(cross_kv[0], layer),
-                        layer_params(cross_kv[1], layer), h, 0)
+                        layer_params(cross_kv[1], layer), h, 0, sh)
     return logits_from_hidden(params, x), cache

@@ -26,6 +26,8 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 
+from spittle_tpu_torch.parallel.mesh import local_params
+
 from .config import WhisperConfig
 from .decode import (
     DecodeOptions,
@@ -207,8 +209,8 @@ def speculative_greedy_decode(
                 f"{getattr(draft_cfg, attr)} vs {getattr(cfg, attr)}")
     prefix, sot_pos = _prefix(cfg, opts, xa.shape[0], lang_tokens, prompt_tokens,
                               xa.device)
-    out = _speculative_loop(params, draft_params, xa, draft_xa, prefix, cfg,
-                            draft_cfg, opts, draft_k)
+    out = _speculative_loop(local_params(params), local_params(draft_params),
+                            xa, draft_xa, prefix, cfg, draft_cfg, opts, draft_k)
     pre_logits = out["pre_logits"]
     no_speech_prob = torch.softmax(
         pre_logits[:, min(sot_pos, pre_logits.shape[1] - 1)].to(torch.float32),

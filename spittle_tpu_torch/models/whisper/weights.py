@@ -430,20 +430,41 @@ def load_params(model_path: str, cfg: Optional[WhisperConfig] = None,
     return cfg, params_from_openai_tensors(tensors, cfg, dtype=dtype), extras
 
 
+def moe_leaf_init(d: int, experts: int, layers: int) -> dict:
+    """The routed MoE FFN's encoder leaves in the reference's init
+    (model.py:170-181), stacked [L, ...] like every block leaf: name ->
+    (shape, scale of a standard normal draw, f32). f32 marks the top-1
+    router, which stays f32 whatever the weights' dtype."""
+    f = 4 * d
+    return {"moe_router": ((layers, d, experts), d ** -0.5, True),
+            "moe_w_in": ((layers, experts, d, f), d ** -0.5, False),
+            "moe_w_out": ((layers, experts, f, d), f ** -0.5, False)}
+
+
 def random_params(cfg: WhisperConfig, seed: int = 0, dtype=torch.float32,
                   device="cpu") -> Params:
     """Random-normal weights at the reference's init_params scales, drawn
     from numpy's default_rng(seed) leaf by leaf (the reference draws from
     jax.random, which numpy cannot reproduce: the same seed gives other
     numbers). Layer norms are ones/zeros in f32, biases and pos_emb zeros,
-    everything else `dtype` on `device`."""
+    everything else `dtype` on `device`. For cfg.moe_experts > 0 the
+    encoder blocks carry moe_router [L, D, E] (f32), moe_w_in [L, E, D, 4D]
+    and moe_w_out [L, E, 4D, D] in place of fc1_*/fc2_*, at the
+    reference's scales; the decoder stays dense."""
     rng = np.random.default_rng(seed)
     d = cfg.n_audio_state
 
-    def w(shape, scale):
-        a = rng.standard_normal(shape, dtype=np.float32)
-        a *= np.float32(scale)
-        return torch.from_numpy(a).to(device=device, dtype=dtype)
+    def w(shape, scale, dt=dtype):
+        if len(shape) < 3:
+            a = rng.standard_normal(shape, dtype=np.float32)
+            a *= np.float32(scale)
+            return torch.from_numpy(a).to(device=device, dtype=dt)
+        # A stacked leaf one layer at a time: the same numbers as one draw
+        # of the whole shape, with a host buffer of one layer.
+        out = torch.empty(shape, dtype=dt, device=device)
+        for i in range(shape[0]):
+            out[i] = w(shape[1:], scale, dt)
+        return out
 
     def zeros(shape, dt=dtype):
         return torch.zeros(shape, dtype=dt, device=device)
@@ -451,7 +472,7 @@ def random_params(cfg: WhisperConfig, seed: int = 0, dtype=torch.float32,
     def ones32(shape):
         return torch.ones(shape, dtype=torch.float32, device=device)
 
-    def stack(layers, cross):
+    def stack(layers, cross, moe=0):
         mlp_d = 4 * d
         scale = d ** -0.5
         blocks = {
@@ -466,11 +487,18 @@ def random_params(cfg: WhisperConfig, seed: int = 0, dtype=torch.float32,
             "bo": zeros((layers, d)),
             "mlp_ln_g": ones32((layers, d)),
             "mlp_ln_b": zeros((layers, d), torch.float32),
-            "fc1_w": w((layers, d, mlp_d), scale),
-            "fc1_b": zeros((layers, mlp_d)),
-            "fc2_w": w((layers, mlp_d, d), (2 * mlp_d) ** -0.5),
-            "fc2_b": zeros((layers, d)),
         }
+        if moe:
+            blocks.update({k: w(shape, s, torch.float32 if f32 else dtype)
+                           for k, (shape, s, f32)
+                           in moe_leaf_init(d, moe, layers).items()})
+        else:
+            blocks.update({
+                "fc1_w": w((layers, d, mlp_d), scale),
+                "fc1_b": zeros((layers, mlp_d)),
+                "fc2_w": w((layers, mlp_d, d), (2 * mlp_d) ** -0.5),
+                "fc2_b": zeros((layers, d)),
+            })
         if cross:
             blocks.update({
                 "cross_ln_g": ones32((layers, d)),
@@ -490,7 +518,7 @@ def random_params(cfg: WhisperConfig, seed: int = 0, dtype=torch.float32,
         "conv1_b": zeros((d,)),
         "conv2_w": w((d, d, 3), (3 * d) ** -0.5),
         "conv2_b": zeros((d,)),
-        "blocks": stack(cfg.n_audio_layer, False),
+        "blocks": stack(cfg.n_audio_layer, False, cfg.moe_experts),
         "ln_g": ones32((d,)),
         "ln_b": zeros((d,), torch.float32),
     }

@@ -7,7 +7,14 @@ batch sizes, runs one batched engine call and resolves per-request futures.
 Optionally a stager thread assembles and copies group k+1 while a runner
 thread computes group k (the engine's stage_batch/transcribe_staged seam),
 and an SLA policy degrades to bucket-fitted encoder contexts, then sheds.
-The reference's device mesh is not ported: `mesh` must be None.
+
+Under a device mesh (parallel/mesh.py) the engine splits each window batch
+over the mesh's data dim. The reference runs one controller over many
+devices; torch runs one process per card, and every rank must make the
+same engine calls in the same order. So the server (the front) runs on
+rank 0 and broadcasts each engine call, batch and params, to the other
+ranks, each of which runs follow(): the SPMD counterpart of the single
+controller, not a feature of its own.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from concurrent.futures import Future
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch.distributed as dist
 
 from spittle_tpu_torch.engine.base import TranscribeParams, TranscriptionResult
 from spittle_tpu_torch.utils.logging import get_logger
@@ -66,7 +74,9 @@ class BatchingTranscriptionServer:
     max_batch: cap per engine call (the serving configuration targets 32).
     max_wait_ms: dispatch latency budget: a lone request never waits
     longer than this before running.
-    mesh: must be None; the multi-card mesh is not ported.
+    mesh: optional DeviceMesh covering every rank of the process group;
+    batched calls split their windows over its first (data) dim. Run the
+    server on rank 0 and follow() on every other rank.
     """
 
     def __init__(
@@ -82,11 +92,6 @@ class BatchingTranscriptionServer:
         sla_ms: Optional[float] = None,
         shed_factor: float = 4.0,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "serving under a device mesh is not ported to "
-                "spittle_tpu_torch yet (see ROADMAP.md, queue 1 item 7: the "
-                "mesh layer); pass mesh=None")
         self.engine = engine
         # Overload policy (opt-in via sla_ms): DEGRADE when the estimated
         # queue wait exceeds sla_ms (new groups run at the bucket-fitted
@@ -104,6 +109,17 @@ class BatchingTranscriptionServer:
         self.max_batch = max_batch
         self.max_wait = max_wait_ms / 1000.0
         self.buckets = tuple(buckets)
+        self.mesh = mesh
+        if mesh is not None:
+            # Every batch size must divide the data dim, or the engine
+            # replicates the batch on the full-load batches the mesh exists
+            # for: the cap is rounded up to a multiple (filler rows are
+            # silence), and the engine splits its windows over the dim.
+            m = mesh.size(0)
+            if self.max_batch % m:
+                self.max_batch = ((self.max_batch + m - 1) // m) * m
+            engine.mesh = mesh
+            self.engine = _Broadcasting(engine)
         # Opt-in: run each bucket at a reduced encoder context that just
         # covers it (whisper.cpp's audio_ctx); requests that set their own
         # params.audio_ctx are left untouched.
@@ -213,6 +229,8 @@ class BatchingTranscriptionServer:
             for t in self._threads:
                 if t is not self._thread:
                     t.join(timeout=5)
+        if self.mesh is not None:
+            self.engine.release()
 
     # -- dispatcher ------------------------------------------------------
 
@@ -354,8 +372,10 @@ class BatchingTranscriptionServer:
         return self.max_batch
 
     def _ladder_sizes(self) -> List[int]:
-        """The full static shape ladder: warmup() runs exactly these."""
-        sizes = [1]
+        """The full static shape ladder: warmup() runs exactly these. It
+        starts at the mesh's data-dim size under a mesh (every rung
+        splits evenly; __init__ rounded max_batch up)."""
+        sizes = [self.mesh.size(0) if self.mesh is not None else 1]
         while sizes[-1] * 2 < self.max_batch:
             sizes.append(sizes[-1] * 2)
         if sizes[-1] != self.max_batch:
@@ -472,3 +492,54 @@ class BatchingTranscriptionServer:
         self._note_service(bucket_len, time.monotonic() - t_run)
         for r, res in zip(reqs, results):
             r.future.set_result(res)
+
+
+class _Broadcasting:
+    """Rank 0's engine behind a server under a mesh: each compute call is
+    broadcast (kind, batch, params) to the ranks running follow() before
+    rank 0 makes it. stage_batch makes no collective call, so the
+    broadcast waits for transcribe_staged (one thread, the runner or the
+    dispatcher, makes every compute call)."""
+
+    def __init__(self, engine):
+        self._engine = engine
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+    def transcribe_batch(self, batch, params=None):
+        dist.broadcast_object_list([("batch", list(batch), params)], src=0)
+        return self._engine.transcribe_batch(batch, params)
+
+    def stage_batch(self, batch, params=None):
+        handle = self._engine.stage_batch(batch, params)
+        return None if handle is None else (handle, list(batch), params)
+
+    def transcribe_staged(self, staged):
+        handle, batch, params = staged
+        dist.broadcast_object_list([("staged", batch, params)], src=0)
+        return self._engine.transcribe_staged(handle)
+
+    def release(self) -> None:
+        """Ends the other ranks' follow() loops (there are none without a
+        process group)."""
+        if dist.is_initialized():
+            dist.broadcast_object_list([None], src=0)
+
+
+def follow(engine, mesh) -> None:
+    """The loop of every rank but 0 beside rank 0's
+    BatchingTranscriptionServer(mesh=mesh): it makes the engine calls that
+    rank 0 broadcasts, with the same batches and params, until rank 0's
+    server shuts down. The results are rank 0's to return."""
+    engine.mesh = mesh
+    while True:
+        msg = [None]
+        dist.broadcast_object_list(msg, src=0)
+        if msg[0] is None:
+            return
+        kind, batch, params = msg[0]
+        if kind == "staged":
+            engine.transcribe_staged(engine.stage_batch(batch, params))
+        else:
+            engine.transcribe_batch(batch, params)

@@ -251,10 +251,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "             'models.t5.weights', 'models.parakeet.decode', 'models.parakeet.features',\n"
         "             'models.parakeet.nemo', 'io.npz_checkpoint', 'io.protobuf',\n"
         "             'text.lang_id', 'parallel.serving', 'parallel.http_server',\n"
+        "             'parallel.mesh', 'parallel.multihost', 'parallel.pipeline_parallel',\n"
+        "             'parallel.expert_parallel', 'parallel.dryrun', 'io.onnx_proto',\n"
         "             'audio.resample', 'audio.wav', 'audio.vad.silero',\n"
         "             'audio.vad.smoothed', 'audio.vad.segmenter', 'utils.tracing',\n"
         "             'utils.threads', 'utils.logging'):\n"
         "    assert 'spittle_tpu_torch.' + name in sys.modules, name\n"
+        # Importing the mesh layer's modules starts no process group.
+        "import torch.distributed\n"
+        "assert not torch.distributed.is_initialized()\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

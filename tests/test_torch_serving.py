@@ -290,8 +290,34 @@ def test_fit_audio_ctx(fit):
         srv.shutdown()
 
 
+class _DataMesh:
+    """A DeviceMesh's surface the server reads: its first (data) dim."""
+
+    mesh_dim_names = ("data",)
+
+    def __init__(self, n):
+        self.n = n
+
+    def size(self, dim=None):
+        return self.n
+
+
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+    """A mesh no longer raises: the server takes the reference's two rules
+    (max_batch rounded up to the data dim, the ladder starting at it) and
+    hands the engine the mesh. Serving under a real gloo mesh is held in
+    tests/test_torch_mesh.py."""
+    eng = RecordingEngine()
+    eng.mesh = None
+    srv = BatchingTranscriptionServer(eng, max_batch=6, mesh=_DataMesh(4))
+    try:
+        assert srv.max_batch == 8
+        assert srv._ladder_sizes() == [4, 8]
+        assert srv._ladder_size(1) == 4
+        assert eng.mesh is srv.mesh
+    finally:
+        srv.shutdown()
+    with pytest.raises(AttributeError):
         BatchingTranscriptionServer(RecordingEngine(), mesh=object())
 
 

@@ -92,7 +92,9 @@ def test_weights_across(jparams):
 
 
 def test_onnx_path_raises():
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    # A path that is not an .npz goes to the ONNX reader (the reference's
+    # rule), which raises for a file that is not there.
+    with pytest.raises(FileNotFoundError, match="silero_vad_v4.onnx"):
         tsil.load_silero_params("silero_vad_v4.onnx", device="cpu")
 
 
