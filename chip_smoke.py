@@ -48,7 +48,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    its plain version on CPU copies at large-v3's decoder shapes (B 8, H
    20, T 1500 at a 1504-byte pitch; R = 1, 4, 8 and 228, R 4 with
    kv_len 1300 and 100, and R 1 at B 56), with its plan (regime, cluster
-   size) per shape. Each prints its max
+   size) per shape; K15 (K1's backward, hand-written for XLA's transpose
+   of the attention, not a TPU kernel) at [8, 20, 1500, 64], [4, 20, 224,
+   64] causal and kv_len 1300 of 1504, two calls bit-equal, beside SDPA's
+   backward. Each prints its max
    error and tolerance, its time (`ms`: device time per launch from a
    CUDA graph of launches replayed between CUDA events; `call_ms`: eager
    calls between CUDA events, the host's per-call cost included), the
@@ -104,6 +107,20 @@ Phases, each printing its own lines; any failure exits non-zero:
       single-device call's output; pipeline_apply with one stage over 4
       encoder blocks the sequential loop's; the unsharded references run
       first, and the sharded runs' launches are held to their prediction;
+      then one train step (remat, sequence parallel) on the
+      sharded tree of the engine's first 2 + 2 blocks, bit-equal to the
+      unsharded step;
+   u. train (after t, the same engine's weights, its W8A8 encoder weights
+      dequantized to bf16): large-v3-turbo at full width, B 4 x 30 s
+      (log-mels and SpecAugment made on the card), 224 target tokens; one
+      AdamW step without remat on a copy, then 3 with remat=True: the
+      first step's loss and gradients bit-equal, every leaf a finite
+      gradient, K1 36 a step (72 under remat) and K15 36, every other
+      kernel 0; loss, ms and peak memory per step;
+   v. gradient check (after u): the engine's first 2 + 2 blocks at
+      turbo's widths, B 2, 224 tokens: the card's bf16 gradient against
+      the CPU's f32 autograd on the same bf16-rounded weights, every leaf
+      within 5e-2 of its largest |g|, the encoder's wq/wk/wv nonzero;
    b. large-v3 leg: random:large-v3, int8 decoder, int8 cross-K/V and
       int8 self-cache, 1 batch (K1, K2, K3);
    c. the encoder-attention forms: the turbo leg's engine (its weights
@@ -244,6 +261,18 @@ MOE_LAYER: dict = {}
 # Kernels whose launch counts come from the probes phase.
 PROBE_KERNELS = ("decode_cross_attention_q8_mh", "alias_col_write_sub",
                  "alias_col_write")
+# The train path: large-v3-turbo at full width, B 4 windows of 30 s and
+# 224 target tokens (so the decoder's self-attention takes K1 causal), 3
+# AdamW steps under remat and one without; the gradient check at turbo's
+# widths and 2 + 2 layers, B 2.
+TRAIN_BATCH, TRAIN_TOKENS, TRAIN_STEPS, TRAIN_LR = 4, 224, 3, 1e-5
+GRAD_LAYERS, GRAD_BATCH = 2, 2
+# The gradient check's tolerance, a share of each leaf's largest |g|: the
+# card runs the model in bf16 (weights, activations and both attention
+# kernels; P and dS rounded to bf16 in K15), the CPU in f32 on the same
+# bf16-rounded weights: ~2^-9 relative per rounding, through four
+# layers forward and back.
+GRAD_TOL = 5e-2
 REPO = os.path.dirname(os.path.abspath(__file__))
 TINY = os.path.join(REPO, "tests", "data", "trained_tiny")
 FAMILIES = os.path.join(REPO, "tests", "data", "trained_families")
@@ -266,7 +295,8 @@ def _kernels():
             att.decode_cross_attention_q8, att.decode_cross_attention_q4,
             *_form_kernels().values(), att.flash_attention,
             att.decode_cross_attention_q8_mh, cw.alias_col_write_sub,
-            cw.alias_col_write, att.decode_cross_attention_w8a8)
+            cw.alias_col_write, att.decode_cross_attention_w8a8,
+            att.flash_attention_fullkv_bwd)
 
 
 def _form_kernels():
@@ -301,19 +331,21 @@ def call_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
+def time_ms(fn, iters: int, warmup: int = 2, stream=None) -> float:
     """Mean device ms per call: `iters` calls captured in one CUDA graph
     and replayed between CUDA events, so the host's per-call cost (Python
     checks, allocation, the ctypes launch) is not in the number. `fn` is a
     callable, or a list of callables on separate input sets taken in turn,
     so that the sets together exceed the 50 MB L2 and every call reads
-    cold data, as a decode step does."""
+    cold data, as a decode step does. `stream`: the stream to capture on
+    (an autograd backward runs on its forward's stream, so a backward is
+    captured on the stream its forward ran on)."""
     fns = _cycle(fn)
     for i in range(max(warmup, len(fns))):
         fns[i % len(fns)]()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for i in range(iters):
             fns[i % len(fns)]()
     graph.replay()
@@ -397,6 +429,7 @@ def kernel_phase(dev, rng):
                      bound_ms=bms, bound_by=by, library_ms=lib_ms,
                      library="F.scaled_dot_product_attention"))
     del packed, q, k, v, got, want
+    rows.append(k15_phase(dev, rng))
     rows += encoder_forms_phase(dev, rng)
 
     # K2: the six W8A8 GEMMs of one encoder layer at M = 8 * 1500.
@@ -914,6 +947,109 @@ def cache_write_phase(dev):
     return rows
 
 
+def k15_phase(dev, rng):
+    """K15, K1's hand-written backward, against its plain version at the
+    train path's shapes: the encoder's [8, 20, 1500, 64], the decoder's
+    causal self-attention at 224 tokens ([4, 20, 224, 64]) and kv_len 1300
+    of 1504 keys (whose pad keys must get exact zeros); two calls must be
+    bit-equal (no atomics), and K15 is also held to torch's autograd
+    through K1's plain forward. Prints ms, the plain version's ms and
+    SDPA's backward alone (flash, on the same q, k, v and dO; the port
+    never calls it), all three as CUDA-graph replays, and the bound: 10 * B * H * 64 FLOPs per
+    kept (row, key) pair at the bf16 peak against the bytes of q, k, v, o,
+    dO in and dq, dk, dv out."""
+    from spittle_tpu_torch.ops import attention as att
+
+    F = torch.nn.functional
+    h, d = 20, 64
+    print("K15 flash_attention_fullkv_bwd (K1's backward) bf16:")
+    by_shape, row = {}, None
+    for label, b, tq, tk, kv_len, causal in (
+            ("[8,20,1500,64]", 8, 1500, 1500, 1500, False),
+            ("[4,20,224,64] causal", 4, 224, 224, 224, True),
+            ("[8,20,1500,64] kv_len 1300 of 1504", 8, 1500, 1504, 1300, False)):
+        packed = [randn(rng, (b, t, h * d), dev, scale=d ** -0.25)
+                  for t in (tq, tk, tk)]
+        q, k, v = (x.view(b, -1, h, d).permute(0, 2, 1, 3) for x in packed)
+        do = randn(rng, (b, tq, h * d), dev).view(b, tq, h, d).permute(0, 2, 1, 3)
+        o = att.flash_attention_fullkv(q, k, v, causal=causal, kv_len=kv_len)
+
+        def run():
+            return att.flash_attention_fullkv_bwd(q, k, v, o, do, causal=causal,
+                                                  kv_len=kv_len)
+
+        got, again = run(), run()
+        want = att.flash_attention_fullkv_bwd_plain(q, k, v, o, do, causal=causal,
+                                                    kv_len=kv_len)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        auto = torch.autograd.grad(att.flash_attention_fullkv_plain(
+            *leaves, causal=causal, kv_len=kv_len), leaves, do)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b2) for a, b2 in zip(got, again)):
+            raise AssertionError(f"K15 {label}: two calls differ")
+        err = 0.0
+        for name, g, w, a in zip(("dq", "dk", "dv"), got, want, auto):
+            e = (g.float() - w.float()).abs().max().item()
+            scale = w.float().abs().max().item()
+            # P and dS rounded to bf16 as the second products' A operands,
+            # each gradient once more on output: a few bf16 ulps of the
+            # largest entry; a wrong mask, lse or D moves rows by far more.
+            check(f"K15 {label} {name}", e, 1e-2 * scale)
+            # Autograd through K1's plain forward (torch's own derivative,
+            # not the port's formula) also differs by K1's bf16 o in D.
+            check(f"K15 {label} {name} vs autograd",
+                  (g.float() - a.float()).abs().max().item(), 2e-2 * scale)
+            err = max(err, e)
+        if kv_len < tk and (got[1][:, :, kv_len:].any() or got[2][:, :, kv_len:].any()):
+            raise AssertionError(f"K15 {label}: pad keys got a gradient")
+        del got, again, want, auto, leaves
+        ms = time_ms(run, 10)
+        plain_ms = time_ms(lambda: att.flash_attention_fullkv_bwd_plain(
+            q, k, v, o, do, causal=causal, kv_len=kv_len), 2, 1)
+        leaves = [t.detach().requires_grad_() for t in (q, k[:, :, :kv_len],
+                                                         v[:, :, :kv_len])]
+        # SDPA's forward runs on a side stream, so its backward runs there
+        # and is captured in a graph and timed as K15's `ms` is.
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            sdpa = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                                  scale=1.0)
+        torch.cuda.synchronize()
+        lib_ms = time_ms(lambda: torch.autograd.grad(sdpa, leaves, do,
+                                                     retain_graph=True), 10,
+                         stream=side)
+        pairs = (tq * (tq + 1) // 2) if causal else tq * kv_len
+        flops = 10.0 * b * h * d * pairs
+        # q, o, dO read and dq written (4 Tq rows), k and v read up to
+        # kv_len, dk and dv written (2 Tk rows each way), 2 bytes an element.
+        bms, by = bound(flops, PEAK_BF16_FLOPS,
+                        2 * b * h * d * (4 * tq + 2 * kv_len + 2 * tk))
+        print(f"  {label}: ms {ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s)  "
+              f"plain_ms {plain_ms:.4f}  library_ms (SDPA's backward, flash) "
+              f"{lib_ms:.4f}  bound_ms {bms:.4f} ({by})")
+        by_shape[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                               bound_ms=bms, bound_by=by, max_abs_err=err,
+                               tflops=flops / ms / 1e9)
+        if row is None:
+            row = dict(name="flash_attention_fullkv_bwd", route="cuda",
+                       source="spittle_tpu_torch/csrc/fullkv_attention_bwd.cu",
+                       replaces="spittle_tpu/ops/attention.py:1034",
+                       replaces_note="no TPU kernel: XLA's transpose of "
+                       "multihead_attention under jax.value_and_grad "
+                       "(spittle_tpu/train/step.py:101)",
+                       max_abs_err=err, ms=ms, tflops=flops / ms / 1e9,
+                       plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                       library_ms=lib_ms,
+                       library="SDPA's backward alone (torch.autograd.grad "
+                       "of F.scaled_dot_product_attention, flash; CUDA-graph "
+                       "replays)")
+        del packed, q, k, v, do, o, leaves, sdpa
+    row["max_abs_err"] = max(r["max_abs_err"] for r in by_shape.values())
+    row["by_shape"] = by_shape
+    return row
+
+
 def encoder_forms_phase(dev, rng):
     """K7-K10 against their plain versions at [8, 20, 1500, 64] bf16:
     packed [B, T, H*64] projections (K8, K9) and their strided head views
@@ -1365,8 +1501,261 @@ def mesh_phase(label: str, eng, seed: int):
         if launches != predict:
             raise AssertionError(f"{label}: launch counts {launches} != "
                                  f"predicted {predict}")
+        mesh_train_step(label, mesh, eng, seed)
     finally:
         dist.destroy_process_group()
+    return launches
+
+
+def mesh_train_step(label: str, mesh, eng, seed: int):
+    """One make_train_step step (remat, sequence_parallel_mesh=mesh) on the
+    sharded tree of the turbo leg's first GRAD_LAYERS + GRAD_LAYERS blocks
+    (_trainable), against the same step on an unsharded copy run first:
+    on one rank every collective is a copy, so the loss and every updated
+    parameter must be bit-equal."""
+    from spittle_tpu_torch.io.npz_checkpoint import named_leaves
+    from spittle_tpu_torch.parallel.mesh import shard_params
+    from spittle_tpu_torch.parallel.multihost import global_batch_from_local
+    from spittle_tpu_torch.train import make_train_step
+
+    cfg = dataclasses.replace(eng.cfg, name="turbo-mesh-train",
+                              n_audio_layer=GRAD_LAYERS, n_text_layer=GRAD_LAYERS)
+    params = _trainable(eng, GRAD_LAYERS)
+    plain = _clone_tree(params)
+    batch = _train_batch(cfg, GRAD_BATCH, seed + 43)
+    init, step = make_train_step(cfg, learning_rate=TRAIN_LR, remat=True)
+    _, _, want = step(plain, init(plain), batch)
+    sharded = shard_params(params, mesh)  # its shards alias params' tensors
+    init, step = make_train_step(cfg, learning_rate=TRAIN_LR, remat=True,
+                                 sequence_parallel_mesh=mesh)
+    kernels = _zero_counters()
+    t0 = time.perf_counter()
+    _, _, loss = step(sharded, init(sharded), {
+        k: global_batch_from_local(v, mesh) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    same = float(loss) == float(want) and all(
+        torch.equal(a, b) for (_, a), (_, b) in
+        zip(named_leaves(params), named_leaves(plain)))
+    print(f"{label}: train step on the sharded tree ({cfg.n_audio_layer} + "
+          f"{cfg.n_text_layer} layers at turbo's widths, B {GRAD_BATCH}, remat, "
+          f"sequence parallel) in {wall * 1e3:.1f} ms: loss {float(loss):.6f}, "
+          f"loss and updated parameters bit-equal to the unsharded step: {same}; "
+          f"launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    if not same:
+        raise AssertionError(f"{label}: the sharded train step differs")
+    layers = cfg.n_audio_layer + cfg.n_text_layer
+    if launches["flash_attention_fullkv"] != 2 * layers or \
+            launches["flash_attention_fullkv_bwd"] != layers:
+        raise AssertionError(f"{label}: train step launches {launches}")
+
+
+def _train_batch(cfg, b: int, seed: int):
+    """b windows of 30 s seeded speech-like audio as log-mels made on the
+    card, SpecAugment applied there (a CUDA generator), and random target
+    tokens: the batch of the train path."""
+    from spittle_tpu_torch.audio.mel import log_mel_spectrogram
+    from spittle_tpu_torch.train.augment import spec_augment
+
+    rng = np.random.default_rng(seed)
+    pcm = torch.from_numpy(np.stack([synth_utterance(rng, 30.0) for _ in range(b)]
+                                    ).astype(np.float32) / 32768.0).cuda()
+    mel = log_mel_spectrogram(pcm, n_mels=cfg.n_mels)
+    mel = spec_augment(torch.Generator(device="cuda").manual_seed(seed), mel)
+    toks = rng.integers(0, cfg.n_vocab, (b, TRAIN_TOKENS + 1))
+    return dict(mel=mel, tokens=torch.from_numpy(toks[:, :-1]).cuda(),
+                targets=torch.from_numpy(toks[:, 1:]).cuda(),
+                mask=torch.ones((b, TRAIN_TOKENS), device="cuda"))
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.detach().clone()
+
+
+def _trainable(eng, layers: int = 0):
+    """The engine's weights as a float tree of its own that the train step
+    takes: each W8A8 weight dequantized on the card to the engine's dtype
+    (its int8 codes times the per-column scales), every other leaf copied;
+    layers > 0 keeps the first `layers` blocks of each stack. The
+    engine's tree is left as it is."""
+    from spittle_tpu_torch.ops.quant import is_quant_w8a8
+
+    def walk(node, stacked):
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, dict) and not is_quant_w8a8(v):
+                out[k] = walk(v, stacked or k == "blocks")
+                continue
+            if stacked and layers:
+                v = {kk: vv[:layers] for kk, vv in v.items()} if isinstance(v, dict) \
+                    else v[:layers]
+            if isinstance(v, dict):
+                v = (v["qw8"].float() * v["scale"][..., None, :]).to(eng.dtype)
+            out[k] = v.detach().clone(memory_format=torch.contiguous_format)
+        return out
+
+    return walk(eng.params, False)
+
+
+def train_phase(label: str, eng, seed: int):
+    """The train path: random:large-v3-turbo at full width (d 1280, 20
+    heads, 32 + 4 layers, vocab 51866) in bf16, the turbo leg's weights
+    (seed 0; its W8A8 encoder weights dequantized, _trainable), B
+    TRAIN_BATCH 30 s windows (1500 encoder positions, SpecAugment on the
+    card) and TRAIN_TOKENS target tokens. One AdamW step without remat on
+    a copy of the weights, then TRAIN_STEPS steps with remat=True from the
+    same weights: the first step's loss and every gradient must be
+    bit-equal to the copy's, every leaf must have a finite gradient, and
+    the launches must be K1 once per layer per forward (36 a step, 72
+    under remat) and K15 once per layer per step, every other kernel 0.
+    Prints each step's loss, ms and peak memory."""
+    from spittle_tpu_torch.io.npz_checkpoint import named_leaves
+    from spittle_tpu_torch.train import make_train_step
+
+    cfg = eng.cfg
+    t0 = time.perf_counter()
+    params = _trainable(eng)
+    plain = _clone_tree(params)
+    batch = _train_batch(cfg, TRAIN_BATCH, seed + 21)
+    torch.cuda.synchronize()
+    print(f"{label}: {cfg.name} weights copied and batch made in "
+          f"{time.perf_counter() - t0:.1f} s; B {TRAIN_BATCH}, mel "
+          f"{tuple(batch['mel'].shape)}, {TRAIN_TOKENS} tokens")
+    init_p, step_p = make_train_step(cfg, learning_rate=TRAIN_LR)
+    init_r, step_r = make_train_step(cfg, learning_rate=TRAIN_LR, remat=True)
+    state_p, state_r = init_p(plain), init_r(params)
+    kernels = _zero_counters()
+    losses, times, peaks = [], [], []
+
+    def timed(step, tree, state):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        _, _, loss = step(tree, state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+        losses.append(float(loss))
+
+    timed(step_p, plain, state_p)
+    for i in range(TRAIN_STEPS):
+        timed(step_r, params, state_r)
+        if i == 0:
+            named = list(named_leaves(params))
+            missing = [n for n, t in named if t.grad is None
+                       or not torch.isfinite(t.grad).all()]
+            if missing:
+                raise AssertionError(f"{label}: leaves without a finite "
+                                     f"gradient: {missing}")
+            same = losses[1] == losses[0] and all(
+                torch.equal(a.grad, b.grad)
+                for a, b in zip(state_r.leaves(), state_p.leaves()))
+            print(f"{label}: first step's loss and gradients with and without "
+                  f"remat bit-equal: {same}")
+            if not same:
+                raise AssertionError(f"{label}: remat changed the gradients")
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    for i, (loss, ms, peak) in enumerate(zip(losses, times, peaks)):
+        print(f"{label}: step {i} ({'remat' if i else 'no remat'}): loss "
+              f"{loss:.6f}  ms {ms:.1f}  peak device memory {peak:.2f} GiB")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{label}: losses {losses}")
+    layers = cfg.n_audio_layer + cfg.n_text_layer
+    predict = {fn.__name__: 0 for fn in kernels}
+    predict["flash_attention_fullkv"] = layers * (1 + 2 * TRAIN_STEPS)
+    predict["flash_attention_fullkv_bwd"] = layers * (1 + TRAIN_STEPS)
+    print(f"{label}: launches {json.dumps(launches)}")
+    print(f"{label}: predicted launches " + json.dumps(
+        {k: v for k, v in predict.items() if v}))
+    if launches != predict:
+        raise AssertionError(f"{label}: launch counts {launches} != predicted "
+                             f"{predict}")
+    del params, plain, state_p, state_r, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def grad_check_phase(label: str, eng, seed: int):
+    """The card's bf16 gradient against the CPU's f32 autograd on the same
+    bf16-rounded weights and batch, at turbo's widths and GRAD_LAYERS +
+    GRAD_LAYERS layers, B GRAD_BATCH, 30 s windows and TRAIN_TOKENS
+    tokens: every leaf must have a gradient on the card, the encoder's
+    wq/wk/wv nonzero ones, and each leaf must be within GRAD_TOL of its
+    largest CPU |g|. The weights are the turbo leg's first blocks
+    (_trainable). Prints each leaf's share. On the CPU, K1's autograd
+    Function runs its plain versions, so the reference's attention
+    gradient is the port's explicit formula (flash_attention_fullkv_bwd_plain,
+    held to jax.vjp in the CPU tests), not torch's autograd; k15_phase
+    holds K15 to torch's autograd through K1's plain forward."""
+    from spittle_tpu_torch.io.npz_checkpoint import named_leaves
+    from spittle_tpu_torch.train import cross_entropy_loss
+
+    cfg = dataclasses.replace(eng.cfg, name="turbo-grad-check",
+                              n_audio_layer=GRAD_LAYERS, n_text_layer=GRAD_LAYERS)
+    card = _trainable(eng, GRAD_LAYERS)
+    host = {n: t.float().cpu() for n, t in named_leaves(card)}
+    batch = _train_batch(cfg, GRAD_BATCH, seed + 31)
+    kernels = _zero_counters()
+    named = list(named_leaves(card))
+    for _, t in named:
+        t.requires_grad_(True)
+    t0 = time.perf_counter()
+    loss = cross_entropy_loss(card, *(batch[k] for k in ("mel", "tokens", "targets",
+                                                          "mask")), cfg)
+    loss.backward()
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    launches = {fn.__name__: fn.launches for fn in kernels}
+
+    def nest(flat):
+        out = {}
+        for name, t in flat.items():
+            node = out
+            *path, leaf = name.split("/")
+            for part in path:
+                node = node.setdefault(part, {})
+            node[leaf] = t
+        return out
+
+    for t in host.values():
+        t.requires_grad_(True)
+    t0 = time.perf_counter()
+    ref = cross_entropy_loss(nest(host), *(batch[k].float().cpu() if k == "mel"
+                                           else batch[k].cpu()
+                                           for k in ("mel", "tokens", "targets",
+                                                     "mask")), cfg)
+    ref.backward()
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    loss, ref = float(loss.detach()), float(ref.detach())
+    print(f"{label}: loss card bf16 {loss:.6f}, CPU f32 {ref:.6f}; "
+          f"forward + backward ms card {card_ms:.1f}, CPU {cpu_ms:.1f}; "
+          f"launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    shares, worst = {}, 0.0
+    for name, t in named:
+        if t.grad is None or not torch.isfinite(t.grad).all():
+            raise AssertionError(f"{label}: {name} has no finite gradient")
+        want = host[name].grad
+        scale = want.abs().max().item()
+        share = (t.grad.float().cpu() - want).abs().max().item() / max(scale, 1e-30)
+        shares[name] = share
+        worst = max(worst, share)
+    for key in ("wq", "wk", "wv"):
+        if not card["encoder"]["blocks"][key].grad.abs().max().item() > 0:
+            raise AssertionError(f"{label}: encoder {key} got a zero gradient")
+    print(f"{label}: max |g_card - g_cpu| / max |g_cpu| per leaf (tolerance "
+          f"{GRAD_TOL}): " + json.dumps({k: float(f"{v:.3e}") for k, v in shares.items()}))
+    if not worst <= GRAD_TOL:
+        raise AssertionError(f"{label}: a leaf's gradient is off by {worst:.3e} "
+                             f"of its largest")
+    layers = 2 * GRAD_LAYERS
+    if launches["flash_attention_fullkv"] != layers or \
+            launches["flash_attention_fullkv_bwd"] != layers:
+        raise AssertionError(f"{label}: launches {launches}")
     return launches
 
 
@@ -2890,6 +3279,10 @@ def main() -> int:
          dict(run=moe_phase)),
         ("mesh", "random:large-v3-turbo", {}, "fullkv", None, None, (),
          dict(run=mesh_phase)),
+        ("train", "random:large-v3-turbo", {}, "fullkv", None, None,
+         ("flash_attention_fullkv_bwd",), dict(run=train_phase)),
+        ("gradient check", "random:large-v3-turbo", {}, "fullkv", None, None, (),
+         dict(run=grad_check_phase)),
         ("reduced context", "random:large-v3-turbo", {}, "fullkv", N_BATCHES,
          _predict(k4=1), (), dict(seconds=5.0, audio_ctx=256)),
         ("app path", "random:large-v3-turbo", {}, "fullkv", None, None, (),

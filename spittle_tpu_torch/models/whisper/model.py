@@ -51,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from spittle_tpu_torch.ops.attention import (
+    attention_reference,
     decode_cross_attention,
     decode_cross_attention_q4,
     decode_cross_attention_q8,
@@ -220,21 +221,48 @@ def encoder_block_body(h: torch.Tensor, blk, n_head: int,
     return encoder_block_body_aux(h, blk, n_head, attention, sh, data_group)[0]
 
 
+def _stem_gemm(enc, mel: torch.Tensor) -> torch.Tensor:
+    """The conv stem as two im2col GEMMs: mel [B, n_mels, frames] ->
+    [B, frames / 2, D] (the reference's _stem_gemm, its
+    SPITTLE_STEM_GEMM=1 form, measured slower than the convolutions on its
+    TPU and kept as an option). A k=3 conv is a [3 * C_in, C_out] product
+    over unfolded windows: three strided slices and one concat in
+    time-major order, k-major with C within k, matching w.permute(2, 1,
+    0).reshape(3 * C, D)."""
+    w1, w2 = enc["conv1_w"], enc["conv2_w"]  # [D, C, 3], [D, D, 3]
+    d, c, _ = w1.shape
+    xt = mel.to(w1.dtype).transpose(1, 2)  # [B, T, C]
+    t = xt.shape[1]
+    assert t % 2 == 0, t
+    xp = F.pad(xt, (0, 0, 1, 1))
+    cat1 = torch.cat([xp[:, 0:t], xp[:, 1:t + 1], xp[:, 2:t + 2]], dim=-1)
+    h = F.gelu(cat1 @ w1.permute(2, 1, 0).reshape(3 * c, d) + enc["conv1_b"])
+    hp = F.pad(h, (0, 0, 1, 1))  # [B, T + 2, D]
+    cat2 = torch.cat([hp[:, 0:t:2], hp[:, 1:t + 1:2], hp[:, 2:t + 2:2]], dim=-1)
+    return F.gelu(cat2 @ w2.permute(2, 1, 0).reshape(3 * d, d) + enc["conv2_b"])
+
+
 def _encoder_stem(enc, mel: torch.Tensor, cfg: WhisperConfig,
-                  positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  positions: Optional[torch.Tensor] = None,
+                  stem_gemm: bool = False) -> torch.Tensor:
     """Conv stem + positions: mel [B, n_mels, frames] -> [B, T, D].
     positions: sinusoidal_positions(n_audio_ctx, n_audio_state) already on
     x's device in x's dtype (a caller that encodes many batches keeps it);
-    made here when None."""
-    w1 = enc["conv1_w"]
-    x = F.conv1d(mel.to(w1.dtype), w1, stride=1, padding=1)
-    x = F.gelu(x + enc["conv1_b"][None, :, None])
-    x = F.conv1d(x, enc["conv2_w"], stride=2, padding=1)
-    x = F.gelu(x + enc["conv2_b"][None, :, None])
-    # [B, T, D] in row-major order: the transposed view's strides would
-    # carry through every block, and at B = 1 a row view of them is not
-    # contiguous, which K2's row quantizer refuses.
-    x = x.transpose(1, 2).contiguous()
+    made here when None. stem_gemm: the stem as two im2col GEMMs
+    (_stem_gemm; the reference's SPITTLE_STEM_GEMM=1) in place of the
+    convolutions."""
+    if stem_gemm:
+        x = _stem_gemm(enc, mel).contiguous()
+    else:
+        w1 = enc["conv1_w"]
+        x = F.conv1d(mel.to(w1.dtype), w1, stride=1, padding=1)
+        x = F.gelu(x + enc["conv1_b"][None, :, None])
+        x = F.conv1d(x, enc["conv2_w"], stride=2, padding=1)
+        x = F.gelu(x + enc["conv2_b"][None, :, None])
+        # [B, T, D] in row-major order: the transposed view's strides would
+        # carry through every block, and at B = 1 a row view of them is not
+        # contiguous, which K2's row quantizer refuses.
+        x = x.transpose(1, 2).contiguous()
     pos = positions
     if pos is None:
         pos = torch.from_numpy(
@@ -245,12 +273,17 @@ def _encoder_stem(enc, mel: torch.Tensor, cfg: WhisperConfig,
 
 
 def _encode(params: Params, mel, cfg: WhisperConfig, attention: str,
-            positions: Optional[torch.Tensor]):
+            positions: Optional[torch.Tensor], stem_gemm: bool = False,
+            data_group=None):
+    """(features, aux) of encode_with_aux. data_group: the "data" group
+    when mel is this rank's rows as a plain tensor (the train step's);
+    a mel that is a DTensor brings its own."""
     params = local_params(params)
     sh = shard_groups(params)
-    mel, spec, data_group = local_rows(mel)
+    mel, spec, group = local_rows(mel)
+    data_group = group if group is not None else data_group
     enc = params["encoder"]
-    x = _encoder_stem(enc, mel, cfg, positions)
+    x = _encoder_stem(enc, mel, cfg, positions, stem_gemm)
     blocks = enc["blocks"]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer in range(n_layers(blocks)):
@@ -264,23 +297,27 @@ def _encode(params: Params, mel, cfg: WhisperConfig, attention: str,
 
 def encode(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
            attention: str = "fullkv",
-           positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+           positions: Optional[torch.Tensor] = None,
+           stem_gemm: bool = False) -> torch.Tensor:
     """mel [B, n_mels, frames] -> audio features [B, frames / 2, D], at
     most cfg.n_audio_ctx positions (1500 for the stock models). attention:
     the encoder-attention form, one of ops.attention.ENCODER_ATTENTION_FORMS
-    (the reference reads it from the environment). positions: see
-    _encoder_stem. A mel that is a DTensor split over "data" gives the
-    features as one (the MoE FFN then routes over the global batch)."""
-    return _encode(params, mel, cfg, attention, positions)[0]
+    (the reference reads it from the environment). positions, stem_gemm:
+    see _encoder_stem. A mel that is a DTensor split over "data" gives the
+    features as one (the MoE FFN then routes over the global batch).
+    Differentiable: under autograd the attention runs as K1 with K15 as
+    its backward (ops.attention.multihead_attention)."""
+    return _encode(params, mel, cfg, attention, positions, stem_gemm)[0]
 
 
 def encode_with_aux(params: Params, mel: torch.Tensor, cfg: WhisperConfig,
                     attention: str = "fullkv",
-                    positions: Optional[torch.Tensor] = None):
+                    positions: Optional[torch.Tensor] = None,
+                    stem_gemm: bool = False):
     """encode() that also returns the MoE aux loss SUMMED over layers (the
     training objective's: Switch applies alpha to each layer's loss); 0
     for a dense config."""
-    return _encode(params, mel, cfg, attention, positions)
+    return _encode(params, mel, cfg, attention, positions, stem_gemm)
 
 
 # ---------------------------------------------------------------------------
@@ -649,3 +686,45 @@ def decoder_prefill(params: Params, tokens: torch.Tensor, cross_kv,
         x = _layer_rest(x, o, blk, layer_params(cross_kv[0], layer),
                         layer_params(cross_kv[1], layer), h, 0, sh)
     return logits_from_hidden(params, x), cache
+
+
+def decoder_forward(params: Params, tokens: torch.Tensor, xa: torch.Tensor,
+                    cfg: WhisperConfig) -> torch.Tensor:
+    """Teacher-forced decoder over a full token sequence: tokens [B, T],
+    encoder output xa [B, T_audio, D] -> logits [B, T, V] (f32), the
+    training objective's forward (the reference's decoder_forward).
+
+    The causal self-attention goes through multihead_attention_packed, so
+    K1 (K15 backward) at T >= 128 and plain ops below; the cross-attention
+    is attention_reference over exactly xa's T_audio positions, as in the
+    reference: precompute_cross_kv's rows are stored tma_pitch(T_audio)
+    apart and attended through their logical views. Differentiable (no
+    inference_mode anywhere on the path). Under a mesh, this rank's heads
+    and the collectives of the sharded groups, as in decode_block."""
+    params = local_params(params)
+    sh = shard_groups(params)
+    dec = params["decoder"]
+    b, t = tokens.shape
+    n_head = cfg.n_text_head
+    x = _embed(dec, tokens, 0, t, sh)
+    cross_k, cross_v = precompute_cross_kv(params, xa, cfg)
+    cross = _split(sh, "decoder", "cross")
+    blocks = dec["blocks"]
+    for layer in range(n_layers(blocks)):
+        blk = layer_params(blocks, layer)
+        x = x + _attn_full(layer_norm(x, blk["attn_ln_g"], blk["attn_ln_b"]),
+                           blk, n_head, causal=True,
+                           tp=_split(sh, "decoder", "attn"))
+        xn = layer_norm(x, blk["cross_ln_g"], blk["cross_ln_b"])
+        dh = xn.shape[-1] // n_head
+        cq = split_heads(mm(xn, blk["cross_wq"]) + blk["cross_bq"],
+                         _heads(n_head, cross)) * dh ** -0.25
+        # [B, H, Dh, T] decode-layout views -> [B, H, T, Dh].
+        ck = layer_params(cross_k, layer).transpose(-1, -2)
+        cv = layer_params(cross_v, layer).transpose(-1, -2)
+        o = attention_reference(cq, ck * dh ** -0.25, cv)
+        x = x + _reduced(mm(merge_heads(o), blk["cross_wo"]), cross) \
+            + blk["cross_bo"]
+        x = x + _mlp(layer_norm(x, blk["mlp_ln_g"], blk["mlp_ln_b"]), blk,
+                     _split(sh, "decoder", "mlp"))
+    return logits_from_hidden(params, x)

@@ -41,6 +41,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "spt_fullkv_attention": [_P, _P, _P, _P] + [_I] * 6 + [_L] * 12 + [_P],
     "spt_flash_attention": [_P, _P, _P, _P] + [_I] * 6 + [_L] * 12 + [_P],
+    "spt_fullkv_attention_bwd": [_P] * 10 + [_I] * 6 + [_L] * 24 + [_P],
     "spt_fullkv_attention_packed": [_P] * 4 + [_I] * 6 + [_P],
     "spt_fullkv_attention_packed_pair": [_P] * 4 + [_I] * 6 + [_P],
     "spt_fullkv_attention_pipe": [_P] * 4 + [_I] * 6 + [_L] * 12 + [_P],

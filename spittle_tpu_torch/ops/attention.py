@@ -1,4 +1,4 @@
-"""Attention ops: the port's kernels K1, K3–K11 and K14 with their plain versions
+"""Attention ops: the port's kernels K1, K3–K11, K14 and K15 with their plain versions
 (port of spittle_tpu/ops/attention.py, and of the decode cross-attention
 probe's kernel).
 
@@ -40,6 +40,11 @@ probe's kernel).
   int8 x int8 -> int32, q and P quantized per row, for any number of
   rows. It replaces no TPU kernel: the reference leaves these products to
   XLA, and PyTorch has no integer matmul on CUDA.
+- flash_attention_fullkv_bwd (K15, csrc/fullkv_attention_bwd.cu): K1's
+  backward, dq, dk and dv. It replaces no TPU kernel: the reference's
+  training gradient is XLA's transpose of its attention. Under autograd
+  the dispatch runs K1 as an autograd Function whose backward is K15; the
+  other kernels have no backward and raise there.
 - multihead_attention_packed and multihead_attention: the dispatchers.
   They pick a kernel from the shapes and the encoder-attention form, an
   argument (ENCODER_ATTENTION_FORMS), never the environment.
@@ -139,15 +144,21 @@ def flash_attention_fullkv_plain(q, k, v, causal: bool = False,
     return (o / l).to(q.dtype)
 
 
+def _head_view_ok(t) -> bool:
+    """A tensor the attention kernels read in place: head dim contiguous,
+    strides multiples of 8 elements, data 16-byte aligned (their 16-byte
+    loads and the core's TMA tensor maps need it)."""
+    return (t.stride(-1) == 1 and not any(s % 8 for s in t.stride()[:-1])
+            and t.data_ptr() % 16 == 0)
+
+
 def _check_attn_operand(name, t, d):
     if t.dtype != torch.bfloat16:
         raise TypeError(f"{name} must be bfloat16 on CUDA, got {t.dtype} "
                         "(the kernel has no other form; run the model in bf16)")
     if t.shape[-1] != d or t.stride(-1) != 1:
         raise ValueError(f"{name}: head dim must be {d} and contiguous")
-    # 16-byte rows and strides: what the kernels' 16-byte loads and the
-    # TMA tensor maps of the attention core's instances need.
-    if any(s % 8 for s in t.stride()[:-1]) or t.data_ptr() % 16:
+    if not _head_view_ok(t):
         raise ValueError(f"{name}: strides must be multiples of 8 elements "
                          "and the data 16-byte aligned")
 
@@ -213,6 +224,113 @@ def flash_attention_fullkv(q, k, v, causal: bool = False,
 
 
 flash_attention_fullkv.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K15: K1's backward, and K1 under autograd
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_fullkv_bwd_plain(q, k, v, o, do, causal: bool = False,
+                                     kv_len: Optional[int] = None):
+    """Plain K15: the gradient of o = softmax(q k^T) v under K1's masks
+    (col < kv_len; row >= col on absolute indices under `causal`), as the
+    explicit formulae in f32: P = exp(S - lse), dV = P^T dO, dP = dO V^T,
+    D = rowsum(dO * o) with K1's o, dS = P * (dP - D), dQ = dS K,
+    dK = dS^T Q. Masked positions have P = 0, so keys at or past kv_len
+    get a zero gradient. Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    tq, tk = q.shape[2], k.shape[2]
+    kv_len = tk if kv_len is None else kv_len
+    dev = q.device
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2))
+    col = torch.arange(tk, device=dev)[None, :]
+    keep = col < kv_len
+    if causal:
+        keep = keep & (torch.arange(tq, device=dev)[:, None] >= col)
+    s = torch.where(keep, s, float("-inf"))
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - (dof * o.float()).sum(dim=-1, keepdim=True))
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_fullkv_bwd(q, k, v, o, do, causal: bool = False,
+                               kv_len: Optional[int] = None):
+    """K15 (csrc/fullkv_attention_bwd.cu): (dq, dk, dv) of K1's attention.
+    q, o, do [B, H, Tq, 64] and k/v [B, H, Tk, 64] bf16, q and k
+    pre-scaled, strided views as K1 takes them; o is K1's output. On CUDA
+    each gradient is a view of a [B, T, H, 64] buffer (the packed
+    projections' layout) and B * H is at most 65535. Two launches: the
+    rows pass (each row's log-sum-exp and rowsum(dO * o) into f32 scratch,
+    then dQ) and the columns pass (dK, dV); no atomics, so two calls give
+    the same bits."""
+    if q.device.type == "cpu":
+        return flash_attention_fullkv_bwd_plain(q, k, v, o, do, causal, kv_len)
+    name = "flash_attention_fullkv_bwd"
+    kv_len = _check_split_qkv(name, q, k, v, kv_len)
+    for label, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.device != q.device:
+            raise ValueError(f"{name}: {label} must be q's shape on q's device")
+        _check_attn_operand(label, t, 64)
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    _check_sm90_groups(name, b * h)
+    dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, tk, h, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    scratch = torch.empty((2, b * h, tq), dtype=torch.float32, device=q.device)
+    grads = [t.permute(0, 2, 1, 3) for t in (dq, dk, dv)]
+    lib = _build.load_library()
+    _build.check(lib.spt_fullkv_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch[0].data_ptr(),
+        scratch[1].data_ptr(), b, h, tq, tk, kv_len, int(causal),
+        *(s for t in (q, k, v, o, do, *grads) for s in t.stride()[:3]),
+        _build.stream_ptr(q.device),
+    ), "spt_fullkv_attention_bwd")
+    flash_attention_fullkv_bwd.launches += 1
+    return tuple(grads)
+
+
+flash_attention_fullkv_bwd.launches = 0
+
+
+class _FullKVAttention(torch.autograd.Function):
+    """K1 forward, K15 backward (their plain versions for CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, kv_len):
+        o = flash_attention_fullkv(q, k, v, causal, kv_len)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.kv_len = causal, kv_len
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        if do.device.type != "cpu" and not _head_view_ok(do):
+            do = do.contiguous()
+        dq, dk, dv = flash_attention_fullkv_bwd(q, k, v, o, do, ctx.causal,
+                                                ctx.kv_len)
+        return dq, dk, dv, None, None
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _no_backward(kernel: str, *tensors) -> None:
+    """Raise when a gradient would have to pass through a kernel that has
+    no backward (on every device, so that the CPU takes the card's route)."""
+    if _needs_grad(*tensors):
+        raise NotImplementedError(
+            f"{kernel} has no backward kernel: under autograd, attention runs "
+            "only as K1 (the 'fullkv' form, K/V up to "
+            f"{_FULLKV_MAX_KV} positions) or on plain ops")
 
 
 # ---------------------------------------------------------------------------
@@ -596,20 +714,27 @@ def multihead_attention(q, k, v, causal: bool = False,
     whose q block times Tk rounded up to 128 is at most 768 x 2048 (the
     reference's VMEM gate); K1 otherwise. Causal calls never take K7 or
     K10. A wrapper raises on CUDA for what its kernel does not take (a
-    dtype other than bf16, Dh 128). Inputs [B, H, T, D]."""
+    dtype other than bf16, Dh 128). Inputs [B, H, T, D].
+
+    K1 runs as its autograd Function, whose backward is K15 (with no
+    input that requires grad it records no graph); under autograd a route
+    to K5, K7 or K10 raises, since those kernels have no backward."""
     check_encoder_attention(form)
     tq, d = q.shape[2], q.shape[3]
     if d not in (64, 128) or tq < 128:
         return attention_reference(q, k, v, causal=causal, kv_len=kv_len)
     tk = k.shape[2]
     if tk > _FULLKV_MAX_KV:
+        _no_backward("K5 (flash_attention, K/V past 4096)", q, k, v)
         return flash_attention(q, k, v, causal=causal, kv_len=kv_len)
     if not causal:
         if form == "q8":
+            _no_backward("K7 (the 'q8' form)", q, k, v)
             return flash_attention_fullkv_q8(q, k, v, kv_len=kv_len)
         if form == "pipe" and _block_q(tq) * -(-tk // 128) * 128 <= 768 * 2048:
+            _no_backward("K10 (the 'pipe' form)", q, k, v)
             return flash_attention_fullkv_pipe(q, k, v, kv_len=kv_len)
-    return flash_attention_fullkv(q, k, v, causal=causal, kv_len=kv_len)
+    return _FullKVAttention.apply(q, k, v, causal, kv_len)
 
 
 def multihead_attention_packed(q, k, v, n_head: int, causal: bool = False,
@@ -631,6 +756,7 @@ def multihead_attention_packed(q, k, v, n_head: int, causal: bool = False,
             split_heads(q, n_head), split_heads(k, n_head),
             split_heads(v, n_head), causal=causal, kv_len=kv_len, form=form)
         return merge_heads(o)
+    _no_backward(f"K{9 if form == 'pair' else 8} (the {form!r} form)", q, k, v)
     kernel = (flash_attention_fullkv_packed_pair if form == "pair"
               else flash_attention_fullkv_packed)
     return kernel(q, k, v, n_head, causal=causal, kv_len=kv_len)

@@ -1,7 +1,7 @@
-"""The mesh layer's dry run: dp, tp, pp, ep and sharded serving over a
-torch.distributed process group (the counterpart of the reference's
-__graft_entry__.py:dryrun_multichip and scripts/dryrun_multihost.py, less
-the train step).
+"""The mesh layer's dry run: dp, tp, pp, ep, sharded serving and the train
+step over a torch.distributed process group (the counterpart of the
+reference's __graft_entry__.py:dryrun_multichip and
+scripts/dryrun_multihost.py).
 
 Each task is a function that every rank of the group runs:
 
@@ -15,7 +15,9 @@ Each task is a function that every rank of the group runs:
 - serving: BatchingTranscriptionServer(mesh=) on rank 0 over a data-only
   mesh, follow() on the others, against mesh=None;
 - multihost: global_batch_from_local, replicated_to_host and the
-  refusal of a vocab that the model dim does not divide.
+  refusal of a vocab that the model dim does not divide;
+- train: one make_train_step step (remat, sequence parallelism at tp > 1)
+  under a ("data", "model") mesh against the unsharded step.
 
 Rank 0 writes each task's results under --out (<task>.npz / .json);
 --inputs may hold the weights and inputs to use (the tests write the
@@ -427,8 +429,81 @@ def task_multihost(run):
             f"refused: {refused}")
 
 
+def task_train(run):
+    """One train step of make_train_step under make_mesh(world, tp=2),
+    with sequence parallelism over "model" and remat (the counterpart of
+    scripts/dryrun_multihost.py's train step), against the same step on
+    the unsharded tree: the loss, the gradients and the updated
+    parameters."""
+    from spittle_tpu_torch.io.npz_checkpoint import named_leaves
+    from spittle_tpu_torch.train import make_train_step
+
+    from .mesh import make_mesh, shard_params
+    from .multihost import global_batch_from_local
+
+    tp = 2 if run.world % 2 == 0 else 1
+    mesh = make_mesh(run.world, tp=tp, device=run.dev_type)
+    cfg = _cfg()
+    full = _params(run, "dp_tp_params.npz", cfg, 0)
+    path = run.input("train_batch.npz")
+    b = max(run.world // tp, 1) * 2
+    if path:
+        batch = dict(np.load(path))
+    else:
+        rng = np.random.default_rng(7)
+        batch = dict(
+            mel=rng.standard_normal((b, cfg.n_mels, cfg.n_audio_ctx * 2)
+                                    ).astype(np.float32),
+            tokens=rng.integers(0, cfg.n_vocab, (b, cfg.n_text_ctx)),
+            targets=rng.integers(0, cfg.n_vocab, (b, cfg.n_text_ctx)),
+            mask=np.ones((b, cfg.n_text_ctx), np.float32))
+    b = batch["mel"].shape[0]
+    lr = 1e-3
+    ref_tree = _params(run, "dp_tp_params.npz", cfg, 0)  # its own storage
+    init, step = make_train_step(cfg, learning_rate=lr, remat=True,
+                                 device=run.dev_type)
+    _, _, ref_loss = step(ref_tree, init(ref_tree), batch)
+    sharded = shard_params(full, mesh)
+    init, step = make_train_step(
+        cfg, learning_rate=lr, remat=True, device=run.dev_type,
+        sequence_parallel_mesh=mesh if tp > 1 else None)
+    rows = _rows(run, mesh, b)
+    local = {k: global_batch_from_local(torch.from_numpy(np.asarray(v)[rows]), mesh)
+             for k, v in batch.items()}
+    _, _, loss = step(sharded, init(sharded), local)
+    res = {"loss": float(loss), "loss_ref": float(ref_loss)}
+    with torch.no_grad():
+        _gather_train(res, sharded, ref_tree, mesh)
+    run.save("train", **res)
+    err = max(float((res["param/" + n] - res["param_ref/" + n]).abs().max())
+              for n, _ in named_leaves(ref_tree))
+    run.say(f"train step under dp {run.world // tp} x tp {tp} (sequence "
+            f"parallel, remat): loss {res['loss']:.6f}, unsharded "
+            f"{res['loss_ref']:.6f}, max |params - unsharded| {err:.2e}")
+    assert abs(res["loss"] - res["loss_ref"]) <= 1e-5 * abs(res["loss_ref"])
+    assert err <= 2 * lr + 1e-6
+
+
+def _gather_train(res, sharded, ref_tree, mesh):
+    """The sharded tree's parameters and gradients gathered whole (every
+    rank takes part), beside the unsharded tree's, into res."""
+    from torch.distributed.tensor import DTensor
+
+    from spittle_tpu_torch.io.npz_checkpoint import named_leaves
+
+    for name, leaf in named_leaves(sharded):  # every leaf is a DTensor
+        res["param/" + name] = leaf.full_tensor().cpu()
+        res["grad/" + name] = DTensor.from_local(
+            leaf._local_tensor.grad, mesh, leaf.placements,
+            run_check=False).full_tensor().cpu()
+    for name, leaf in named_leaves(ref_tree):
+        res["param_ref/" + name] = leaf.detach().cpu()
+        res["grad_ref/" + name] = leaf.grad.cpu()
+
+
 TASKS = {"dp_tp": task_dp_tp, "moe": task_moe, "pp": task_pp,
-         "serving": task_serving, "multihost": task_multihost}
+         "serving": task_serving, "multihost": task_multihost,
+         "train": task_train}
 
 
 def worker(rank: int, world: int, coordinator: str, device: str, tasks,

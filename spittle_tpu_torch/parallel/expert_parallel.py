@@ -18,6 +18,12 @@ picks exactly one term plus zeros, so the numbers are those of the
 expert products. The JAX package leaves those products to XLA, so they
 stay torch products here: there is no TPU kernel to port.
 
+Under autograd the router learns through the gate (the combine's weight,
+Switch's semantics, as the reference's docstring says): the argmax, the
+slots and the drops carry no gradient, and the load-balancing loss's
+gradient flows through the mean router probability only. The collectives
+of the mesh are then differentiable (mesh.all_reduce_sum).
+
 Under a mesh (x a DTensor split over "data", the expert weights split over
 "model"), the result is the global function, as GSPMD gives the
 reference's: capacity comes from the global N, a token's slot from its
@@ -39,7 +45,7 @@ import torch.distributed as dist
 
 from spittle_tpu_torch.ops.w8a8_gemm import gelu_erf
 
-from .mesh import P, local_rows, like_rows, shard_leaf
+from .mesh import P, all_reduce_sum, local_rows, like_rows, shard_leaf
 
 Params = Dict[str, Any]
 
@@ -145,7 +151,7 @@ def moe_ffn_local(router_w, w_in, w_out, x: torch.Tensor,
         me = dist.get_rank(data_group)
         offset = torch.stack(all_counts[:me]).sum(0) if me else offset
         counts = torch.stack(all_counts).sum(0)
-        dist.all_reduce(prob_sum, group=data_group)
+        prob_sum = all_reduce_sum(prob_sum, data_group)
     capacity = max(int(-(-n_total // e) * capacity_factor), 1)
     slot = offset[expert_idx] + local_pos
     kept = slot < capacity
@@ -164,8 +170,7 @@ def moe_ffn_local(router_w, w_in, w_out, x: torch.Tensor,
     expert_out = torch.bmm(h, w_out)
     out = torch.zeros((n, d), dtype=torch.float32, device=dev)
     out[tok] = expert_out[ex, row].to(torch.float32) * gate[tok, None]
-    if model_group is not None:
-        dist.all_reduce(out, group=model_group)
+    out = all_reduce_sum(out, model_group)
 
     # Switch load-balancing loss: E * sum_e(fraction_e * mean_prob_e).
     countsf = counts.to(torch.float32)

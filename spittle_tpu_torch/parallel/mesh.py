@@ -216,18 +216,74 @@ class ShardGroups:
         return group in self.split.get(stack, ())
 
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum of x over "model" (the row-parallel products' partials)."""
-        if self.model_group is not None:
-            dist.all_reduce(x, group=self.model_group)
-        return x
+        """Sum of x over "model" (the row-parallel products' partials): in
+        place, or under autograd differentiable (all_reduce_sum)."""
+        return all_reduce_sum(x, self.model_group)
 
     def gather(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """x's "model" shards concatenated along `dim` in rank order."""
-        if self.model_group is None:
-            return x
-        parts = [torch.empty_like(x) for _ in range(self.tp)]
-        dist.all_gather(parts, x.contiguous(), group=self.model_group)
+        return all_gather_cat(x, self.model_group, dim)
+
+
+# Collectives the forward calls: autograd Functions whose backward is each
+# collective's adjoint (all_reduce's an all_reduce of the gradients,
+# all_gather's a sum over the ranks of each rank's slice), as
+# torch.distributed.nn.functional's are; outside autograd all_reduce_sum
+# works in place on plain tensors and saves its clone; that module's all_gather backward
+# scatters from global ranks and fails on a gloo subgroup, so both are
+# written here. Every rank then gets the gradient of the SUM of all ranks'
+# objectives with respect to its own tensors, which train/step.py turns
+# into the global function's gradient (each rank's objective is its share,
+# and a leaf's gradient is summed over the ranks that hold a copy of it).
+
+
+def _differentiable(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _AllReduceSum.apply(grad, ctx.group), None
+
+
+class _AllGatherCat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        ctx.rank, ctx.size = dist.get_rank(group), x.shape[dim]
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
         return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = _AllReduceSum.apply(grad, ctx.group)
+        return total.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size), None, None
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of x over `group` (x itself when group is None)."""
+    if group is None:
+        return x
+    if _differentiable(x):
+        return _AllReduceSum.apply(x, group)
+    dist.all_reduce(x, group=group)
+    return x
+
+
+def all_gather_cat(x: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
+    """x of every rank of `group` concatenated along `dim` in rank order."""
+    if group is None:
+        return x
+    return _AllGatherCat.apply(x, group, dim % x.dim())
 
 
 class LocalParams(dict):

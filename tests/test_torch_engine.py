@@ -255,7 +255,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "             'parallel.expert_parallel', 'parallel.dryrun', 'io.onnx_proto',\n"
         "             'audio.resample', 'audio.wav', 'audio.vad.silero',\n"
         "             'audio.vad.smoothed', 'audio.vad.segmenter', 'utils.tracing',\n"
-        "             'utils.threads', 'utils.logging'):\n"
+        "             'utils.threads', 'utils.logging', 'train', 'train.step',\n"
+        "             'train.augment', 'train.checkpoint'):\n"
         "    assert 'spittle_tpu_torch.' + name in sys.modules, name\n"
         # Importing the mesh layer's modules starts no process group.
         "import torch.distributed\n"

@@ -151,6 +151,72 @@ def test_fullkv_kernel_matches_plain(cuda, t, kv_len, causal):
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=2e-3)
 
 
+@pytest.mark.parametrize("b,tq,tk,kv_len,causal", [
+    (8, 1500, 1500, 1500, False), (4, 224, 224, 224, True),
+    (8, 1500, 1504, 1300, False),
+], ids=["encoder", "decoder-causal", "kv_len-1300"])
+def test_fullkv_bwd_kernel_matches_plain(cuda, b, tq, tk, kv_len, causal):
+    """K15 at the training path's shapes: the encoder's [8, 20, 1500, 64],
+    the decoder's causal self-attention at 224 tokens, and kv_len 1300 of
+    1504 keys (the keys past kv_len get exact zeros), against its plain
+    version and against autograd through K1's plain version; two calls
+    give the same bits (no atomics)."""
+    rng = np.random.default_rng(3)
+    h, d = 20, 64
+    packed = [_randn(rng, (b, t, h * d), cuda, scale=d ** -0.25)
+              for t in (tq, tk, tk)]
+    q, k, v = (p.view(b, -1, h, d).permute(0, 2, 1, 3) for p in packed)
+    do = _randn(rng, (b, tq, h * d), cuda).view(b, tq, h, d).permute(0, 2, 1, 3)
+    o = att.flash_attention_fullkv(q, k, v, causal=causal, kv_len=kv_len)
+    got = att.flash_attention_fullkv_bwd(q, k, v, o, do, causal=causal,
+                                         kv_len=kv_len)
+    again = att.flash_attention_fullkv_bwd(q, k, v, o, do, causal=causal,
+                                           kv_len=kv_len)
+    want = att.flash_attention_fullkv_bwd_plain(q, k, v, o, do, causal=causal,
+                                                kv_len=kv_len)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    auto = torch.autograd.grad(
+        att.flash_attention_fullkv_plain(*leaves, causal=causal, kv_len=kv_len),
+        leaves, do)
+    torch.cuda.synchronize()
+    for name, g, g2, w, a in zip("qkv", got, again, want, auto):
+        assert torch.equal(g, g2), f"d{name}: two calls differ"
+        assert torch.isfinite(g).all()
+        # P and dS are rounded to bf16 as the second products' A operands
+        # and each gradient once more on output: a few bf16 ulps (2^-8
+        # relative) of the largest entry. A wrong mask, lse or D moves
+        # whole rows by far more.
+        scale = w.float().abs().max().item()
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= 1e-2 * scale, (name, err, scale)
+        err = (g.float() - a.float()).abs().max().item()
+        assert err <= 2e-2 * scale, (name, "vs autograd", err, scale)
+    if kv_len < tk:
+        assert not got[1][:, :, kv_len:].any() and not got[2][:, :, kv_len:].any()
+
+
+def test_fullkv_autograd_launches_k1_and_k15(cuda):
+    """Under autograd the dispatch runs K1 as its autograd Function: one
+    K1 launch forward and one K15 launch backward; the forms without a
+    backward kernel raise."""
+    rng = np.random.default_rng(4)
+    q, k, v = (_randn(rng, (2, 4, 256, 64), cuda, scale=0.35).requires_grad_()
+               for _ in range(3))
+    k1, k15 = att.flash_attention_fullkv.launches, att.flash_attention_fullkv_bwd.launches
+    o = att.multihead_attention(q, k, v, causal=True)
+    o.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert att.flash_attention_fullkv.launches == k1 + 1
+    assert att.flash_attention_fullkv_bwd.launches == k15 + 1
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in (q, k, v))
+    for form in ("q8", "pipe"):
+        with pytest.raises(NotImplementedError, match="no backward"):
+            att.multihead_attention(q, k, v, form=form)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        att.multihead_attention_packed(q.view(2, 256, 256), k.view(2, 256, 256),
+                                       v.view(2, 256, 256), 4, form="packed")
+
+
 def test_f32_at_kernel_shapes_raises(cuda):
     """On the card a tensor launches the kernel or raises: f32 at shapes
     that the dispatch sends to K1 or K4 raises and never falls back to

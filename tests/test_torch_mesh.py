@@ -7,8 +7,9 @@ one gloo group of 4 ranks spawned for this module
 (parallel/dryrun.py's workers, one intra-op thread each, fed the JAX
 package's weights and inputs), and its results are held here to the JAX
 package's under the same mesh on conftest's 8 CPU devices:
-make_mesh(4, tp=2) for dp + tp encode and greedy decode, the shard shapes
-and moe_ffn under dp x ep; a data-only mesh of 4 for serving.
+make_mesh(4, tp=2) for dp + tp encode and greedy decode, the shard shapes,
+moe_ffn under dp x ep and one train step (sequence parallelism, remat); a
+data-only mesh of 4 for serving.
 """
 
 import json
@@ -33,6 +34,7 @@ from spittle_tpu.ops import quant as jquant
 from spittle_tpu.parallel import expert_parallel as jep
 from spittle_tpu.parallel import mesh as jmesh
 from spittle_tpu.parallel.serving import BatchingTranscriptionServer as JServer
+from spittle_tpu.train import step as jstep
 from spittle_tpu_torch.models.whisper.weights import params_from_jax
 from spittle_tpu_torch.ops import quant as tquant
 from spittle_tpu_torch.parallel import dryrun
@@ -151,10 +153,18 @@ def group(tmp_path_factory):
     words = ([4, 2, 3, 0], [1, 5, 2], [3, 3, 1, 0], [2, 6])
     audio = np.stack([tcc.utterance(w)[0] for w in words]).astype(np.float32)
     np.save(inputs / "serving_audio.npy", audio)
+    rng = np.random.default_rng(8)
+    train = dict(
+        mel=rng.standard_normal((4, CFG.n_mels, CFG.n_audio_ctx * 2)).astype(np.float32),
+        tokens=rng.integers(0, CFG.n_vocab, (4, CFG.n_text_ctx)).astype(np.int32),
+        targets=rng.integers(0, CFG.n_vocab, (4, CFG.n_text_ctx)).astype(np.int32),
+        mask=np.ones((4, CFG.n_text_ctx), np.float32))
+    train["mask"][3, 5:] = 0.0
+    np.savez(inputs / "train_batch.npz", **train)
     log = dryrun.spawn(WORLD, "cpu", list(dryrun.TASKS), str(inputs), str(out),
                        timeout=600)
     return dict(out=str(out), log=log, jparams=jparams, mel=mel, moe=moe, x=x,
-                moe_params=moe_params, moe_mel=moe_mel, audio=audio)
+                moe_params=moe_params, moe_mel=moe_mel, audio=audio, train=train)
 
 
 def _load(group, name):
@@ -290,3 +300,45 @@ def test_uneven_vocab_refused_as_the_reference_refuses_it(group):
             assert f"divisible by {tp}, but it is equal to {n_vocab}" in ref
             assert f"divisible by {tp}, but it is equal to {n_vocab}" in msg
     assert res["51865@2"] != "ok" and res["51866@2"] == "ok"
+
+
+def test_train_step_under_dp_tp_sp_matches_unsharded_and_reference(group):
+    """One make_train_step step (lr 1e-3, remat, sequence parallelism)
+    under make_mesh(4, tp=2) on the port's gloo group and on JAX's
+    devices, with a ragged mask: the loss within 1e-5, every leaf's
+    gradient within 1e-4 of its largest (f32 sums in other orders), and
+    the updated parameters as tests/test_torch_train.py bounds one AdamW
+    step: within 2 * lr everywhere (lr * g / (|g| + eps) flips with a
+    near-zero g's sign), and within lr * 1e-3 where |g| is over 1e-2 of the
+    leaf's largest and over 1e-6."""
+    res = _load(group, "train")
+    lr = 1e-3
+    jb = {k: jnp.asarray(v) for k, v in group["train"].items()}
+    loss_j, grads_j = jax.jit(jax.value_and_grad(jstep.cross_entropy_loss),
+                              static_argnums=(5,))(
+        group["jparams"], jb["mel"], jb["tokens"], jb["targets"], jb["mask"], CFG)
+    mesh = jmesh.make_mesh(4, tp=2)
+    with mesh:
+        params = jmesh.shard_params(jax.tree.map(jnp.copy, group["jparams"]), mesh)
+        batch = {k: jax.device_put(v, jmesh.batch_sharding(mesh))
+                 for k, v in group["train"].items()}
+        init_opt, step = jstep.make_train_step(
+            CFG, learning_rate=lr, sequence_parallel_mesh=mesh, remat=True)
+        stepped, _, loss = step(params, init_opt(params), batch)
+    np.testing.assert_allclose(float(res["loss"]), float(loss), rtol=1e-5)
+    np.testing.assert_allclose(float(res["loss"]), float(loss_j), rtol=1e-5)
+    np.testing.assert_allclose(float(res["loss"]), float(res["loss_ref"]), rtol=1e-5)
+    grads = _flat(jax.tree.map(np.asarray, grads_j))
+    stepped = _flat(jax.tree.map(np.asarray, stepped))
+    for name, g in grads.items():
+        scale = float(np.abs(g).max())
+        for key in ("grad/", "grad_ref/"):
+            err = float(np.abs(res[key + name] - g).max())
+            assert err <= 1e-4 * scale + 1e-9, (key, name, err, scale)
+        sure = (np.abs(g) > 1e-2 * scale) & (np.abs(g) > 1e-6)
+        for key in ("param/", "param_ref/"):
+            far = np.abs(res[key + name] - stepped[name])
+            assert far.max() <= 2 * lr + 1e-6, (key, name)
+            assert (far[sure] <= 1e-3 * lr + 1e-6 * np.abs(stepped[name][sure])).all(), \
+                (key, name)
+    assert "train step under dp 2 x tp 2" in group["log"]
