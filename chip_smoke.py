@@ -50,8 +50,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    kv_len 1300 and 100, and R 1 at B 56), with its plan (regime, cluster
    size) per shape; K15 (K1's backward, hand-written for XLA's transpose
    of the attention, not a TPU kernel) at [8, 20, 1500, 64], [4, 20, 224,
-   64] causal and kv_len 1300 of 1504, two calls bit-equal, beside SDPA's
-   backward. Each prints its max
+   64] causal and kv_len 1300 of 1504, two calls and 50 calls
+   bit-equal, its o and lse from K1's lse instance (o bit for bit K1's,
+   lse within 1e-4 of the plain version's), beside SDPA's backward. Each
+   prints its max
    error and tolerance, its time (`ms`: device time per launch from a
    CUDA graph of launches replayed between CUDA events; `call_ms`: eager
    calls between CUDA events, the host's per-call cost included), the
@@ -116,7 +118,9 @@ Phases, each printing its own lines; any failure exits non-zero:
       AdamW step without remat on a copy, then 3 with remat=True: the
       first step's loss and gradients bit-equal, every leaf a finite
       gradient, K1 36 a step (72 under remat) and K15 36, every other
-      kernel 0; loss, ms and peak memory per step;
+      kernel 0; loss, ms and peak memory per step; then one more remat
+      step under torch.profiler: its device ms by group (K1, K15,
+      matmuls, optimizer, other) and the device's busy share;
    v. gradient check (after u): the engine's first 2 + 2 blocks at
       turbo's widths, B 2, 224 tokens: the card's bf16 gradient against
       the CPU's f32 autograd on the same bf16-rounded weights, every leaf
@@ -273,6 +277,8 @@ GRAD_LAYERS, GRAD_BATCH = 2, 2
 # bf16-rounded weights: ~2^-9 relative per rounding, through four
 # layers forward and back.
 GRAD_TOL = 5e-2
+# K15's calls at the encoder's shape that must all give the first's bits.
+K15_CALLS = 50
 REPO = os.path.dirname(os.path.abspath(__file__))
 TINY = os.path.join(REPO, "tests", "data", "trained_tiny")
 FAMILIES = os.path.join(REPO, "tests", "data", "trained_families")
@@ -951,13 +957,18 @@ def k15_phase(dev, rng):
     """K15, K1's hand-written backward, against its plain version at the
     train path's shapes: the encoder's [8, 20, 1500, 64], the decoder's
     causal self-attention at 224 tokens ([4, 20, 224, 64]) and kv_len 1300
-    of 1504 keys (whose pad keys must get exact zeros); two calls must be
-    bit-equal (no atomics), and K15 is also held to torch's autograd
-    through K1's plain forward. Prints ms, the plain version's ms and
+    of 1504 keys (whose pad keys must get exact zeros). Its o and lse come
+    from K1's lse instance (the forward under autograd), whose o must be
+    K1's bit for bit and whose lse must be within 1e-4 of the plain
+    version's. Two calls must be bit-equal (no atomics), and at the first
+    shape K15_CALLS calls; K15 is also held to torch's autograd through
+    K1's plain forward. Prints ms with TFLOP/s, the plain version's ms and
     SDPA's backward alone (flash, on the same q, k, v and dO; the port
-    never calls it), all three as CUDA-graph replays, and the bound: 10 * B * H * 64 FLOPs per
-    kept (row, key) pair at the bf16 peak against the bytes of q, k, v, o,
-    dO in and dq, dk, dv out."""
+    never calls it), all three as CUDA-graph replays, the bound: 10 * B *
+    H * 64 FLOPs per kept (row, key) pair at the bf16 peak against the
+    bytes of q, k, v, o, dO in and dq, dk, dv out, and the floor of one
+    exponential per kept pair on the special-function units (K15 takes
+    two)."""
     from spittle_tpu_torch.ops import attention as att
 
     F = torch.nn.functional
@@ -972,15 +983,33 @@ def k15_phase(dev, rng):
                   for t in (tq, tk, tk)]
         q, k, v = (x.view(b, -1, h, d).permute(0, 2, 1, 3) for x in packed)
         do = randn(rng, (b, tq, h * d), dev).view(b, tq, h, d).permute(0, 2, 1, 3)
-        o = att.flash_attention_fullkv(q, k, v, causal=causal, kv_len=kv_len)
+        o, lse = att.flash_attention_fullkv_lse(q, k, v, causal=causal,
+                                                kv_len=kv_len)
+        o_k1 = att.flash_attention_fullkv(q, k, v, causal=causal, kv_len=kv_len)
+        _, lse_plain = att.flash_attention_fullkv_lse_plain(q, k, v, causal=causal,
+                                                            kv_len=kv_len)
+        torch.cuda.synchronize()
+        if not torch.equal(o, o_k1):
+            raise AssertionError(f"K1 lse instance {label}: o differs from K1's")
+        # f32 sums of ex2.approx terms in another order (~1e-6); one key
+        # more or less in a row of 1500 moves its lse by ~7e-4.
+        check(f"K1 lse instance {label} lse (o bit-equal to K1's)",
+              (lse - lse_plain).abs().max().item(), 1e-4)
+        del o_k1, lse_plain
 
         def run():
-            return att.flash_attention_fullkv_bwd(q, k, v, o, do, causal=causal,
-                                                  kv_len=kv_len)
+            return att.flash_attention_fullkv_bwd(q, k, v, o, do, lse,
+                                                  causal=causal, kv_len=kv_len)
 
         got, again = run(), run()
-        want = att.flash_attention_fullkv_bwd_plain(q, k, v, o, do, causal=causal,
-                                                    kv_len=kv_len)
+        if row is None:
+            for i in range(K15_CALLS - 2):
+                if not all(torch.equal(a, b2) for a, b2 in zip(got, run())):
+                    raise AssertionError(f"K15 {label}: call {i + 3} differs "
+                                         "from the first")
+            print(f"  K15 {label}: {K15_CALLS} calls bit-equal")
+        want = att.flash_attention_fullkv_bwd_plain(q, k, v, o, do, lse,
+                                                    causal=causal, kv_len=kv_len)
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         auto = torch.autograd.grad(att.flash_attention_fullkv_plain(
             *leaves, causal=causal, kv_len=kv_len), leaves, do)
@@ -1005,7 +1034,7 @@ def k15_phase(dev, rng):
         del got, again, want, auto, leaves
         ms = time_ms(run, 10)
         plain_ms = time_ms(lambda: att.flash_attention_fullkv_bwd_plain(
-            q, k, v, o, do, causal=causal, kv_len=kv_len), 2, 1)
+            q, k, v, o, do, lse, causal=causal, kv_len=kv_len), 2, 1)
         leaves = [t.detach().requires_grad_() for t in (q, k[:, :, :kv_len],
                                                          v[:, :, :kv_len])]
         # SDPA's forward runs on a side stream, so its backward runs there
@@ -1025,9 +1054,11 @@ def k15_phase(dev, rng):
         # kv_len, dk and dv written (2 Tk rows each way), 2 bytes an element.
         bms, by = bound(flops, PEAK_BF16_FLOPS,
                         2 * b * h * d * (4 * tq + 2 * kv_len + 2 * tk))
+        exp_ms = b * h * pairs / PEAK_EXP * 1e3
         print(f"  {label}: ms {ms:.4f} ({flops / ms / 1e9:.1f} TFLOP/s)  "
               f"plain_ms {plain_ms:.4f}  library_ms (SDPA's backward, flash) "
-              f"{lib_ms:.4f}  bound_ms {bms:.4f} ({by})")
+              f"{lib_ms:.4f}  bound_ms {bms:.4f} ({by})  exponentials' floor "
+              f"{exp_ms:.4f} ms a walk")
         by_shape[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                bound_ms=bms, bound_by=by, max_abs_err=err,
                                tflops=flops / ms / 1e9)
@@ -1044,7 +1075,7 @@ def k15_phase(dev, rng):
                        library="SDPA's backward alone (torch.autograd.grad "
                        "of F.scaled_dot_product_attention, flash; CUDA-graph "
                        "replays)")
-        del packed, q, k, v, do, o, leaves, sdpa
+        del packed, q, k, v, do, o, lse, leaves, sdpa
     row["max_abs_err"] = max(r["max_abs_err"] for r in by_shape.values())
     row["by_shape"] = by_shape
     return row
@@ -1611,8 +1642,11 @@ def train_phase(label: str, eng, seed: int):
     bit-equal to the copy's, every leaf must have a finite gradient, and
     the launches must be K1 once per layer per forward (36 a step, 72
     under remat) and K15 once per layer per step, every other kernel 0.
-    Prints each step's loss, ms and peak memory."""
+    Prints each step's loss, ms and peak memory, then one more remat
+    step's device ms by group and busy share (probes/train_profile.py's
+    profile_step)."""
     from spittle_tpu_torch.io.npz_checkpoint import named_leaves
+    from spittle_tpu_torch.probes.train_profile import profile_step
     from spittle_tpu_torch.train import make_train_step
 
     cfg = eng.cfg
@@ -1674,6 +1708,9 @@ def train_phase(label: str, eng, seed: int):
     if launches != predict:
         raise AssertionError(f"{label}: launch counts {launches} != predicted "
                              f"{predict}")
+    # One more remat step under torch.profiler, after the counts are read.
+    print(f"{label}: profiled remat step " + json.dumps(
+        profile_step(step_r, params, state_r, batch)))
     del params, plain, state_p, state_r, batch
     gc.collect()
     torch.cuda.empty_cache()

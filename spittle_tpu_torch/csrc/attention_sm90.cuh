@@ -42,7 +42,8 @@
 //    addressing: ~155 at BK = 128, inside the 240 that setmaxnreg gives
 //    (24 x 128 + 240 x 256 = 64,512 of the SM's 65,536).
 //  - Epilogue: one division acc / l per row, bf16, stored only for rows
-//    < Tq, straight from registers.
+//    < Tq, straight from registers. The kLse instances (K1 under autograd)
+//    also store m + ln(l) per row in f32, which K15 reads.
 //
 // Exponentials are exp2(s * log2e - m * log2e): one FFMA and ex2.approx.
 // The reference takes exp(s - m); the two differ in the last bits of an
@@ -109,6 +110,7 @@ struct Layout {
 struct Params {
   int H, Tq, Tk, kv_len, causal;
   long long osb, osh, ost;  // output strides in elements (d contiguous)
+  float* lse;  // [B * H, Tq] f32: each row's log-sum-exp (kLse instances)
 };
 
 // ---------------------------------------------------------------------------
@@ -242,8 +244,10 @@ __device__ __forceinline__ void softmax_tile(float* s, float* m, float* l,
 // ---------------------------------------------------------------------------
 
 // Grid (q blocks, B * H / heads per block): the q blocks of one head group
-// run side by side and share its K/V in L2.
-template <class P, int BK, int kStages>
+// run side by side and share its K/V in L2. kLse: the epilogue also stores
+// each row's log-sum-exp, m + ln(l), in f32 to p.lse (K1 under autograd,
+// for its backward K15); the o it stores is the same either way.
+template <class P, int BK, int kStages, bool kLse = false>
 __global__ void __launch_bounds__(kThreads, 1)
     attention_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
@@ -382,6 +386,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int nb = 0; nb < kD / 8; ++nb)
         *reinterpret_cast<uint32_t*>(orow + nb * 8 + 2 * c) =
             pack_bf16(acc[4 * nb + 2 * hr] / lt, acc[4 * nb + 2 * hr + 1] / lt);
+      if constexpr (kLse) {
+        if (c == 0)
+          p.lse[(static_cast<long long>(b) * p.H + head) * p.Tq + row] =
+              m[hr] + logf(lt);
+      }
     }
   }
 }
@@ -667,7 +676,7 @@ inline int encode_qkv(CUtensorMap* mq, CUtensorMap* mk, CUtensorMap* mv,
   return err;
 }
 
-template <class P, int BK, int kStages>
+template <class P, int BK, int kStages, bool kLse = false>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            const Params& p, const long long* qs, const long long* ks,
            const long long* vs, void* stream) {
@@ -678,14 +687,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   static bool sized = false;
   if (!sized) {
     const cudaError_t e = cudaFuncSetAttribute(
-        attention_sm90_kernel<P, BK, kStages>,
+        attention_sm90_kernel<P, BK, kStages, kLse>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (e != cudaSuccess) return static_cast<int>(e);
     sized = true;
   }
   const dim3 grid((p.Tq + P::kRowsPerBlock - 1) / P::kRowsPerBlock,
                   B * (p.H / P::kHeadsPerBlock));
-  attention_sm90_kernel<P, BK, kStages>
+  attention_sm90_kernel<P, BK, kStages, kLse>
       <<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
           mq, mk, mv, static_cast<__nv_bfloat16*>(o), p);
   return static_cast<int>(cudaGetLastError());

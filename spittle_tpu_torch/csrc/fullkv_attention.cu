@@ -7,6 +7,10 @@
 //  - K1 spt_fullkv_attention: heads addressed through the caller's
 //    (batch, head, time) strides. Replaces spittle_tpu/ops/attention.py
 //    :206 flash_attention_fullkv (body _fullkv_kernel).
+//  - K1 under autograd, spt_fullkv_attention_lse: the same instance with
+//    the core's kLse flag, which also stores each row's log-sum-exp (f32,
+//    [B * H, Tq]) for the backward (fullkv_attention_bwd.cu); o's bits are
+//    K1's.
 //  - K8 spt_fullkv_attention_packed: the packed [B, T, H*64] projection
 //    layout (time stride H*64, head stride 64), in and out. Replaces
 //    spittle_tpu/ops/attention.py:478 flash_attention_fullkv_packed (body
@@ -72,6 +76,28 @@ SPT_API int spt_fullkv_attention(const void* q, const void* k, const void* v,
                   vs[3] = {vsb, vsh, vst};
   const Params p{H, Tq, Tk, kv_len, causal, osb, osh, ost};
   return launch<SplitRows, 128, kStages>(q, k, v, o, B, p, qs, ks, vs, stream);
+}
+
+// K1 with each row's log-sum-exp: spt_fullkv_attention's arguments and
+// lse, f32 [B * H, Tq] contiguous, where row t of head (b, h) gets
+// ln(sum over its kept keys of exp(s)) at (b * H + h) * Tq + t.
+SPT_API int spt_fullkv_attention_lse(const void* q, const void* k,
+                                     const void* v, void* o, void* lse, int B,
+                                     int H, int Tq, int Tk, int kv_len,
+                                     int causal, long long qsb, long long qsh,
+                                     long long qst, long long ksb,
+                                     long long ksh, long long kst,
+                                     long long vsb, long long vsh,
+                                     long long vst, long long osb,
+                                     long long osh, long long ost,
+                                     void* stream) {
+  using namespace spt::sm90;
+  const long long qs[3] = {qsb, qsh, qst}, ks[3] = {ksb, ksh, kst},
+                  vs[3] = {vsb, vsh, vst};
+  const Params p{H,   Tq,  Tk,  kv_len, causal,
+                 osb, osh, ost, static_cast<float*>(lse)};
+  return launch<SplitRows, 128, kStages, true>(q, k, v, o, B, p, qs, ks, vs,
+                                               stream);
 }
 
 // K8. q, o contiguous [B, Tq, H*64]; k, v contiguous [B, Tk, H*64];

@@ -40,6 +40,7 @@ _F = ctypes.c_float
 # C entry -> argtypes (pointers and the stream as c_void_p).
 SIGNATURES = {
     "spt_fullkv_attention": [_P, _P, _P, _P] + [_I] * 6 + [_L] * 12 + [_P],
+    "spt_fullkv_attention_lse": [_P] * 5 + [_I] * 6 + [_L] * 12 + [_P],
     "spt_flash_attention": [_P, _P, _P, _P] + [_I] * 6 + [_L] * 12 + [_P],
     "spt_fullkv_attention_bwd": [_P] * 10 + [_I] * 6 + [_L] * 24 + [_P],
     "spt_fullkv_attention_packed": [_P] * 4 + [_I] * 6 + [_P],

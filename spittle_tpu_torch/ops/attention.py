@@ -41,10 +41,12 @@ probe's kernel).
   rows. It replaces no TPU kernel: the reference leaves these products to
   XLA, and PyTorch has no integer matmul on CUDA.
 - flash_attention_fullkv_bwd (K15, csrc/fullkv_attention_bwd.cu): K1's
-  backward, dq, dk and dv. It replaces no TPU kernel: the reference's
-  training gradient is XLA's transpose of its attention. Under autograd
-  the dispatch runs K1 as an autograd Function whose backward is K15; the
-  other kernels have no backward and raise there.
+  backward, dq, dk and dv, from K1's o and each row's log-sum-exp. It
+  replaces no TPU kernel: the reference's training gradient is XLA's
+  transpose of its attention. Under autograd the dispatch runs K1 as an
+  autograd Function whose forward is flash_attention_fullkv_lse (K1's
+  instance that also stores the log-sum-exp) and whose backward is K15;
+  the other kernels have no backward and raise there.
 - multihead_attention_packed and multihead_attention: the dispatchers.
   They pick a kernel from the shapes and the encoder-attention form, an
   argument (ENCODER_ATTENTION_FORMS), never the environment.
@@ -125,10 +127,9 @@ def attention_reference(q, k, v, causal: bool = False,
 # ---------------------------------------------------------------------------
 
 
-def flash_attention_fullkv_plain(q, k, v, causal: bool = False,
-                                 kv_len: Optional[int] = None) -> torch.Tensor:
-    """Plain K1: f32 scores, masked softmax numerator, P cast to v's dtype
-    for PV, 1/l applied after PV (the TPU kernel's order)."""
+def _fullkv_scores(q, k, causal: bool, kv_len: Optional[int]) -> torch.Tensor:
+    """K1's f32 scores q k^T with its masks (col < kv_len; row >= col on
+    absolute indices under `causal`) set to -inf."""
     tq, tk = q.shape[2], k.shape[2]
     kv_len = tk if kv_len is None else kv_len
     dev = q.device
@@ -137,11 +138,31 @@ def flash_attention_fullkv_plain(q, k, v, causal: bool = False,
     keep = col < kv_len
     if causal:
         keep = keep & (torch.arange(tq, device=dev)[:, None] >= col)
-    s = torch.where(keep, s, float("-inf"))
+    return torch.where(keep, s, float("-inf"))
+
+
+def _fullkv_softmax_out(s, v, dtype) -> torch.Tensor:
+    """K1's output from its masked scores: the softmax numerator, P cast
+    to v's dtype for PV, 1/l applied after PV (the TPU kernel's order)."""
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1, keepdim=True)
     o = torch.matmul(p.to(v.dtype).float(), v.float())
-    return (o / l).to(q.dtype)
+    return (o / l).to(dtype)
+
+
+def flash_attention_fullkv_plain(q, k, v, causal: bool = False,
+                                 kv_len: Optional[int] = None) -> torch.Tensor:
+    """Plain K1: f32 scores, masked softmax numerator, P cast to v's dtype
+    for PV, 1/l applied after PV (the TPU kernel's order)."""
+    return _fullkv_softmax_out(_fullkv_scores(q, k, causal, kv_len), v, q.dtype)
+
+
+def flash_attention_fullkv_lse_plain(q, k, v, causal: bool = False,
+                                     kv_len: Optional[int] = None):
+    """Plain K1 with each row's log-sum-exp: (flash_attention_fullkv_plain's
+    o, lse [B, H, Tq] f32, torch.logsumexp of the masked f32 scores)."""
+    s = _fullkv_scores(q, k, causal, kv_len)
+    return _fullkv_softmax_out(s, v, q.dtype), torch.logsumexp(s, dim=-1)
 
 
 def _head_view_ok(t) -> bool:
@@ -196,6 +217,33 @@ def _check_split_qkv(name, q, k, v, kv_len):
     return kv_len
 
 
+def _fullkv_launch(q, k, v, causal, kv_len, with_lse: bool):
+    """Launches K1 on CUDA tensors: spt_fullkv_attention, or with_lse
+    spt_fullkv_attention_lse (the same instance, its epilogue also storing
+    m + ln(l) per row into a [B * H, Tq] f32 buffer, so o keeps K1's
+    bits). Counts one K1 launch. Returns (o, lse or None)."""
+    kv_len = _check_split_qkv("flash_attention_fullkv", q, k, v, kv_len)
+    b, h, tq, d = q.shape
+    _check_sm90_groups("flash_attention_fullkv", b * h)
+    out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    args = (b, h, tq, k.shape[2], kv_len, int(causal),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            out.stride(0), out.stride(2), out.stride(1),
+            _build.stream_ptr(q.device))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    lib = _build.load_library()
+    lse = None
+    if with_lse:
+        lse = torch.empty((b * h, tq), dtype=torch.float32, device=q.device)
+        _build.check(lib.spt_fullkv_attention_lse(*ptrs, lse.data_ptr(), *args),
+                     "spt_fullkv_attention_lse")
+        lse = lse.view(b, h, tq)
+    else:
+        _build.check(lib.spt_fullkv_attention(*ptrs, *args), "spt_fullkv_attention")
+    flash_attention_fullkv.launches += 1
+    return out.permute(0, 2, 1, 3), lse
+
+
 def flash_attention_fullkv(q, k, v, causal: bool = False,
                            kv_len: Optional[int] = None) -> torch.Tensor:
     """K1. q [B, H, Tq, 64], k/v [B, H, Tk, 64], q and k pre-scaled
@@ -207,20 +255,18 @@ def flash_attention_fullkv(q, k, v, causal: bool = False,
     and B * H at most 65535 (the grid's y axis), else it raises."""
     if q.device.type == "cpu":
         return flash_attention_fullkv_plain(q, k, v, causal, kv_len)
-    kv_len = _check_split_qkv("flash_attention_fullkv", q, k, v, kv_len)
-    b, h, tq, d = q.shape
-    _check_sm90_groups("flash_attention_fullkv", b * h)
-    out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
-    lib = _build.load_library()
-    _build.check(lib.spt_fullkv_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, h, tq, k.shape[2], kv_len, int(causal),
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        out.stride(0), out.stride(2), out.stride(1),
-        _build.stream_ptr(q.device),
-    ), "spt_fullkv_attention")
-    flash_attention_fullkv.launches += 1
-    return out.permute(0, 2, 1, 3)
+    return _fullkv_launch(q, k, v, causal, kv_len, with_lse=False)[0]
+
+
+def flash_attention_fullkv_lse(q, k, v, causal: bool = False,
+                               kv_len: Optional[int] = None):
+    """K1 with each row's log-sum-exp (its forward under autograd, for
+    K15): (o, lse), o as flash_attention_fullkv gives it, bit for bit, and
+    lse [B, H, Tq] f32 (on CUDA a view of a [B * H, Tq] buffer). One K1
+    launch, counted on flash_attention_fullkv.launches."""
+    if q.device.type == "cpu":
+        return flash_attention_fullkv_lse_plain(q, k, v, causal, kv_len)
+    return _fullkv_launch(q, k, v, causal, kv_len, with_lse=True)
 
 
 flash_attention_fullkv.launches = 0
@@ -231,25 +277,18 @@ flash_attention_fullkv.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def flash_attention_fullkv_bwd_plain(q, k, v, o, do, causal: bool = False,
+def flash_attention_fullkv_bwd_plain(q, k, v, o, do, lse, causal: bool = False,
                                      kv_len: Optional[int] = None):
     """Plain K15: the gradient of o = softmax(q k^T) v under K1's masks
     (col < kv_len; row >= col on absolute indices under `causal`), as the
-    explicit formulae in f32: P = exp(S - lse), dV = P^T dO, dP = dO V^T,
-    D = rowsum(dO * o) with K1's o, dS = P * (dP - D), dQ = dS K,
-    dK = dS^T Q. Masked positions have P = 0, so keys at or past kv_len
-    get a zero gradient. Returns (dq, dk, dv) in q's, k's and v's dtypes."""
-    tq, tk = q.shape[2], k.shape[2]
-    kv_len = tk if kv_len is None else kv_len
-    dev = q.device
+    explicit formulae in f32 from K1's o and lse ([B, H, Tq], each row's
+    log-sum-exp): P = exp(S - lse), dV = P^T dO, dP = dO V^T, D =
+    rowsum(dO * o), dS = P * (dP - D), dQ = dS K, dK = dS^T Q. Masked
+    positions have P = 0, so keys at or past kv_len get a zero gradient.
+    Returns (dq, dk, dv) in q's, k's and v's dtypes."""
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    s = torch.matmul(qf, kf.transpose(-1, -2))
-    col = torch.arange(tk, device=dev)[None, :]
-    keep = col < kv_len
-    if causal:
-        keep = keep & (torch.arange(tq, device=dev)[:, None] >= col)
-    s = torch.where(keep, s, float("-inf"))
-    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    s = _fullkv_scores(q, k, causal, kv_len)
+    p = torch.exp(s - lse.float()[..., None])
     dv = torch.matmul(p.transpose(-1, -2), dof)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
     ds = p * (dp - (dof * o.float()).sum(dim=-1, keepdim=True))
@@ -258,18 +297,19 @@ def flash_attention_fullkv_bwd_plain(q, k, v, o, do, causal: bool = False,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attention_fullkv_bwd(q, k, v, o, do, causal: bool = False,
+def flash_attention_fullkv_bwd(q, k, v, o, do, lse, causal: bool = False,
                                kv_len: Optional[int] = None):
     """K15 (csrc/fullkv_attention_bwd.cu): (dq, dk, dv) of K1's attention.
     q, o, do [B, H, Tq, 64] and k/v [B, H, Tk, 64] bf16, q and k
-    pre-scaled, strided views as K1 takes them; o is K1's output. On CUDA
-    each gradient is a view of a [B, T, H, 64] buffer (the packed
-    projections' layout) and B * H is at most 65535. Two launches: the
-    rows pass (each row's log-sum-exp and rowsum(dO * o) into f32 scratch,
-    then dQ) and the columns pass (dK, dV); no atomics, so two calls give
-    the same bits."""
+    pre-scaled, strided views as K1 takes them; o and lse ([B, H, Tq] f32,
+    contiguous) are flash_attention_fullkv_lse's. On CUDA each gradient is
+    a view of a [B, T, H, 64] buffer (the packed projections' layout) and
+    B * H is at most 65535. Two launches, both TMA + wgmma: the rows pass
+    (rowsum(dO * o) into f32 scratch, then dQ) and the columns pass (dK,
+    dV); no atomics, so two calls give the same bits."""
     if q.device.type == "cpu":
-        return flash_attention_fullkv_bwd_plain(q, k, v, o, do, causal, kv_len)
+        return flash_attention_fullkv_bwd_plain(q, k, v, o, do, lse, causal,
+                                                kv_len)
     name = "flash_attention_fullkv_bwd"
     kv_len = _check_split_qkv(name, q, k, v, kv_len)
     for label, t in (("o", o), ("do", do)):
@@ -277,18 +317,22 @@ def flash_attention_fullkv_bwd(q, k, v, o, do, causal: bool = False,
             raise ValueError(f"{name}: {label} must be q's shape on q's device")
         _check_attn_operand(label, t, 64)
     b, h, tq, d = q.shape
+    if (lse.shape != (b, h, tq) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"{name}: lse must be contiguous f32 [B, H, Tq] on "
+                         "q's device (flash_attention_fullkv_lse's)")
     tk = k.shape[2]
     _check_sm90_groups(name, b * h)
     dq = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, tk, h, d), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    scratch = torch.empty((2, b * h, tq), dtype=torch.float32, device=q.device)
+    dd = torch.empty((b * h, tq), dtype=torch.float32, device=q.device)
     grads = [t.permute(0, 2, 1, 3) for t in (dq, dk, dv)]
     lib = _build.load_library()
     _build.check(lib.spt_fullkv_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch[0].data_ptr(),
-        scratch[1].data_ptr(), b, h, tq, tk, kv_len, int(causal),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
+        dd.data_ptr(), b, h, tq, tk, kv_len, int(causal),
         *(s for t in (q, k, v, o, do, *grads) for s in t.stride()[:3]),
         _build.stream_ptr(q.device),
     ), "spt_fullkv_attention_bwd")
@@ -300,22 +344,26 @@ flash_attention_fullkv_bwd.launches = 0
 
 
 class _FullKVAttention(torch.autograd.Function):
-    """K1 forward, K15 backward (their plain versions for CPU tensors)."""
+    """K1 forward, K15 backward (their plain versions for CPU tensors).
+    When q, k or v needs a gradient the forward is K1's instance that also
+    writes each row's log-sum-exp, for K15; otherwise it is K1 itself."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, kv_len):
-        o = flash_attention_fullkv(q, k, v, causal, kv_len)
-        ctx.save_for_backward(q, k, v, o)
+        if not any(ctx.needs_input_grad[:3]):
+            return flash_attention_fullkv(q, k, v, causal, kv_len)
+        o, lse = flash_attention_fullkv_lse(q, k, v, causal, kv_len)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.kv_len = causal, kv_len
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
         if do.device.type != "cpu" and not _head_view_ok(do):
             do = do.contiguous()
-        dq, dk, dv = flash_attention_fullkv_bwd(q, k, v, o, do, ctx.causal,
-                                                ctx.kv_len)
+        dq, dk, dv = flash_attention_fullkv_bwd(q, k, v, o, do, lse,
+                                                ctx.causal, ctx.kv_len)
         return dq, dk, dv, None, None
 
 

@@ -37,13 +37,10 @@ none are given). Runs only on a card with nvcc (it raises without one).
 
 from __future__ import annotations
 
-import ctypes
 import json
 import re
-import subprocess
 import sys
 import tempfile
-from pathlib import Path
 from typing import List
 
 import torch
@@ -54,7 +51,7 @@ from spittle_tpu_torch.ops.attention import (
     decode_cross_attention_q4_plain,
 )
 
-from ._timing import device_label
+from ._timing import build_variants, device_label
 
 H, DH = 20, 64
 # Heads per item: the stage is kHeads x 16 KB (TMA rows; 18 KB on the
@@ -106,28 +103,8 @@ def build(tmp: str) -> dict:
             variants[_slice_key(n)] = re.sub(
                 _SLICE, f"constexpr int kInt4Slice = {n};", text, count=1)
     variants[MAIN_ONLY] = text.replace(_COMBINE, "if (false) " + _COMBINE)
-    procs = {}
-    for i, (key, body) in enumerate(variants.items()):
-        src = Path(tmp) / f"mh_{i}.cu"
-        src.write_text(body)
-        so = f"{tmp}/libmh_{i}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-               "-shared", str(src), "-o", so]
-        procs[key] = (so, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    entries = {}
-    for key, (so, p) in procs.items():
-        out, _ = p.communicate()
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed at {key}:\n{out}")
-        lib = ctypes.CDLL(so)
-        entries[key] = {}
-        for kind, name in ENTRIES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = _build.SIGNATURES[name]
-            fn.restype = ctypes.c_int
-            entries[key][kind] = fn
-    return entries
+    libs = build_variants(variants, tuple(ENTRIES.values()), tmp)
+    return {key: dict(zip(ENTRIES, fns)) for key, fns in libs.items()}
 
 
 def launcher(fn, q, kv):

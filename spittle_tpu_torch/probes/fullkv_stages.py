@@ -16,18 +16,15 @@ Runs only on a card with nvcc (it raises without one).
 
 from __future__ import annotations
 
-import ctypes
 import json
-import subprocess
 import tempfile
-from pathlib import Path
 from typing import List
 
 import torch
 
 from spittle_tpu_torch.ops import _build
 
-from ._timing import device_label
+from ._timing import build_variants, device_label
 
 DEPTHS = (3, 4, 5)
 SHAPES = ((8, 20, 1500, 64), (8, 20, 256, 64))
@@ -41,25 +38,9 @@ def build(tmp: str) -> dict:
     text = (_build.CSRC / "fullkv_attention.cu").read_text()
     line = next(STAGES_LINE.format(n) for n in DEPTHS
                 if STAGES_LINE.format(n) in text)
-    procs = {}
-    for n in DEPTHS:
-        src = Path(tmp) / f"fullkv_attention_s{n}.cu"
-        src.write_text(text.replace(line, STAGES_LINE.format(n)))
-        so = f"{tmp}/libfullkv_s{n}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-               "-shared", str(src), "-o", so]
-        procs[n] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                         stderr=subprocess.STDOUT, text=True))
-    entries = {}
-    for n, (so, p) in procs.items():
-        out, _ = p.communicate()
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed at {n} stages:\n{out}")
-        fn = ctypes.CDLL(so).spt_fullkv_attention
-        fn.argtypes = _build.SIGNATURES["spt_fullkv_attention"]
-        fn.restype = ctypes.c_int
-        entries[n] = fn
-    return entries
+    sources = {n: text.replace(line, STAGES_LINE.format(n)) for n in DEPTHS}
+    libs = build_variants(sources, ("spt_fullkv_attention",), tmp)
+    return {n: fns[0] for n, fns in libs.items()}
 
 
 def launcher(fn, q, k, v, out):

@@ -28,11 +28,8 @@ Runs only on a card with nvcc (it raises without one).
 
 from __future__ import annotations
 
-import ctypes
 import json
-import subprocess
 import tempfile
-from pathlib import Path
 from typing import List
 
 import torch
@@ -40,7 +37,7 @@ import torch
 from spittle_tpu_torch.ops import _build
 from spittle_tpu_torch.ops import attention as att
 
-from ._timing import device_label
+from ._timing import build_variants, device_label, edited
 
 SOURCE = "fullkv_attention_q8.cu"
 SEED, ITERS = 0, 20
@@ -65,34 +62,9 @@ ENTRIES = ("spt_fullkv_q8_quantize", "spt_fullkv_attention_q8")
 def build(tmp: str) -> dict:
     """variant -> (quantize entry, attention entry) of its own library."""
     text = (_build.CSRC / SOURCE).read_text()
-    procs = {}
-    for i, (name, edits) in enumerate(VARIANTS.items()):
-        body = text
-        for old, new in edits:
-            if old not in body:
-                raise RuntimeError(f"q8_parts: {old!r} is no longer in {SOURCE}")
-            body = body.replace(old, new)
-        src = Path(tmp) / f"q8_{i}.cu"
-        src.write_text(body)
-        so = f"{tmp}/libq8_{i}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-               "-shared", str(src), "-o", so]
-        procs[name] = (so, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (so, p) in procs.items():
-        out, _ = p.communicate()
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed at {name}:\n{out}")
-        lib = ctypes.CDLL(so)
-        fns = []
-        for entry in ENTRIES:
-            fn = getattr(lib, entry)
-            fn.argtypes = _build.SIGNATURES[entry]
-            fn.restype = ctypes.c_int
-            fns.append(fn)
-        libs[name] = tuple(fns)
-    return libs
+    sources = {name: edited(text, edits, f"q8_parts: {SOURCE}")
+               for name, edits in VARIANTS.items()}
+    return build_variants(sources, ENTRIES, tmp)
 
 
 def graph_ms(fn, iters: int = ITERS) -> float:

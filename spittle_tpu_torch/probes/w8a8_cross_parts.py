@@ -27,11 +27,8 @@ Runs only on a card with nvcc (it raises without one).
 
 from __future__ import annotations
 
-import ctypes
 import json
-import subprocess
 import tempfile
-from pathlib import Path
 
 import torch
 
@@ -39,7 +36,7 @@ from spittle_tpu_torch.ops import _build
 from spittle_tpu_torch.ops import attention as att
 from spittle_tpu_torch.ops.quant import quantize_kv_w8a8
 
-from ._timing import device_label, graph_ms
+from ._timing import build_variants, device_label, edited, graph_ms
 
 SOURCE = "decode_cross_attention_w8a8.cu"
 ENTRY = "spt_decode_cross_attention_w8a8"
@@ -85,30 +82,9 @@ VARIANTS = {
 def build(tmp: str) -> dict:
     """variant -> its entry, from a library of its own."""
     text = (_build.CSRC / SOURCE).read_text()
-    procs = {}
-    for i, (name, edits) in enumerate(VARIANTS.items()):
-        body = text
-        for old, new in edits:
-            if old not in body:
-                raise RuntimeError(f"w8a8_cross_parts: {old!r} is no longer in {SOURCE}")
-            body = body.replace(old, new)
-        src = Path(tmp) / f"k14_{i}.cu"
-        src.write_text(body)
-        so = f"{tmp}/libk14_{i}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-               "-shared", str(src), "-o", so]
-        procs[name] = (so, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (so, p) in procs.items():
-        out, _ = p.communicate()
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed at {name}:\n{out}")
-        fn = getattr(ctypes.CDLL(so), ENTRY)
-        fn.argtypes = _build.SIGNATURES[ENTRY]
-        fn.restype = ctypes.c_int
-        libs[name] = fn
-    return libs
+    sources = {name: edited(text, edits, f"w8a8_cross_parts: {SOURCE}")
+               for name, edits in VARIANTS.items()}
+    return {name: fns[0] for name, fns in build_variants(sources, (ENTRY,), tmp).items()}
 
 
 def _inputs(gen, b, r, dev):

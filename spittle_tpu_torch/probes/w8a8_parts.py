@@ -19,11 +19,8 @@ Runs only on a card with nvcc (it raises without one).
 
 from __future__ import annotations
 
-import ctypes
 import json
-import subprocess
 import tempfile
-from pathlib import Path
 from typing import List
 
 import torch
@@ -33,7 +30,7 @@ from spittle_tpu_torch.ops.attention import _num_sms
 from spittle_tpu_torch.ops.w8a8_gemm import _DTYPES
 
 from . import kernel_digest
-from ._timing import device_label
+from ._timing import build_variants, device_label, edited
 
 M, SEED, ITERS = 12000, 0, 20
 _SCALED = "float v = __fmaf_rn(__fmul_rn(static_cast<float>(acc), s_x), s_w, b);"
@@ -53,34 +50,9 @@ LAYER = (("q", 1280, 1280, True, "none", 64 ** -0.25),
 def build(tmp: str) -> dict:
     """variant -> (quantize entry, GEMM entry) of its own library."""
     text = (_build.CSRC / "w8a8_gemm.cu").read_text()
-    procs = {}
-    for i, (name, edits) in enumerate(VARIANTS.items()):
-        body = text
-        for old, new in edits:
-            if old not in body:
-                raise RuntimeError(f"w8a8_parts: {old!r} is no longer in w8a8_gemm.cu")
-            body = body.replace(old, new)
-        src = Path(tmp) / f"w8a8_{i}.cu"
-        src.write_text(body)
-        so = f"{tmp}/libw8a8_{i}.so"
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-               "-shared", str(src), "-o", so]
-        procs[name] = (so, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    entries = {}
-    for name, (so, p) in procs.items():
-        out, _ = p.communicate()
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed at {name}:\n{out}")
-        lib = ctypes.CDLL(so)
-        fns = []
-        for entry in ("spt_w8a8_quantize_rows", "spt_w8a8_gemm"):
-            fn = getattr(lib, entry)
-            fn.argtypes = _build.SIGNATURES[entry]
-            fn.restype = ctypes.c_int
-            fns.append(fn)
-        entries[name] = tuple(fns)
-    return entries
+    sources = {name: edited(text, edits, "w8a8_parts: w8a8_gemm.cu")
+               for name, edits in VARIANTS.items()}
+    return build_variants(sources, ("spt_w8a8_quantize_rows", "spt_w8a8_gemm"), tmp)
 
 
 def quantize(fn, x):

@@ -1,8 +1,10 @@
 """K1 under autograd and its backward, K15's plain version, against the JAX
-package on the CPU: flash_attention_fullkv_bwd_plain (the wrapper's CPU
-route) and the autograd Function the dispatch takes under grad against
-jax.vjp of the reference's attention_reference (non-causal, causal,
-kv_len < Tk), the forms without a backward kernel raising under grad,
+package on the CPU: K1's plain (o, lse) against the reference's
+attention_reference and jax.nn.logsumexp of its masked scores,
+flash_attention_fullkv_bwd_plain (the wrapper's CPU route) given that lse
+and the autograd Function the dispatch takes under grad (which saves lse)
+against jax.vjp of attention_reference (non-causal, causal, kv_len < Tk),
+the forms without a backward kernel raising under grad,
 decoder_forward and encode against the reference's, and _stem_gemm
 against the reference's and the convolutions. All f32.
 """
@@ -66,14 +68,50 @@ def _close(got, want, rel):
     assert err <= rel * scale, (err, scale)
 
 
+def _jax_lse(q, k, causal, kv_len):
+    """jax.nn.logsumexp over keys of the reference's masked scores (its
+    attention_reference's einsum and masks)."""
+    scores = jnp.einsum("bhqd,bhkd->bhqk", jnp.asarray(q), jnp.asarray(k),
+                        preferred_element_type=jnp.float32)
+    tq, tk = q.shape[2], k.shape[2]
+    if kv_len is not None and kv_len < tk:
+        scores = jnp.where((jnp.arange(tk) < kv_len)[None, None], scores,
+                           jatt._NEG_INF)
+    if causal:
+        cmask = jnp.arange(tq)[:, None] >= jnp.arange(tk)[None, :] - (tk - tq)
+        scores = jnp.where(cmask[None, None], scores, jatt._NEG_INF)
+    return np.asarray(jax.nn.logsumexp(scores, axis=-1))
+
+
+@pytest.mark.parametrize("tq,tk,causal,kv_len", CASES, ids=IDS)
+def test_lse_plain_matches_jax(tq, tk, causal, kv_len):
+    q, k, v, _ = _qkv(tq, tk, seed=3)
+    o_ref = jatt.attention_reference(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), causal=causal, kv_len=kv_len)
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    o, lse = att.flash_attention_fullkv_lse_plain(*t, causal=causal,
+                                                  kv_len=kv_len)
+    assert lse.dtype == torch.float32 and lse.shape == (2, 3, tq)
+    # o is K1's plain output, bit for bit; both sides f32 (scores of 64
+    # terms, sums of at most 160 exponentials in another order).
+    assert torch.equal(o, att.flash_attention_fullkv_plain(
+        *t, causal=causal, kv_len=kv_len))
+    _close(o, np.asarray(o_ref), 1e-5)
+    _close(lse, _jax_lse(q, k, causal, kv_len), 1e-5)
+    # The CPU wrapper is the plain version.
+    got = att.flash_attention_fullkv_lse(*t, causal=causal, kv_len=kv_len)
+    assert all(torch.equal(a, b) for a, b in zip(got, (o, lse)))
+
+
 @pytest.mark.parametrize("tq,tk,causal,kv_len", CASES, ids=IDS)
 def test_bwd_plain_matches_jax_vjp(tq, tk, causal, kv_len):
     q, k, v, do = _qkv(tq, tk)
     o_ref, grads = _jax_grads(q, k, v, do, causal, kv_len)
     t = [torch.from_numpy(a) for a in (q, k, v, do)]
-    o = att.flash_attention_fullkv_plain(*t[:3], causal=causal, kv_len=kv_len)
+    o, lse = att.flash_attention_fullkv_lse_plain(*t[:3], causal=causal,
+                                                  kv_len=kv_len)
     _close(o, o_ref, 1e-5)
-    got = att.flash_attention_fullkv_bwd(t[0], t[1], t[2], o, t[3],
+    got = att.flash_attention_fullkv_bwd(t[0], t[1], t[2], o, t[3], lse,
                                          causal=causal, kv_len=kv_len)
     # f32 on both sides, sums of at most 160 terms in another order, and
     # D from K1's o (rounded once more than XLA's transpose carries it).
@@ -90,6 +128,12 @@ def test_dispatch_under_grad_takes_k1_function(tq, tk, causal, kv_len):
     leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
     o = att.multihead_attention(*leaves, causal=causal, kv_len=kv_len)
     assert type(o.grad_fn).__name__ == "_FullKVAttentionBackward"
+    # The Function saves q, k, v, o and K1's lse for K15.
+    saved = o.grad_fn.saved_tensors
+    want_o, want_lse = att.flash_attention_fullkv_lse_plain(
+        *(t.detach() for t in leaves), causal=causal, kv_len=kv_len)
+    assert len(saved) == 5 and torch.equal(saved[3], want_o)
+    assert torch.equal(saved[4], want_lse)
     o.backward(torch.from_numpy(do))
     for t, want in zip(leaves, grads):
         _close(t.grad, want, 1e-5)

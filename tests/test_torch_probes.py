@@ -252,10 +252,12 @@ def test_cache_layouts_hold_the_same_values():
 
 
 @pytest.mark.parametrize("name", ["decode_cross_host", "q8_parts", "step_profile",
-                                  "w8a8_cluster", "w8a8_cross_parts"])
+                                  "w8a8_cluster", "w8a8_cross_parts",
+                                  "fullkv_bwd_parts", "train_profile"])
 def test_card_only_probes_raise_without_a_card(name):
     """The probes that time host submission, K7's parts, a profiled turbo
-    leg, or K14's plans and parts run only on a card, and say so."""
+    leg, K14's plans and parts, K15's passes, or a profiled train step run
+    only on a card, and say so."""
     if torch.cuda.is_available():
         return
     probe = importlib.import_module(f"spittle_tpu_torch.probes.{name}")
@@ -284,3 +286,16 @@ def test_probes_need_a_card_by_default():
     for probe in (decode_cross, cache_dus):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             probe.main()
+
+
+def test_bwd_parts_edits_match_source():
+    """Every edit fullkv_bwd_parts makes to K15's source finds its text
+    there as often as it is applied, so the copies it times are the
+    source with only that edit."""
+    from spittle_tpu_torch.ops import _build
+    from spittle_tpu_torch.probes import fullkv_bwd_parts as parts
+
+    text = (_build.CSRC / parts.SOURCE).read_text()
+    for name, edits in parts.VARIANTS.items():
+        for old in {old for old, _ in edits}:
+            assert text.count(old) >= sum(o == old for o, _ in edits), (name, old)
