@@ -204,6 +204,21 @@ Phases, each printing its own lines; any failure exits non-zero:
       weights, f32, 8 ragged prompts: encoder states and logits within
       1e-4 of a CPU copy, greedy_generate's tokens equal, ms per step;
       plain ops, every kernel's count 0.
+   w. tooling (after r): `python -m spittle_tpu_torch.cli transcribe` in
+      process on 60 s of int16 audio (random:large-v3-turbo,
+      --parallel-windows --timestamps --quantize-encoder --stats) inside
+      Tracer.device_trace and with init_logging set up: its stdout equal to
+      transcribe_samples called directly on the engine the CLI built (the
+      same from_env options and seed), K1, K2 and K4 launched as often in
+      both runs, their __global__ symbols in the trace (one K1 event per
+      K1 launch), the CLI's records in the log file; then T5 cleanup
+      (text.cleanup.t5_seq2seq over a flan-t5-small directory written here,
+      its tokenizer.json a 32,128-piece Unigram with a hand-built charsmap)
+      on the card equal to the CPU; then the ONNX interpreter on a
+      Silero-form graph (the bundled weights) within 1e-5 of the CPU; the
+      last two with every kernel's count 0. The K14 checks of phase 2 keep
+      their inputs and outputs in build/spittle_tpu_torch/ when one fails
+      (k14_capture).
 5. The probes (spittle_tpu_torch.probes.decode_cross and .cache_dus):
    both main()s, their JSON lines printed; K11, K12 and K13 take their
    launch counts from here.
@@ -1909,6 +1924,44 @@ def quant_cross_phase(dev):
     return rows
 
 
+def k14_capture(label, args, kv_len, got, want, past, past_ulp, plan):
+    """What K14's check keeps when it fails (a failure seen once, cause not
+    known): the inputs, K14's output and the plain version's in a file of
+    the build directory; K14 called once more on the same inputs; the rows
+    (b, h, r) past the tolerance, past one ulp, and moved between the two
+    calls, each with the cluster rank that owns it (row r of a row tile
+    belongs to rank r % cluster in the combine)."""
+    from spittle_tpu_torch.ops import _build
+    from spittle_tpu_torch.ops import attention as att
+
+    again = att.decode_cross_attention_w8a8(*args, kv_len=kv_len)
+    if again.is_cuda:
+        torch.cuda.synchronize()
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    path = os.path.join(_build.BUILD_DIR, "k14_failure_" + "_".join(
+        label.split()[1:]).replace("=", "") + ".pt")
+    torch.save({"args": [a.cpu() for a in args], "kv_len": kv_len,
+                "got": got.cpu(), "again": again.cpu(), "want": want.cpu(),
+                "plan": plan._asdict()}, path)
+    moved = (again != got).any(dim=-1).cpu()
+
+    def rows(mask):
+        idx = mask.nonzero().tolist()
+        owners = [(r % plan.row_tile) % plan.cluster for _, _, r in idx]
+        return idx, {c: owners.count(c) for c in sorted(set(owners))}
+
+    print(f"  {label}: FAILED; inputs and outputs saved to {path}")
+    for name, mask in (("past the tolerance", past.cpu() > 0),
+                       ("past one ulp", past_ulp.cpu()),
+                       ("moved between two calls", moved)):
+        idx, by_rank = rows(mask)
+        print(f"  {label}: {len(idx)} rows {name} (b, h, r): {idx[:32]}"
+              f"{' ...' if len(idx) > 32 else ''}; by owning rank {by_rank}")
+    print(f"  {label}: second call max |again - first| "
+          f"{(again.float() - got.float()).abs().max().item():.3e}, max |again - "
+          f"plain| {(again.cpu().float() - want.float()).abs().max().item():.3e}")
+
+
 def w8a8_phase(dev):
     """K14 (the "w8a8" decoder's cross-attention, both products int8 x
     int8) against its plain version computed on CPU copies of the same
@@ -1976,6 +2029,8 @@ def w8a8_phase(dev):
         print(f"  {label}: max_abs_err {err:.3e}; past one bf16 ulp + one P code "
               f"{worst:.3e} (<= 0), rows past one ulp {share:.2%} (<= 1%)")
         if not (worst <= 0 and share <= 0.01):
+            k14_capture(label, args, kv_len, got, want, excess - 1.001 * step,
+                        excess > 0, plan)
             raise AssertionError(f"{label}: kernel disagrees with its plain version")
         kernel = [lambda kv=kv: att.decode_cross_attention_w8a8(qd, *kv, kv_len=kv_len)
                   for kv, _ in sets]
@@ -2409,6 +2464,360 @@ def t5_phase():
         raise AssertionError(f"T5: a kernel ran on this path: {launches}")
     return launches
 
+
+# The tooling phase: the port's CLI on a ~60 s WAV, its device trace and
+# log file, T5 cleanup through a checkpoint directory, the ONNX interpreter.
+CLI_SECONDS = 60.0
+CLI_ARGS = ("--model", "random:large-v3-turbo", "--parallel-windows", "--timestamps",
+            "--quantize-encoder", "--stats")
+# The __global__ symbol of each kernel the CLI's path launches (K1's is the
+# attention core's, K2's its GEMM's, K4's the decode kernel's).
+CLI_SYMBOLS = {"flash_attention_fullkv": "attention_sm90_kernel",
+               "w8a8_gemm": "w8a8_gemm_kernel",
+               "decode_cross_attention": "decode_cross_mh_kernel"}
+# The cleanup prompts of the T5 check, and its decode budget.
+CLEANUP_PROMPTS = ("so i think we should ship it on tuesday",
+                   "run `make test` then push to @main --force",
+                   "ＡＢＣ ﬁle　names and  double  spaces")
+CLEANUP_TOKENS = 32
+# The Silero-form graph's batch and samples per item (8 LSTM steps).
+ONNX_BATCH, ONNX_SAMPLES = 16, 4096
+
+
+def save_safetensors(path: str, tensors: dict) -> None:
+    """numpy arrays -> one .safetensors file (the format
+    models/whisper/weights.py:load_safetensors reads)."""
+    names = {np.dtype(np.float32): "F32", np.dtype(np.int64): "I64"}
+    header, blobs, at = {}, [], 0
+    for name, a in tensors.items():
+        a = np.ascontiguousarray(a)
+        header[name] = {"dtype": names[a.dtype], "shape": list(a.shape),
+                        "data_offsets": [at, at + a.nbytes]}
+        blobs.append(a.tobytes())
+        at += a.nbytes
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little") + head)
+        for b in blobs:
+            f.write(b)
+
+
+def t5_tokenizer_json(cfg, seed: int) -> dict:
+    """A T5-form tokenizer.json of cfg.vocab_size pieces, as HF's T5
+    conversion writes it: <pad>, </s>, <unk>, seeded pieces over lowercase
+    letters and punctuation (half with the "▁" word mark), and 100
+    <extra_id_N> added tokens at the end; a Unigram model; the normalizer
+    Sequence[Precompiled, Strip(right), Replace(" {2,}", "▁")] with a small
+    hand-built charsmap (full-width letters, a ligature, the ideographic
+    space); Metaspace pre-tokenizer and decoder; TemplateProcessing
+    appending </s>."""
+    import base64
+
+    from spittle_tpu_torch.text.hf_tokenizer import build_precompiled_charsmap
+
+    rng = np.random.default_rng(seed)
+    n_extra = 100
+    letters = list("abcdefghijklmnopqrstuvwxyz.,!?'`-@/") + ["▁"]
+    pieces = ["▁"] + letters[:-1] + ["▁" + c for c in letters[:-1]]
+    seen = set(pieces)
+    while len(pieces) < cfg.vocab_size - 3 - n_extra:
+        w = "".join(rng.choice(letters[:26], int(rng.integers(2, 8))))
+        w = ("▁" + w) if rng.random() < 0.5 else w
+        if w not in seen:
+            seen.add(w)
+            pieces.append(w)
+    vocab = [["<pad>", 0.0], ["</s>", 0.0], ["<unk>", 0.0]]
+    vocab += [[p, float(-rng.uniform(2.0, 14.0))] for p in pieces]
+    vocab += [[f"<extra_id_{i}>", 0.0] for i in range(n_extra - 1, -1, -1)]
+    added = [dict(id=i, content=p, single_word=False, lstrip=False, rstrip=False,
+                  normalized=False, special=True)
+             for i, (p, _) in enumerate(vocab) if p.startswith("<")]
+    cmap = {chr(0xFF21 + i): chr(ord("a") + i) for i in range(26)}
+    cmap.update({"ﬁ": "fi", "　": " "})
+    meta = {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always",
+            "split": True}
+    return {
+        "version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Precompiled", "precompiled_charsmap": base64.b64encode(
+                build_precompiled_charsmap(cmap)).decode()},
+            {"type": "Strip", "strip_left": False, "strip_right": True},
+            {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": "▁"}]},
+        "pre_tokenizer": meta,
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"Sequence": {"id": "A", "type_id": 0}},
+                       {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+            "pair": [], "special_tokens": {"</s>": {"id": "</s>", "ids": [1],
+                                                   "tokens": ["</s>"]}}},
+        "decoder": meta,
+        "model": {"type": "Unigram", "unk_id": 2, "vocab": vocab,
+                  "byte_fallback": False},
+    }
+
+
+def _onnx_writer():
+    """tests/_onnx_writer.py, loaded by path (the protobuf writer and the
+    Silero-form graph the port's ONNX tests use)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "_onnx_writer", os.path.join(REPO, "tests", "_onnx_writer.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _cli_run(wav: str, work: str):
+    """The port CLI's transcribe on `wav`, in-process, inside a device
+    trace and with the log system writing to work/logs. Returns (stdout,
+    launches, trace path, log path, the engine the CLI built)."""
+    import contextlib
+
+    from spittle_tpu_torch import cli
+    from spittle_tpu_torch.engine import whisper_engine as we
+    from spittle_tpu_torch.utils.logging import init_logging
+    from spittle_tpu_torch.utils.tracing import get_tracer
+
+    logs = init_logging(os.path.join(work, "logs"))
+    built = []
+    real = we.WhisperEngine.from_env.__func__
+
+    def from_env(cls, **kw):  # keep the CLI's engine for the direct call
+        built.append(real(cls, **kw))
+        return built[-1]
+
+    we.WhisperEngine.from_env = classmethod(from_env)
+    tracer = get_tracer()
+    tracer.reset()
+    out = io.StringIO()
+    kernels = _zero_counters()
+    try:
+        with tracer.device_trace(os.path.join(work, "trace")) as rec, \
+                contextlib.redirect_stdout(out):
+            rc = cli.main(["transcribe", wav, *CLI_ARGS])
+    finally:
+        we.WhisperEngine.from_env = classmethod(real)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"tooling: the CLI exited {rc}")
+    for h in logs.logger.handlers:
+        h.flush()
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    return out.getvalue(), launches, rec["path"], logs.log_path, built[0], tracer.stats()
+
+
+def _trace_kernels(path: str):
+    """The kernel events of a Chrome trace counted by CLI_SYMBOLS' symbols,
+    and all of them. The CLI's trace is ~1 GiB, so its text is searched
+    for each event's "cat": "kernel" and the "name" that follows it rather
+    than parsed whole."""
+    import re
+
+    with open(path, "rb") as f:
+        text = f.read()
+    names = re.findall(rb'"cat":\s*"kernel",\s*"name":\s*"((?:[^"\\]|\\.)*)"', text)
+    counts = {sym: sum(sym.encode() in n for n in names)
+              for sym in CLI_SYMBOLS.values()}
+    return counts, len(names)
+
+
+def cli_check(work: str):
+    """tooling_phase's CLI run and its checks; returns its launch counts."""
+    from spittle_tpu_torch.audio.wav import load_wav_file, save_wav_file
+    from spittle_tpu_torch.engine.base import TranscribeParams
+    from spittle_tpu_torch.engine.whisper_engine import WhisperEngine
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 20)
+    audio = synth_utterance(rng, CLI_SECONDS)
+    wav = os.path.join(work, "speech.wav")
+    save_wav_file(wav, audio.astype(np.float32) / 32768.0)
+    stdout, launches, trace, log_path, eng, spans = _cli_run(wav, work)
+    cli_s = time.perf_counter() - t0
+    expected = WhisperEngine.from_env(quantize_encoder=True)
+    same_opts = all(getattr(eng, k) == getattr(expected, k) for k in (
+        "quantize_encoder", "quantize_decoder", "quantize_cache", "wire", "dtype",
+        "encoder_attention", "device"))
+    del expected
+    pcm, _ = load_wav_file(wav, keep_int16=True)
+    kernels = _zero_counters()
+    t0 = time.perf_counter()
+    res = eng.transcribe_samples(pcm, TranscribeParams(
+        parallel_windows=True, condition_on_previous_text=False))
+    torch.cuda.synchronize()
+    direct_s = time.perf_counter() - t0
+    direct = {fn.__name__: fn.launches for fn in kernels}
+    want = "\n".join([res.text] + [f"[{s.start:7.2f} -> {s.end:7.2f}] {s.text}"
+                                   for s in res.segments]) + "\n"
+    t0 = time.perf_counter()
+    counts, n_kernel_events = _trace_kernels(trace)
+    scan_s = time.perf_counter() - t0
+    trace_mb = os.path.getsize(trace) / 2 ** 20
+    with open(log_path) as f:
+        log_lines = f.read().splitlines()
+    print(f"e2e tooling CLI: transcribe {CLI_SECONDS:g} s {' '.join(CLI_ARGS)} "
+          f"in {cli_s:.1f} s (model load and device trace included; direct "
+          f"call {direct_s:.1f} s): {len(res.segments)} segments, "
+          f"{len(res.tokens)} tokens; stdout {'equal' if stdout == want else 'DIFFERENT'}"
+          f" to the direct call's; engine options "
+          f"{'equal' if same_opts else 'DIFFERENT'} to from_env(quantize_encoder=True)'s")
+    print("e2e tooling CLI --stats spans: " + json.dumps(
+        {k: round(v["total_s"], 4) for k, v in spans.items()}))
+    print(f"e2e tooling CLI: launches {json.dumps(launches)}; direct call "
+          f"{json.dumps({k: v for k, v in direct.items() if v})}")
+    print(f"e2e tooling trace: {trace_mb:.1f} MiB, {n_kernel_events} kernel "
+          f"events (scanned in {scan_s:.1f} s); by symbol {json.dumps(counts)}")
+    print(f"e2e tooling log: {len(log_lines)} lines in {os.path.basename(log_path)}: "
+          + " | ".join(log_lines)[:400])
+    if stdout != want or not same_opts:
+        raise AssertionError(f"tooling: the CLI printed {stdout!r}, the direct "
+                             f"call gives {want!r} (options equal: {same_opts})")
+    if not any("spittle_tpu_torch.cli" in ln and "transcribed" in ln
+               for ln in log_lines):
+        raise AssertionError("tooling: the log file lacks the CLI's records")
+    for name, sym in CLI_SYMBOLS.items():
+        if not launches[name] or launches[name] != direct[name]:
+            raise AssertionError(f"tooling: {name} launched {launches[name]} "
+                                 f"times by the CLI, {direct[name]} directly")
+        if not counts[sym]:
+            raise AssertionError(f"tooling: the trace names no {sym} kernel")
+    if counts[CLI_SYMBOLS["flash_attention_fullkv"]] != launches["flash_attention_fullkv"]:
+        raise AssertionError("tooling: K1's trace events and launches differ")
+    if other := {k: v for k, v in launches.items() if v and k not in CLI_SYMBOLS}:
+        raise AssertionError(f"tooling: other kernels ran on the CLI path: {other}")
+    return launches
+
+
+def t5_cleanup_check(work: str) -> None:
+    """tooling_phase's T5 cleanup checks."""
+    from spittle_tpu_torch.models import t5
+    from spittle_tpu_torch.ops import full_f32
+    from spittle_tpu_torch.text.cleanup import CleanupManager, t5_seq2seq
+
+    t0 = time.perf_counter()
+    cfg = t5.FLAN_T5_SMALL
+    ckpt = os.path.join(work, "flan-t5-small")
+    os.makedirs(ckpt)
+    save_safetensors(os.path.join(ckpt, "model.safetensors"),
+                     t5_tensors(cfg, SEED + 21))
+    with open(os.path.join(ckpt, "config.json"), "w") as f:
+        json.dump({"vocab_size": cfg.vocab_size, "d_model": cfg.d_model,
+                   "d_kv": cfg.d_kv, "d_ff": cfg.d_ff,
+                   "num_layers": cfg.num_layers, "num_heads": cfg.num_heads,
+                   "relative_attention_num_buckets": cfg.rel_buckets,
+                   "relative_attention_max_distance": cfg.rel_max_distance,
+                   "eos_token_id": cfg.eos_id, "pad_token_id": cfg.pad_id}, f)
+    with open(os.path.join(ckpt, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(t5_tokenizer_json(cfg, SEED + 22), f, ensure_ascii=False)
+    kernels = _zero_counters()
+    with full_f32():
+        card = t5_seq2seq(ckpt, max_tokens=CLEANUP_TOKENS)
+        cpu = t5_seq2seq(ckpt, max_tokens=CLEANUP_TOKENS, device="cpu")
+        texts = [(card(p), cpu(p)) for p in CLEANUP_PROMPTS]
+        cleaned = CleanupManager(seq2seq=card).cleanup(CLEANUP_PROMPTS[1])
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    print(f"e2e tooling T5 cleanup ({cfg.vocab_size} pieces, flan-t5-small width, "
+          f"{CLEANUP_TOKENS} tokens) in {time.perf_counter() - t0:.1f} s: "
+          + "; ".join(f"{a[:40]!r} {'==' if a == b else '!='} CPU" for a, b in texts)
+          + f"; CleanupManager -> {cleaned[:60]!r}")
+    if any(a != b for a, b in texts) or not isinstance(cleaned, str):
+        raise AssertionError("tooling: T5 cleanup on the card differs from the CPU")
+    if any(launches.values()):
+        raise AssertionError(f"tooling: a kernel ran in T5 cleanup: {launches}")
+
+
+def onnx_interp_check(work: str) -> None:
+    """tooling_phase's ONNX interpreter check."""
+    from spittle_tpu_torch.audio.vad import silero as tsil
+    from spittle_tpu_torch.io.onnx_interp import OnnxInterpreter
+    from spittle_tpu_torch.io.onnx_proto import load_onnx
+
+    t0 = time.perf_counter()
+    writer = _onnx_writer()
+    tree = tsil._params_from_npz(tsil.BUNDLED_NPZ)
+
+    def half(node):
+        if isinstance(node, dict):
+            return {k: half(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [half(v) for v in node]
+        return (np.asarray(node) * np.float32(0.5)).astype(np.float32)
+
+    path = os.path.join(work, "silero_form.onnx")
+    with open(path, "wb") as f:
+        f.write(writer.silero_form_model(tree, half(tree)))
+    graph = load_onnx(path)
+    rng = np.random.default_rng(SEED + 23)
+    hidden = tree["lstm"][0]["r"].shape[1]
+    feeds = {"input": (0.1 * rng.standard_normal((ONNX_BATCH, 1, ONNX_SAMPLES))
+                       ).astype(np.float32),
+             "h": (0.5 * rng.standard_normal((2, ONNX_BATCH, hidden))).astype(np.float32),
+             "c": (0.5 * rng.standard_normal((2, ONNX_BATCH, hidden))).astype(np.float32)}
+    kernels = _zero_counters()
+    errs = {}
+    for sr in (16000, 8000):
+        run = dict(feeds, sr=np.array([sr], np.int64))
+        on_card = OnnxInterpreter(graph).run(run)
+        on_cpu = OnnxInterpreter(graph, device="cpu").run(run)
+        for name in on_cpu:
+            if not torch.isfinite(on_card[name]).all():
+                raise AssertionError(f"tooling: ONNX {name} is not finite")
+            errs[f"{sr} {name}"] = (on_card[name].cpu() - on_cpu[name]).abs().max().item()
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    print(f"e2e tooling ONNX interpreter (Silero-form graph, [{ONNX_BATCH}, 1, "
+          f"{ONNX_SAMPLES}], LSTM 2 x {hidden}) in {time.perf_counter() - t0:.1f} s: "
+          f"max |card - CPU| {json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})}"
+          f" (tolerance 1e-5)")
+    if max(errs.values()) > 1e-5:
+        raise AssertionError("tooling: the ONNX interpreter's card run differs from the CPU")
+    if any(launches.values()):
+        raise AssertionError(f"tooling: a kernel ran in the interpreter: {launches}")
+
+
+def tooling_phase():
+    """The port's tooling on the card, each check raising on a mismatch.
+
+    CLI: a 60 s int16 WAV through `python -m spittle_tpu_torch.cli
+    transcribe` (main() in-process, CLI_ARGS: random:large-v3-turbo, W8A8
+    encoder, parallel windows, timestamps) inside Tracer.device_trace and
+    with init_logging set up. Its stdout must equal the text and segment
+    lines of transcribe_samples called directly on the engine the CLI
+    built through WhisperEngine.from_env(quantize_encoder=True) (the same
+    weights, seed 0, and the same TranscribeParams); K1, K2 and K4 must be
+    launched, the same number of times in both runs; the trace must name
+    the three kernels' symbols and hold one K1 event per K1 launch; the
+    log file must hold the CLI's records.
+    T5 cleanup: a flan-t5-small checkpoint directory (t5_tensors in a
+    hand-written model.safetensors, config.json, and a 32,128-piece Unigram
+    tokenizer.json with a hand-built charsmap, written with json) through
+    text.cleanup.t5_seq2seq on the card and on the CPU (TF32 off): the same
+    text for each prompt; CleanupManager over the card's provider returns
+    a str.
+    ONNX interpreter: a Silero-form graph at Silero's width (the bundled
+    weights; the 8 kHz branch at half of them; two LSTM layers of 64 units
+    with carried h/c) on [16, 1, 4096] input, the card's outputs within
+    1e-5 of the CPU's for both branches.
+    T5, the tokenizer, the interpreter and logging use plain ops: every
+    kernel count must stay 0 through them. Returns the CLI run's launch
+    counts."""
+    import shutil
+    import tempfile
+
+    from spittle_tpu_torch.ops import _build
+
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_tooling_", dir=_build.BUILD_DIR)
+    try:
+        launches = cli_check(work)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t5_cleanup_check(work)
+        onnx_interp_check(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
 
 def _to_f32(tree):
     """Every floating tensor of a parameter tree in f32."""
@@ -3386,6 +3795,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     print(f"phase e2e T5: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path["tooling"] = tooling_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase e2e tooling: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     by_path["probes"] = probes_phase()
     launches.update({name: by_path["probes"][name] for name in PROBE_KERNELS})

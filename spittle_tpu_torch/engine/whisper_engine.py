@@ -229,6 +229,32 @@ class WhisperEngine:
         # follow loop does so behind a server).
         self.mesh = None
 
+    @classmethod
+    def from_env(cls, **overrides) -> "WhisperEngine":
+        """Engine with serving options from SPITTLE_* env flags (the CLI's
+        and the engine factory's): SPITTLE_QUANTIZE_DECODER
+        (0|1|int8|int4|w8a8), SPITTLE_QUANTIZE_ENCODER,
+        SPITTLE_QUANTIZE_CACHE, SPITTLE_WIRE (auto|mulaw). Overrides win
+        over the environment; `device` is one of them ("cuda" by default)."""
+        qd = os.environ.get("SPITTLE_QUANTIZE_DECODER", "0")
+        if qd not in ("0", "1", "int8", "int4", "w8a8"):
+            raise ValueError(
+                "SPITTLE_QUANTIZE_DECODER must be 0, 1, int8, int4 or"
+                f" w8a8, got {qd!r}"
+            )
+        opts = dict(
+            quantize_decoder=(
+                qd if qd in ("int8", "int4", "w8a8") else qd == "1"
+            ),
+            quantize_encoder=os.environ.get(
+                "SPITTLE_QUANTIZE_ENCODER", "0") == "1",
+            quantize_cache=os.environ.get(
+                "SPITTLE_QUANTIZE_CACHE", "0") == "1",
+            wire=os.environ.get("SPITTLE_WIRE", "auto"),
+        )
+        opts.update(overrides)
+        return cls(**opts)
+
     # -- lifecycle -------------------------------------------------------
 
     def load_model(self, model_path: str, seed: int = 0) -> None:

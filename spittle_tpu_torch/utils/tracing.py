@@ -1,15 +1,20 @@
-"""Structured timing spans (port of spittle_tpu/utils/tracing.py without
-its device-trace hook): named spans with wall-clock durations, thread-safe
-aggregation (count/total/p50/p95) and JSON export."""
+"""Structured timing spans and device traces (port of
+spittle_tpu/utils/tracing.py): named spans with wall-clock durations,
+thread-safe aggregation (count/total/p50/p95), JSON export, and an opt-in
+torch.profiler trace of a region (Chrome-trace JSON, the kernels it
+launched by name)."""
 
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, List, Optional
+
+import torch
 
 
 @dataclass
@@ -25,6 +30,7 @@ class Tracer:
         self._lock = threading.Lock()
         self._spans: List[Span] = []
         self._max = max_spans
+        self.last_trace_path: Optional[str] = None
 
     @contextlib.contextmanager
     def span(self, name: str, **meta) -> Iterator[Dict[str, object]]:
@@ -75,6 +81,27 @@ class Tracer:
     def reset(self) -> None:
         with self._lock:
             self._spans.clear()
+
+    @contextlib.contextmanager
+    def device_trace(self, log_dir: str):
+        """Profile a region with torch.profiler: CPU activity, plus CUDA
+        activity when a card is present. On exit one Chrome-trace JSON file
+        is written into log_dir; its path is the yielded record's "path"
+        and the tracer's last_trace_path."""
+        from torch.profiler import ProfilerActivity, profile
+
+        os.makedirs(log_dir, exist_ok=True)
+        cuda = torch.cuda.is_available()
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                               if cuda else [])
+        record: Dict[str, object] = {}
+        with profile(activities=activities) as prof:
+            yield record
+            if cuda:  # the region's kernels end inside the trace
+                torch.cuda.synchronize()
+        path = os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+        prof.export_chrome_trace(path)
+        record["path"] = self.last_trace_path = path
 
 
 _GLOBAL = Tracer()

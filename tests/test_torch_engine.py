@@ -239,9 +239,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "             or n.startswith('spittle_tpu.'))\n"
         "print(len([n for n in sys.modules if n.startswith('spittle_tpu_torch.')]))\n"
         "assert not bad, bad\n"
-        # The card machine has neither PyYAML nor the safetensors package.
+        # The card machine has neither PyYAML, the safetensors package nor
+        # tokenizers (the port reads tokenizer.json itself).
         "absent = sorted(n for n in sys.modules\n"
-        "                if n.split('.')[0] in ('yaml', 'safetensors'))\n"
+        "                if n.split('.')[0] in ('yaml', 'safetensors', 'tokenizers',\n"
+        "                                       'transformers'))\n"
         "assert not absent, absent\n"
         "for family in ('parakeet', 'sensevoice', 'moonshine'):\n"
         "    assert 'spittle_tpu_torch.engine.%s_engine' % family in sys.modules\n"
@@ -256,7 +258,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "             'audio.resample', 'audio.wav', 'audio.vad.silero',\n"
         "             'audio.vad.smoothed', 'audio.vad.segmenter', 'utils.tracing',\n"
         "             'utils.threads', 'utils.logging', 'train', 'train.step',\n"
-        "             'train.augment', 'train.checkpoint'):\n"
+        "             'train.augment', 'train.checkpoint', 'cli', 'engine.factory',\n"
+        "             'text.cleanup', 'text.hf_tokenizer', 'io.onnx_interp'):\n"
         "    assert 'spittle_tpu_torch.' + name in sys.modules, name\n"
         # Importing the mesh layer's modules starts no process group.
         "import torch.distributed\n"

@@ -1435,3 +1435,28 @@ def test_engine_speculative_verifies_k_rows(cuda):
     main, draft = eng.cfg.n_text_layer, eng.draft_cfg.n_text_layer
     assert att.decode_cross_attention.launches == (
         main * (1 + rounds) + draft * (1 + 4 * rounds))
+
+
+def test_device_trace_names_k4(cuda, tmp_path):
+    """Tracer.device_trace around K4 calls: the trace's kernel events name
+    K4's __global__ symbol (decode_cross_mh_kernel) once per launch the
+    wrapper counts."""
+    from spittle_tpu_torch.utils.tracing import Tracer
+
+    rng = np.random.default_rng(20)
+    b, h, d, tk = 2, 4, 64, 1500
+    q = _randn(rng, (b, h, 1, d), cuda, scale=d ** -0.5)
+    k = _randn(rng, (b, h, d, tk), cuda)
+    v = _randn(rng, (b, h, d, tk), cuda)
+    att.decode_cross_attention(q, k, v)  # built and warm outside the trace
+    torch.cuda.synchronize()
+    att.decode_cross_attention.launches = 0
+    with Tracer().device_trace(str(tmp_path)) as rec:
+        for _ in range(3):
+            att.decode_cross_attention(q, k, v)
+    with open(rec["path"]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    k4 = [n for n in kernels if "decode_cross_mh_kernel" in n]
+    assert att.decode_cross_attention.launches == 3
+    assert len(k4) == att.decode_cross_attention.launches, kernels

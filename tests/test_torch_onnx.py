@@ -1,7 +1,7 @@
 """The port's ONNX reader (spittle_tpu_torch/io/onnx_proto.py) and Silero's
 .onnx loader against the JAX package's, on an ONNX file this test writes
-itself with its own protobuf writer (no onnx package; the real
-silero_vad_v4.onnx is not in the repo).
+itself with the protobuf writer of tests/_onnx_writer.py (no onnx package;
+the real silero_vad_v4.onnx is not in the repo).
 
 The file has the reference graph's structure: a top-level If whose
 then_branch (16 kHz) and else_branch (8 kHz) subgraphs carry the
@@ -12,8 +12,6 @@ differ). Beside them: a tensor of every dtype the reader knows, in raw_data
 and in the typed fields, and a node with an attribute of every kind.
 """
 
-import struct
-
 import numpy as np
 import pytest
 import torch
@@ -23,109 +21,12 @@ from spittle_tpu.io import onnx_proto as jonnx
 from spittle_tpu_torch.audio.vad import silero as tsil
 from spittle_tpu_torch.io import onnx_proto as tonnx
 
-# ONNX TensorProto.DataType tags of the numpy dtypes.
-TAGS = {np.float32: 1, np.uint8: 2, np.int8: 3, np.uint16: 4, np.int16: 5,
-        np.int32: 6, np.int64: 7, np.bool_: 9, np.float16: 10, np.float64: 11,
-        np.uint32: 12, np.uint64: 13}
+from _onnx_writer import TAGS, attribute, graph, lfield, node, tensor, vfield
+
 ANON = {"16k": ("1110", "1111", "1113", "1114", "1116", "1117", "1119", "1120",
                 "343", "345", "347", "415", "417", "419"),
         "8k": ("1122", "1123", "1125", "1126", "1128", "1129", "1131", "1132",
                "833", "835", "837", "905", "907", "909")}
-
-
-# -- a protobuf writer -------------------------------------------------------
-
-
-def varint(v: int) -> bytes:
-    v &= (1 << 64) - 1  # negative ints as their two's complement
-    out = bytearray()
-    while True:
-        b = v & 0x7F
-        v >>= 7
-        if v:
-            out.append(b | 0x80)
-        else:
-            out.append(b)
-            return bytes(out)
-
-
-def key(field: int, wire: int) -> bytes:
-    return varint(field << 3 | wire)
-
-
-def vfield(field: int, v: int) -> bytes:
-    return key(field, 0) + varint(v)
-
-
-def lfield(field: int, payload) -> bytes:
-    if isinstance(payload, str):
-        payload = payload.encode()
-    return key(field, 2) + varint(len(payload)) + payload
-
-
-def f32field(field: int, v: float) -> bytes:
-    return key(field, 5) + struct.pack("<f", v)
-
-
-def tensor(name: str, a: np.ndarray, form: str = "raw") -> bytes:
-    """TensorProto: dims one field each, data_type, then raw_data, or
-    float_data packed ("floats") or one fixed32 per field ("float_each"),
-    int64_data packed ("int64s") or one varint per field ("int64_each"),
-    int32_data packed ("int32s") or one varint per field ("int32_each")."""
-    out = b"".join(vfield(1, d) for d in a.shape)
-    out += vfield(2, TAGS[a.dtype.type])
-    flat = a.reshape(-1)
-    if form == "raw":
-        out += lfield(9, a.tobytes())
-    elif form == "floats":
-        out += lfield(4, struct.pack(f"<{flat.size}f", *flat))
-    elif form == "float_each":
-        out += b"".join(f32field(4, float(x)) for x in flat)
-    elif form == "int64s":
-        out += lfield(7, b"".join(varint(int(x)) for x in flat))
-    elif form == "int64_each":
-        out += b"".join(vfield(7, int(x)) for x in flat)
-    elif form == "int32s":
-        out += lfield(5, b"".join(varint(int(x)) for x in flat))
-    elif form == "int32_each":
-        out += b"".join(vfield(5, int(x)) for x in flat)
-    return out + lfield(8, name)
-
-
-def attribute(name: str, **kind) -> bytes:
-    """AttributeProto with one kind: f, i, s, t (array), g (graph bytes),
-    floats or ints."""
-    out = lfield(1, name)
-    for k, v in kind.items():
-        if k == "f":
-            out += f32field(2, v) + vfield(20, 1)
-        elif k == "i":
-            out += vfield(3, v) + vfield(20, 2)
-        elif k == "s":
-            out += lfield(4, v) + vfield(20, 3)
-        elif k == "t":
-            out += lfield(5, tensor("", v)) + vfield(20, 4)
-        elif k == "g":
-            out += lfield(6, v) + vfield(20, 5)
-        elif k == "floats":
-            out += b"".join(f32field(7, x) for x in v) + vfield(20, 6)
-        elif k == "ints":
-            out += b"".join(vfield(8, x) for x in v) + vfield(20, 7)
-    return out
-
-
-def node(op: str, inputs, outputs, name="", attrs=()) -> bytes:
-    out = b"".join(lfield(1, i) for i in inputs)
-    out += b"".join(lfield(2, o) for o in outputs)
-    out += lfield(3, name) + lfield(4, op)
-    return out + b"".join(lfield(5, a) for a in attrs)
-
-
-def graph(name: str, nodes=(), inits=(), inputs=(), outputs=()) -> bytes:
-    out = b"".join(lfield(1, n) for n in nodes) + lfield(2, name)
-    out += b"".join(lfield(5, t) for t in inits)
-    out += b"".join(lfield(11, lfield(1, i)) for i in inputs)
-    return out + b"".join(lfield(12, lfield(1, o)) for o in outputs)
 
 
 # -- the Silero-shaped model --------------------------------------------------
