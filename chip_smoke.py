@@ -148,6 +148,23 @@ Phases, each printing its own lines; any failure exits non-zero:
       avg_logprob gate, so each window is expected to take all six rungs
       at the full budget; the wall seconds, windows, rungs and steps of
       each call are printed;
+   x. dictation (after g, the same engine): the app's shortcut path.
+      AppServices in a temporary directory over a QueueSource(16000), the
+      production VAD (Silero on the card in Smoothed(15, 15, 2):
+      app.services.default_vad_factory) and an engine factory that hands
+      over the loaded engine; an ActionContext over a BufferTextOutput.
+      Two push-to-talk cycles of a 5 s utterance pushed in 30 ms chunks:
+      "transcribe" (the text chain, the paste) and
+      "transcribe_with_post_process" (a local stub LLM that edits one
+      word; the minimal diff, the history row). Checks: the pasted text
+      equals what TranscriptionManager.transcribe returned on the samples
+      the recorder kept (the second cycle's call on the same samples);
+      those samples equal a CPU copy of the VAD chain's on the same
+      frames; the post-processed text differs from the raw text by one
+      word's minimal diff and is pasted; the history row holds both; K1,
+      K2 and K4 as the engine's decode traces predict (one detection per
+      call), every other kernel 0. Release-to-paste seconds, engine
+      seconds, kept samples and launches are printed;
    h. turbo beam: the turbo leg's engine, one batch of 8 x 30 s windows
       through transcribe_batch with beam_size=5 (parallel windows, 96-token
       budget): K4 at 5 rows per item in every step, the prefill's 15 rows
@@ -3133,6 +3150,202 @@ def app_phase(label: str, eng, seed: int):
     return launches
 
 
+class _HandedEngine:
+    """The loaded engine handed to the app's TranscriptionManager: its
+    load_model keeps the weights; transcribe_samples is the engine's,
+    timed, with the samples it was given and the text kept."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.calls = []  # (samples, seconds, text)
+
+    def load_model(self, model_path: str) -> None:
+        pass
+
+    def transcribe_samples(self, samples, params=None):
+        t0 = time.perf_counter()
+        res = self.eng.transcribe_samples(samples, params)
+        self.calls.append((np.array(samples), time.perf_counter() - t0, res.text))
+        return res
+
+
+class _TimedOutput:
+    """A BufferTextOutput that stamps each paste with the host clock."""
+
+    def __init__(self, out):
+        self.out, self.stamps = out, []
+
+    def __getattr__(self, name):
+        fn = getattr(self.out, name)
+
+        def call(*args):
+            fn(*args)
+            self.stamps.append((name, time.perf_counter()))
+        return call
+
+
+def _one_word_edit(prompt_template: str):
+    """A local stand-in for the LLM: it finds the transcription in the
+    prompt (the template's ${output}) and replaces its middle word with
+    "edited". Returns (send_chat_completion, the requests it took)."""
+    head, tail = prompt_template.split("${output}")
+    seen = []
+
+    def send_chat_completion(provider, api_key, model, prompt, system):
+        text = prompt[len(head):len(prompt) - len(tail)]
+        words = text.split(" ")
+        words[len(words) // 2] = "edited"
+        seen.append(text)
+        return " ".join(words)
+    return send_chat_completion, seen
+
+
+def dictation_phase(label: str, eng, seed: int):
+    """The dictation app's shortcut path on a loaded engine (phase 4 x):
+    AppServices with the production VAD on the card and the engine handed
+    over, an ActionContext over a BufferTextOutput, a "transcribe" and a
+    "transcribe_with_post_process" push-to-talk cycle of a 5 s utterance
+    pushed in 30 ms chunks, with every launch counter set to 0 just before
+    the first press and read just after the second pipeline ends. The
+    random-weights vocabulary decodes most ids to nothing, which the
+    pipeline treats as silence (no paste, no history), so for this phase
+    the engine's tokenizer is one in which every text id is a word of its
+    own (as in words_phase). Returns the counts."""
+    import tempfile
+
+    from spittle_tpu_torch.app.actions import ActionContext
+    from spittle_tpu_torch.app.services import AppServices, default_vad_factory
+    from spittle_tpu_torch.audio.recorder import QueueSource
+    from spittle_tpu_torch.config.settings import builtin_post_process_prompts
+    from spittle_tpu_torch.events import HIDE_OVERLAY
+    from spittle_tpu_torch.models.whisper.tokenizer import WhisperTokenizer
+    from spittle_tpu_torch.pipeline import BufferTextOutput, PipelineHooks
+    from spittle_tpu_torch.text.diff import compute_text_diff
+
+    # Seed 1 of synth_utterance is one that the smoothed Silero chain keeps
+    # 1.8 of 5 s of on the CPU (speech kept and gated both), with every
+    # frame's probability at least 3.5e-3 from the 0.3 threshold.
+    audio = synth_utterance(np.random.default_rng(seed + 1), 5.0)
+    audio = audio.astype(np.float32) / 32768.0
+    prompt = builtin_post_process_prompts()[0]
+    stub, seen = _one_word_edit(prompt.prompt)
+    vads = []
+
+    def vad_factory():
+        vads.append(default_vad_factory(device="cuda"))
+        return vads[-1]
+
+    src = QueueSource(16000)
+    handed = _HandedEngine(eng)
+    tokenizer = eng.tokenizer
+    eng.tokenizer = WhisperTokenizer(
+        eng.cfg, {f" w{i}".encode(): i for i in range(eng.cfg.eot)})
+    with tempfile.TemporaryDirectory() as tmp:
+        services = AppServices(tmp, source_factory=lambda: src,
+                               engine_factory=lambda engine_type: handed,
+                               vad_factory=vad_factory)
+        try:
+            services.transcription.load_model(
+                "large-v3-turbo", "random:large-v3-turbo", "whisper")
+            out = _TimedOutput(BufferTextOutput())
+
+            def hooks_factory(samples):
+                def save_history(samples_, raw, post, prompt_text):
+                    services.history.save_transcription(
+                        samples_, raw[:64] or "Transcription", raw, post, prompt_text)
+                return PipelineHooks(
+                    save_history=save_history, send_chat_completion=stub,
+                    hide_overlay=lambda: services.events.emit(HIDE_OVERLAY, None))
+
+            actions = ActionContext(services, out, hooks_factory=hooks_factory)
+            kernels = _reset_traces(eng)
+            torch.cuda.synchronize()
+            walls = {}
+            for binding in ("transcribe", "transcribe_with_post_process"):
+                if binding == "transcribe_with_post_process":
+                    services.update_settings(
+                        post_process_enabled=True,
+                        post_process_models={"openai": "local-stub"},
+                        post_process_selected_prompt_id=prompt.id)
+                n_pasted = len(out.stamps)
+                actions.handle_shortcut_event(binding, "ctrl+space", True)
+                assert services.audio.is_recording(), binding
+                for i in range(0, len(audio), 480):
+                    src.push(audio[i:i + 480])
+                t_release = time.perf_counter()
+                actions.handle_shortcut_event(binding, "ctrl+space", False)
+                deadline = time.monotonic() + 300
+                while services.toggle_state.get(binding) is not False:
+                    assert time.monotonic() < deadline, f"{binding}: no paste"
+                    time.sleep(0.01)
+                assert len(out.stamps) > n_pasted, (
+                    f"{binding}: nothing pasted; the engine gave "
+                    f"{handed.calls[-1][2][:80] if handed.calls else None!r}")
+                walls[binding] = (out.stamps[n_pasted][1] - t_release,
+                                  handed.calls[-1][1])
+            torch.cuda.synchronize()
+            launches = {fn.__name__: fn.launches for fn in kernels}
+            want = _traced_launches(eng, detections=len(handed.calls))
+            for binding, (paste_s, engine_s) in walls.items():
+                print(f"e2e {label} {binding}: release to paste {paste_s:.3f} s, "
+                      f"engine {engine_s:.3f} s")
+            kept = handed.calls[0][0]
+            print(f"e2e {label}: recorder kept {len(kept)} of {len(audio)} samples; "
+                  f"rungs per call {eng.last_decode_rungs}; launches "
+                  f"{json.dumps(launches)}")
+            if launches != want:
+                raise AssertionError(
+                    f"{label}: launch counts {launches} != predicted {want}")
+
+            # Checks. Silero ran on the card, and the VAD chain kept what a
+            # CPU copy keeps from the same frames (the last frame padded by
+            # the recorder's resampler, as there).
+            assert len(vads) == 2 and all(
+                v.inner.device.type == "cuda" and v.inner._state.is_cuda
+                and bool(v.inner._state.abs().sum() > 0) for v in vads), vads
+            cpu_vad = default_vad_factory(device="cpu")
+            frames = np.concatenate([audio, np.zeros(-len(audio) % 480, np.float32)])
+            cpu_kept = [s for k, s in (cpu_vad.push_frame(frames[i:i + 480])
+                                       for i in range(0, len(frames), 480))
+                        if k.name == "SPEECH" and s is not None]
+            cpu_kept = np.concatenate(cpu_kept)
+            assert len(kept) >= 16000, len(kept)  # speech kept, not padding
+            np.testing.assert_array_equal(kept, cpu_kept)
+            # The pasted text is the manager's transcription of those
+            # samples: the second cycle's pipeline calls
+            # services.transcription.transcribe on the same kept samples, and
+            # the stub LLM was handed what it returned.
+            np.testing.assert_array_equal(handed.calls[1][0], kept)
+            assert len(seen) == 1 and seen[0], seen
+            text = seen[0]
+            first = text + " "
+            assert out.out.buffer.startswith(first), (out.out.buffer, text)
+            # Post-processing: the stub's answer differs by one word's
+            # minimal diff, and that answer is what was pasted.
+            post = out.out.buffer[len(first):]
+            diff = compute_text_diff(text, post)
+            assert diff is not None and len(diff.insert) <= len("edited"), diff
+            patched = BufferTextOutput()
+            patched.paste_raw(text)
+            patched.apply_text_diff(diff.suffix_chars, diff.delete_chars, diff.insert)
+            assert patched.buffer == post and "edited" in post.split(" ")
+            deadline = time.monotonic() + 30
+            while not services.history.get_history_entries():
+                assert time.monotonic() < deadline, "no history row"
+                time.sleep(0.01)
+            row = services.history.get_history_entries()[0]
+            assert (row.transcription_text, row.post_processed_text,
+                    row.post_process_prompt) == (text, post, prompt.prompt), row
+            print(f"e2e {label}: pasted {len(out.out.buffer)} characters; the "
+                  f"post-processed text is {diff.delete_chars} characters out, "
+                  f"{len(diff.insert)} in ({diff.suffix_chars} kept after); "
+                  f"history row {row.id}")
+        finally:
+            services.shutdown()
+            eng.tokenizer = tokenizer
+    return launches
+
+
 def vad_phase(label: str, eng, seed: int):
     """The long-form VAD path on a loaded engine: 10 minutes of seeded
     synthetic speech bursts at 44.1 kHz made on the card, resampled to 16
@@ -3703,9 +3916,9 @@ def main() -> int:
     # large-v3 leg, K6 from the int4 variant; every path also checks that
     # the others stayed at 0. The form paths reuse the turbo leg's engine
     # and weights.
-    # The reduced-context, app, beam and word-timestamp paths reuse the turbo
-    # leg's engine too (the large-v3 beam path the large-v3 leg's); the
-    # long-window model is the turbo config with 6000 encoder positions
+    # The reduced-context, app, dictation, beam and word-timestamp paths
+    # reuse the turbo leg's engine too (the large-v3 beam path the large-v3
+    # leg's); the long-window model is the turbo config with 6000 encoder positions
     # (120 s windows; the same weights, drawn from the same seed), whose
     # encoder self-attention goes to K5. K11, K12 and K13 run in the
     # probes.
@@ -3733,6 +3946,8 @@ def main() -> int:
          _predict(k4=1), (), dict(seconds=5.0, audio_ctx=256)),
         ("app path", "random:large-v3-turbo", {}, "fullkv", None, None, (),
          dict(run=app_phase)),
+        ("dictation", "random:large-v3-turbo", {}, "fullkv", None, None, (),
+         dict(run=dictation_phase)),
         ("turbo beam", "random:large-v3-turbo", {}, "fullkv", None, None, (),
          dict(run=beam_phase)),
         ("turbo word timestamps", "random:large-v3-turbo", {}, "fullkv", None, None,

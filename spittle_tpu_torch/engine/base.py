@@ -1,11 +1,12 @@
 """Engine result and parameter types and the PCM input contract (the
 port's copy of spittle_tpu/engine/base.py: TranscribeParams, Segment,
-Word, TranscriptionResult, field for field, and normalize_pcm)."""
+Word, TranscriptionResult, field for field, normalize_pcm, and the
+TranscriptionEngine protocol the app's managers hold an engine to)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Protocol, Sequence
 
 import numpy as np
 
@@ -73,3 +74,22 @@ def normalize_pcm(a) -> np.ndarray:
     if a.dtype == np.int16:
         return a.astype(np.float32) / 32768.0
     return a.astype(np.float32, copy=False)
+
+
+class TranscriptionEngine(Protocol):
+    def load_model(self, model_path: str) -> None: ...
+
+    def unload_model(self) -> None: ...
+
+    @property
+    def is_loaded(self) -> bool: ...
+
+    def transcribe_samples(
+        self, samples: np.ndarray, params: Optional[TranscribeParams] = None
+    ) -> TranscriptionResult: ...
+
+    def transcribe_batch(
+        self,
+        batch: Sequence[np.ndarray],
+        params: Optional[TranscribeParams] = None,
+    ) -> List[TranscriptionResult]: ...

@@ -259,7 +259,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "             'audio.vad.smoothed', 'audio.vad.segmenter', 'utils.tracing',\n"
         "             'utils.threads', 'utils.logging', 'train', 'train.step',\n"
         "             'train.augment', 'train.checkpoint', 'cli', 'engine.factory',\n"
-        "             'text.cleanup', 'text.hf_tokenizer', 'io.onnx_interp'):\n"
+        "             'text.cleanup', 'text.hf_tokenizer', 'io.onnx_interp',\n"
+        # The app's dictation path: settings, events, the text chain, the
+        # recorder and its managers, the pipeline, AppServices and actions.
+        "             'events', 'config', 'config.settings', 'config.catalog',\n"
+        "             'text.diff', 'text.filters', 'text.jargon', 'text.zh_convert',\n"
+        "             'text.zh_data', 'native', 'native.ringbuffer', 'native.resampler',\n"
+        "             'llm_client', 'managers', 'managers.domain_selector',\n"
+        "             'managers.recording_pipeline', 'audio.visualizer', 'audio.recorder',\n"
+        "             'managers.audio', 'engine.mock', 'managers.transcription',\n"
+        "             'managers.history', 'managers.model', 'pipeline', 'app',\n"
+        "             'app.services', 'app.actions'):\n"
         "    assert 'spittle_tpu_torch.' + name in sys.modules, name\n"
         # Importing the mesh layer's modules starts no process group.
         "import torch.distributed\n"
@@ -268,4 +278,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 76  # every submodule was imported
+    assert int(out.stdout.strip()) >= 104  # every submodule was imported
