@@ -165,6 +165,29 @@ Phases, each printing its own lines; any failure exits non-zero:
       K2 and K4 as the engine's decode traces predict (one detection per
       call), every other kernel 0. Release-to-paste seconds, engine
       seconds, kept samples and launches are printed;
+   y. command surface (after x, the same engine): the same services over
+      HTTP. An ActionContext with a UI bundle (AppUi, its player
+      recording), Commands and AppRpcServer on 127.0.0.1:0. Reads:
+      /healthz, / (the port's page), /bindings (one entry per public
+      Commands method), /settings_schema, /i18n (17 locales). Then six
+      settings commands over /rpc (the language set to "en": no
+      detection), each echoed on /events. Then one push-to-talk cycle of
+      the same utterance on "transcribe_with_post_process" over /shortcut
+      (no LLM model: the raw text is pasted and saved), and the history
+      read over /rpc and /history_audio. Checks: the paste equals the
+      manager's text for the kept samples; those equal a CPU copy of the
+      VAD chain's; the served WAV holds them; the tray and the sounds;
+      the cycle's /events order (PTT_EVENTS); K1, K2 and K4 as the decode
+      traces predict, every other kernel 0. Release-to-paste and engine
+      seconds and the median /rpc round trip are printed;
+   z. rolling (after y, the same engine): a RollingTranscriber with
+      TranscribeParams(language="en", temperatures=(0.0,), max_tokens=32)
+      and an injected clock; the same utterance pushed in 0.5 s chunks,
+      then finalize(). Checks: each update applied as DELs plus its tail
+      leaves the buffer at its hypothesis; the final text equals one
+      direct transcribe_samples of the whole utterance; the launches
+      equal the sum of each call's predicted counts. The calls, the
+      updates and each call's ms are printed;
    h. turbo beam: the turbo leg's engine, one batch of 8 x 30 s windows
       through transcribe_batch with beam_size=5 (parallel windows, 96-token
       budget): K4 at 5 rows per item in every step, the prefill's 15 rows
@@ -247,6 +270,7 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import io
@@ -3053,16 +3077,23 @@ def e2e_phase(label: str, eng, n_batches: int, batch: int, seed: int, predict,
     return launches
 
 
-def _traced_launches(eng, detections: int = 0):
+def _trace_marks(eng):
+    """Where the engine's decode traces stand now: a mark for
+    _traced_launches(since=) to count the calls after it."""
+    return len(eng.last_decode_rungs), len(eng.last_decode_steps)
+
+
+def _traced_launches(eng, detections: int = 0, since=(0, 0)):
     """The launch counts the engine's decode traces since they were cleared
-    give: per window batch (one frontend, one ladder) K1 once and K2 six
-    times per encoder layer; per decode call K4 once per decoder layer for
-    each step and, where the prefix has at most 8 rows, for the prefill;
-    per language detection K4 once per decoder layer; the rest 0."""
+    (or since the mark `since`, _trace_marks) give: per window batch (one
+    frontend, one ladder) K1 once and K2 six times per encoder layer; per
+    decode call K4 once per decoder layer for each step and, where the
+    prefix has at most 8 rows, for the prefill; per language detection K4
+    once per decoder layer; the rest 0."""
     cfg = eng.cfg
-    frontends = len(eng.last_decode_rungs)
+    frontends = len(eng.last_decode_rungs) - since[0]
     dec = sum(s + (rows <= 8) for s, rows in
-              zip(eng.last_decode_steps, eng.last_prefix_rows))
+              zip(eng.last_decode_steps[since[1]:], eng.last_prefix_rows[since[1]:]))
     want = {fn.__name__: 0 for fn in _kernels()}
     want.update({
         "flash_attention_fullkv": frontends * cfg.n_audio_layer,
@@ -3070,6 +3101,15 @@ def _traced_launches(eng, detections: int = 0):
         "decode_cross_attention": cfg.n_text_layer * (dec + detections),
     })
     return want
+
+
+def _summed(counts):
+    """Launch counts of several calls, kernel by kernel."""
+    total = {}
+    for c in counts:
+        for name, n in c.items():
+            total[name] = total.get(name, 0) + n
+    return total
 
 
 def _zero_counters():
@@ -3200,35 +3240,38 @@ def _one_word_edit(prompt_template: str):
     return send_chat_completion, seen
 
 
-def dictation_phase(label: str, eng, seed: int):
-    """The dictation app's shortcut path on a loaded engine (phase 4 x):
-    AppServices with the production VAD on the card and the engine handed
-    over, an ActionContext over a BufferTextOutput, a "transcribe" and a
-    "transcribe_with_post_process" push-to-talk cycle of a 5 s utterance
-    pushed in 30 ms chunks, with every launch counter set to 0 just before
-    the first press and read just after the second pipeline ends. The
-    random-weights vocabulary decodes most ids to nothing, which the
-    pipeline treats as silence (no paste, no history), so for this phase
-    the engine's tokenizer is one in which every text id is a word of its
-    own (as in words_phase). Returns the counts."""
+@contextlib.contextmanager
+def _word_vocabulary(eng):
+    """The random-weights vocabulary decodes most ids to nothing, which the
+    pipeline treats as silence (no paste, no history) and rolling
+    dictation as no hypothesis; inside this block the engine's tokenizer
+    is one in which every text id is a word of its own (as in
+    words_phase)."""
+    from spittle_tpu_torch.models.whisper.tokenizer import WhisperTokenizer
+
+    tokenizer = eng.tokenizer
+    eng.tokenizer = WhisperTokenizer(
+        eng.cfg, {f" w{i}".encode(): i for i in range(eng.cfg.eot)})
+    try:
+        yield
+    finally:
+        eng.tokenizer = tokenizer
+
+
+@contextlib.contextmanager
+def _app_services(eng):
+    """The app's services over a loaded engine, under _word_vocabulary:
+    AppServices in a temporary directory over a QueueSource(16000), the
+    production VAD (Silero on the card in Smoothed(15, 15, 2):
+    app.services.default_vad_factory; each chain it makes kept) and an
+    engine factory that hands over the engine (_HandedEngine), the model
+    loaded. Yields (services, source, handed engine, VAD chains); shuts
+    the services down after."""
     import tempfile
 
-    from spittle_tpu_torch.app.actions import ActionContext
     from spittle_tpu_torch.app.services import AppServices, default_vad_factory
     from spittle_tpu_torch.audio.recorder import QueueSource
-    from spittle_tpu_torch.config.settings import builtin_post_process_prompts
-    from spittle_tpu_torch.events import HIDE_OVERLAY
-    from spittle_tpu_torch.models.whisper.tokenizer import WhisperTokenizer
-    from spittle_tpu_torch.pipeline import BufferTextOutput, PipelineHooks
-    from spittle_tpu_torch.text.diff import compute_text_diff
 
-    # Seed 1 of synth_utterance is one that the smoothed Silero chain keeps
-    # 1.8 of 5 s of on the CPU (speech kept and gated both), with every
-    # frame's probability at least 3.5e-3 from the 0.3 threshold.
-    audio = synth_utterance(np.random.default_rng(seed + 1), 5.0)
-    audio = audio.astype(np.float32) / 32768.0
-    prompt = builtin_post_process_prompts()[0]
-    stub, seen = _one_word_edit(prompt.prompt)
     vads = []
 
     def vad_factory():
@@ -3237,112 +3280,454 @@ def dictation_phase(label: str, eng, seed: int):
 
     src = QueueSource(16000)
     handed = _HandedEngine(eng)
-    tokenizer = eng.tokenizer
-    eng.tokenizer = WhisperTokenizer(
-        eng.cfg, {f" w{i}".encode(): i for i in range(eng.cfg.eot)})
-    with tempfile.TemporaryDirectory() as tmp:
+    with _word_vocabulary(eng), tempfile.TemporaryDirectory() as tmp:
         services = AppServices(tmp, source_factory=lambda: src,
                                engine_factory=lambda engine_type: handed,
                                vad_factory=vad_factory)
         try:
             services.transcription.load_model(
                 "large-v3-turbo", "random:large-v3-turbo", "whisper")
-            out = _TimedOutput(BufferTextOutput())
-
-            def hooks_factory(samples):
-                def save_history(samples_, raw, post, prompt_text):
-                    services.history.save_transcription(
-                        samples_, raw[:64] or "Transcription", raw, post, prompt_text)
-                return PipelineHooks(
-                    save_history=save_history, send_chat_completion=stub,
-                    hide_overlay=lambda: services.events.emit(HIDE_OVERLAY, None))
-
-            actions = ActionContext(services, out, hooks_factory=hooks_factory)
-            kernels = _reset_traces(eng)
-            torch.cuda.synchronize()
-            walls = {}
-            for binding in ("transcribe", "transcribe_with_post_process"):
-                if binding == "transcribe_with_post_process":
-                    services.update_settings(
-                        post_process_enabled=True,
-                        post_process_models={"openai": "local-stub"},
-                        post_process_selected_prompt_id=prompt.id)
-                n_pasted = len(out.stamps)
-                actions.handle_shortcut_event(binding, "ctrl+space", True)
-                assert services.audio.is_recording(), binding
-                for i in range(0, len(audio), 480):
-                    src.push(audio[i:i + 480])
-                t_release = time.perf_counter()
-                actions.handle_shortcut_event(binding, "ctrl+space", False)
-                deadline = time.monotonic() + 300
-                while services.toggle_state.get(binding) is not False:
-                    assert time.monotonic() < deadline, f"{binding}: no paste"
-                    time.sleep(0.01)
-                assert len(out.stamps) > n_pasted, (
-                    f"{binding}: nothing pasted; the engine gave "
-                    f"{handed.calls[-1][2][:80] if handed.calls else None!r}")
-                walls[binding] = (out.stamps[n_pasted][1] - t_release,
-                                  handed.calls[-1][1])
-            torch.cuda.synchronize()
-            launches = {fn.__name__: fn.launches for fn in kernels}
-            want = _traced_launches(eng, detections=len(handed.calls))
-            for binding, (paste_s, engine_s) in walls.items():
-                print(f"e2e {label} {binding}: release to paste {paste_s:.3f} s, "
-                      f"engine {engine_s:.3f} s")
-            kept = handed.calls[0][0]
-            print(f"e2e {label}: recorder kept {len(kept)} of {len(audio)} samples; "
-                  f"rungs per call {eng.last_decode_rungs}; launches "
-                  f"{json.dumps(launches)}")
-            if launches != want:
-                raise AssertionError(
-                    f"{label}: launch counts {launches} != predicted {want}")
-
-            # Checks. Silero ran on the card, and the VAD chain kept what a
-            # CPU copy keeps from the same frames (the last frame padded by
-            # the recorder's resampler, as there).
-            assert len(vads) == 2 and all(
-                v.inner.device.type == "cuda" and v.inner._state.is_cuda
-                and bool(v.inner._state.abs().sum() > 0) for v in vads), vads
-            cpu_vad = default_vad_factory(device="cpu")
-            frames = np.concatenate([audio, np.zeros(-len(audio) % 480, np.float32)])
-            cpu_kept = [s for k, s in (cpu_vad.push_frame(frames[i:i + 480])
-                                       for i in range(0, len(frames), 480))
-                        if k.name == "SPEECH" and s is not None]
-            cpu_kept = np.concatenate(cpu_kept)
-            assert len(kept) >= 16000, len(kept)  # speech kept, not padding
-            np.testing.assert_array_equal(kept, cpu_kept)
-            # The pasted text is the manager's transcription of those
-            # samples: the second cycle's pipeline calls
-            # services.transcription.transcribe on the same kept samples, and
-            # the stub LLM was handed what it returned.
-            np.testing.assert_array_equal(handed.calls[1][0], kept)
-            assert len(seen) == 1 and seen[0], seen
-            text = seen[0]
-            first = text + " "
-            assert out.out.buffer.startswith(first), (out.out.buffer, text)
-            # Post-processing: the stub's answer differs by one word's
-            # minimal diff, and that answer is what was pasted.
-            post = out.out.buffer[len(first):]
-            diff = compute_text_diff(text, post)
-            assert diff is not None and len(diff.insert) <= len("edited"), diff
-            patched = BufferTextOutput()
-            patched.paste_raw(text)
-            patched.apply_text_diff(diff.suffix_chars, diff.delete_chars, diff.insert)
-            assert patched.buffer == post and "edited" in post.split(" ")
-            deadline = time.monotonic() + 30
-            while not services.history.get_history_entries():
-                assert time.monotonic() < deadline, "no history row"
-                time.sleep(0.01)
-            row = services.history.get_history_entries()[0]
-            assert (row.transcription_text, row.post_processed_text,
-                    row.post_process_prompt) == (text, post, prompt.prompt), row
-            print(f"e2e {label}: pasted {len(out.out.buffer)} characters; the "
-                  f"post-processed text is {diff.delete_chars} characters out, "
-                  f"{len(diff.insert)} in ({diff.suffix_chars} kept after); "
-                  f"history row {row.id}")
+            yield services, src, handed, vads
         finally:
             services.shutdown()
-            eng.tokenizer = tokenizer
+
+
+def _dictation_audio(seed: int) -> np.ndarray:
+    """The dictation paths' 5 s utterance, float32. Seed 1 of
+    synth_utterance is one that the smoothed Silero chain keeps 1.8 of 5 s
+    of on the CPU (speech kept and gated both), with every frame's
+    probability at least 3.5e-3 from the 0.3 threshold."""
+    audio = synth_utterance(np.random.default_rng(seed + 1), 5.0)
+    return audio.astype(np.float32) / 32768.0
+
+
+def _check_vad_kept(vads, audio, kept):
+    """Silero ran on the card, and the VAD chain kept what a CPU copy keeps
+    from the same frames (the last frame padded by the recorder's
+    resampler, as there)."""
+    from spittle_tpu_torch.app.services import default_vad_factory
+
+    assert vads and all(
+        v.inner.device.type == "cuda" and v.inner._state.is_cuda
+        and bool(v.inner._state.abs().sum() > 0) for v in vads), vads
+    cpu_vad = default_vad_factory(device="cpu")
+    frames = np.concatenate([audio, np.zeros(-len(audio) % 480, np.float32)])
+    cpu_kept = [s for k, s in (cpu_vad.push_frame(frames[i:i + 480])
+                               for i in range(0, len(frames), 480))
+                if k.name == "SPEECH" and s is not None]
+    cpu_kept = np.concatenate(cpu_kept)
+    assert len(kept) >= 16000, len(kept)  # speech kept, not padding
+    np.testing.assert_array_equal(kept, cpu_kept)
+
+
+def dictation_phase(label: str, eng, seed: int):
+    """The dictation app's shortcut path on a loaded engine (phase 4 x):
+    the app's services over the engine (_app_services: the production VAD
+    on the card, the engine handed over, a word vocabulary), an
+    ActionContext over a BufferTextOutput, a "transcribe" and a
+    "transcribe_with_post_process" push-to-talk cycle of a 5 s utterance
+    pushed in 30 ms chunks, with every launch counter set to 0 just before
+    the first press and read just after the second pipeline ends. Returns
+    the counts."""
+    from spittle_tpu_torch.app.actions import ActionContext
+    from spittle_tpu_torch.config.settings import builtin_post_process_prompts
+    from spittle_tpu_torch.events import HIDE_OVERLAY
+    from spittle_tpu_torch.pipeline import BufferTextOutput, PipelineHooks
+    from spittle_tpu_torch.text.diff import compute_text_diff
+
+    audio = _dictation_audio(seed)
+    prompt = builtin_post_process_prompts()[0]
+    stub, seen = _one_word_edit(prompt.prompt)
+    with _app_services(eng) as (services, src, handed, vads):
+        out = _TimedOutput(BufferTextOutput())
+
+        def hooks_factory(samples):
+            def save_history(samples_, raw, post, prompt_text):
+                services.history.save_transcription(
+                    samples_, raw[:64] or "Transcription", raw, post, prompt_text)
+            return PipelineHooks(
+                save_history=save_history, send_chat_completion=stub,
+                hide_overlay=lambda: services.events.emit(HIDE_OVERLAY, None))
+
+        actions = ActionContext(services, out, hooks_factory=hooks_factory)
+        kernels = _reset_traces(eng)
+        torch.cuda.synchronize()
+        walls = {}
+        for binding in ("transcribe", "transcribe_with_post_process"):
+            if binding == "transcribe_with_post_process":
+                services.update_settings(
+                    post_process_enabled=True,
+                    post_process_models={"openai": "local-stub"},
+                    post_process_selected_prompt_id=prompt.id)
+            n_pasted = len(out.stamps)
+            actions.handle_shortcut_event(binding, "ctrl+space", True)
+            assert services.audio.is_recording(), binding
+            for i in range(0, len(audio), 480):
+                src.push(audio[i:i + 480])
+            t_release = time.perf_counter()
+            actions.handle_shortcut_event(binding, "ctrl+space", False)
+            deadline = time.monotonic() + 300
+            while services.toggle_state.get(binding) is not False:
+                assert time.monotonic() < deadline, f"{binding}: no paste"
+                time.sleep(0.01)
+            assert len(out.stamps) > n_pasted, (
+                f"{binding}: nothing pasted; the engine gave "
+                f"{handed.calls[-1][2][:80] if handed.calls else None!r}")
+            walls[binding] = (out.stamps[n_pasted][1] - t_release,
+                              handed.calls[-1][1])
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        want = _traced_launches(eng, detections=len(handed.calls))
+        for binding, (paste_s, engine_s) in walls.items():
+            print(f"e2e {label} {binding}: release to paste {paste_s:.3f} s, "
+                  f"engine {engine_s:.3f} s")
+        kept = handed.calls[0][0]
+        print(f"e2e {label}: recorder kept {len(kept)} of {len(audio)} samples; "
+              f"rungs per call {eng.last_decode_rungs}; launches "
+              f"{json.dumps(launches)}")
+        if launches != want:
+            raise AssertionError(
+                f"{label}: launch counts {launches} != predicted {want}")
+
+        # Checks. The VAD chain (one per cycle) kept what a CPU copy keeps.
+        assert len(vads) == 2, vads
+        _check_vad_kept(vads, audio, kept)
+        # The pasted text is the manager's transcription of those
+        # samples: the second cycle's pipeline calls
+        # services.transcription.transcribe on the same kept samples, and
+        # the stub LLM was handed what it returned.
+        np.testing.assert_array_equal(handed.calls[1][0], kept)
+        assert len(seen) == 1 and seen[0], seen
+        text = seen[0]
+        first = text + " "
+        assert out.out.buffer.startswith(first), (out.out.buffer, text)
+        # Post-processing: the stub's answer differs by one word's
+        # minimal diff, and that answer is what was pasted.
+        post = out.out.buffer[len(first):]
+        diff = compute_text_diff(text, post)
+        assert diff is not None and len(diff.insert) <= len("edited"), diff
+        patched = BufferTextOutput()
+        patched.paste_raw(text)
+        patched.apply_text_diff(diff.suffix_chars, diff.delete_chars, diff.insert)
+        assert patched.buffer == post and "edited" in post.split(" ")
+        deadline = time.monotonic() + 30
+        while not services.history.get_history_entries():
+            assert time.monotonic() < deadline, "no history row"
+            time.sleep(0.01)
+        row = services.history.get_history_entries()[0]
+        assert (row.transcription_text, row.post_processed_text,
+                row.post_process_prompt) == (text, post, prompt.prompt), row
+        print(f"e2e {label}: pasted {len(out.out.buffer)} characters; the "
+              f"post-processed text is {diff.delete_chars} characters out, "
+              f"{len(diff.insert)} in ({diff.suffix_chars} kept after); "
+              f"history row {row.id}")
+    return launches
+
+
+# The /events names of one push-to-talk cycle on the post-process binding
+# with a UI bundle, mic-level and history-updated left out: the order
+# tests/test_torch_rpc_server.py pins for both packages on the CPU.
+PTT_EVENTS = ["show-overlay", "tray-state-changed", "tray-state-changed",
+              "show-overlay", "show-overlay", "hide-overlay",
+              "tray-state-changed", "tray-state-changed"]
+
+
+def _http(host: str, method: str, path: str, body=None):
+    """One request on its own connection: (status, content type, body)."""
+    import http.client
+
+    conn = http.client.HTTPConnection(host, timeout=300)
+    try:
+        conn.request(method, path, None if body is None else json.dumps(body),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.getheader("Content-Type"), resp.read()
+    finally:
+        conn.close()
+
+
+class _EventStream:
+    """A server's /events stream read on a thread: (name, payload) pairs."""
+
+    def __init__(self, host: str):
+        import http.client
+
+        self.items, self._lock = [], threading.Lock()
+        self._conn = http.client.HTTPConnection(host, timeout=300)
+        self._conn.request("GET", "/events")
+        self._sock = self._conn.sock  # the response takes it over
+        self._resp = self._conn.getresponse()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        name = None
+        try:
+            for raw in iter(self._resp.fp.readline, b""):
+                line = raw.decode().rstrip("\n")
+                if line.startswith("event: "):
+                    name = line[7:]
+                elif line.startswith("data: ") and name:
+                    with self._lock:
+                        self.items.append((name, json.loads(line[6:])))
+                    name = None
+        except (OSError, ValueError):
+            pass  # the stream was closed
+
+    def snapshot(self):
+        with self._lock:
+            return list(self.items)
+
+    def close(self):
+        import socket
+
+        self._sock.shutdown(socket.SHUT_RDWR)
+        self._resp.close()
+        self._thread.join(timeout=10)
+        assert not self._thread.is_alive()
+
+
+def _wait_for(pred, what: str, timeout: float = 300.0):
+    deadline = time.monotonic() + timeout
+    while not pred():
+        assert time.monotonic() < deadline, f"timed out waiting for {what}"
+        time.sleep(0.01)
+
+
+# (command over /rpc, its arguments, the field it sets and the value the
+# settings-changed event carries): the command-surface phase's settings.
+SURFACE_SETTINGS = (
+    ("changeSelectedLanguageSetting", {"language": "en"}, "selected_language", "en"),
+    ("changePttSetting", {"enabled": True}, "push_to_talk", True),
+    ("changeAudioFeedbackSetting", {"enabled": True}, "audio_feedback", True),
+    ("changeOverlayPositionSetting", {"position": "bottom"}, "overlay_position", "bottom"),
+    ("changePostProcessEnabledSetting", {"enabled": True}, "post_process_enabled", True),
+    ("update_history_limit", {"limit": 10}, "history_limit", 10),
+)
+
+
+def command_surface_phase(label: str, eng, seed: int):
+    """The command surface over HTTP on a loaded engine (phase 4 y): the
+    app's services over the engine (_app_services: the production VAD on
+    the card, the engine handed over, a word vocabulary), an ActionContext
+    with a UI bundle (AppUi, its player recording), Commands and
+    AppRpcServer on 127.0.0.1:0. Everything after the model load goes over
+    HTTP: the read routes (/healthz; / equal to the port's page; /bindings
+    with one entry per public Commands method; /settings_schema; /i18n
+    with 17 locales), SURFACE_SETTINGS over /rpc, each echoed on /events,
+    then one push-to-talk cycle of the dictation utterance (30 ms chunks)
+    on "transcribe_with_post_process" over /shortcut (no LLM model is
+    set: the raw text is pasted and saved as the history row), with every
+    launch counter set to 0 just before the press and read just after the
+    pipeline ends, and the history read over /rpc and /history_audio.
+    Gates: the paste equals TranscriptionManager.transcribe's text for the
+    samples the recorder kept; those equal a CPU copy of the VAD chain's;
+    /history_audio serves them as the history manager writes them; the
+    tray goes recording, transcribing, idle, and the player got the start
+    and stop sounds; the cycle's /events names are PTT_EVENTS; K1, K2 and
+    K4 as the decode traces predict (no detection: the language is set),
+    every other kernel 0. Prints release-to-paste and engine seconds and
+    the median /rpc round trip. Returns the counts."""
+    from spittle_tpu_torch.app.actions import ActionContext
+    from spittle_tpu_torch.app.commands import Commands
+    from spittle_tpu_torch.app.rpc_server import AppRpcServer
+    from spittle_tpu_torch.app.ui_state import AppUi
+    from spittle_tpu_torch.audio.wav import save_wav_file
+    from spittle_tpu_torch.config.settings import AppSettings
+    from spittle_tpu_torch.pipeline import BufferTextOutput
+
+    audio = _dictation_audio(seed)
+    binding = "transcribe_with_post_process"
+    with _app_services(eng) as (services, src, handed, vads):
+        played, trays, manager = [], [], []
+        services.events.listen("tray-state-changed", trays.append)
+        transcribe = services.transcription.transcribe
+
+        def recorded(samples):  # what the pipeline pastes, kept
+            text = transcribe(samples)
+            manager.append((np.array(samples), text))
+            return text
+        services.transcription.transcribe = recorded
+        out = _TimedOutput(BufferTextOutput())
+        ui = AppUi(services, player=lambda p, v: played.append((os.path.basename(p), v)))
+        commands = Commands(services, ActionContext(services, out, ui=ui))
+        server = AppRpcServer(commands, host="127.0.0.1", port=0)
+        server.start()
+        events, rtts = None, []
+        try:
+            host = server.url.split("//")[1]
+
+            def rpc(cmd, **args):
+                t0 = time.perf_counter()
+                status, _, body = _http(host, "POST", "/rpc", {"cmd": cmd, "args": args})
+                rtts.append(time.perf_counter() - t0)
+                reply = json.loads(body)
+                assert status == 200 and reply["ok"], (cmd, status, reply)
+                return reply["result"]
+
+            events = _EventStream(host)
+            _wait_for(lambda: server._subscribers, "the event stream")
+            status, _, body = _http(host, "GET", "/healthz")
+            assert status == 200 and json.loads(body) == {"ok": True}
+            with open(os.path.join(REPO, "spittle_tpu_torch", "app", "web",
+                                   "index.html"), "rb") as f:
+                assert _http(host, "GET", "/")[2] == f.read()
+            public = [n for n, fn in vars(Commands).items()
+                      if not n.startswith("_") and callable(fn)]
+            bindings = json.loads(_http(host, "GET", "/bindings")[2])
+            assert sorted(b["name"] for b in bindings) == sorted(public), len(bindings)
+            schema = json.loads(_http(host, "GET", "/settings_schema")[2])
+            assert [f["name"] for f in schema] == [
+                f.name for f in dataclasses.fields(AppSettings)]
+            i18n = json.loads(_http(host, "GET", "/i18n")[2])
+            assert len(i18n) == 17 and "tray" in i18n["en"], sorted(i18n)
+            for cmd, args, field, value in SURFACE_SETTINGS:
+                n = len(events.snapshot())
+                rpc(cmd, **args)
+                _wait_for(lambda: len(events.snapshot()) > n, f"{cmd}'s event")
+                assert events.snapshot()[n] == (
+                    "settings-changed", {"setting": field, "value": value}), cmd
+                assert rpc("getAppSettings")[field] == value, field
+            for _ in range(20):
+                rpc("isRecording")
+            print(f"e2e {label}: {len(bindings)} commands, {len(schema)} settings, "
+                  f"{len(i18n)} locales; {len(SURFACE_SETTINGS)} settings echoed")
+
+            kernels = _reset_traces(eng)
+            torch.cuda.synchronize()
+            n0 = len(events.snapshot())
+            status, _, _ = _http(host, "POST", "/shortcut",
+                                 {"binding_id": binding, "is_pressed": True})
+            assert status == 200 and rpc("isRecording") is True
+            for i in range(0, len(audio), 480):
+                src.push(audio[i:i + 480])
+            t_release = time.perf_counter()
+            status, _, _ = _http(host, "POST", "/shortcut",
+                                 {"binding_id": binding, "is_pressed": False})
+            assert status == 200
+            _wait_for(lambda: services.toggle_state.get(binding) is False,
+                      "the pipeline")
+            assert out.stamps, f"nothing pasted; the engine gave {handed.calls!r:.200}"
+            paste_s = out.stamps[0][1] - t_release
+            torch.cuda.synchronize()
+            launches = {fn.__name__: fn.launches for fn in kernels}
+            want = _traced_launches(eng)
+            _wait_for(lambda: [n for n, _ in events.snapshot()[n0:]].count(
+                "tray-state-changed") == 4, "the tray's last state")
+            _wait_for(lambda: services.history.get_history_entries(), "the history row")
+            entries = rpc("getHistoryEntries")
+            t0 = time.perf_counter()
+            status, ctype, wav = _http(host, "GET",
+                                       f"/history_audio?entry_id={entries[0]['id']}")
+            wav_ms = (time.perf_counter() - t0) * 1e3
+            cycle = events.snapshot()[n0:]
+        finally:
+            if events is not None:
+                events.close()
+            server.stop()
+            services.transcription.transcribe = transcribe
+        print(f"e2e {label} {binding} over /shortcut: release to paste "
+              f"{paste_s:.3f} s, engine {handed.calls[-1][1]:.3f} s; rungs "
+              f"{eng.last_decode_rungs}, steps {eng.last_decode_steps}")
+        print(f"e2e {label}: /rpc round trip median {np.median(rtts) * 1e3:.3f} ms "
+              f"over {len(rtts)} calls (max {max(rtts) * 1e3:.3f} ms); "
+              f"/history_audio {len(wav)} bytes in {wav_ms:.3f} ms")
+        print(f"e2e {label}: launches {json.dumps(launches)}")
+        if launches != want:
+            raise AssertionError(f"{label}: launch counts {launches} != predicted {want}")
+
+        # Gates. One engine call, on the samples the recorder kept, which
+        # a CPU copy of the VAD chain keeps too; the paste is the
+        # manager's text for them (the raw text: no LLM model is set).
+        assert len(handed.calls) == 1 and len(manager) == 1, (handed.calls, manager)
+        kept, text = manager[0]
+        np.testing.assert_array_equal(handed.calls[0][0], kept)
+        assert len(vads) == 1, vads
+        _check_vad_kept(vads, audio, kept)
+        assert text and out.out.buffer == text, (out.out.buffer, text)
+        assert len(entries) == 1 and entries[0]["transcription_text"] == text, entries
+        assert status == 200 and ctype == "audio/wav", (status, ctype)
+        path = os.path.join(services.data_dir, "want.wav")
+        save_wav_file(path, kept)
+        with open(path, "rb") as f:
+            assert wav == f.read(), "the served WAV is not the kept samples"
+        assert trays == ["recording", "transcribing", "idle", "idle"], trays
+        assert played == [("marimba_start.wav", 1.0), ("marimba_stop.wav", 1.0)], played
+        names = [n for n, _ in cycle]
+        assert [n for n in names if n not in ("mic-level", "history-updated")
+                ] == PTT_EVENTS, names
+        assert names.count("history-updated") == 1 and "mic-level" in names, names
+        print(f"e2e {label}: pasted {len(text)} characters from {len(kept)} kept "
+              f"samples; events {len(cycle)} ({names.count('mic-level')} mic-level)")
+    return launches
+
+
+def rolling_phase(label: str, eng, seed: int):
+    """Rolling dictation on a loaded engine (phase 4 z): a
+    RollingTranscriber over the engine (under _word_vocabulary) with
+    TranscribeParams(language="en", temperatures=(0.0,), max_tokens=32)
+    and a clock that moves 0.5 s a chunk; the dictation utterance pushed
+    in 0.5 s chunks, then finalize(), with every launch counter set to 0
+    just before the first push and read just after finalize. Gates: each
+    update, applied to a BufferTextOutput as delete_chars DELs plus its
+    insert, leaves the buffer equal to that update's hypothesis; the final
+    text equals one direct transcribe_samples of the whole utterance with
+    the same params; the launches equal the sum over the calls of what
+    each call's decode traces predict. Prints the calls, the updates and
+    each call's ms. Returns the counts."""
+    from spittle_tpu_torch.app.rolling_session import RollingTranscriber
+    from spittle_tpu_torch.engine.base import TranscribeParams
+    from spittle_tpu_torch.pipeline import BufferTextOutput
+    from spittle_tpu_torch.text.rolling import normalize_hypothesis
+
+    audio = _dictation_audio(seed)
+    params = TranscribeParams(language="en", temperatures=(0.0,), max_tokens=32)
+    calls = []  # (window samples, ms, the call's predicted launches)
+
+    class Timed:
+        def transcribe_samples(self, samples, p=None):
+            mark = _trace_marks(eng)
+            t0 = time.perf_counter()
+            res = eng.transcribe_samples(samples, p)
+            torch.cuda.synchronize()
+            calls.append((len(samples), (time.perf_counter() - t0) * 1e3,
+                          _traced_launches(eng, since=mark)))
+            return res
+
+    now = [0.0]
+    updates = []
+    buffer = BufferTextOutput()
+
+    def emit(update):
+        buffer.apply_text_diff(0, update.delete_chars, update.insert)
+        updates.append((update, buffer.buffer))
+
+    with _word_vocabulary(eng):
+        roll = RollingTranscriber(Timed(), emit, params=params, clock=lambda: now[0])
+        kernels = _reset_traces(eng)
+        torch.cuda.synchronize()
+        for i in range(0, len(audio), 8000):
+            now[0] += 0.5
+            roll.push_audio(audio[i:i + 8000])
+        final = roll.finalize()
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        want, whole = _summed(c[2] for c in calls), _traced_launches(eng)
+        direct = eng.transcribe_samples(audio, params)
+    print(f"e2e {label}: {len(calls)} calls, {len(updates)} updates; ms per call "
+          + json.dumps([round(c[1], 3) for c in calls]) + "; windows (samples) "
+          + json.dumps([c[0] for c in calls]))
+    print(f"e2e {label}: updates (DELs, typed) " + json.dumps(
+        [(u.delete_chars, len(u.insert)) for u, _ in updates]))
+    print(f"e2e {label}: launches {json.dumps(launches)}")
+    if launches != want or want != whole:
+        raise AssertionError(f"{label}: launch counts {launches} != predicted {want}")
+    assert len(calls) == 10 and calls[-1][0] == len(audio), [c[0] for c in calls]
+    assert updates, "no hypothesis"
+    for update, typed in updates:
+        assert typed == update.hypothesis, (typed, update.hypothesis)
+    assert final == updates[-1][0].hypothesis == normalize_hypothesis(direct.text), (
+        final, direct.text)
     return launches
 
 
@@ -3948,6 +4333,10 @@ def main() -> int:
          dict(run=app_phase)),
         ("dictation", "random:large-v3-turbo", {}, "fullkv", None, None, (),
          dict(run=dictation_phase)),
+        ("command surface", "random:large-v3-turbo", {}, "fullkv", None, None, (),
+         dict(run=command_surface_phase)),
+        ("rolling", "random:large-v3-turbo", {}, "fullkv", None, None, (),
+         dict(run=rolling_phase)),
         ("turbo beam", "random:large-v3-turbo", {}, "fullkv", None, None, (),
          dict(run=beam_phase)),
         ("turbo word timestamps", "random:large-v3-turbo", {}, "fullkv", None, None,

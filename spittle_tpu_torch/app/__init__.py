@@ -1,5 +1,5 @@
-"""The headless app: services and shortcut actions (port of
-spittle_tpu/app)."""
+"""The headless app: services, shortcut actions, UI state and the command
+surface with its RPC server (port of spittle_tpu/app)."""
 
 from .services import AppServices
 

@@ -205,8 +205,6 @@ class ActionContext:
     """Everything actions need: services, text output, UI hooks.
 
     The desktop shell supplies a real TextOutput; tests a buffer.
-    `ui` stays None in the port until its shell slice brings app/ui_state:
-    every ui_state import below sits under `ui is not None`.
     """
 
     def __init__(

@@ -1,16 +1,19 @@
-"""Developer CLI of the PyTorch port (port of spittle_tpu/cli.py's
-subcommands that reach an engine): transcribe a WAV file, show its speech
-spans, or serve the batching HTTP front.
+"""Developer CLI of the PyTorch port (port of spittle_tpu/cli.py):
+transcribe a WAV file, show its speech spans, serve the batching HTTP
+front, replay rolling-rewrite scenarios or list the model catalog.
 
 Usage:
   python -m spittle_tpu_torch.cli transcribe audio.wav --model random:tiny.en
   python -m spittle_tpu_torch.cli vad audio.wav
   python -m spittle_tpu_torch.cli serve --model random:large-v3-turbo
+  python -m spittle_tpu_torch.cli rolling tests/data/rolling_scenarios/*.json
+  python -m spittle_tpu_torch.cli catalog
 
-Everything runs on the card unless --torch-device cpu is given (without a
-card the default raises). The JAX CLI's microphone capture (--mic,
-record), rolling-rewrite replay, desktop app and model catalog drive host
-modules the port does not carry.
+The subcommands that reach an engine run it on the card unless
+--torch-device cpu is given (without a card the default raises); rolling
+and catalog touch no device. The JAX CLI's microphone capture (--mic,
+record) and desktop app drive the OS shell, which the port does not carry
+yet.
 """
 
 from __future__ import annotations
@@ -167,6 +170,26 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_rolling(args) -> int:
+    from spittle_tpu_torch.text.rolling import run_scenario_file
+
+    for path in args.scenarios:
+        for line in run_scenario_file(path, under_delete=args.under_delete):
+            print(line)
+    return 0
+
+
+def cmd_catalog(args) -> int:
+    from spittle_tpu_torch.config.catalog import load_model_catalog
+
+    cat = load_model_catalog()
+    for m in cat.models:
+        star = "*" if m.is_recommended else " "
+        print(f"{star} {m.id:24s} {m.engine_type:12s} {m.size_mb:6d} MB  "
+              f"speed={m.speed_score:.2f} acc={m.accuracy_score:.2f}")
+    return 0
+
+
 def _torch_device_flag(p) -> None:
     p.add_argument("--torch-device", default="cuda",
                    help="torch device the engine runs on: cuda (default; "
@@ -225,6 +248,14 @@ def build_parser() -> argparse.ArgumentParser:
     v.add_argument("audio")
     _torch_device_flag(v)
     v.set_defaults(fn=cmd_vad)
+
+    r = sub.add_parser("rolling", help="replay rolling-rewrite scenarios")
+    r.add_argument("scenarios", nargs="+")
+    r.add_argument("--under-delete", type=int, default=1)
+    r.set_defaults(fn=cmd_rolling)
+
+    c = sub.add_parser("catalog", help="list the model catalog")
+    c.set_defaults(fn=cmd_catalog)
 
     s = sub.add_parser("serve", help="batching HTTP transcription server")
     s.add_argument("--model", default="random:tiny.en")

@@ -173,15 +173,19 @@ class PipelineState(Enum):
 
 
 def _apple_llm_default_available() -> bool:
-    """The port has no shell yet (spittle_tpu/shell/apple_llm.py, the
-    macOS arm64 FoundationModels shim, comes with the shell slice), so the
-    provider reports unavailable: what the reference's hook returns off
-    macOS, where the pipeline falls open to the raw transcription."""
-    return False
+    from spittle_tpu_torch.shell import apple_llm
+
+    client = apple_llm.default_client()
+    return client is not None and client.available()
 
 
 def _apple_llm_default_process(prompt: str, token_limit: int) -> str:
-    raise RuntimeError("Apple Intelligence shim is not loaded")
+    from spittle_tpu_torch.shell import apple_llm
+
+    client = apple_llm.default_client()
+    if client is None:
+        raise RuntimeError("Apple Intelligence shim is not loaded")
+    return client.process_text(prompt, token_limit)
 
 
 @dataclass
@@ -195,8 +199,8 @@ class PipelineHooks:
     expand_at_refs: Optional[Callable[[str], str]] = None
     convert_chinese: Optional[Callable[[str, str], Optional[str]]] = None
     send_chat_completion: Callable = llm_client.send_chat_completion
-    # Apple Intelligence FFI seam (pipeline.rs:817,831): unavailable until
-    # the port carries the shell (see _apple_llm_default_available).
+    # Apple Intelligence FFI seam (pipeline.rs:817,831): real client on
+    # macOS arm64 via shell/apple_llm.py, unavailable elsewhere.
     apple_intelligence_available: Callable[[], bool] = (
         lambda: _apple_llm_default_available())
     apple_intelligence_process: Callable[[str, int], str] = (

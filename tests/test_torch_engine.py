@@ -269,7 +269,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "             'managers.recording_pipeline', 'audio.visualizer', 'audio.recorder',\n"
         "             'managers.audio', 'engine.mock', 'managers.transcription',\n"
         "             'managers.history', 'managers.model', 'pipeline', 'app',\n"
-        "             'app.services', 'app.actions'):\n"
+        "             'app.services', 'app.actions',\n"
+        # The command surface: UI state, i18n, the shell modules it reaches,
+        # shortcuts, Commands and its export, the RPC server, @file
+        # expansion, rolling dictation, the signal trigger, the instance lock.
+        "             'app.ui_state', 'config.i18n', 'shell', 'shell.apple_llm',\n"
+        "             'shell.audio_out', 'shell.audio_devices', 'app.shortcuts',\n"
+        "             'app.context_providers', 'text.at_file', 'app.commands',\n"
+        "             'app.bindings_export', 'app.rpc_server', 'text.rolling',\n"
+        "             'app.rolling_session', 'app.signal_handle', 'app.single_instance'):\n"
         "    assert 'spittle_tpu_torch.' + name in sys.modules, name\n"
         # Importing the mesh layer's modules starts no process group.
         "import torch.distributed\n"

@@ -161,8 +161,9 @@ def test_post_processed_text_is_patched_by_the_minimal_diff():
 
 
 def test_apple_intelligence_is_unavailable_until_the_shell():
-    """The port's default hook reports the provider unavailable (what the
-    reference's returns off macOS), so that provider falls open."""
+    """The port's default hook asks shell/apple_llm.default_client(), which
+    is None off macOS arm64 (as the reference's), so the provider reports
+    unavailable and falls open."""
     hooks = tpipe.PipelineHooks()
     assert hooks.apple_intelligence_available() is False
     with pytest.raises(RuntimeError):
