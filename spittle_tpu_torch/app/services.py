@@ -104,10 +104,20 @@ class AppServices:
         self.toggle_lock = threading.Lock()
 
     def _default_source_factory(self):
-        """A QueueSource: the microphone (spittle_tpu/shell/mic.py, chosen
-        there by the selected-microphone setting) comes with the port's
-        shell slice. Headless and test runs push their audio into it."""
-        return lambda: QueueSource()
+        """Real microphone when a capture tool exists, else a QueueSource
+        (headless/CI). Device follows the selected-microphone setting,
+        honoring the clamshell override like audio.rs:231-256."""
+        from spittle_tpu_torch.shell.mic import probe_capture_tools
+
+        if not probe_capture_tools():
+            return lambda: QueueSource()
+        from spittle_tpu_torch.shell.mic import make_mic_source_factory
+
+        def device():
+            s = self.get_settings()
+            return s.clamshell_microphone or s.selected_microphone
+
+        return make_mic_source_factory(device_getter=device)
 
     # -- settings --------------------------------------------------------
 

@@ -1,19 +1,23 @@
 """Developer CLI of the PyTorch port (port of spittle_tpu/cli.py):
-transcribe a WAV file, show its speech spans, serve the batching HTTP
-front, replay rolling-rewrite scenarios or list the model catalog.
+transcribe a WAV file or the microphone, record the microphone, show a
+file's speech spans, serve the batching HTTP front, run the desktop app,
+replay rolling-rewrite scenarios or list the model catalog.
 
 Usage:
   python -m spittle_tpu_torch.cli transcribe audio.wav --model random:tiny.en
+  python -m spittle_tpu_torch.cli transcribe --mic --seconds 5
+  python -m spittle_tpu_torch.cli record --seconds 5 --out rec.wav
   python -m spittle_tpu_torch.cli vad audio.wav
   python -m spittle_tpu_torch.cli serve --model random:large-v3-turbo
+  python -m spittle_tpu_torch.cli app
   python -m spittle_tpu_torch.cli rolling tests/data/rolling_scenarios/*.json
   python -m spittle_tpu_torch.cli catalog
 
-The subcommands that reach an engine run it on the card unless
---torch-device cpu is given (without a card the default raises); rolling
-and catalog touch no device. The JAX CLI's microphone capture (--mic,
-record) and desktop app drive the OS shell, which the port does not carry
-yet.
+The subcommands that reach an engine (transcribe, vad, serve, app) run it
+on the card unless --torch-device cpu is given (without a card the default
+raises, before any recording); record, rolling and catalog touch no
+device. The microphone is a capture tool's subprocess (parec, pw-record,
+arecord, ffmpeg or rec: shell/mic.py).
 """
 
 from __future__ import annotations
@@ -26,6 +30,27 @@ import time
 from spittle_tpu_torch.utils.logging import get_logger
 
 _log = get_logger("cli")
+
+
+def _capture_from_mic(seconds: float, device=None, tool=None):
+    """Record from the real microphone through the production chain:
+    subprocess capture -> native ring -> recorder (16 kHz frames)."""
+    import numpy as np
+
+    from spittle_tpu_torch.audio.recorder import AudioRecorder
+    from spittle_tpu_torch.shell.mic import MicSource
+
+    src = MicSource(device=device, tool=tool)
+    rec = AudioRecorder(src)
+    rec.open()
+    rec.start()
+    print(f"recording {seconds:.1f}s from the microphone "
+          f"({src.tool_name})...", file=sys.stderr)
+    time.sleep(seconds)
+    audio = rec.stop()
+    rec.close()
+    src.close()
+    return np.asarray(audio, np.float32)
 
 
 def _engine_overrides(args) -> dict:
@@ -62,12 +87,23 @@ def cmd_transcribe(args) -> int:
     from spittle_tpu_torch.utils.tracing import get_tracer
 
     tracer = get_tracer()
-    if not args.audio:
-        print("error: provide a WAV path", file=sys.stderr)
-        return 2
-    # int16 is the engine's wire format: half the host->device bytes,
-    # normalized on the device.
-    audio, rate = load_wav_file(args.audio, keep_int16=True)
+    if args.mic:
+        from spittle_tpu_torch.shell.mic import CaptureUnavailableError
+
+        resolve_device(args.torch_device)  # no card: raise before recording
+        try:
+            audio = _capture_from_mic(args.seconds, device=args.device)
+        except CaptureUnavailableError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        rate = 16000
+    else:
+        if not args.audio:
+            print("error: provide a WAV path or --mic", file=sys.stderr)
+            return 2
+        # int16 is the engine's wire format: half the host->device bytes,
+        # normalized on the device.
+        audio, rate = load_wav_file(args.audio, keep_int16=True)
     if rate != 16000:
         audio = _resample_16k(normalize_pcm(audio), rate,
                               resolve_device(args.torch_device))
@@ -101,7 +137,8 @@ def cmd_transcribe(args) -> int:
         else:
             result = engine.transcribe_samples(audio, params)
     _log.info("transcribed %s (%.2f s of audio) in %.3f s: %d segments, "
-              "%d tokens", args.audio, len(audio) / 16000,
+              "%d tokens", "the microphone" if args.mic else args.audio,
+              len(audio) / 16000,
               time.perf_counter() - t0, len(result.segments), len(result.tokens))
     print(result.text)
     if args.timestamps:
@@ -112,6 +149,28 @@ def cmd_transcribe(args) -> int:
             print(f"  {w.start:7.2f} -> {w.end:7.2f}  {w.word}")
     if args.stats:
         print(json.dumps(tracer.stats(), indent=2), file=sys.stderr)
+    return 0
+
+
+def cmd_record(args) -> int:
+    """Record from the real microphone to a WAV file (the dev harness the
+    reference ships as audio_toolkit/bin/cli.rs). Touches no device."""
+    from spittle_tpu_torch.audio.wav import save_wav_file
+    from spittle_tpu_torch.shell.mic import CaptureUnavailableError, probe_capture_tools
+
+    if args.probe:
+        tools = probe_capture_tools()
+        print("available capture tools:", ", ".join(tools) or "(none)")
+        return 0 if tools else 1
+    try:
+        audio = _capture_from_mic(
+            args.seconds, device=args.device, tool=args.tool
+        )
+    except CaptureUnavailableError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    save_wav_file(args.out, audio)
+    print(f"wrote {len(audio) / 16000:.2f}s to {args.out}")
     return 0
 
 
@@ -170,6 +229,20 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_app(args) -> int:
+    """The assembled desktop app (app/desktop.py build_app)."""
+    import os
+
+    from spittle_tpu_torch.app.desktop import run_app
+
+    data_dir = args.data_dir or os.path.expanduser(
+        "~/.local/share/spittle-tpu"
+    )
+    os.makedirs(data_dir, exist_ok=True)
+    return run_app(data_dir, port=args.port,
+                   use_mock_engine=args.mock_engine, device=args.torch_device)
+
+
 def cmd_rolling(args) -> int:
     from spittle_tpu_torch.text.rolling import run_scenario_file
 
@@ -200,8 +273,15 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="spittle-tpu-torch")
     sub = p.add_subparsers(dest="command", required=True)
 
-    t = sub.add_parser("transcribe", help="transcribe a WAV file")
+    t = sub.add_parser("transcribe",
+                       help="transcribe a WAV file or live microphone")
     t.add_argument("audio", nargs="?", default=None)
+    t.add_argument("--mic", action="store_true",
+                   help="record from the microphone instead of a file")
+    t.add_argument("--seconds", type=float, default=5.0,
+                   help="mic capture duration (with --mic)")
+    t.add_argument("--device", default=None,
+                   help="capture device name (with --mic)")
     t.add_argument("--model", default="random:tiny.en",
                    help="GGML file, safetensors dir, .npz or random:<config>")
     t.add_argument("--language", default=None)
@@ -244,6 +324,16 @@ def build_parser() -> argparse.ArgumentParser:
     _torch_device_flag(t)
     t.set_defaults(fn=cmd_transcribe)
 
+    rec = sub.add_parser("record", help="record the microphone to a WAV")
+    rec.add_argument("--seconds", type=float, default=5.0)
+    rec.add_argument("--out", default="recording.wav")
+    rec.add_argument("--device", default=None)
+    rec.add_argument("--tool", default=None,
+                     help="force a capture tool (parec/arecord/...)")
+    rec.add_argument("--probe", action="store_true",
+                     help="list available capture tools and exit")
+    rec.set_defaults(fn=cmd_record)
+
     v = sub.add_parser("vad", help="show speech segments of a WAV file")
     v.add_argument("audio")
     _torch_device_flag(v)
@@ -280,6 +370,19 @@ def build_parser() -> argparse.ArgumentParser:
                         "traffic")
     _torch_device_flag(s)
     s.set_defaults(fn=cmd_serve)
+
+    a = sub.add_parser(
+        "app",
+        help="full desktop app: evdev hotkeys + mic + engine + RPC console",
+    )
+    a.add_argument("--data-dir", default=None,
+                   help="settings/history dir (default: ~/.local/share/"
+                        "spittle-tpu)")
+    a.add_argument("--port", type=int, default=47890)
+    a.add_argument("--mock-engine", action="store_true",
+                   help="canned-text engine (wiring/latency checks)")
+    _torch_device_flag(a)
+    a.set_defaults(fn=cmd_app)
     return p
 
 

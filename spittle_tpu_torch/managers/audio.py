@@ -236,9 +236,11 @@ def apply_mute() -> None:
         _run(["osascript", "-e", "set volume output muted true"])
     elif sys.platform == "win32":
         # COM IAudioEndpointVolume chain (audio.rs:17-104), in
-        # spittle_tpu/shell/windows_audio.py: it comes with the port's
-        # shell slice; until then this raises.
-        raise NotImplementedError("output mute on Windows needs the shell")
+        # spittle_tpu/shell/windows_audio.py: it comes with the
+        # macOS/Windows slice; until then this raises.
+        from spittle_tpu_torch.shell.unported import unported
+
+        raise unported("shell/windows_audio.py (output mute)")
     _mute_state["muted"] = True
 
 
@@ -257,5 +259,7 @@ def remove_mute() -> None:
         _run(["osascript", "-e", "set volume output muted false"])
     elif sys.platform == "win32":
         # See apply_mute.
-        raise NotImplementedError("output mute on Windows needs the shell")
+        from spittle_tpu_torch.shell.unported import unported
+
+        raise unported("shell/windows_audio.py (output unmute)")
     _mute_state["muted"] = False

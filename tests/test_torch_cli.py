@@ -6,14 +6,24 @@ weights differ between the packages) for transcribe and vad on one WAV,
 the parsers' flags, from_env's options and errors under every
 SPITTLE_QUANTIZE_DECODER value, the factory's classes and draft, and the
 JAX app's TranscriptionManager transcribing through the port's factory.
+Through a fake capture tool first on PATH (a `parec` script that streams
+the trained-tiny utterance once recording has begun): `record`'s WAV and
+`transcribe --mic`'s stdout equal the JAX CLI's; `app --mock-engine`
+boots in a subprocess, answers /healthz and /bindings (the JAX app's
+command list), a second launch reports it, and SIGTERM stops it.
 
-The JAX CLI is called four times (three transcribe flag sets and vad).
+The JAX CLI is called six times (three transcribe flag sets, vad, record
+and transcribe --mic; the last two once for the module).
 """
 
 import functools
+import json
 import os
+import select
+import signal
 import subprocess
 import sys
+import urllib.request
 
 import numpy as np
 import pytest
@@ -134,7 +144,7 @@ def test_module_entry_point(wavs, capsys):
     assert out.stdout == want
 
 
-def test_cli_defaults_to_the_card(wavs):
+def test_cli_defaults_to_the_card(wavs, tmp_path):
     args = tcli.build_parser().parse_args(["transcribe", wavs[0]])
     assert args.torch_device == "cuda"
     if not torch.cuda.is_available():
@@ -142,6 +152,12 @@ def test_cli_defaults_to_the_card(wavs):
             tcli.main(["transcribe", wavs[0], "--model", NPZ])
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tcli.main(["vad", wavs[0]])
+        # Before any recording: no capture tool is asked for.
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tcli.main(["transcribe", "--mic", "--seconds", "0.1"])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tcli.main(["app", "--mock-engine", "--port", "0",
+                       "--data-dir", str(tmp_path)])
 
 
 def _flags(parser):
@@ -162,12 +178,12 @@ def _flags(parser):
 
 def test_parser_flags_match_the_jax_parser():
     ours, ref = _flags(tcli.build_parser()), _flags(jcli.build_parser())
-    assert set(ours) == {"transcribe", "vad", "serve", "rolling", "catalog"}
+    assert set(ours) == set(ref) == {"transcribe", "record", "vad", "serve", "app",
+                                     "rolling", "catalog"}
     for sub in ours:
-        want = {k: v for k, v in ref[sub].items()
-                if k not in ("--mic", "--device", "--seconds")}
+        want = dict(ref[sub])
         got = dict(ours[sub])
-        if sub in ("transcribe", "vad", "serve"):  # the ones with an engine
+        if sub in ("transcribe", "vad", "serve", "app"):  # the ones with an engine
             assert got.pop("--torch-device") == ("torch_device", "cuda", None,
                                                  None, None, None, "_StoreAction")
         assert got == want, sub
@@ -184,6 +200,163 @@ def test_serve_boots_and_stops(capsys, monkeypatch):
                               "--max-batch", "4", "--torch-device", "cpu"], capsys)
     assert out.startswith("serving on http://127.0.0.1:")
     assert out.rstrip().endswith(f"(model={NPZ}, max_batch=4)")
+
+
+# -- the microphone and the desktop app ---------------------------------------
+
+MIC_SECONDS = "2.0"  # the fake streams its clip 0.8 s after it starts
+
+
+@pytest.fixture(scope="module")
+def fake_parec(tmp_path_factory):
+    """A directory holding a `parec` that waits 0.8 s (recording has begun
+    by then: samples that come before it shift the recorder's framing),
+    writes the first 4 s of a trained-tiny utterance as f32le
+    and idles until it is terminated. Returns (bin dir, the samples)."""
+    d = tmp_path_factory.mktemp("fake_parec")
+    clip = tcc.utterance([4, 2, 3, 0])[0][:4 * 16000].astype("<f4")
+    (d / "clip.f32").write_bytes(clip.tobytes())
+    tool = d / "parec"
+    tool.write_text(f"#!/bin/sh\nsleep 0.8\ncat '{d / 'clip.f32'}'\nexec sleep 30\n")
+    tool.chmod(0o755)
+    return str(d), clip
+
+
+@pytest.fixture
+def on_path(fake_parec, monkeypatch):
+    monkeypatch.setenv("PATH", fake_parec[0] + os.pathsep + os.environ["PATH"])
+    return fake_parec
+
+
+def _run_main(main, argv, capsys):
+    capsys.readouterr()
+    rc = main(argv)
+    out = capsys.readouterr()
+    return rc, out.out, out.err
+
+
+@pytest.fixture(scope="module")
+def jax_mic_runs(fake_parec, tmp_path_factory):
+    """The JAX CLI's record and transcribe --mic through the fake tool,
+    once for the module: {name: (rc, stdout, WAV bytes or None)}."""
+    d = tmp_path_factory.mktemp("jax_mic")
+    mp = pytest.MonkeyPatch()
+    mp.setenv("PATH", fake_parec[0] + os.pathsep + os.environ["PATH"])
+    runs = {}
+    try:
+        import contextlib
+        import io
+
+        for name, argv in (
+                ("record", ["record", "--seconds", MIC_SECONDS,
+                            "--out", str(d / "rec.wav")]),
+                ("transcribe", ["transcribe", "--mic", "--seconds", MIC_SECONDS,
+                                "--model", NPZ, "--timestamps"])):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf), \
+                    contextlib.redirect_stderr(io.StringIO()):
+                rc = jcli.main(argv)
+            wav = (d / "rec.wav").read_bytes() if name == "record" else None
+            runs[name] = (rc, buf.getvalue(), wav)
+    finally:
+        mp.undo()
+    return runs
+
+
+def test_record_writes_the_jax_wav(on_path, jax_mic_runs, tmp_path, capsys):
+    out = tmp_path / "rec.wav"
+    rc, stdout, err = _run_main(tcli.main, ["record", "--seconds", MIC_SECONDS,
+                                            "--out", str(out)], capsys)
+    want_rc, want_stdout, want_wav = jax_mic_runs["record"]
+    assert rc == want_rc == 0
+    assert "(parec)" in err
+    assert out.read_bytes() == want_wav
+    assert stdout.replace(str(out), "OUT") == want_stdout.replace(
+        want_stdout.split(" to ")[-1].strip(), "OUT")
+    # 4 s less the last 160 samples, short of a 30 ms frame.
+    assert stdout.startswith("wrote 3.99s to ")
+
+
+def test_transcribe_mic_prints_the_jax_stdout(on_path, jax_mic_runs, capsys):
+    rc, stdout, _ = _run_main(tcli.main, ["transcribe", "--mic", "--seconds", MIC_SECONDS,
+                                          "--model", NPZ, "--timestamps",
+                                          "--torch-device", "cpu"], capsys)
+    want_rc, want_stdout, _ = jax_mic_runs["transcribe"]
+    assert rc == want_rc == 0
+    assert stdout == want_stdout
+    assert want_stdout.strip()
+
+
+def test_record_probe_and_missing_tool_match(fake_parec, monkeypatch, capsys, tmp_path):
+    """record --probe lists the tools on PATH; with none, record and
+    transcribe --mic exit 2 with the JAX CLI's message."""
+    monkeypatch.setenv("PATH", fake_parec[0])
+    for main in (jcli.main, tcli.main):
+        assert _run_main(main, ["record", "--probe"], capsys)[:2] == (
+            0, "available capture tools: parec\n")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    got, want = {}, {}
+    for res, main, extra in ((want, jcli.main, []), (got, tcli.main, ["--torch-device", "cpu"])):
+        res["probe"] = _run_main(main, ["record", "--probe"], capsys)
+        res["record"] = _run_main(main, ["record", "--seconds", "0.1",
+                                         "--out", str(tmp_path / "x.wav")], capsys)
+        res["mic"] = _run_main(main, ["transcribe", "--mic", "--seconds", "0.1"] + extra,
+                               capsys)
+        res["none"] = _run_main(main, ["transcribe"] + extra, capsys)
+    assert got == want
+    assert got["probe"][:2] == (1, "available capture tools: (none)\n")
+    assert got["record"][0] == got["mic"][0] == got["none"][0] == 2
+    assert "no microphone capture tool available" in got["record"][2]
+    assert "WAV path or --mic" in got["none"][2]
+    assert not (tmp_path / "x.wav").exists()
+
+
+def _app_cmd(data_dir):
+    return [sys.executable, "-m", "spittle_tpu_torch.cli", "app", "--mock-engine",
+            "--port", "0", "--torch-device", "cpu", "--data-dir", data_dir]
+
+
+def _readline(proc, timeout):
+    ready, _, _ = select.select([proc.stdout], [], [], timeout)
+    assert ready, "the app printed nothing"
+    return proc.stdout.readline()
+
+
+def test_app_boots_answers_and_stops(tmp_path):
+    from spittle_tpu.app.bindings_export import export_json
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("DBUS_SESSION_BUS_ADDRESS", "DISPLAY", "WAYLAND_DISPLAY")}
+    env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1", PYTHONUNBUFFERED="1",
+               HOME=str(tmp_path / "home"), PATH=str(tmp_path) + os.pathsep + env["PATH"])
+    data = str(tmp_path / "data")
+    app = subprocess.Popen(_app_cmd(data), cwd=REPO, env=env, text=True,
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        line = _readline(app, 120)
+        assert line.startswith("spittle-tpu app: console at http://127.0.0.1:"), line
+        url = line.split("console at ")[1].split()[0]
+        with urllib.request.urlopen(url + "healthz", timeout=30) as r:
+            assert r.status == 200 and json.loads(r.read())
+        with urllib.request.urlopen(url + "bindings", timeout=30) as r:
+            got = json.loads(r.read())
+        assert got == json.loads(export_json())
+        assert len(got["commands"] if isinstance(got, dict) else got) > 100
+
+        second = subprocess.run(_app_cmd(data), cwd=REPO, env=env, text=True,
+                                capture_output=True, timeout=120)
+        assert second.returncode == 0, second.stderr
+        assert second.stdout == f"spittle-tpu app: already running — console at {url}\n"
+
+        app.send_signal(signal.SIGTERM)
+        assert app.wait(timeout=60) == 0, app.stderr.read()
+    finally:
+        if app.poll() is None:
+            app.kill()
+            app.wait(timeout=30)
+        app.stdout.close()
+        app.stderr.close()
+    assert not os.path.exists(tmp_path / "home" / ".config" / "autostart")
 
 
 # -- WhisperEngine.from_env and the factory ----------------------------------

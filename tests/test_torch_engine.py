@@ -230,7 +230,7 @@ def test_random_params_has_the_reference_tree():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
-        "import importlib, pkgutil, sys\n"
+        "import importlib, os, pkgutil, sys\n"
         "import spittle_tpu_torch\n"
         "for m in pkgutil.walk_packages(spittle_tpu_torch.__path__, 'spittle_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -277,8 +277,27 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "             'shell.audio_out', 'shell.audio_devices', 'app.shortcuts',\n"
         "             'app.context_providers', 'text.at_file', 'app.commands',\n"
         "             'app.bindings_export', 'app.rpc_server', 'text.rolling',\n"
-        "             'app.rolling_session', 'app.signal_handle', 'app.single_instance'):\n"
+        "             'app.rolling_session', 'app.signal_handle', 'app.single_instance',\n"
+        # The Linux desktop shell: text output and uinput, the microphone,
+        # evdev hotkeys, autostart, D-Bus and the tray, the overlays, the
+        # desktop assembly and the link probe.
+        "             'shell.unported', 'shell.uinput', 'shell.textout', 'shell.mic',\n"
+        "             'shell.evdev_keys', 'shell.autostart', 'shell.dbus_client',\n"
+        "             'shell.tray_sni', 'shell.x11_overlay', 'shell.wayland_overlay',\n"
+        "             'shell.overlay_select', 'app.desktop', 'utils.linkprobe'):\n"
         "    assert 'spittle_tpu_torch.' + name in sys.modules, name\n"
+        # Importing them opens no socket, starts no thread and builds no
+        # library.
+        "import threading\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
+        "for f in os.listdir('/proc/self/fd'):\n"
+        "    try:\n"
+        "        link = os.readlink('/proc/self/fd/' + f)\n"
+        "    except OSError:\n"
+        "        continue  # the listing's own descriptor\n"
+        "    assert not link.startswith('socket:'), link\n"
+        "from spittle_tpu_torch.shell import uinput\n"
+        "assert uinput._lib is None and not os.path.exists(uinput._LIB + '.' + str(os.getpid()) + '.tmp')\n"
         # Importing the mesh layer's modules starts no process group.
         "import torch.distributed\n"
         "assert not torch.distributed.is_initialized()\n"
@@ -286,4 +305,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 104  # every submodule was imported
+    assert int(out.stdout.strip()) >= 117  # every submodule was imported

@@ -253,11 +253,11 @@ def test_cache_layouts_hold_the_same_values():
 
 @pytest.mark.parametrize("name", ["decode_cross_host", "q8_parts", "step_profile",
                                   "w8a8_cluster", "w8a8_cross_parts",
-                                  "fullkv_bwd_parts", "train_profile"])
+                                  "fullkv_bwd_parts", "train_profile", "k14_repeat"])
 def test_card_only_probes_raise_without_a_card(name):
     """The probes that time host submission, K7's parts, a profiled turbo
-    leg, K14's plans and parts, K15's passes, or a profiled train step run
-    only on a card, and say so."""
+    leg, K14's plans and parts, K15's passes, a profiled train step, or
+    repeat K14's first check run only on a card, and say so."""
     if torch.cuda.is_available():
         return
     probe = importlib.import_module(f"spittle_tpu_torch.probes.{name}")
