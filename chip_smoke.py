@@ -111,7 +111,11 @@ Phases, each printing its own lines; any failure exits non-zero:
       first, and the sharded runs' launches are held to their prediction;
       then one train step (remat, sequence parallel) on the
       sharded tree of the engine's first 2 + 2 blocks, bit-equal to the
-      unsharded step;
+      unsharded step; then that tree and its AdamW state saved
+      (train.checkpoint over torch.distributed.checkpoint), restored into
+      a freshly sharded tree of zeros, and one step there bit-equal (loss
+      and every parameter) to a second step of the unbroken run; the save
+      and restore seconds and the bytes written are printed;
    u. train (after t, the same engine's weights, its W8A8 encoder weights
       dequantized to bf16): large-v3-turbo at full width, B 4 x 30 s
       (log-mels and SpecAugment made on the card), 224 target tokens; one
@@ -149,7 +153,8 @@ Phases, each printing its own lines; any failure exits non-zero:
       at the full budget; the wall seconds, windows, rungs and steps of
       each call are printed;
    x. dictation (after g, the same engine): the app's shortcut path.
-      AppServices in a temporary directory over a QueueSource(16000), the
+      AppServices in a temporary directory over a QueueSource(16000) (a
+      fresh one for each stream: the manager closes a stream's source), the
       production VAD (Silero on the card in Smoothed(15, 15, 2):
       app.services.default_vad_factory) and an engine factory that hands
       over the loaded engine; an ActionContext over a BufferTextOutput.
@@ -206,10 +211,25 @@ Phases, each printing its own lines; any failure exits non-zero:
       same fakes: `transcribe --mic --seconds 5` on random:large-v3-turbo
       and `record --seconds 2` (at once), `app --mock-engine --port 0` to
       /healthz and SIGTERM; each must exit 0. Then measure_link_mbps() on
-      the card. Release-to-paste and engine seconds, the tray and overlay
-      attached (none without a session bus or a display), each CLI run's
-      seconds and the h2d MB/s beside nvidia-smi's name and power limit
-      are printed;
+      the card. No fake parec may be left running after shutdown (the
+      manager closes each stream's source). Release-to-paste and engine
+      seconds, the tray and overlay attached (none without a session bus
+      or a display), each CLI run's seconds and the h2d MB/s beside
+      nvidia-smi's name and power limit are printed;
+   platforms (after desktop, the same engine): the macOS and Windows
+      capture arms. C fakes of the AudioQueue calls of MacMicSource and of
+      the waveIn calls of WinMicSource (FAKE_CAPTURE_C), built with cc
+      into build/spittle_tpu_torch/; for each, the app's services over it
+      (as in x: Silero on the card, the engine handed over) and one
+      push-to-talk cycle of "transcribe", x's 5 s utterance fed through
+      the fake's driver callback a queue buffer at a time (f32 / s16).
+      Checks: 16 kHz mono f32 / s16 opened; the paste is the manager's
+      text chain over the engine's transcript of the kept samples; those
+      samples and that transcript are x's QueueSource cycle's; K1, K2 and
+      K4 as the decode traces predict, every other kernel 0; the fake saw
+      AudioQueueStop and Dispose, or waveInStop, Reset and Close, once the
+      stream closed. Release-to-paste and engine seconds per arm are
+      printed;
    h. turbo beam: the turbo leg's engine, one batch of 8 x 30 s windows
       through transcribe_batch with beam_size=5 (parallel windows, 96-token
       budget): K4 at 5 rows per item in every step, the prefill's 15 rows
@@ -342,6 +362,10 @@ SPEC_TOKENS = 48
 # tree and input for the mesh phase.
 STAGE_SECONDS: dict = {}
 MOE_LAYER: dict = {}
+# The dictation phase's "transcribe" cycle over a QueueSource: the samples
+# the recorder kept and the engine's text, which the platforms phase's
+# native capture arms must reproduce.
+DICTATED: dict = {}
 # Kernels whose launch counts come from the probes phase.
 PROBE_KERNELS = ("decode_cross_attention_q8_mh", "alias_col_write_sub",
                  "alias_col_write")
@@ -1641,8 +1665,9 @@ def mesh_train_step(label: str, mesh, eng, seed: int):
                                  sequence_parallel_mesh=mesh)
     kernels = _zero_counters()
     t0 = time.perf_counter()
-    _, _, loss = step(sharded, init(sharded), {
-        k: global_batch_from_local(v, mesh) for k, v in batch.items()})
+    mesh_batch = {k: global_batch_from_local(v, mesh) for k, v in batch.items()}
+    opt_state = init(sharded)
+    _, _, loss = step(sharded, opt_state, mesh_batch)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {fn.__name__: fn.launches for fn in kernels}
@@ -1660,6 +1685,51 @@ def mesh_train_step(label: str, mesh, eng, seed: int):
     if launches["flash_attention_fullkv"] != 2 * layers or \
             launches["flash_attention_fullkv_bwd"] != layers:
         raise AssertionError(f"{label}: train step launches {launches}")
+    mesh_checkpoint(label, mesh, cfg, sharded, opt_state, step, init, mesh_batch)
+
+
+def mesh_checkpoint(label: str, mesh, cfg, sharded, opt_state, step, init, batch):
+    """The sharded tree after its first step and its AdamW state through
+    save_checkpoint (torch.distributed.checkpoint) into a temporary
+    directory, restore_checkpoint into a freshly sharded tree of zeros and
+    a fresh AdamW state, one step there; it must equal a second step of
+    the unbroken run bit for bit: the loss and every parameter."""
+    import tempfile
+
+    from spittle_tpu_torch.io.npz_checkpoint import named_leaves
+    from spittle_tpu_torch.parallel.mesh import shard_params
+    from spittle_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+
+    def zeros(tree):
+        return {k: zeros(v) if isinstance(v, dict) else
+                torch.zeros(v.shape, dtype=v.dtype, device=v.to_local().device)
+                for k, v in tree.items()}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(tmp, sharded, opt_state, 1)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(d, f))
+                     for d, _, files in os.walk(tmp) for f in files)
+        fresh = shard_params(zeros(sharded), mesh)
+        fresh_state = init(fresh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, at = restore_checkpoint(tmp, (fresh, fresh_state))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    _, _, resumed = step(fresh, fresh_state, batch)
+    _, _, unbroken = step(sharded, opt_state, batch)
+    same = at == 1 and float(resumed) == float(unbroken) and all(
+        torch.equal(a.to_local(), b.to_local()) for (_, a), (_, b) in
+        zip(named_leaves(fresh), named_leaves(sharded)))
+    print(f"{label}: sharded checkpoint of {len(list(named_leaves(sharded)))} "
+          f"leaves and their AdamW state: save {save_s:.3f} s, {nbytes} bytes, "
+          f"restore {restore_s:.3f} s; the resumed step's loss {float(resumed):.6f}, "
+          f"loss and parameters bit-equal to the unbroken run's second step: {same}")
+    if not same:
+        raise AssertionError(f"{label}: the resumed sharded step differs")
 
 
 def _train_batch(cfg, b: int, seed: int):
@@ -3298,19 +3368,36 @@ def _word_vocabulary(eng):
         eng.tokenizer = tokenizer
 
 
+class _QueueSources:
+    """A source factory: a new QueueSource(16000) for each stream the audio
+    manager opens (the manager closes each stream's source with it), push()
+    feeding the newest."""
+
+    def __init__(self):
+        self.made = []
+
+    def __call__(self):
+        from spittle_tpu_torch.audio.recorder import QueueSource
+
+        self.made.append(QueueSource(16000))
+        return self.made[-1]
+
+    def push(self, chunk) -> None:
+        self.made[-1].push(chunk)
+
+
 @contextlib.contextmanager
-def _app_services(eng):
+def _app_services(eng, source_factory=None):
     """The app's services over a loaded engine, under _word_vocabulary:
-    AppServices in a temporary directory over a QueueSource(16000), the
-    production VAD (Silero on the card in Smoothed(15, 15, 2):
-    app.services.default_vad_factory; each chain it makes kept) and an
-    engine factory that hands over the engine (_HandedEngine), the model
-    loaded. Yields (services, source, handed engine, VAD chains); shuts
-    the services down after."""
+    AppServices in a temporary directory over `source_factory` (default a
+    _QueueSources), the production VAD (Silero on the card in Smoothed(15,
+    15, 2): app.services.default_vad_factory; each chain it makes kept)
+    and an engine factory that hands over the engine (_HandedEngine), the
+    model loaded. Yields (services, source factory, handed engine, VAD
+    chains); shuts the services down after."""
     import tempfile
 
     from spittle_tpu_torch.app.services import AppServices, default_vad_factory
-    from spittle_tpu_torch.audio.recorder import QueueSource
 
     vads = []
 
@@ -3318,10 +3405,10 @@ def _app_services(eng):
         vads.append(default_vad_factory(device="cuda"))
         return vads[-1]
 
-    src = QueueSource(16000)
+    src = source_factory or _QueueSources()
     handed = _HandedEngine(eng)
     with _word_vocabulary(eng), tempfile.TemporaryDirectory() as tmp:
-        services = AppServices(tmp, source_factory=lambda: src,
+        services = AppServices(tmp, source_factory=src,
                                engine_factory=lambda engine_type: handed,
                                vad_factory=vad_factory)
         try:
@@ -3432,6 +3519,7 @@ def dictation_phase(label: str, eng, seed: int):
         # Checks. The VAD chain (one per cycle) kept what a CPU copy keeps.
         assert len(vads) == 2, vads
         _check_vad_kept(vads, audio, kept)
+        DICTATED.update(kept=kept, text=handed.calls[0][2])
         # The pasted text is the manager's transcription of those
         # samples: the second cycle's pipeline calls
         # services.transcription.transcribe on the same kept samples, and
@@ -4028,13 +4116,13 @@ def desktop_phase(label: str, eng, seed: int):
               f"recorder kept {len(kept)} samples; rungs {eng.last_decode_rungs}; "
               f"launches {json.dumps(launches)}")
         print(f"e2e {label}: {leaked} capture process(es) still running after "
-              "shutdown, stopped here (AudioRecordingManager closes the recorder, "
-              "not its source: ROADMAP queue 3)")
+              "shutdown (AudioRecordingManager closes each stream's source)")
         print(f"e2e {label}: tool calls " + json.dumps(
             [(e["tool"], e["argv"], len(e.get("stdin", ""))) for e in tools]))
         if launches != want:
             raise AssertionError(f"{label}: launch counts {launches} != predicted {want}")
         assert len(handed.calls) == 1, len(handed.calls)
+        assert leaked == 0, f"{label}: {leaked} capture process(es) left running"
 
         # The CLI's runs start now: their start-up and weights overlap the
         # direct transcription below.
@@ -4069,6 +4157,268 @@ def desktop_phase(label: str, eng, seed: int):
     assert mbps > 0, mbps
     print(f"e2e {label}: h2d {mbps} MB/s (46 MB int16, pinned, median of 3) on {smi}")
     return launches
+
+
+# Minimal fakes of the AudioToolbox calls MacMicSource makes and the winmm
+# calls WinMicSource makes, so that their ctypes marshalling runs on this
+# Linux host. The driver callbacks are invoked from fake_aq_feed /
+# fake_wi_feed, one queue buffer of PCM at a time (the buffers in turn, as a
+# device fills them); every call is counted.
+FAKE_CAPTURE_C = r"""
+#include <stdint.h>
+#include <stdlib.h>
+#include <string.h>
+
+typedef struct {
+    double rate;
+    uint32_t format, flags, bytes_per_packet, frames_per_packet,
+        bytes_per_frame, channels, bits, reserved;
+} ASBD;
+typedef struct {
+    uint32_t capacity; void *data; uint32_t size; void *user;
+    uint32_t pd_capacity; void *pd; uint32_t pd_count;
+} AQBuffer;
+typedef void (*aq_cb)(void *, void *, AQBuffer *, void *, uint32_t, void *);
+static aq_cb aq_callback;
+static AQBuffer *aq_bufs[8];
+static int aq_n, aq_next;
+/* NewInput, AllocateBuffer, EnqueueBuffer, Start, Stop, Dispose */
+static int aq_calls[6];
+static double aq_rate;
+static uint32_t aq_format, aq_channels, aq_bits;
+
+int32_t AudioQueueNewInput(ASBD *fmt, aq_cb cb, void *user, void *rl,
+                           void *mode, uint32_t flags, void **out) {
+    (void)user; (void)rl; (void)mode; (void)flags;
+    aq_callback = cb; aq_n = aq_next = 0; aq_calls[0]++;
+    aq_rate = fmt->rate; aq_format = fmt->format;
+    aq_channels = fmt->channels; aq_bits = fmt->bits;
+    *out = (void *)0xAA;
+    return 0;
+}
+int32_t AudioQueueAllocateBuffer(void *q, uint32_t n, AQBuffer **out) {
+    (void)q;
+    if (aq_n >= 8) return -1;
+    AQBuffer *b = (AQBuffer *)calloc(1, sizeof(AQBuffer));
+    b->capacity = n; b->data = malloc(n);
+    aq_bufs[aq_n++] = b; *out = b; aq_calls[1]++;
+    return 0;
+}
+int32_t AudioQueueEnqueueBuffer(void *q, AQBuffer *b, uint32_t n, void *d) {
+    (void)q; (void)b; (void)n; (void)d; aq_calls[2]++; return 0;
+}
+int32_t AudioQueueStart(void *q, void *t) { (void)q; (void)t; aq_calls[3]++; return 0; }
+int32_t AudioQueueStop(void *q, int now) { (void)q; (void)now; aq_calls[4]++; return 0; }
+int32_t AudioQueueDispose(void *q, int now) { (void)q; (void)now; aq_calls[5]++; return 0; }
+int fake_aq_calls(int i) { return aq_calls[i]; }
+double fake_aq_rate(void) { return aq_rate; }
+uint32_t fake_aq_format(void) { return aq_format; }
+uint32_t fake_aq_channels(void) { return aq_channels; }
+uint32_t fake_aq_bits(void) { return aq_bits; }
+/* Up to one buffer of f32 samples through the input callback; returns
+   how many went. */
+int fake_aq_feed(const float *x, int n) {
+    if (!aq_callback || !aq_n) return 0;
+    AQBuffer *b = aq_bufs[aq_next++ % aq_n];
+    uint32_t bytes = (uint32_t)n * 4;
+    if (bytes > b->capacity) bytes = b->capacity;
+    memcpy(b->data, x, bytes);
+    b->size = bytes;
+    aq_callback(0, (void *)0xAA, b, 0, bytes / 4, 0);
+    return (int)(bytes / 4);
+}
+
+typedef struct {
+    uint16_t tag, channels; uint32_t rate, bytes_per_sec;
+    uint16_t block_align, bits, cb_size;
+} WAVEFORMATEX;
+typedef struct {
+    void *data; uint32_t length, recorded; void *user;
+    uint32_t flags, loops; void *next, *reserved;
+} WAVEHDR;
+typedef void (*wi_cb)(void *, uint32_t, void *, WAVEHDR *, void *);
+static wi_cb wi_callback;
+static WAVEHDR *wi_hdrs[8];
+static int wi_n, wi_next;
+/* Open, PrepareHeader, AddBuffer, Start, Stop, Reset, Close */
+static int wi_calls[7];
+static uint32_t wi_rate, wi_channels, wi_bits, wi_tag;
+
+uint32_t waveInOpen(void **out, uint32_t dev, WAVEFORMATEX *fmt, wi_cb cb,
+                    void *inst, uint32_t flags) {
+    (void)dev; (void)inst; (void)flags;
+    wi_callback = cb; wi_n = wi_next = 0; wi_calls[0]++;
+    wi_rate = fmt->rate; wi_channels = fmt->channels; wi_bits = fmt->bits;
+    wi_tag = fmt->tag;
+    *out = (void *)0xBB;
+    return 0;
+}
+uint32_t waveInPrepareHeader(void *h, WAVEHDR *hdr, uint32_t size) {
+    (void)h; (void)size;
+    if (wi_n < 8) wi_hdrs[wi_n++] = hdr;
+    wi_calls[1]++;
+    return 0;
+}
+uint32_t waveInAddBuffer(void *h, WAVEHDR *hdr, uint32_t size) {
+    (void)h; (void)hdr; (void)size; wi_calls[2]++; return 0;
+}
+uint32_t waveInStart(void *h) { (void)h; wi_calls[3]++; return 0; }
+uint32_t waveInStop(void *h) { (void)h; wi_calls[4]++; return 0; }
+uint32_t waveInReset(void *h) { (void)h; wi_calls[5]++; return 0; }
+uint32_t waveInClose(void *h) { (void)h; wi_calls[6]++; return 0; }
+int fake_wi_calls(int i) { return wi_calls[i]; }
+uint32_t fake_wi_format(int i) {
+    return i == 0 ? wi_rate : i == 1 ? wi_channels : i == 2 ? wi_bits : wi_tag;
+}
+/* Up to one header of s16 samples through WIM_DATA; returns how many. */
+int fake_wi_feed(const int16_t *x, int n) {
+    if (!wi_callback || !wi_n) return 0;
+    WAVEHDR *h = wi_hdrs[wi_next++ % wi_n];
+    uint32_t bytes = (uint32_t)n * 2;
+    if (bytes > h->length) bytes = h->length;
+    memcpy(h->data, x, bytes);
+    h->recorded = bytes;
+    wi_callback(0, 0x3C0, 0, h, 0);
+    return (int)(bytes / 2);
+}
+"""
+
+
+def _capture_fakes():
+    """FAKE_CAPTURE_C built with the host's C compiler into
+    build/spittle_tpu_torch/ and loaded."""
+    import ctypes
+    import shutil
+
+    out = os.path.join(REPO, "build", "spittle_tpu_torch")
+    os.makedirs(out, exist_ok=True)
+    src, lib = os.path.join(out, "fake_capture.c"), os.path.join(out, "libfake_capture.so")
+    with open(src, "w") as f:
+        f.write(FAKE_CAPTURE_C)
+    cc = shutil.which("cc") or shutil.which("gcc") or shutil.which("g++")
+    assert cc, "no C compiler for the capture fakes"
+    subprocess.run([cc, "-x", "c", "-shared", "-fPIC", "-O1", "-o", lib, src], check=True)
+    fake = ctypes.CDLL(lib)
+    fake.fake_aq_feed.argtypes = [ctypes.POINTER(ctypes.c_float), ctypes.c_int]
+    fake.fake_wi_feed.argtypes = [ctypes.POINTER(ctypes.c_int16), ctypes.c_int]
+    fake.fake_aq_rate.restype = ctypes.c_double
+    return fake
+
+
+def _capture_cycle(eng, source_factory, feed, audio):
+    """One push-to-talk cycle of "transcribe" through the app's services
+    (_app_services: Silero on the card, the engine handed over) over
+    `source_factory`, `feed(factory)` delivering `audio` after the
+    press, with every launch counter set to 0 just before the press and
+    read once the pipeline has ended. Returns (kept samples, the engine's
+    text, what was pasted, the manager's text chain over the engine's text,
+    release-to-paste s, engine s, launches, predicted launches)."""
+    from spittle_tpu_torch.app.actions import ActionContext
+    from spittle_tpu_torch.pipeline import BufferTextOutput
+
+    with _app_services(eng, source_factory) as (services, src, handed, vads):
+        out = _TimedOutput(BufferTextOutput())
+        actions = ActionContext(services, out)
+        kernels = _reset_traces(eng)
+        torch.cuda.synchronize()
+        actions.handle_shortcut_event("transcribe", "ctrl+space", True)
+        assert services.audio.is_recording()
+        feed(src)
+        t_release = time.perf_counter()
+        actions.handle_shortcut_event("transcribe", "ctrl+space", False)
+        _wait_for(lambda: services.toggle_state.get("transcribe") is False,
+                  "the pipeline's end")
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in kernels}
+        want = _traced_launches(eng, detections=len(handed.calls))
+        assert len(handed.calls) == 1 and out.stamps, (len(handed.calls), out.stamps)
+        kept, engine_s, text = handed.calls[0]
+        _check_vad_kept(vads, audio, kept)
+        chain = services.transcription._post_process_text(text, services.get_settings())
+        return (kept, text, out.out.buffer, chain, out.stamps[0][1] - t_release,
+                engine_s, launches, want)
+
+
+def platforms_phase(label: str, eng, seed: int):
+    """The macOS and Windows capture arms on a loaded engine (after
+    desktop): MacMicSource over a fake AudioToolbox and WinMicSource over a
+    fake winmm (FAKE_CAPTURE_C, built here), each the source factory of the
+    app's services (a fresh source per stream), one push-to-talk cycle of
+    "transcribe" with the dictation phase's 5 s utterance fed through the
+    fake's driver callback one queue buffer at a time (f32 for AudioQueue,
+    s16 for waveIn), Silero and the turbo engine on the card. Checks, per
+    arm: the source opened 16 kHz mono (f32 / s16 PCM); the paste is the
+    manager's text chain over the engine's transcript of the samples the
+    recorder kept; those samples and that transcript equal the dictation
+    phase's QueueSource cycle's (or one run here when that phase did not
+    run); K1, K2 and K4 as the decode traces predict, every other kernel 0;
+    once the stream closed, the fake saw AudioQueueStop and Dispose, or
+    waveInStop, Reset and Close, once each. Prints release-to-paste and
+    engine seconds per arm. Returns the summed launches."""
+    import ctypes
+
+    from spittle_tpu_torch.shell.macos_mic import MacMicSource
+    from spittle_tpu_torch.shell.windows_mic import WinMicSource
+
+    audio = _dictation_audio(seed)
+    fake = _capture_fakes()
+    if not DICTATED:
+        def push(src):
+            for i in range(0, len(audio), 480):
+                src.push(audio[i:i + 480])
+        kept, text, *_ = _capture_cycle(eng, None, push, audio)
+        DICTATED.update(kept=kept, text=text)
+        print(f"e2e {label}: QueueSource cycle run here (no dictation phase)")
+    pcm16 = np.round(audio * 32768.0).astype(np.int16)
+    assert np.array_equal(pcm16.astype(np.float32) / 32768.0, audio)
+
+    def feed_aq(_):
+        for i in range(0, len(audio), 1024):
+            chunk = np.ascontiguousarray(audio[i:i + 1024])
+            n = fake.fake_aq_feed(chunk.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                                  len(chunk))
+            assert n == len(chunk), (n, len(chunk))
+
+    def feed_wi(_):
+        for i in range(0, len(pcm16), 2048):
+            chunk = np.ascontiguousarray(pcm16[i:i + 2048])
+            n = fake.fake_wi_feed(chunk.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)),
+                                  len(chunk))
+            assert n == len(chunk), (n, len(chunk))
+
+    arms = (("audioqueue", lambda: MacMicSource(lib=fake), feed_aq,
+             fake.fake_aq_calls, 6),
+            ("wavein", lambda: WinMicSource(winmm=fake), feed_wi,
+             fake.fake_wi_calls, 7))
+    counts = []
+    for name, factory, feed, calls, n_calls in arms:
+        kept, text, pasted, chain, paste_s, engine_s, launches, want = _capture_cycle(
+            eng, factory, feed, audio)
+        seen = [calls(i) for i in range(n_calls)]
+        print(f"e2e {label} {name}: release to paste {paste_s:.3f} s, engine "
+              f"{engine_s:.3f} s; recorder kept {len(kept)} of {len(audio)} samples; "
+              f"calls into the fake {seen}; launches {json.dumps(launches)}")
+        if launches != want:
+            raise AssertionError(f"{label} {name}: launch counts {launches} != "
+                                 f"predicted {want}")
+        if name == "audioqueue":
+            fmt = (fake.fake_aq_rate(), fake.fake_aq_format(), fake.fake_aq_channels(),
+                   fake.fake_aq_bits())
+            assert fmt == (16000.0, 0x6C70636D, 1, 32), fmt  # 'lpcm' f32 mono
+            # NewInput, 3 buffers allocated and enqueued, one per callback
+            # after, started, then stopped and disposed with the stream.
+            assert seen[:2] == [1, 3] and seen[3:] == [1, 1, 1], seen
+        else:
+            fmt = tuple(fake.fake_wi_format(i) for i in range(4))
+            assert fmt == (16000, 1, 16, 1), fmt  # WAVE_FORMAT_PCM s16 mono
+            assert seen[:2] == [1, 3] and seen[3:] == [1, 1, 1, 1], seen
+        assert pasted == chain + " ", (pasted, chain)
+        np.testing.assert_array_equal(kept, DICTATED["kept"])
+        assert text == DICTATED["text"], (text, DICTATED["text"])
+        counts.append(launches)
+    print(f"e2e {label}: both arms pasted {len(chain)} characters, the "
+          "QueueSource cycle's text over the same kept samples")
+    return _summed(counts)
 
 
 def vad_phase(label: str, eng, seed: int):
@@ -4679,6 +5029,8 @@ def main() -> int:
          dict(run=rolling_phase)),
         ("desktop", "random:large-v3-turbo", {}, "fullkv", None, None, (),
          dict(run=desktop_phase)),
+        ("platforms", "random:large-v3-turbo", {}, "fullkv", None, None, (),
+         dict(run=platforms_phase)),
         ("turbo beam", "random:large-v3-turbo", {}, "fullkv", None, None, (),
          dict(run=beam_phase)),
         ("turbo word timestamps", "random:large-v3-turbo", {}, "fullkv", None, None,

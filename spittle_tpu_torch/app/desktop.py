@@ -2,9 +2,7 @@
 paste loop with zero external shell.
 
 Port of spittle_tpu/app/desktop.py. The engine runs on the card unless
-the caller passes device="cpu" (AppServices raises without one). On
-macOS and Windows build_app raises NotImplementedError (shell/unported.py):
-their key backends and trays come with the macOS/Windows slice.
+the caller passes device="cpu" (AppServices raises without one).
 
 The lib.rs `run()` analog (reference: src-tauri/src/lib.rs:160-320
 builds managers, registers shortcuts, installs the signal handler, and
@@ -23,7 +21,6 @@ import sys
 
 from spittle_tpu_torch.config.settings import KeyboardImplementation
 from spittle_tpu_torch.device import resolve_device
-from spittle_tpu_torch.shell.unported import unported
 
 from .actions import ActionContext
 from .commands import Commands
@@ -82,19 +79,10 @@ def build_app(
     exists, in-process fallback backend otherwise). device and
     vad_factory go to AppServices: the engines' device (the card unless
     "cpu") and the recorder's VAD chain (None records ungated, as the
-    JAX app does; app.services.default_vad_factory is Silero).
-
-    On macOS and Windows it raises NotImplementedError before it builds
-    anything: the JAX app takes its hotkeys and its tray there from
-    shell/{macos,windows}_{keys,tray}.py, which the port lacks."""
-    if sys.platform == "darwin":
-        # CGEventTap hotkeys (shortcut/tauri_impl.rs's macOS monitor
-        # analog) and the NSStatusItem tray.
-        raise unported("shell/macos_keys.py and shell/macos_tray.py")
-    if sys.platform == "win32":
-        # RegisterHotKey hotkeys (tauri_impl.rs:108-109) and the
-        # Shell_NotifyIcon tray.
-        raise unported("shell/windows_keys.py and shell/windows_tray.py")
+    JAX app does; app.services.default_vad_factory is Silero). The
+    hotkeys and the tray follow sys.platform: CGEventTap and NSStatusItem
+    on macOS, RegisterHotKey and Shell_NotifyIcon on Windows, evdev and
+    the StatusNotifierItem elsewhere."""
     services = AppServices(
         data_dir,
         source_factory=source_factory,
@@ -112,11 +100,28 @@ def build_app(
     actions = ActionContext(services, output, ui=ui)
 
     if backends is None:
-        from spittle_tpu_torch.shell.evdev_keys import EvdevBackend
-
         backends = {KeyboardImplementation.TAURI: InMemoryBackend()}
-        if EvdevBackend.available():
-            backends[KeyboardImplementation.HANDY_KEYS] = EvdevBackend()
+        if sys.platform == "darwin":
+            # CGEventTap session listener (shortcut/tauri_impl.rs's
+            # macOS monitor analog); needs Accessibility permission.
+            from spittle_tpu_torch.shell.macos_keys import QuartzBackend
+
+            if QuartzBackend.available():
+                backends[KeyboardImplementation.HANDY_KEYS] = QuartzBackend()
+        elif sys.platform == "win32":
+            # RegisterHotKey message loop (tauri_impl.rs:108-109's
+            # Windows global-shortcut analog).
+            from spittle_tpu_torch.shell.windows_keys import WinHotkeyBackend
+
+            if WinHotkeyBackend.available():
+                backends[KeyboardImplementation.HANDY_KEYS] = (
+                    WinHotkeyBackend()
+                )
+        else:
+            from spittle_tpu_torch.shell.evdev_keys import EvdevBackend
+
+            if EvdevBackend.available():
+                backends[KeyboardImplementation.HANDY_KEYS] = EvdevBackend()
 
     settings = services.get_settings()
     impl = settings.keyboard_implementation
@@ -151,15 +156,25 @@ def build_app(
     signals = SignalHandler(actions)
     signals.install()
 
-    # Real OS surfaces when the desktop offers them: the tray
-    # (StatusNotifierItem on the session bus; tray.rs builds the same
-    # tray on every platform) and the session's recording overlay
-    # (overlay.rs analog, arm picked by session type).
+    # Real OS surfaces when the desktop offers them: a platform tray
+    # (StatusNotifierItem on the session bus; NSStatusItem on macOS —
+    # tray.rs builds the same tray on every platform) and the session's
+    # recording overlay (overlay.rs analog, arm picked by session type).
     from spittle_tpu_torch.shell.overlay_select import attach_session_overlay
-    from spittle_tpu_torch.shell.tray_sni import attach_tray
 
     commands = Commands(services, actions)
-    tray = attach_tray(services, actions, ui, commands=commands)
+    if sys.platform == "darwin":
+        from spittle_tpu_torch.shell.macos_tray import attach_macos_tray
+
+        tray = attach_macos_tray(services, actions, ui, commands=commands)
+    elif sys.platform == "win32":
+        from spittle_tpu_torch.shell.windows_tray import attach_windows_tray
+
+        tray = attach_windows_tray(services, actions, ui, commands=commands)
+    else:
+        from spittle_tpu_torch.shell.tray_sni import attach_tray
+
+        tray = attach_tray(services, actions, ui, commands=commands)
     overlay = attach_session_overlay(services)
 
     # OS login launcher, reconciled with the persisted setting at boot

@@ -77,6 +77,7 @@ class AudioRecordingManager:
         self._on_segment = on_segment
         self._pipeline = RecordingPipeline()
         self._recorder: Optional[AudioRecorder] = None
+        self._source: Optional[AudioSource] = None
         self._rec_lock = threading.Lock()
         self._last_level_ms: Optional[int] = None
         self._shutdown = threading.Event()
@@ -95,7 +96,8 @@ class AudioRecordingManager:
         with self._rec_lock:
             if self._recorder is not None:
                 return
-            rec = AudioRecorder(self._source_factory())
+            source = self._source_factory()
+            rec = AudioRecorder(source)
             if self._vad_factory is not None:
                 rec = rec.with_vad(self._vad_factory())
             rec = rec.with_level_callback(self._on_level)
@@ -105,13 +107,21 @@ class AudioRecordingManager:
                     int(seg_seconds * TARGET_SAMPLE_RATE), self._on_segment
                 )
             rec.open()
-            self._recorder = rec
+            self._recorder, self._source = rec, source
 
     def _close_stream(self) -> None:
+        """Close the recorder and then its source: a MicSource's capture
+        process and reader thread, an AudioQueue or a waveIn handle. (The
+        JAX package closes the recorder only, and so leaves each stream's
+        capture process running.)"""
         with self._rec_lock:
             if self._recorder is not None:
                 self._recorder.close()
                 self._recorder = None
+                close = getattr(self._source, "close", None)
+                self._source = None
+                if close is not None:
+                    close()
 
     # -- recording -------------------------------------------------------
 
@@ -235,12 +245,10 @@ def apply_mute() -> None:
     elif sys.platform == "darwin":
         _run(["osascript", "-e", "set volume output muted true"])
     elif sys.platform == "win32":
-        # COM IAudioEndpointVolume chain (audio.rs:17-104), in
-        # spittle_tpu/shell/windows_audio.py: it comes with the
-        # macOS/Windows slice; until then this raises.
-        from spittle_tpu_torch.shell.unported import unported
+        # COM IAudioEndpointVolume chain (audio.rs:17-104).
+        from spittle_tpu_torch.shell.windows_audio import set_mute as _win_mute
 
-        raise unported("shell/windows_audio.py (output mute)")
+        _win_mute(True)
     _mute_state["muted"] = True
 
 
@@ -258,8 +266,7 @@ def remove_mute() -> None:
     elif sys.platform == "darwin":
         _run(["osascript", "-e", "set volume output muted false"])
     elif sys.platform == "win32":
-        # See apply_mute.
-        from spittle_tpu_torch.shell.unported import unported
+        from spittle_tpu_torch.shell.windows_audio import set_mute as _win_mute
 
-        raise unported("shell/windows_audio.py (output unmute)")
+        _win_mute(False)
     _mute_state["muted"] = False

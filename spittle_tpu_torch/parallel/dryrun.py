@@ -18,6 +18,9 @@ Each task is a function that every rank of the group runs:
   refusal of a vocab that the model dim does not divide;
 - train: one make_train_step step (remat, sequence parallelism at tp > 1)
   under a ("data", "model") mesh against the unsharded step.
+- checkpoint: save_checkpoint / restore_checkpoint of the sharded tree
+  and its AdamW state between train steps, against unbroken steps, bit
+  for bit, and a save interrupted after its write.
 
 Rank 0 writes each task's results under --out (<task>.npz / .json);
 --inputs may hold the weights and inputs to use (the tests write the
@@ -39,6 +42,7 @@ import os
 import socket
 import subprocess
 import sys
+import time
 from typing import Dict
 
 import numpy as np
@@ -445,18 +449,7 @@ def task_train(run):
     mesh = make_mesh(run.world, tp=tp, device=run.dev_type)
     cfg = _cfg()
     full = _params(run, "dp_tp_params.npz", cfg, 0)
-    path = run.input("train_batch.npz")
-    b = max(run.world // tp, 1) * 2
-    if path:
-        batch = dict(np.load(path))
-    else:
-        rng = np.random.default_rng(7)
-        batch = dict(
-            mel=rng.standard_normal((b, cfg.n_mels, cfg.n_audio_ctx * 2)
-                                    ).astype(np.float32),
-            tokens=rng.integers(0, cfg.n_vocab, (b, cfg.n_text_ctx)),
-            targets=rng.integers(0, cfg.n_vocab, (b, cfg.n_text_ctx)),
-            mask=np.ones((b, cfg.n_text_ctx), np.float32))
+    batch = _train_batch(run, cfg, tp)
     b = batch["mel"].shape[0]
     lr = 1e-3
     ref_tree = _params(run, "dp_tp_params.npz", cfg, 0)  # its own storage
@@ -484,6 +477,112 @@ def task_train(run):
     assert err <= 2 * lr + 1e-6
 
 
+def _train_batch(run, cfg, tp):
+    """The train tasks' batch: the input's, else seeded rows, 2 per data
+    rank."""
+    path = run.input("train_batch.npz")
+    if path:
+        return dict(np.load(path))
+    b = max(run.world // tp, 1) * 2
+    rng = np.random.default_rng(7)
+    return dict(
+        mel=rng.standard_normal((b, cfg.n_mels, cfg.n_audio_ctx * 2)).astype(np.float32),
+        tokens=rng.integers(0, cfg.n_vocab, (b, cfg.n_text_ctx)),
+        targets=rng.integers(0, cfg.n_vocab, (b, cfg.n_text_ctx)),
+        mask=np.ones((b, cfg.n_text_ctx), np.float32))
+
+
+class _Interrupted(Exception):
+    pass
+
+
+def task_checkpoint(run):
+    """Checkpoints of a sharded tree under make_mesh(world, tp=2), with
+    sequence parallelism: 2 train steps, save_checkpoint, a second save
+    interrupted after its write (it must leave no step_3), then
+    restore_checkpoint into a freshly sharded tree of zeros and its fresh
+    AdamW state and 2 more steps, against 4 unbroken steps: every loss,
+    parameter and AdamW moment bit-equal."""
+    from spittle_tpu_torch.io.npz_checkpoint import named_leaves
+    from spittle_tpu_torch.train import checkpoint as ckpt
+    from spittle_tpu_torch.train import make_train_step
+
+    from .mesh import make_mesh, shard_params
+    from .multihost import global_batch_from_local
+
+    tp = 2 if run.world % 2 == 0 else 1
+    mesh = make_mesh(run.world, tp=tp, device=run.dev_type)
+    cfg = _cfg()
+    batch = _train_batch(run, cfg, tp)
+    rows = _rows(run, mesh, batch["mel"].shape[0])
+    local = {k: global_batch_from_local(torch.from_numpy(np.asarray(v)[rows]), mesh)
+             for k, v in batch.items()}
+    init, step = make_train_step(cfg, learning_rate=1e-3, device=run.dev_type,
+                                 sequence_parallel_mesh=mesh if tp > 1 else None)
+
+    def sharded(zeros=False):
+        tree = _params(run, "dp_tp_params.npz", cfg, 0)
+        if zeros:
+            tree = _map(torch.zeros_like, tree)
+        return shard_params(tree, mesh)
+
+    unbroken = sharded()
+    st = init(unbroken)
+    want = [float(step(unbroken, st, local)[2]) for _ in range(4)]
+
+    first = sharded()
+    st1 = init(first)
+    got = [float(step(first, st1, local)[2]) for _ in range(2)]
+    directory = os.path.join(run.out, "checkpoint")
+    t0 = time.perf_counter()
+    ckpt.save_checkpoint(directory, first, st1, 2)
+    save_s = time.perf_counter() - t0
+    publish = ckpt._publish
+
+    def interrupted(tmp, final):
+        raise _Interrupted("interrupted after the write")
+    ckpt._publish = interrupted
+    try:
+        ckpt.save_checkpoint(directory, first, st1, 3)
+        raised = None
+    except (_Interrupted, RuntimeError) as e:
+        raised = type(e).__name__
+    finally:
+        ckpt._publish = publish
+    dist.barrier()
+    left = sorted(os.listdir(directory))
+    del first, st1
+
+    fresh = sharded(zeros=True)
+    st2 = init(fresh)
+    t0 = time.perf_counter()
+    _, _, n = ckpt.restore_checkpoint(directory, (fresh, st2))
+    restore_s = time.perf_counter() - t0
+    got += [float(step(fresh, st2, local)[2]) for _ in range(2)]
+
+    same = [torch.equal(a.to_local(), b.to_local()) for (_, a), (_, b) in
+            zip(named_leaves(fresh), named_leaves(unbroken))]
+    for a, b in zip(st2.leaves(), st.leaves()):
+        sa, sb = st2.optimizer.state[a], st.optimizer.state[b]
+        same.append(sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa))
+    flag = torch.tensor([int(all(same))])
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    nbytes = sum(os.path.getsize(os.path.join(d, f))
+                 for d, _, files in os.walk(directory) for f in files)
+    run.save("checkpoint", losses=np.array(got), losses_ref=np.array(want),
+             step=n, equal=int(flag), left=np.array(left), raised=str(raised))
+    run.say(f"checkpoint under dp {run.world // tp} x tp {tp}: save {save_s:.3f} s, "
+            f"restore {restore_s:.3f} s, {nbytes} bytes; resumed losses {got} vs "
+            f"unbroken {want}; parameters and moments bit-equal: {bool(flag)}; "
+            f"after an interrupted save: {left}")
+    assert got == want and n == 2 and bool(flag), (got, want, n)
+    assert left == ["step_2"] and raised is not None, (left, raised)
+
+
+def _map(fn, tree):
+    return {k: _map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
 def _gather_train(res, sharded, ref_tree, mesh):
     """The sharded tree's parameters and gradients gathered whole (every
     rank takes part), beside the unsharded tree's, into res."""
@@ -503,7 +602,7 @@ def _gather_train(res, sharded, ref_tree, mesh):
 
 TASKS = {"dp_tp": task_dp_tp, "moe": task_moe, "pp": task_pp,
          "serving": task_serving, "multihost": task_multihost,
-         "train": task_train}
+         "train": task_train, "checkpoint": task_checkpoint}
 
 
 def worker(rank: int, world: int, coordinator: str, device: str, tasks,

@@ -1,9 +1,8 @@
 """Real microphone capture: subprocess PCM readers feeding the native ring.
 
 Port of spittle_tpu/shell/mic.py over the port's native ring
-(native/ringbuffer.py). The native macOS (AudioQueue) and Windows (waveIn)
-sources raise NotImplementedError (shell/unported.py) until the
-macOS/Windows slice.
+(native/ringbuffer.py), with the native macOS (AudioQueue,
+shell/macos_mic.py) and Windows (waveIn, shell/windows_mic.py) sources.
 
 The reference owns a live cpal input stream on a worker thread
 (`src-tauri/src/audio_toolkit/audio/recorder.rs:83-135`).
@@ -27,7 +26,6 @@ from typing import Callable, List, Optional
 
 import numpy as np
 
-from spittle_tpu_torch.shell.unported import unported
 from spittle_tpu_torch.utils import threads
 
 TARGET_RATE = 16_000
@@ -214,7 +212,8 @@ class MicSource:
         sample format otherwise looks like an instant silent EOF."""
         try:
             rc = self._proc.poll()
-            if rc in (None, 0) or self._proc.stderr is None:
+            # A tool that close() terminated ended as asked.
+            if rc in (None, 0) or self._proc.stderr is None or self._closed.is_set():
                 return
             detail = self._proc.stderr.read() or b""
             import logging
@@ -233,10 +232,15 @@ class MicSource:
 
         deadline = time.monotonic() + timeout
         while True:
+            # The end is read before the ring: the reader pushes its last
+            # block before it sets _eof, so an end seen first leaves
+            # nothing behind. (The JAX package reads the ring first, and
+            # can answer None with that last block still in the ring.)
+            ended = self._eof.is_set() or self._closed.is_set()
             data = self._pop(_READ_BLOCK)
             if len(data):
                 return data
-            if self._eof.is_set() or self._closed.is_set():
+            if ended:
                 return None
             if time.monotonic() >= deadline:
                 return np.zeros(0, np.float32)
@@ -269,11 +273,24 @@ def make_mic_source_factory(
 
         if sys.platform == "darwin" and tool in (None, "audioqueue"):
             # Native CoreAudio AudioQueue stream first (the cpal-analog
-            # arm, recorder.rs:83-135).
-            raise unported("shell/macos_mic.py (AudioQueue capture)")
+            # arm, recorder.rs:83-135); subprocess tools are the
+            # fallback (ffmpeg avfoundation / sox).
+            from spittle_tpu_torch.shell.macos_mic import MacMicSource
+
+            try:  # pragma: no cover (darwin)
+                return MacMicSource()
+            except OSError:
+                if tool == "audioqueue":
+                    raise
         if sys.platform == "win32" and tool in (None, "wavein"):
             # Native waveIn stream (the cpal/WASAPI-analog arm).
-            raise unported("shell/windows_mic.py (waveIn capture)")
+            from spittle_tpu_torch.shell.windows_mic import WinMicSource
+
+            try:  # pragma: no cover (win32)
+                return WinMicSource()
+            except OSError:
+                if tool == "wavein":
+                    raise
         return MicSource(device=device, tool=tool)
 
     return factory

@@ -1,8 +1,6 @@
 """Overlay backend selection per session type.
 
-Port of spittle_tpu/shell/overlay_select.py. Its win32 and darwin arms
-raise NotImplementedError (shell/unported.py) until the macOS/Windows
-slice.
+Port of spittle_tpu/shell/overlay_select.py.
 
 The reference picks its overlay implementation by platform/session
 (src-tauri/src/overlay.rs): gtk-layer-shell on Wayland — with a KDE
@@ -23,7 +21,6 @@ from __future__ import annotations
 import os
 import sys
 
-from spittle_tpu_torch.shell.unported import unported
 from spittle_tpu_torch.utils.logging import get_logger
 
 _log = get_logger("overlay")
@@ -39,11 +36,21 @@ def attach_session_overlay(services):
     if sys.platform == "win32":
         # Reference Windows arm: plain always-on-top popup (overlay.rs,
         # the windows cfg of create_recording_overlay).
-        raise unported("shell/windows_overlay.py (topmost popup overlay)")
+        from spittle_tpu_torch.shell.windows_overlay import attach_windows_overlay
+
+        overlay = attach_windows_overlay(services)
+        if overlay is not None:
+            _log.info("overlay: win32 topmost popup")
+        return overlay
     if sys.platform == "darwin":
         # Reference macOS arm: non-activating NSPanel at status-window
         # level, joins all Spaces (overlay.rs:23-31).
-        raise unported("shell/macos_overlay.py (NSPanel overlay)")
+        from spittle_tpu_torch.shell.macos_overlay import attach_macos_overlay
+
+        overlay = attach_macos_overlay(services)
+        if overlay is not None:
+            _log.info("overlay: macos nonactivating NSPanel")
+        return overlay
     if (os.environ.get("XDG_SESSION_TYPE", "").lower() == "wayland"
             and os.environ.get("WAYLAND_DISPLAY")
             and not session_is_kde_wayland()):

@@ -1,8 +1,6 @@
 """OS text output: paste methods, typing tools, clipboard, diff keystrokes.
 
-Port of spittle_tpu/shell/textout.py. Its Windows clipboard and SendInput
-branches and the macOS AX selection raise NotImplementedError
-(shell/unported.py) until the macOS/Windows slice.
+Port of spittle_tpu/shell/textout.py.
 
 Behavior-parity rebuild of the reference's clipboard/input layer
 (`src-tauri/src/clipboard.rs`, `input.rs`): paste via
@@ -32,7 +30,6 @@ from spittle_tpu_torch.config.settings import (
     PasteMethod,
     TypingTool,
 )
-from spittle_tpu_torch.shell.unported import unported
 
 TOOL_PRIORITY = ("wtype", "kwtype", "dotool", "ydotool", "xdotool")
 
@@ -142,7 +139,11 @@ def _platform_keyboard():
     input.rs:28-52). macOS keeps the tool/AX paths.
     """
     if sys.platform == "win32":
-        raise unported("shell/windows_input.py (SendInput keystrokes)")
+        from .windows_input import SendInputKeyboard
+
+        if SendInputKeyboard.available():
+            return SendInputKeyboard()
+        return None
     from .uinput import UinputKeyboard
 
     if UinputKeyboard.available():
@@ -188,8 +189,8 @@ class SystemTextOutput:
         uinput_factory=None,
     ):
         """ax_backend: optional macOS AX selection backend
-        (shell/macos_ax.py, not ported yet: apply_text_diff raises when
-        one is given or on macOS); None off macOS is the keyboard path.
+        (shell/macos_ax.py); None resolves the platform default — a real
+        ApplicationServices binding on macOS, nothing elsewhere.
 
         uinput_factory: () -> UinputKeyboard-like, or None to probe the
         native Linux backend (shell/uinput.py — the enigo analog,
@@ -289,7 +290,9 @@ class SystemTextOutput:
 
     def _clipboard_write(self, text: str) -> bool:
         if sys.platform == "win32":
-            raise unported("shell/windows_clipboard.py (clipboard write)")
+            from .windows_clipboard import clipboard_write
+
+            return clipboard_write(text)
         cmd, stdin = clipboard_write_command(text, is_wayland(), self._which)
         if cmd is None:
             return False
@@ -297,7 +300,9 @@ class SystemTextOutput:
 
     def _clipboard_read(self) -> Optional[str]:
         if sys.platform == "win32":
-            raise unported("shell/windows_clipboard.py (clipboard read)")
+            from .windows_clipboard import clipboard_read
+
+            return clipboard_read()
         cmd = clipboard_read_command(is_wayland(), self._which)
         if cmd is None:
             return None
@@ -329,24 +334,29 @@ class SystemTextOutput:
         self.paste_raw(text)
 
     def apply_text_diff(self, suffix_chars: int, delete_chars: int, insert: str) -> None:
-        """Minimal diff apply (clipboard.rs:690-790, the non-AX path):
-        ArrowLeft x suffix + Backspace x delete, then type insert,
-        ArrowRight back. The macOS AX selection (shell/macos_ax.py), which
-        the JAX package tries first on macOS or with an injected backend,
-        raises here until the macOS/Windows slice."""
+        """Minimal diff apply (clipboard.rs:690-790): macOS AX selects the
+        replace range so one type replaces it; otherwise ArrowLeft x
+        suffix + Backspace x delete. Then type insert, ArrowRight back."""
         if self._settings().paste_method is PasteMethod.NONE:
             return  # clipboard.rs:697-700
 
-        if self._ax_backend is not None or sys.platform == "darwin":
-            raise unported("shell/macos_ax.py (AX range selection)")
-        # Batched movement (input.rs:120-150): one uinput burst per
-        # direction instead of one subprocess per keypress.
-        if suffix_chars:
-            self._press("Left", count=suffix_chars)
-        if delete_chars:
-            self._press("BackSpace", count=delete_chars)
+        from .macos_ax import try_select_replace_range_before_cursor
+
+        used_ax = try_select_replace_range_before_cursor(
+            delete_chars, suffix_chars, backend=self._ax_backend
+        )
+        if not used_ax:
+            # Batched movement (input.rs:120-150): one uinput burst per
+            # direction instead of one subprocess per keypress.
+            if suffix_chars:
+                self._press("Left", count=suffix_chars)
+            if delete_chars:
+                self._press("BackSpace", count=delete_chars)
         if insert:
             self._type_text(insert)
+        elif delete_chars > 0 and used_ax:
+            # AX selected the range; empty replacement clears it.
+            self._press("BackSpace")
         if suffix_chars:
             self._press("Right", count=suffix_chars)
 

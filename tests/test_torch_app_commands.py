@@ -32,6 +32,7 @@ from spittle_tpu_torch.app import shortcuts as t_shortcuts
 from spittle_tpu_torch.audio import recorder as t_recorder
 from spittle_tpu_torch.config import settings as t_settings
 from spittle_tpu_torch import pipeline as t_pipeline
+from _fresh_sources import FreshSources  # noqa: E402
 
 JAX = SimpleNamespace(actions=j_actions, export=j_export, commands=j_commands,
                       rpc=j_rpc, services=j_services, shortcuts=j_shortcuts,
@@ -122,9 +123,9 @@ class App:
 
     def __init__(self, pkg, data_dir):
         self.pkg = pkg
-        self.src = pkg.recorder.QueueSource(16000)
+        self.src = FreshSources(pkg.recorder.QueueSource)
         self.services = pkg.services.AppServices(
-            str(data_dir), source_factory=lambda: self.src, use_mock_engine=True,
+            str(data_dir), source_factory=self.src, use_mock_engine=True,
             **pkg.kw)
         self.out = pkg.pipeline.BufferTextOutput()
         self.actions = pkg.actions.ActionContext(self.services, self.out)

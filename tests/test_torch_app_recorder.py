@@ -24,6 +24,7 @@ from spittle_tpu_torch.audio.vad.smoothed import VadFrame
 from spittle_tpu_torch.managers import audio as taudio
 from spittle_tpu_torch.managers import recording_pipeline as trp
 from spittle_tpu_torch.native import resampler as tres
+from _fresh_sources import FreshSources  # noqa: E402
 
 SR = 16000
 CHUNK_S = 0.03
@@ -72,8 +73,8 @@ def speech_in_silence(sr, seed=0):
 def record(audio_mod, rec_mod, vad_factory, audio, rate, binding="transcribe"):
     """One push-to-talk recording through a package's manager: start,
     push `audio` in 30 ms chunks, stop. Returns the kept samples."""
-    src = rec_mod.QueueSource(rate)
-    mgr = audio_mod.AudioRecordingManager(source_factory=lambda: src,
+    src = FreshSources(rec_mod.QueueSource, rate)
+    mgr = audio_mod.AudioRecordingManager(source_factory=src,
                                           vad_factory=vad_factory)
     try:
         assert mgr.try_start_recording(binding)

@@ -35,6 +35,7 @@ from spittle_tpu_torch.shell import apple_llm as t_apple
 from spittle_tpu_torch.shell import audio_devices as t_devices
 from spittle_tpu_torch.shell import audio_out as t_audio_out
 from spittle_tpu_torch import pipeline as t_pipeline
+from _fresh_sources import FreshSources  # noqa: E402
 
 JAX = (j_actions, j_services, j_ui, j_recorder, j_pipeline, {})
 PORT = (t_actions, t_services, t_ui, t_recorder, t_pipeline, {"device": "cpu"})
@@ -62,8 +63,8 @@ def _ui_cycle(pkg, data_dir, push_to_talk, always_on):
     played (file name, volume), what feedback.played kept, the overlay's
     last state and the pasted text."""
     actions, services, ui_state, recorder, pipeline, kw = pkg
-    src = recorder.QueueSource(16000)
-    svc = services.AppServices(str(data_dir), source_factory=lambda: src,
+    src = FreshSources(recorder.QueueSource)
+    svc = services.AppServices(str(data_dir), source_factory=src,
                                use_mock_engine=True, **kw)
     try:
         svc.update_settings(audio_feedback=True, audio_feedback_volume=0.5,

@@ -12,16 +12,22 @@ against the JAX package's on the CPU:
 - shutdown closes every surface: the hotkey listener, the RPC server, and
   a tray and an overlay attached over a fake session bus and a fake
   Wayland compositor;
-- build_app raises NotImplementedError on macOS and Windows, and raises
-  without a card unless asked for the CPU, as run_app and the link probe
-  do; measure_link_mbps on the CPU returns a positive rate.
+- on macOS and Windows (sys.platform patched, the platform's backends
+  over the fakes of tests/test_torch_shell_{macos,windows}.py) build_app
+  builds the same hotkeys, tray and overlay as the JAX one, with the same
+  calls into them;
+- build_app raises without a card unless asked for the CPU, as run_app
+  and the link probe do; measure_link_mbps on the CPU returns a positive
+  rate.
 """
 
+import importlib
 import os
 import plistlib
 import socket
 import sys
 import time
+import types
 
 import numpy as np
 import pytest
@@ -44,11 +50,16 @@ from spittle_tpu_torch.utils.linkprobe import measure_link_mbps
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_torch_rpc_server import Events  # noqa: E402
 from test_torch_shell_dbus_overlay import FakeBus, RecordingCompositor  # noqa: E402
+from _fresh_sources import FreshSources  # noqa: E402
+from test_torch_shell_macos import compile_fake as macos_fake, fake_macos  # noqa: E402
+from test_torch_shell_windows import compile_fake as windows_fake, fake_windows  # noqa: E402
 
 JAX = dict(desktop=j_desktop, queue=JQueueSource, impl=JImpl, out=JOut,
            autostart=j_autostart, evdev=j_evdev, kw={})
 PORT = dict(desktop=t_desktop, queue=TQueueSource, impl=TImpl, out=TOut,
             autostart=t_autostart, evdev=t_evdev, kw={"device": "cpu"})
+JAX_NS = types.SimpleNamespace(**JAX, name="spittle_tpu")
+PORT_NS = types.SimpleNamespace(**PORT, name="spittle_tpu_torch")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -123,11 +134,11 @@ def _pcm():
 def _build(pkg, data_dir, **extra):
     r, w = os.pipe()
     be = pkg["evdev"].EvdevBackend(fds=[r])
-    src = pkg["queue"](16000)
+    src = FreshSources(pkg["queue"])
     out = pkg["out"]()
     played = []
     app = pkg["desktop"].build_app(
-        str(data_dir), port=0, output=out, source_factory=lambda: src,
+        str(data_dir), port=0, output=out, source_factory=src,
         use_mock_engine=True, backends={pkg["impl"].HANDY_KEYS: be},
         player=lambda path, vol: played.append((os.path.basename(path), vol)),
         autostart=pkg["autostart"].AutostartManager(home=str(data_dir)),
@@ -261,16 +272,101 @@ def test_shutdown_closes_every_surface(pkg, tmp_path, monkeypatch):
         compositor.close()
 
 
+@pytest.fixture(scope="module")
+def platform_fakes(tmp_path_factory):
+    d = tmp_path_factory.mktemp("desktop_platforms")
+    return {"darwin": macos_fake(d), "win32": windows_fake(d)}
+
+
+def _platform_app(pkg, platform, with_backends, lib, data_dir, monkeypatch):
+    """build_app with sys.platform patched and the platform's backends over
+    the fakes: the registry's backends, implementation and bindings, the
+    tray and the overlay, and what they sent the fakes while the app was
+    built and shut down."""
+    monkeypatch.setattr(sys, "platform", platform)
+    if platform == "darwin":
+        rt = fake_macos(pkg.name, lib, monkeypatch)
+        record = rt.calls
+    else:
+        lib.fake_reset()
+        u32, _ = fake_windows(pkg.name, lib, monkeypatch)
+        record = u32.calls
+    shortcuts = importlib.import_module(pkg.name + ".app.shortcuts")
+    extra = ({"backends": {pkg.impl.TAURI: shortcuts.InMemoryBackend()}}
+             if with_backends else {})
+    app = pkg.desktop.build_app(
+        str(data_dir), port=0, output=pkg.out(), source_factory=FreshSources(pkg.queue),
+        use_mock_engine=True, player=lambda path, vol: None,
+        autostart=pkg.autostart.AutostartManager(home=str(data_dir), platform="linux"),
+        **pkg.kw, **extra)
+    try:
+        registry = app.registry
+        keys = registry.backends.get(pkg.impl.HANDY_KEYS)
+        if keys is not None:  # the persisted bindings onto the OS hotkeys
+            registry.switch_implementation(pkg.impl.HANDY_KEYS)
+        if platform == "darwin":
+            _wait(lambda: any(c[1] == "setBackgroundColor:" for c in record),
+                  "the overlay's panel")
+            hotkeys = (lib.fake_tap_mask(), lib.fake_tap_enabled()) if keys else None
+        else:
+            _wait(lambda: record and lib.fake_ni_count() >= 1, "the tray and overlay")
+            if keys:
+                _wait(lambda: lib.fake_hk_count() == len(keys._ids), "the hotkeys")
+            hotkeys = sorted((lib.fake_hk_mods(i), lib.fake_hk_vk(i))
+                             for i in range(lib.fake_hk_total()))
+        built = dict(
+            backends={k.value: type(b).__name__ for k, b in registry.backends.items()},
+            implementation=registry.implementation.value,
+            bindings=dict(registry._bindings), hotkeys=hotkeys,
+            tray=type(app.tray).__name__, overlay=type(app.overlay).__name__,
+            overlay_backend=type(app.overlay.backend).__name__,
+            sent=list(record))
+    finally:
+        app.shutdown()
+        app.overlay._thread.join(timeout=10)
+    if platform == "darwin":
+        built["closed"] = [c[1] for c in record[len(built["sent"]):]]
+    else:
+        built["closed"] = ([lib.fake_ni_op(i) for i in range(lib.fake_ni_count())],
+                           record[len(built["sent"]):], app.tray._thread.is_alive(),
+                           keys is not None and keys._thread is not None)
+    return built
+
+
 @pytest.mark.parametrize("platform", ["darwin", "win32"])
 @pytest.mark.parametrize("with_backends", [False, True])
-def test_build_app_raises_on_macos_and_windows(platform, with_backends, tmp_path,
-                                               monkeypatch):
-    monkeypatch.setattr(sys, "platform", platform)
-    kw = {"backends": {TImpl.TAURI: None}} if with_backends else {}
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1b item 1"):
-        t_desktop.build_app(str(tmp_path), port=0, use_mock_engine=True,
-                            device="cpu", **kw)
-    assert not os.listdir(tmp_path)  # nothing was built
+def test_build_app_on_macos_and_windows(platform, with_backends, platform_fakes,
+                                        tmp_path, monkeypatch):
+    """On macOS and Windows build_app builds the same app as the JAX one
+    over the same fakes: CGEventTap or RegisterHotKey hotkeys (unless
+    backends= is given), the NSStatusItem or Shell_NotifyIcon tray and the
+    NSPanel or topmost-popup overlay, with the same calls into them while
+    the app is built and shut down."""
+    got = {name: _platform_app(pkg, platform, with_backends, platform_fakes[platform],
+                               tmp_path / name, monkeypatch)
+           for name, pkg in (("jax", JAX_NS), ("port", PORT_NS))}
+    assert got["port"] == got["jax"]
+    built = got["port"]
+    keys = "QuartzBackend" if platform == "darwin" else "WinHotkeyBackend"
+    assert built["backends"] == ({"tauri": "InMemoryBackend"} if with_backends else
+                                 {"tauri": "InMemoryBackend", "handy_keys": keys})
+    assert built["tray"] == ("MacTray" if platform == "darwin" else "WinTray")
+    assert built["overlay"] == "X11Overlay"
+    assert built["overlay_backend"] == ("MacBackend" if platform == "darwin"
+                                        else "WinBackend")
+    assert set(built["bindings"]) >= {"transcribe", "transcribe_with_post_process"}
+    if platform == "darwin":
+        assert "removeStatusItem:" in built["closed"] and "close" in built["closed"]
+    else:
+        ops, closed, tray_alive, keys_alive = built["closed"]
+        assert ops[0] == 0 and ops[-1] == 2 and ("destroy",) in closed
+        assert not tray_alive and not keys_alive
+    if not with_backends:
+        assert built["implementation"] == "handy_keys"
+        if platform == "darwin":
+            assert built["hotkeys"] == ((1 << 10) | (1 << 11) | (1 << 12), 1)
+        else:
+            assert len(built["hotkeys"]) >= 2
 
 
 def test_entry_points_default_to_the_card(tmp_path):

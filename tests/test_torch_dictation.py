@@ -28,6 +28,7 @@ from spittle_tpu_torch.pipeline import BufferTextOutput
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "scripts"))
 import train_committed_checkpoint as tcc  # noqa: E402
+from _fresh_sources import FreshSources  # noqa: E402
 
 DATA = os.path.join(REPO, "tests", "data", "trained_tiny")
 NPZ = os.path.join(DATA, "params.npz")
@@ -74,8 +75,8 @@ def _cycle(services, actions, src, binding, audio):
 def dictate(make_services, make_source, make_output, make_context, tmp, utterances):
     """Both bindings over each utterance through one package's app. Returns
     the pasted buffers and the history rows, in the order they were saved."""
-    src = make_source(16000)
-    services = make_services(str(tmp), lambda: src)
+    src = FreshSources(make_source)
+    services = make_services(str(tmp), src)
     try:
         services.transcription.load_model("trained-tiny", NPZ, "whisper")
         pasted, rows = [], []

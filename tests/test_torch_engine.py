@@ -228,6 +228,19 @@ def test_random_params_has_the_reference_tree():
                                ours["decoder"]["tok_emb"], rtol=0, atol=0)
 
 
+def test_every_jax_module_has_a_counterpart_in_the_port():
+    """Every *.py module of spittle_tpu/ has one at the same path under
+    spittle_tpu_torch/; modules of the port alone are allowed."""
+    def modules(pkg):
+        root = os.path.join(REPO, pkg)
+        return {os.path.relpath(os.path.join(d, f), root)
+                for d, _, files in os.walk(root) for f in files if f.endswith(".py")}
+
+    jax_modules = modules("spittle_tpu")
+    assert len(jax_modules) > 100 and "shell/windows_tray.py" in jax_modules
+    assert sorted(jax_modules - modules("spittle_tpu_torch")) == []
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import importlib, os, pkgutil, sys\n"
@@ -281,11 +294,21 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         # The Linux desktop shell: text output and uinput, the microphone,
         # evdev hotkeys, autostart, D-Bus and the tray, the overlays, the
         # desktop assembly and the link probe.
-        "             'shell.unported', 'shell.uinput', 'shell.textout', 'shell.mic',\n"
+        "             'shell.uinput', 'shell.textout', 'shell.mic',\n"
         "             'shell.evdev_keys', 'shell.autostart', 'shell.dbus_client',\n"
         "             'shell.tray_sni', 'shell.x11_overlay', 'shell.wayland_overlay',\n"
-        "             'shell.overlay_select', 'app.desktop', 'utils.linkprobe'):\n"
+        "             'shell.overlay_select', 'app.desktop', 'utils.linkprobe',\n"
+        # The macOS and Windows shells: Cocoa, AX, CGEventTap, AudioQueue,
+        # the NSPanel overlay and the NSStatusItem tray; the clipboard,
+        # SendInput, RegisterHotKey, waveIn, the popup overlay, the
+        # Shell_NotifyIcon tray and the COM mute.
+        "             'shell.macos_cocoa', 'shell.macos_ax', 'shell.macos_keys',\n"
+        "             'shell.macos_mic', 'shell.macos_overlay', 'shell.macos_tray',\n"
+        "             'shell.windows_clipboard', 'shell.windows_input',\n"
+        "             'shell.windows_keys', 'shell.windows_mic', 'shell.windows_overlay',\n"
+        "             'shell.windows_tray', 'shell.windows_audio'):\n"
         "    assert 'spittle_tpu_torch.' + name in sys.modules, name\n"
+        "assert 'spittle_tpu_torch.shell.unported' not in sys.modules\n"
         # Importing them opens no socket, starts no thread and builds no
         # library.
         "import threading\n"
@@ -305,4 +328,4 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 117  # every submodule was imported
+    assert int(out.stdout.strip()) >= 129  # every submodule was imported

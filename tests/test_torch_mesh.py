@@ -9,7 +9,8 @@ package's weights and inputs), and its results are held here to the JAX
 package's under the same mesh on conftest's 8 CPU devices:
 make_mesh(4, tp=2) for dp + tp encode and greedy decode, the shard shapes,
 moe_ffn under dp x ep and one train step (sequence parallelism, remat); a
-data-only mesh of 4 for serving.
+data-only mesh of 4 for serving. The same group saves and restores a
+sharded tree's checkpoint, held to an unbroken run of the port itself.
 """
 
 import json
@@ -342,3 +343,18 @@ def test_train_step_under_dp_tp_sp_matches_unsharded_and_reference(group):
             assert (far[sure] <= 1e-3 * lr + 1e-6 * np.abs(stepped[name][sure])).all(), \
                 (key, name)
     assert "train step under dp 2 x tp 2" in group["log"]
+
+
+def test_sharded_checkpoint_resume_equals_unbroken(group):
+    """Under make_mesh(4, tp=2) (sequence parallelism, lr 1e-3): 2 steps,
+    save_checkpoint of the sharded tree and its AdamW state, a save
+    interrupted after its write, restore_checkpoint into a freshly sharded
+    tree of zeros, 2 more steps: the losses, every parameter shard and
+    every AdamW moment bit-equal to 4 unbroken steps, and the interrupted
+    save left no step_3 (nor its temporary directory)."""
+    res = _load(group, "checkpoint")
+    assert res["losses"].tolist() == res["losses_ref"].tolist()
+    assert len(res["losses"]) == 4 and res["losses"][3] < res["losses"][0]
+    assert int(res["step"]) == 2 and int(res["equal"]) == 1
+    assert res["left"].tolist() == ["step_2"] and str(res["raised"]) != "None"
+    assert "parameters and moments bit-equal: True" in group["log"]

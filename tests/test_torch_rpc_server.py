@@ -42,6 +42,7 @@ from spittle_tpu_torch.app import ui_state as t_ui
 from spittle_tpu_torch.audio import recorder as t_recorder
 from spittle_tpu_torch.config import catalog as t_catalog
 from spittle_tpu_torch import pipeline as t_pipeline
+from _fresh_sources import FreshSources  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -176,8 +177,8 @@ def session(pkg, data_dir, model_url):
             engine_type="whisper", accuracy_score=0.5, speed_score=0.9,
             supports_translation=False, is_recommended=False,
             language_group="english_only")])
-    src = pkg.recorder.QueueSource(16000)
-    services = pkg.services.AppServices(str(data_dir), source_factory=lambda: src,
+    src = FreshSources(pkg.recorder.QueueSource)
+    services = pkg.services.AppServices(str(data_dir), source_factory=src,
                                         use_mock_engine=True, catalog=catalog, **pkg.kw)
     played = []
     out = pkg.pipeline.BufferTextOutput()

@@ -12,7 +12,8 @@ on the CPU, at exact equality:
 - against tests/test_wayland_overlay.py's fake compositor, every request
   the Wayland client sends, the fd it passes and the pixels behind it;
 - the arm attach_session_overlay picks for each session type, display and
-  desktop, and the win32/darwin arms, which raise in the port.
+  desktop, and its win32 and darwin arms over the fakes of
+  tests/test_torch_shell_{windows,macos}.py.
 """
 
 import ctypes.util
@@ -51,6 +52,8 @@ from spittle_tpu_torch.shell import x11_overlay as t_x11
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_wayland_overlay import FakeCompositor  # noqa: E402
+from test_torch_shell_macos import compile_fake as macos_fake, fake_macos  # noqa: E402
+from test_torch_shell_windows import compile_fake as windows_fake, fake_windows  # noqa: E402
 
 JAX = dict(dbus=j_dbus, tray=j_tray, x11=j_x11, wl=j_wl, select=j_select, bus=JBus,
            settings=j_settings, services=j_services, ui=j_ui, actions=j_actions,
@@ -556,8 +559,59 @@ def test_overlay_selection_matches(wayland_answers, monkeypatch):
     assert seen == {("x11",), ("wayland",) if wayland_answers else ("wayland", "x11")}
 
 
-@pytest.mark.parametrize("platform", ["win32", "darwin"])
-def test_overlay_platform_arms_raise(platform, monkeypatch):
+@pytest.fixture(scope="module")
+def platform_fakes(tmp_path_factory):
+    d = tmp_path_factory.mktemp("overlay_platforms")
+    return {"darwin": macos_fake(d), "win32": windows_fake(d)}
+
+
+def _platform_overlay(pkg, platform, lib, monkeypatch):
+    """attach_session_overlay with sys.platform patched, the platform
+    backend over the fakes; one show, a mic level and a hide. Returns the
+    overlay's class, its backend's module and what reached the fake."""
+    pk = JAX if pkg == "spittle_tpu" else PORT
     monkeypatch.setattr(sys, "platform", platform)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1b item 1"):
-        t_select.attach_session_overlay(object())
+    if platform == "darwin":
+        rt = fake_macos(pkg, lib, monkeypatch)
+        record = rt.calls
+    else:
+        u32, g32 = fake_windows(pkg, lib, monkeypatch)
+        record = u32.calls
+    bus = pk["bus"]()
+    settings = pk["settings"].AppSettings()
+    settings.overlay_position = pk["settings"].OverlayPosition("bottom")
+    services = type("Services", (), {"events": bus, "get_settings": lambda self: settings})()
+    ov = pk["select"].attach_session_overlay(services)
+    if platform == "darwin":
+        shown, bar, hidden = (lambda c: c[1] == "orderFrontRegardless",
+                              lambda c: c[1] == "initWithFrame:",
+                              lambda c: c[1] == "orderOut:")
+    else:
+        shown, bar, hidden = (lambda c: c == ("show", 4),
+                              lambda c: c[0] == "fill" and c[1] > 0,
+                              lambda c: c == ("show", 0))
+    bus.emit(SHOW_OVERLAY, "recording")
+    _wait(lambda: any(shown(c) for c in record), "the show")
+    bus.emit(MIC_LEVEL, [0.5] * 16)
+    _wait(lambda: any(bar(c) for c in record), "a level bar")
+    bus.emit(HIDE_OVERLAY, None)
+    _wait(lambda: any(hidden(c) for c in record), "the hide")
+    ov.close()
+    ov._thread.join(timeout=5)
+    return (type(ov).__name__, type(ov.backend).__mro__[1].__module__.split(".", 1)[1],
+            list(record))
+
+
+@pytest.mark.parametrize("platform", ["win32", "darwin"])
+def test_overlay_platform_arms(platform, platform_fakes, monkeypatch):
+    """On Windows and macOS attach_session_overlay builds the shared
+    controller over each package's own topmost-popup / NSPanel backend,
+    and a show, a level and a hide make the same calls in both."""
+    got = {pkg: _platform_overlay(pkg, platform, platform_fakes[platform], monkeypatch)
+           for pkg in ("spittle_tpu", "spittle_tpu_torch")}
+    assert got["spittle_tpu_torch"] == got["spittle_tpu"]
+    name, module, record = got["spittle_tpu_torch"]
+    assert name == "X11Overlay"
+    assert module == ("shell.macos_overlay" if platform == "darwin" else
+                      "shell.windows_overlay")
+    assert len(record) > 5

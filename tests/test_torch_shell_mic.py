@@ -3,9 +3,13 @@ the JAX package's on the CPU, at exact equality: a fake capture process's
 PCM through MicSource (f32 and i16, reads that split samples), each
 capture tool's command line, the probe's errors, the source factory that
 AppServices picks with and without a capture tool on PATH, and the
-macOS/Windows capture arms, which raise in the port."""
+macOS (AudioQueue) and Windows (waveIn) capture arms with sys.platform
+patched, over the fakes of tests/test_torch_shell_{macos,windows}.py."""
 
+import ctypes
+import importlib
 import io
+import os
 import shutil
 import sys
 import threading
@@ -22,6 +26,10 @@ from spittle_tpu_torch.app import services as t_services
 from spittle_tpu_torch.audio.recorder import AudioRecorder as TRecorder
 from spittle_tpu_torch.audio.recorder import QueueSource as TQueueSource
 from spittle_tpu_torch.shell import mic as t_mic
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_shell_macos import compile_fake as macos_fake  # noqa: E402
+from test_torch_shell_windows import compile_fake as windows_fake  # noqa: E402
 
 ALL_TOOLS = lambda name: "/usr/bin/" + name  # noqa: E731
 
@@ -62,12 +70,17 @@ def _pcm(fmt: str) -> bytes:
 
 
 def _drain(src, timeout=10.0):
+    """Every sample the source yields, up to its end: read() until it
+    answers None and a second read finds nothing left (the JAX MicSource
+    can answer None while the reader's last block is still in its ring)."""
     got = []
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
         chunk = src.read(timeout=0.2)
         if chunk is None:
-            break
+            chunk = src.read(timeout=0.0)
+            if chunk is None:
+                break
         if len(chunk):
             got.append(chunk)
     return np.concatenate(got) if got else np.zeros(0, np.float32)
@@ -210,11 +223,140 @@ def test_mic_factory_opens_the_selected_device(monkeypatch):
     assert seen["port"][0][-2:] == ["-D", "usb-mic"]
 
 
+@pytest.fixture(scope="module")
+def native_fakes(tmp_path_factory):
+    """The AudioQueue and waveIn fakes of tests/test_torch_shell_{macos,
+    windows}.py, built once for this module."""
+    d = tmp_path_factory.mktemp("native_capture")
+    return {"darwin": macos_fake(d), "win32": windows_fake(d)}
+
+
+def _native_arm(pkg, platform, tool, lib, monkeypatch):
+    """The package's mic factory with sys.platform patched, its native
+    source over the fake: the class it opened, the PCM fed through the
+    driver callback as read, the fake's closing calls, and what the factory
+    does when the native source cannot open."""
+    mic = importlib.import_module(f"{pkg}.shell.mic")
+    name, module = (("MacMicSource", "macos_mic") if platform == "darwin"
+                    else ("WinMicSource", "windows_mic"))
+    native = importlib.import_module(f"{pkg}.shell.{module}")
+    base = getattr(native, name)
+    kw = {"lib": lib} if platform == "darwin" else {"winmm": lib}
+    monkeypatch.setattr(sys, "platform", platform)
+    monkeypatch.setattr(native, name, type(name, (base,), {
+        "__init__": lambda self: base.__init__(self, **kw)}))
+    factory = mic.make_mic_source_factory(lambda: "usb-mic", tool=tool)
+    lib.fake_reset()
+    src = factory()
+    if platform == "darwin":
+        pcm = np.random.default_rng(5).uniform(-0.9, 0.9, 700).astype(np.float32)
+        lib.fake_aq_feed(pcm.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), len(pcm))
+    else:
+        pcm = np.random.default_rng(5).integers(-32768, 32767, 700).astype(np.int16)
+        lib.fake_wi_feed(pcm.ctypes.data_as(ctypes.POINTER(ctypes.c_int16)), len(pcm))
+    got = src.read(timeout=1.0)
+    src.close()
+    closed = ((lib.fake_aq_stops(), lib.fake_aq_disposes()) if platform == "darwin"
+              else (lib.fake_wi_stops(), lib.fake_wi_resets(), lib.fake_wi_closes()))
+
+    def refuse(self):
+        raise OSError("no capture device")
+    monkeypatch.setattr(native, name, type(name, (base,), {"__init__": refuse}))
+    monkeypatch.setattr(mic, "MicSource", lambda device=None, tool=None:
+                        ("MicSource", device, tool))
+    fallback = _raised(factory) or factory()
+    return (type(src).__mro__[1].__module__.split(".", 1)[1], src.tool_name,
+            pcm.tobytes(), got.tobytes(), closed, fallback)
+
+
 @pytest.mark.parametrize("platform,tool", [("darwin", None), ("darwin", "audioqueue"),
                                            ("win32", None), ("win32", "wavein")])
-def test_native_capture_arms_raise(platform, tool, monkeypatch):
+def test_native_capture_arms(platform, tool, native_fakes, monkeypatch):
+    """On macOS and Windows the factory opens MacMicSource / WinMicSource
+    (AudioQueue / waveIn) in each package, over the same fake, with the
+    same PCM at read() and the same closing calls; when the native source
+    cannot open, the factory falls back to a capture tool unless that
+    source was asked for by name."""
     monkeypatch.setattr(shutil, "which", ALL_TOOLS)
-    factory = t_mic.make_mic_source_factory(tool=tool)
-    monkeypatch.setattr(sys, "platform", platform)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1b item 1"):
-        factory()
+    got = {pkg: _native_arm(pkg, platform, tool, native_fakes[platform], monkeypatch)
+           for pkg in ("spittle_tpu", "spittle_tpu_torch")}
+    assert got["spittle_tpu_torch"] == got["spittle_tpu"]
+    module, name, pcm, read, closed, fallback = got["spittle_tpu_torch"]
+    if platform == "darwin":
+        assert (module, name, read, closed) == ("shell.macos_mic", "audioqueue", pcm, (1, 1))
+    else:
+        want = (np.frombuffer(pcm, "<i2").astype(np.float32) / 32768.0).tobytes()
+        assert (module, name, read, closed) == ("shell.windows_mic", "wavein", want,
+                                                (1, 1, 1))
+    assert fallback == (("MicSource", "usb-mic", None) if tool is None
+                        else ("OSError", "no capture device"))
+
+
+FAKE_PAREC = """#!{python}
+import os, sys, time
+with open({pids!r}, "a") as f:
+    f.write(str(os.getpid()) + "\\n")
+while True:
+    sys.stdout.buffer.write(bytes(3200))
+    sys.stdout.flush()
+    time.sleep(0.05)
+"""
+
+
+def _running(pid: int) -> bool:
+    """The process exists and is not a zombie."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except FileNotFoundError:
+        return False
+
+
+def _readers():
+    return [t for t in threading.enumerate() if t.name == "mic-reader" and t.is_alive()]
+
+
+def test_manager_closes_each_capture_process(tmp_path, monkeypatch):
+    """Two push-to-talk recordings and a shutdown through each package's
+    AudioRecordingManager over the mic factory, with a fake `parec` first
+    on PATH: the port's manager closes each stream's source with the
+    stream, so no capture process and no reader thread is left; the JAX
+    package's leaves one of each per recording (its _close_stream closes
+    the recorder only)."""
+    from spittle_tpu.managers import audio as j_audio
+    from spittle_tpu_torch.managers import audio as t_audio
+
+    bindir = tmp_path / "bin"
+    bindir.mkdir()
+    parec = bindir / "parec"
+    pids = tmp_path / "pids"
+    parec.write_text(FAKE_PAREC.format(python=sys.executable, pids=str(pids)))
+    parec.chmod(0o755)
+    monkeypatch.setenv("PATH", f"{bindir}{os.pathsep}{os.environ['PATH']}")
+    left = {}
+    try:
+        for name, audio, mic in (("port", t_audio, t_mic), ("jax", j_audio, j_mic)):
+            before = pids.read_text().split() if pids.exists() else []
+            readers = len(_readers())
+            mgr = audio.AudioRecordingManager(
+                source_factory=mic.make_mic_source_factory(tool="parec"))
+            try:
+                for binding in ("transcribe", "transcribe_with_post_process"):
+                    assert mgr.try_start_recording(binding)
+                    time.sleep(0.3)
+                    assert mgr.stop_recording(binding) is not None
+            finally:
+                mgr.shutdown()
+            started = [int(p) for p in pids.read_text().split()[len(before):]]
+            assert len(started) == 2, started
+            time.sleep(0.1)
+            left[name] = ([p for p in started if _running(p)],
+                          len(_readers()) - readers)
+        assert left["port"] == ([], 0)
+        assert len(left["jax"][0]) == 2 and left["jax"][1] == 2
+    finally:
+        for pid in (int(p) for p in pids.read_text().split()) if pids.exists() else ():
+            if _running(pid):
+                os.kill(pid, 15)
+        for t in _readers():
+            t.join(timeout=5)

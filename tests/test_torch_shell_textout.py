@@ -4,10 +4,14 @@ equality: the pure command functions for every typing tool on Wayland and
 on X, the command sequence SystemTextOutput issues through an injected
 runner and reader for every paste method and clipboard handling (tool
 chain and a recording keyboard), apply_text_diff and press_key, the key
-parser, and the native library's build into build/spittle_tpu_torch/."""
+parser, the native library's build into build/spittle_tpu_torch/, and the
+Windows (SendInput, clipboard) and macOS (AX selection) branches with
+sys.platform patched."""
 
+import importlib
 import itertools
 import os
+import sys
 
 import pytest
 
@@ -19,6 +23,9 @@ from spittle_tpu_torch.shell import textout as t_textout
 from spittle_tpu_torch.shell import uinput as t_uinput
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_torch_shell_macos import FakeAX  # noqa: E402
+from test_torch_shell_windows import FakeClipUser32, FakeKernel32, FakeUser32  # noqa: E402
 TEXTS = ("hello world", "naïve café", "a -- b 'q' \"x\"", "")
 KEYS = ("ctrl+v", "ctrl+shift+v", "shift+Insert", "Return", "Left",
         "BackSpace", "super+Return", "ctrl+Return", "Tab", "F13", "weird+x")
@@ -202,20 +209,83 @@ def test_uinput_keyboard_without_a_device_raises(monkeypatch):
         t_uinput.UinputKeyboard()
 
 
+def _platform_branch(pkg, branch, monkeypatch):
+    """One textout branch of macOS or Windows with sys.platform patched,
+    over the fakes of tests/test_torch_shell_{windows,macos}.py: the
+    runner's commands, the SendInput arrays' bytes, the clipboard calls
+    and memory, and the AX selections."""
+    settings = importlib.import_module(f"{pkg}.config.settings")
+    s = settings.AppSettings()
+    s.paste_delay_ms = 0
+    commands = []
+    out = importlib.import_module(f"{pkg}.shell.textout").SystemTextOutput(
+        lambda: s, runner=lambda c, i=None: commands.append((tuple(c), i)) or True,
+        reader=lambda c: "", which=_which(("xclip", "xdotool")))
+    if branch == "ax":
+        monkeypatch.setattr(sys, "platform", "darwin")
+        ax = importlib.import_module(f"{pkg}.shell.macos_ax")
+        be = FakeAX(location=30, ax_error=ax.AXError)
+        monkeypatch.setattr(ax, "_default", be)  # the platform's default backend
+        monkeypatch.setattr(ax, "_default_resolved", True)
+        out.apply_text_diff(2, 4, "new")
+        out.apply_text_diff(0, 3, "")
+        return commands, be.set_calls
+    monkeypatch.setattr(sys, "platform", "win32")
+    wi = importlib.import_module(f"{pkg}.shell.windows_input")
+    wc = importlib.import_module(f"{pkg}.shell.windows_clipboard")
+    u32, cu32, k32, sleeps = FakeUser32(), FakeClipUser32(), FakeKernel32(), []
+    base, write, read = wi.SendInputKeyboard, wc.clipboard_write, wc.clipboard_read
+    monkeypatch.setattr(wi, "SendInputKeyboard", type("SendInputKeyboard", (base,), {
+        "__init__": lambda self: base.__init__(self, user32=u32, sleep=sleeps.append)}))
+    monkeypatch.setattr(wc, "clipboard_write", lambda t: write(t, user32=cu32, kernel32=k32))
+    monkeypatch.setattr(wc, "clipboard_read", lambda: read(user32=cu32, kernel32=k32))
+    got = []
+    if branch == "keyboard":
+        s.paste_method = settings.PasteMethod.DIRECT
+        out.paste_raw("hi")
+        out.paste_raw("é")  # not ASCII: the tool chain types it
+        out.apply_text_diff(1, 1, "x")
+        out.press_key("enter")
+    elif branch == "clipboard_write":
+        s.paste_method = settings.PasteMethod.CTRL_V
+        out.paste_raw("hello")
+        got.append(out._clipboard_write("again"))
+    else:
+        s.paste_method = settings.PasteMethod.SHIFT_INSERT
+        s.clipboard_handling = settings.ClipboardHandling.DONT_MODIFY
+        got.append(out._clipboard_read())
+        write("old", user32=cu32, kernel32=k32)
+        out.paste_raw("new")
+        got.append(out._clipboard_read())
+    return (commands, [b[2] for b in u32.batches], sleeps, cu32.calls, k32.contents(),
+            got)
+
+
 @pytest.mark.parametrize("branch", ["keyboard", "clipboard_write", "clipboard_read",
                                     "ax"])
-def test_windows_and_macos_branches_raise(branch, monkeypatch):
-    """The Windows SendInput and clipboard branches and the macOS AX
-    selection raise NotImplementedError naming the ROADMAP slice."""
-    s = t_settings.AppSettings()
-    s.paste_delay_ms = 0
-    out = t_textout.SystemTextOutput(lambda: s, runner=lambda c, i=None: True,
-                                     reader=lambda c: "", which=_which(("xclip",)))
-    platform = "darwin" if branch == "ax" else "win32"
-    monkeypatch.setattr(t_textout.sys, "platform", platform)
-    call = {"keyboard": lambda: t_textout._platform_keyboard(),
-            "clipboard_write": lambda: out._clipboard_write("x"),
-            "clipboard_read": lambda: out._clipboard_read(),
-            "ax": lambda: out.apply_text_diff(1, 1, "x")}[branch]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1b item 1"):
-        call()
+def test_windows_and_macos_branches(branch, monkeypatch):
+    """With sys.platform patched, the Windows SendInput and clipboard
+    branches and the macOS AX selection reach each package's own module,
+    and the port makes the JAX package's calls over the same fakes."""
+    got = {pkg: _platform_branch(pkg, branch, monkeypatch)
+           for pkg in ("spittle_tpu", "spittle_tpu_torch")}
+    assert got["spittle_tpu_torch"] == got["spittle_tpu"]
+    if branch == "ax":
+        commands, selections = got["spittle_tpu_torch"]
+        assert selections == [(24, 4), (27, 3)]
+        keys = [" ".join(c) for c, _ in commands]
+        assert not any("Left" in k for k in keys)
+        assert sum("BackSpace" in k for k in keys) == 1  # clears the second
+        return
+    commands, batches, sleeps, clip_calls, memory, results = got["spittle_tpu_torch"]
+    if branch == "keyboard":
+        assert [c[0][:2] for c in commands] == [("xdotool", "type")]
+        assert len(batches) == 6 and memory == []
+        return
+    assert commands == []  # no tool ran: SendInput and the Win32 clipboard
+    if branch == "clipboard_write":
+        assert results == [True] and len(batches) == 2 and len(sleeps) == 1
+        assert memory == [w.encode("utf-16-le") + b"\x00\x00" for w in ("hello", "again")]
+    else:
+        assert results == [None, "old"]  # the saved text was put back
+        assert [m.decode("utf-16-le") for m in memory] == ["old\x00", "new\x00", "old\x00"]

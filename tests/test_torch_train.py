@@ -17,6 +17,7 @@ version as the backward.
 """
 
 import dataclasses
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -341,6 +342,34 @@ def test_resumed_run_equals_unbroken(tmp_path):
     assert resumed == unbroken
     for name, t in _flat(params).items():
         assert torch.equal(_flat(p2)[name], t), name
+
+
+def test_interrupted_save_leaves_no_step(tmp_path, monkeypatch):
+    """A save interrupted after its write, before the rename, leaves the
+    earlier step_<n> as it was and no new one; a plain tree's step holds
+    the one state.pt file it always has."""
+    from spittle_tpu_torch.train import checkpoint as ckpt
+
+    jp, batch, init, step = _trainer()
+    params = _port(jp)
+    state = init(params)
+    step(params, state, batch)
+    save_checkpoint(str(tmp_path), params, state, step=1)
+    assert sorted(p.name for p in (tmp_path / "step_1").iterdir()) == ["state.pt"]
+    written = []
+
+    def interrupted(tmp, final):
+        written.append(sorted(p.name for p in pathlib.Path(tmp).iterdir()))
+        raise KeyboardInterrupt
+    monkeypatch.setattr(ckpt, "_publish", interrupted)
+    with pytest.raises(KeyboardInterrupt):
+        save_checkpoint(str(tmp_path), params, state, step=2)
+    assert written == [["state.pt"]]
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_1"]
+    assert latest_step(str(tmp_path)) == 1
+    monkeypatch.undo()
+    save_checkpoint(str(tmp_path), params, state, step=2)
+    assert latest_step(str(tmp_path)) == 2
 
 
 # -- the families' .npz writer -----------------------------------------------------
