@@ -61,7 +61,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    the bound from the H100 data-sheet peaks (K1, K5, K8 and K9 also their
    TFLOP/s and the floor of their exponentials on the special-function
    units).
-   Then the weight-only int8
+   Then the f32 forms, the JAX package's default precision (f32_kernels_phase):
+   K1's at [8, 20, 1500, 64], [1, 20, 1500, 64], [8, 20, 256, 64], causal
+   [4, 20, 224, 64] and kv_len 1300; K5's route at [2, 20, 6000, 64]
+   (kv_len 6000, 5000, causal); K4's f32 instance at B 8 with R 1, 3 and
+   8, B 1 R 1 and B 2 Tk 6000 R 1; K3's and K6's with an f32 q at B 8, R 1
+   and 5: K1, K5 and K4 within 1e-5 of the plain version's largest
+   |output|, K3 and K6 to the bf16 instances' rule; SDPA in f32 the
+   yardstick (on dequantized f32 K/V for K3/K6), bounds at 67 TFLOP/s of
+   f32 FMA. Then the weight-only int8
    decoder products of one decode step (plain matmuls, no kernel of
    their own), beside the same products on bf16 weights. Then K1 at
    [8, 10, 1500, 64] and [8, 5, 1500, 64], and K4 and K3 at 10 and 5 heads
@@ -152,7 +160,24 @@ Phases, each printing its own lines; any failure exits non-zero:
       avg_logprob gate, so each window is expected to take all six rungs
       at the full budget; the wall seconds, windows, rungs and steps of
       each call are printed;
-   x. dictation (after g, the same engine): the app's shortcut path.
+   f32 (after g; an engine of its own): the JAX package's default
+      precision at full width (f32_phase). WhisperEngine(device="cuda")
+      with no dtype, f32 as the JAX engine's, on random:large-v3-turbo: 1 x
+      8 x 30 s (K1's f32 form 32, K4's f32 instance 4 x (1 + steps), K2 and
+      every bf16 instance 0); the same weights under quantize_decoder
+      "int8" and "int4", 1 x 2 x 30 s each (K3's and K6's f32-q
+      instances); transcribe_samples(TranscribeParams()) on 5 s (K1-f32 32,
+      K4-f32 as the decode traces predict); the encoder over one 120 s
+      window of LONG_MODEL (K5's route at f32, 32); then the token gate: at
+      turbo's widths with 4 + 4 layers, one 30 s window on the card token
+      for token the port's CPU run on the same weights and audio (where
+      they part, the CPU's top-2 logit gap is printed and the phase
+      fails). Peak memory printed.
+   x-z, desktop and platforms: built like the app, they run on an engine
+      at the engine's default precision, f32 (the JAX app's), with the W8A8
+      encoder and the mu-law wire (APP_OPTS): K1's and K4's f32 entries in
+      place of K1 and K4. bench.py's legs and the other phases stay bf16.
+   x. dictation (after f32, the app-like engine): the app's shortcut path.
       AppServices in a temporary directory over a QueueSource(16000) (a
       fresh one for each stream: the manager closes a stream's source), the
       production VAD (Silero on the card in Smoothed(15, 15, 2):
@@ -263,8 +288,8 @@ Phases, each printing its own lines; any failure exits non-zero:
       resolve; p50/p95 latency, requests/s and the batch sizes of each
       round are printed; K1, K2 and K4 as the decode traces predict.
    p. turbo speculative (after o, the same engine): the turbo decoder in
-      f32 (TF32 off; the cross-attention in the "w8a8" form, since K1 and
-      K4 take bf16 only) greedy against speculative with its
+      f32 (TF32 off; the cross-attention in the "w8a8" form, K14 on an f32
+      q) greedy against speculative with its
       load_self_draft(2) layers over 8 windows' encoder output: tokens
       equal; then the bf16 engine greedy and with load_self_draft(2) on
       the same 8 windows: agreement, last_spec_stats, ms per main-model
@@ -288,7 +313,8 @@ Phases, each printing its own lines; any failure exits non-zero:
       plain ops, every kernel's count 0.
    w. tooling (after r): `python -m spittle_tpu_torch.cli transcribe` in
       process on 60 s of int16 audio (random:large-v3-turbo,
-      --parallel-windows --timestamps --quantize-encoder --stats) inside
+      --parallel-windows --timestamps --quantize-encoder --stats; the CLI's
+      engine at its default precision, f32: K1-f32, K2, K4-f32) inside
       Tracer.device_trace and with init_logging set up: its stdout equal to
       transcribe_samples called directly on the engine the CLI built (the
       same from_env options and seed), K1, K2 and K4 launched as often in
@@ -329,9 +355,11 @@ import wave
 import numpy as np
 import torch
 
-# H100 SXM data-sheet peaks (dense), at its 700 W power limit.
+# H100 SXM data-sheet peaks (dense), at its 700 W power limit; f32 is the
+# FMA rate of the CUDA cores (the f32 kernels use no tensor cores).
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # Special-function results per second (132 SMs x 16 per clock at ~1.85
 # GHz): the floor of an attention kernel's exponentials.
@@ -344,6 +372,12 @@ LV3_BATCH = 56  # bench.py's large-v3 batch, for the K3/K6 timing
 APP_PROMPT = "Meeting notes, Tuesday."
 # The long-window model: large-v3-turbo with 6000 encoder positions.
 LONG_MODEL, LONG_CTX = "large-v3-turbo-ctx6000", 6000
+# The f32 phase's card-vs-CPU token gate: large-v3-turbo's widths with 4
+# encoder layers (and its 4 decoder layers).
+GATE_MODEL = "large-v3-turbo-enc4"
+# The engine options of the phases built like the app: the engine's
+# default dtype (f32, as the JAX app's) on the W8A8 encoder and mu-law wire.
+APP_OPTS = {"dtype": None}
 # The VAD path (the long-form configuration: Silero + resample on 10
 # minutes): the recording's length and rate, and its decode budget.
 VAD_SECONDS, VAD_RATE, VAD_TOKENS = 600.0, 44100, 48
@@ -406,7 +440,26 @@ def _kernels():
             *_form_kernels().values(), att.flash_attention,
             att.decode_cross_attention_q8_mh, cw.alias_col_write_sub,
             cw.alias_col_write, att.decode_cross_attention_w8a8,
-            att.flash_attention_fullkv_bwd)
+            att.flash_attention_fullkv_bwd, *_f32_entries(att).values())
+
+
+def _f32_entries(att):
+    """The bf16 wrapper's name -> the f32 entry it hands an f32 q to (K1,
+    K5's route, K4, K3, K6: the JAX package's default precision)."""
+    return {"flash_attention_fullkv": att.flash_attention_fullkv_f32,
+            "flash_attention": att.flash_attention_f32,
+            "decode_cross_attention": att.decode_cross_attention_f32,
+            "decode_cross_attention_q8": att.decode_cross_attention_q8_f32q,
+            "decode_cross_attention_q4": att.decode_cross_attention_q4_f32q}
+
+
+def kernel_name(name: str, dtype) -> str:
+    """The counter that a run in `dtype` moves in place of the bf16
+    wrapper `name`'s (the same name where the kernel has no f32 form)."""
+    from spittle_tpu_torch.ops import attention as att
+
+    f32 = _f32_entries(att)
+    return f32[name].__name__ if dtype == torch.float32 and name in f32 else name
 
 
 def _form_kernels():
@@ -653,6 +706,7 @@ def kernel_phase(dev, rng):
     path_shapes_phase(dev, rng, "reduced context", 8, 256)
     path_shapes_phase(dev, rng, "app path", 1, 1500)
     rows += quant_cross_phase(dev)
+    rows += f32_kernels_phase(dev, rng)
     rows.append(w8a8_phase(dev))
     rows += flash_phase(dev, rng)
     rows.append(mh_phase(dev))
@@ -2059,6 +2113,191 @@ def quant_cross_phase(dev):
     return rows
 
 
+def f32_kernels_phase(dev, rng):
+    """The f32 forms, the JAX package's default precision, against their
+    plain versions on the card, with TF32 off (ops.full_f32) for the plain
+    versions and the library yardstick: K1's f32 form at [8, 20, 1500, 64],
+    the app path's [1, 20, 1500, 64], the reduced context's [8, 20, 256,
+    64], causal [4, 20, 224, 64] and kv_len 1300; K5's route at [2, 20,
+    6000, 64] (kv_len 6000 and 5000, causal); K4's f32 instance on the
+    decoder's rows (tma_pitch(1500, 4) = 1500) at B 8 with R 1, 3 and 8,
+    at B 1 R 1 and at B 2 Tk 6000 R 1; K3's and K6's instances with an
+    f32 q at B 8, R 1 and 5, on rows of 1504 bytes. K1, K5 and K4 within
+    1e-5 of the plain version's largest |output| (f32 end to end: the
+    order of the sums and the softmax's running max only); K3 and K6 the
+    bf16 instances' rule (P rounds to bf16 against each item's max). Each
+    case prints its device ms (CUDA graph replay over cold inputs), eager
+    ms, plain ms, the library call's ms (SDPA in f32 on the same q, k, v;
+    on dequantized f32 K/V for K3/K6) and its bound. Returns one row per
+    entry, its first case's numbers, every case's under "by_shape"."""
+    from spittle_tpu_torch.ops import attention as att
+    from spittle_tpu_torch.ops import full_f32
+    from spittle_tpu_torch.ops.quant import (
+        dequantize_kv, dequantize_kv_int4, quantize_kv, quantize_kv_int4,
+    )
+
+    F = torch.nn.functional
+    h, d = 20, 64
+    rows = {}
+
+    def record(name, source, line, label, err, tol, ms, eager, plain_ms, lib_ms,
+               flops, nbytes, work):
+        check(label, err, tol)
+        bms, by = bound(flops, PEAK_F32_FLOPS, nbytes)
+        print(f"    ms {ms:.4f} ({flops / ms / 1e9:.2f} TFLOP/s; eager call_ms "
+              f"{eager:.4f})  plain_ms {plain_ms:.4f}  library_ms "
+              f"(F.scaled_dot_product_attention, f32) {lib_ms:.4f}  bound_ms "
+              f"{bms:.4f} ({by})")
+        nums = dict(ms=ms, call_ms=eager, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=bms, bound_by=by, max_abs_err=err)
+        if name not in rows:
+            rows[name] = dict(name=name, route="cuda",
+                              source=f"spittle_tpu_torch/csrc/{source}",
+                              replaces=f"spittle_tpu/ops/attention.py:{line}",
+                              work=work, **nums,
+                              library="F.scaled_dot_product_attention in f32",
+                              by_shape={})
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+        rows[name]["by_shape"][label] = nums
+
+    with full_f32():
+        print("K1-f32 flash_attention_fullkv_f32 q,k,v f32 (heads as views of "
+              "packed projections):")
+        for b, t, kv_len, causal, iters in ((8, 1500, 1500, False, 10),
+                                            (1, 1500, 1500, False, 20),
+                                            (8, 256, 256, False, 20),
+                                            (4, 224, 224, True, 20),
+                                            (8, 1500, 1300, False, 10)):
+            packed = [randn(rng, (b, t, h * d), dev, torch.float32, d ** -0.25)
+                      for _ in range(3)]
+            q, k, v = (att.split_heads(x, h) for x in packed)
+            kernel = lambda: att.flash_attention_fullkv_f32(  # noqa: E731
+                q, k, v, causal, kv_len)
+            got = kernel()
+            want = att.flash_attention_fullkv_plain(q, k, v, causal, kv_len)
+            err = (got - want).abs().max().item()
+            tol = 1e-5 * want.abs().max().item()
+            del got, want
+            ms, eager = time_ms(kernel, iters), call_ms(kernel, iters)
+            plain_ms = time_ms(lambda: att.flash_attention_fullkv_plain(
+                q, k, v, causal, kv_len), 2, 1)
+            kk, vv = k[:, :, :kv_len], v[:, :, :kv_len]
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q, kk, vv, is_causal=causal, scale=1.0), iters)
+            pairs = t * (t + 1) / 2 if causal else t * kv_len
+            label = (f"[{b},20,{t},64]" + (" causal" if causal else "")
+                     + (f" kv_len {kv_len}" if kv_len < t else ""))
+            record("flash_attention_fullkv_f32", "fullkv_attention_f32.cu", 206,
+                   f"K1-f32 {label}", err, tol, ms, eager, plain_ms, lib_ms,
+                   4.0 * b * h * pairs * d, 4 * b * h * t * d * 4,
+                   "q,k,v [8,20,1500,64] f32 (an f32 encoder layer)")
+            del packed, q, k, v, kk, vv
+        torch.cuda.empty_cache()
+
+        print("K5's route at f32, flash_attention_f32 q,k,v [2,20,6000,64] f32:")
+        b, t = 2, 6000
+        packed = [randn(rng, (b, t, h * d), dev, torch.float32, d ** -0.25)
+                  for _ in range(3)]
+        q, k, v = (att.split_heads(x, h) for x in packed)
+        for kv_len, causal in ((6000, False), (5000, False), (6000, True)):
+            kernel = lambda: att.flash_attention_f32(q, k, v, causal, kv_len)  # noqa: E731
+            got = kernel()
+            want = att.flash_attention_plain(q, k, v, causal, kv_len)
+            err = (got - want).abs().max().item()
+            tol = 1e-5 * want.abs().max().item()
+            del got, want
+            ms, eager = time_ms(kernel, 5), call_ms(kernel, 5)
+            plain_ms = time_ms(lambda: att.flash_attention_plain(
+                q, k, v, causal, kv_len), 1, 1)
+            kk, vv = k[:, :, :kv_len], v[:, :, :kv_len]
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q, kk, vv, is_causal=causal, scale=1.0), 5)
+            pairs = t * (t + 1) / 2 if causal else t * kv_len
+            record("flash_attention_f32", "fullkv_attention_f32.cu", 105,
+                   f"K5-f32 [2,20,6000,64] kv_len {kv_len}"
+                   + (" causal" if causal else ""),
+                   err, tol, ms, eager, plain_ms, lib_ms,
+                   4.0 * b * h * pairs * d, 4 * b * h * t * d * 4,
+                   "q,k,v [2,20,6000,64] f32 (a long-window f32 encoder layer)")
+        del packed, q, k, v, kk, vv
+        torch.cuda.empty_cache()
+
+        print("K4-f32 decode_cross_attention_f32 k,v [B,20,64,Tk] f32 in rows of "
+              "tma_pitch(Tk, 4) positions:")
+        for b, t, rs in ((8, 1500, (1, 3, 8)), (1, 1500, (1,)), (2, 6000, (1,))):
+            kvs = [(padded_rows(randn(rng, (b, h, d, t), dev, torch.float32)),
+                    padded_rows(randn(rng, (b, h, d, t), dev, torch.float32)))
+                   for _ in range(n_cold_sets(2 * b * h * d * t * 4))]
+            for r in rs:
+                qd = randn(rng, (b, h, r, d), dev, torch.float32, d ** -0.5)
+                kt, vt = kvs[0]
+                got = att.decode_cross_attention_f32(qd, kt, vt)
+                want = att.decode_cross_attention_plain(qd, kt, vt)
+                err = (got - want).abs().max().item()
+                tol = 1e-5 * want.abs().max().item()
+                kernel = [lambda kt=kt, vt=vt: att.decode_cross_attention_f32(
+                    qd, kt, vt) for kt, vt in kvs]
+                ms, eager = time_ms(kernel, 100), call_ms(kernel, 100)
+                plain_ms = time_ms([lambda kt=kt, vt=vt: att.decode_cross_attention_plain(
+                    qd, kt, vt) for kt, vt in kvs], 10)
+                lib_ms = time_ms([lambda kt=kt, vt=vt: F.scaled_dot_product_attention(
+                    qd, kt.transpose(-1, -2), vt.transpose(-1, -2), scale=1.0)
+                    for kt, vt in kvs], 100)
+                record("decode_cross_attention_f32", "decode_cross_attention_mh.cu",
+                       723, f"K4-f32 B={b} R={r} Tk={t}", err, tol, ms, eager,
+                       plain_ms, lib_ms, 4.0 * b * h * r * t * d,
+                       2 * b * h * d * t * 4 + 2 * b * h * r * d * 4,
+                       "q [8,20,1,64] f32 (a decode step), K/V f32 rows of 1500")
+            del kvs
+            torch.cuda.empty_cache()
+
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 3)
+        b, t = 8, 1500
+        for kname, bits, fn, plain, quant, dequant, key, line in (
+                ("K3-f32q", 8, att.decode_cross_attention_q8_f32q,
+                 att.decode_cross_attention_q8_plain, quantize_kv, dequantize_kv,
+                 "qw", 795),
+                ("K6-f32q", 4, att.decode_cross_attention_q4_f32q,
+                 att.decode_cross_attention_q4_plain, quantize_kv_int4,
+                 dequantize_kv_int4, "qw4", 876)):
+            stored = d if bits == 8 else d // 2
+            kv_bytes = 2 * b * h * stored * t + 2 * b * h * t * 4
+            print(f"{kname} {fn.__name__} K/V {bits}-bit [8,20,{stored},1500] + f32 "
+                  "scales in rows of 1504 bytes, q f32:")
+
+            def make_set():
+                qkv = [quant(torch.randn((b, h, d, t), generator=gen, device=dev))
+                       for _ in range(2)]
+                deq = tuple(dequant(x, torch.float32).transpose(-1, -2).contiguous()
+                            for x in qkv)
+                return (padded_rows(qkv[0][key]), qkv[0]["scale"],
+                        padded_rows(qkv[1][key]), qkv[1]["scale"]), deq
+
+            sets = [make_set() for _ in range(n_cold_sets(kv_bytes))]
+            for r in (1, BEAM):
+                qd = torch.randn((b, h, r, d), generator=gen, device=dev) * d ** -0.5
+                got = fn(qd, *sets[0][0])
+                want = plain(qd, *sets[0][0])
+                err = (got - want).abs().max().item()
+                # The bf16 instances' tolerance: the kernel rounds bf16(p * vs)
+                # against its item's max (128 positions), the plain version
+                # against the row max.
+                tol = 2e-3 + 1e-2 * want.abs().max().item()
+                kernel = [lambda kv=kv: fn(qd, *kv) for kv, _ in sets]
+                ms, eager = time_ms(kernel, 100), call_ms(kernel, 100)
+                plain_ms = time_ms([lambda kv=kv: plain(qd, *kv) for kv, _ in sets], 5, 1)
+                lib_ms = time_ms([lambda kd=kd, vd=vd: F.scaled_dot_product_attention(
+                    qd, kd, vd, scale=1.0) for _, (kd, vd) in sets], 100)
+                record(fn.__name__, "decode_cross_attention_mh.cu", line,
+                       f"{kname} B={b} R={r}", err, tol, ms, eager, plain_ms, lib_ms,
+                       4.0 * b * h * r * t * d, kv_bytes + 2 * b * h * r * d * 4,
+                       "q [8,20,1,64] f32 (a decode step), K/V rows of 1504 bytes")
+            del sets
+            torch.cuda.empty_cache()
+    return list(rows.values())
+
+
 def k14_capture(label, args, kv_len, got, want, past, past_ulp, plan) -> str:
     """What K14's check keeps when it fails: the inputs, K14's output and
     the plain version's in a file of the build directory; K14 and the
@@ -2445,11 +2684,11 @@ def turbo_speculative_phase(label: str, eng, seed: int):
     1. Exactness at full width: the turbo decoder cast to f32 with TF32
        off, greedy_decode and speculative_greedy_decode with its
        load_self_draft(2) layers over the same encoder output (the engine's
-       bf16 encode, cast to f32). K1 and K4 take bf16 only, so the f32
-       decoder runs the cross-attention in the "w8a8" form (the decoder's
-       weights int8 weight-only, "qw8" cross-K/V: K14 takes f32 q), the
-       one f32 decode cross-attention the port has on the card. The tokens
-       must be equal.
+       bf16 encode, cast to f32). The f32 decoder runs the cross-attention
+       in the "w8a8" form (the decoder's weights int8 weight-only, "qw8"
+       cross-K/V: K14 on an f32 q), as this cell has since it was added;
+       K4's f32 instance, the unquantized f32 decoder's, is held by the
+       "f32" phase. The tokens must be equal.
     2. The engine in bf16 with load_self_draft(2) against the same windows
        greedy: token agreement (bf16 products over 4 rows and over 1 round
        differently, so near-ties may part), last_spec_stats, ms per
@@ -2621,11 +2860,12 @@ def t5_phase():
 CLI_SECONDS = 60.0
 CLI_ARGS = ("--model", "random:large-v3-turbo", "--parallel-windows", "--timestamps",
             "--quantize-encoder", "--stats")
-# The __global__ symbol of each kernel the CLI's path launches (K1's is the
-# attention core's, K2's its GEMM's, K4's the decode kernel's).
-CLI_SYMBOLS = {"flash_attention_fullkv": "attention_sm90_kernel",
+# The __global__ symbol of each kernel the CLI's path launches: its engine
+# runs at the default precision, f32, as the JAX CLI's (K1's f32 form, K2's
+# GEMM on f32 activations, K4's f32 instance of the decode kernel).
+CLI_SYMBOLS = {"flash_attention_fullkv_f32": "fullkv_f32_kernel",
                "w8a8_gemm": "w8a8_gemm_kernel",
-               "decode_cross_attention": "decode_cross_mh_kernel"}
+               "decode_cross_attention_f32": "decode_cross_mh_kernel"}
 # The cleanup prompts of the T5 check, and its decode budget.
 CLEANUP_PROMPTS = ("so i think we should ship it on tuesday",
                    "run `make test` then push to @main --force",
@@ -2834,7 +3074,8 @@ def cli_check(work: str):
                                  f"times by the CLI, {direct[name]} directly")
         if not counts[sym]:
             raise AssertionError(f"tooling: the trace names no {sym} kernel")
-    if counts[CLI_SYMBOLS["flash_attention_fullkv"]] != launches["flash_attention_fullkv"]:
+    if (counts[CLI_SYMBOLS["flash_attention_fullkv_f32"]]
+            != launches["flash_attention_fullkv_f32"]):
         raise AssertionError("tooling: K1's trace events and launches differ")
     if other := {k: v for k, v in launches.items() if v and k not in CLI_SYMBOLS}:
         raise AssertionError(f"tooling: other kernels ran on the CLI path: {other}")
@@ -3094,18 +3335,21 @@ def family_phase(label: str, model: str, seed: int):
 
 
 def load_engine(model: str, engine_opts: dict, seed: int):
-    """A W8A8-encoder, mu-law, bf16 engine with `model` loaded."""
+    """A W8A8-encoder, mu-law, bf16 engine with `model` loaded (bench.py's
+    legs pin bf16); engine_opts override those ("dtype": None takes the
+    engine's default, f32, as the JAX app does)."""
     from spittle_tpu_torch.engine.whisper_engine import WhisperEngine
 
     t0 = time.perf_counter()
-    eng = WhisperEngine(device="cuda", dtype=torch.bfloat16,
-                        quantize_encoder=True, wire="mulaw", **engine_opts)
+    opts = dict(dtype=torch.bfloat16, quantize_encoder=True, wire="mulaw")
+    opts.update(engine_opts)
+    eng = WhisperEngine(device="cuda", **opts)
     eng.load_model(model, seed=seed)
     torch.cuda.synchronize()
     cfg = eng.cfg
     print(f"engine: {model} (d={cfg.n_audio_state}, "
           f"{cfg.n_audio_layer}+{cfg.n_text_layer} layers) {engine_opts} "
-          f"loaded in {time.perf_counter() - t0:.1f} s")
+          f"{eng.dtype} loaded in {time.perf_counter() - t0:.1f} s")
     return eng
 
 
@@ -3196,19 +3440,21 @@ def _trace_marks(eng):
 def _traced_launches(eng, detections: int = 0, since=(0, 0)):
     """The launch counts the engine's decode traces since they were cleared
     (or since the mark `since`, _trace_marks) give: per window batch (one
-    frontend, one ladder) K1 once and K2 six times per encoder layer; per
-    decode call K4 once per decoder layer for each step and, where the
-    prefix has at most 8 rows, for the prefill; per language detection K4
-    once per decoder layer; the rest 0."""
+    frontend, one ladder) K1 once and, under the W8A8 encoder, K2 six
+    times per encoder layer; per decode call K4 once per decoder layer for
+    each step and, where the prefix has at most 8 rows, for the prefill;
+    per language detection K4 once per decoder layer; the rest 0. An f32
+    engine (the default) moves K1's and K4's f32 entries in their place."""
     cfg = eng.cfg
     frontends = len(eng.last_decode_rungs) - since[0]
     dec = sum(s + (rows <= 8) for s, rows in
               zip(eng.last_decode_steps[since[1]:], eng.last_prefix_rows[since[1]:]))
     want = {fn.__name__: 0 for fn in _kernels()}
     want.update({
-        "flash_attention_fullkv": frontends * cfg.n_audio_layer,
-        "w8a8_gemm": frontends * 6 * cfg.n_audio_layer,
-        "decode_cross_attention": cfg.n_text_layer * (dec + detections),
+        kernel_name("flash_attention_fullkv", eng.dtype): frontends * cfg.n_audio_layer,
+        "w8a8_gemm": frontends * 6 * cfg.n_audio_layer * bool(eng.quantize_encoder),
+        kernel_name("decode_cross_attention", eng.dtype):
+            cfg.n_text_layer * (dec + detections),
     })
     return want
 
@@ -3298,6 +3544,143 @@ def app_phase(label: str, eng, seed: int):
         raise AssertionError(f"{label}: launch counts {launches} != predicted {want}")
     del results
     return launches
+
+
+def _f32_gate(seed: int):
+    """The card-vs-CPU token gate at f32: turbo's full widths with 4
+    encoder and 4 decoder layers (GATE_MODEL), the same seeded weights in
+    an f32 engine on each device, one 30 s window through each engine's
+    frontend (mel, encoder) and greedy_decode (96 tokens, language "en").
+    The tokens must be identical; where they part, the CPU's top-2 logit
+    gap at that position is printed and the gate fails."""
+    from spittle_tpu_torch.engine.whisper_engine import WhisperEngine
+    from spittle_tpu_torch.models.whisper.decode import DecodeOptions, greedy_decode
+    from spittle_tpu_torch.models.whisper.model import decoder_forward
+    from spittle_tpu_torch.ops import full_f32
+
+    audio = synth_utterance(np.random.default_rng(seed + 30), 30.0)
+    opts = DecodeOptions(language="en", max_tokens=96)
+    out = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        eng = WhisperEngine(device=device)
+        eng.load_model(f"random:{GATE_MODEL}", seed=seed)
+        windows = torch.from_numpy(eng._assemble_windows([audio], [(0, 0)])).to(device)
+        with torch.inference_mode(), full_f32():
+            xa = eng._frontend(windows)
+            dec = greedy_decode(eng.params, xa, eng.cfg, opts)
+        out[device] = (eng, xa, dec["tokens"].cpu(), time.perf_counter() - t0)
+    (_, _, card, card_s), (cpu_eng, xa, cpu, cpu_s) = out["cuda"], out["cpu"]
+    same = torch.equal(card, cpu)
+    print(f"f32 gate: {GATE_MODEL} (turbo's widths, 4+4 layers), one 30 s window, "
+          f"{card.shape[1]} tokens with the prefix: card {'identical' if same else 'DIFFERENT'} "
+          f"to the CPU (card {card_s:.1f} s, CPU {cpu_s:.1f} s, loads included)")
+    if not same:
+        j = int((card[0] != cpu[0]).nonzero()[0])
+        with torch.inference_mode():
+            logits = decoder_forward(cpu_eng.params, cpu[:, :j], xa, cpu_eng.cfg)[0, -1]
+        top = torch.topk(logits, 2)
+        raise AssertionError(
+            f"f32 gate: card and CPU part at position {j} (card {int(card[0, j])}, CPU "
+            f"{int(cpu[0, j])}); the CPU's top-2 logits there {top.values.tolist()} "
+            f"(ids {top.indices.tolist()}), gap {float(top.values[0] - top.values[1]):.3e}")
+
+
+def f32_phase(label: str, _eng, seed: int):
+    """The JAX package's default precision at full width: WhisperEngine(
+    device="cuda") with no dtype (f32, as the JAX engine and the app it
+    serves; no W8A8 encoder, the "auto" wire) on random:large-v3-turbo.
+    1. 1 x 8 x 30 s through transcribe_stream (parallel windows, 96
+       tokens): K1's f32 form 32 per batch, K4's f32 instance 4 x (1 +
+       steps), every bf16 instance and K2 0.
+    2. The same weights under quantize_decoder "int8" and "int4" (the
+       decoder quantized weight-only, in place), 1 x 2 x 30 s each: K3's
+       and K6's f32-q instances 4 x (1 + steps).
+    3. transcribe_samples(TranscribeParams()) on 5 s, the JAX app's own
+       call at B 1: K1-f32 32 per window, K4-f32 as the decode traces
+       predict (with its one detection).
+    4. K5's route at f32: the same weights' encoder over one 120 s window
+       of the long-window configuration (LONG_MODEL, 6000 positions:
+       model.encode, mel seeded on the card): flash_attention_f32 32.
+    5. The card-vs-CPU token gate (_f32_gate).
+    Peak device memory is printed for each. Returns the summed counts."""
+    from spittle_tpu_torch.engine.base import TranscribeParams
+    from spittle_tpu_torch.engine.whisper_engine import WhisperEngine
+    from spittle_tpu_torch.models.whisper.config import CONFIGS
+    from spittle_tpu_torch.models.whisper.model import encode
+    from spittle_tpu_torch.ops import full_f32
+    from spittle_tpu_torch.ops.quant import quantize_whisper_decoder
+
+    t0 = time.perf_counter()
+    eng = WhisperEngine(device="cuda")
+    if eng.dtype != torch.float32:
+        raise AssertionError(f"{label}: the engine's default dtype is {eng.dtype}, "
+                             "not the JAX engine's f32")
+    eng.load_model("random:large-v3-turbo", seed=seed)
+    torch.cuda.synchronize()
+    print(f"engine: random:large-v3-turbo WhisperEngine(device='cuda') {eng.dtype} "
+          f"loaded in {time.perf_counter() - t0:.1f} s")
+    counts = [e2e_phase(label, eng, 1, BATCH, seed,
+                        _predict(k4=1, gemms=0, dtype=torch.float32))]
+    base = eng.params
+    eng.params = quantize_whisper_decoder(base)
+    for quant, k in (("int8", dict(k3=1)), ("int4", dict(k6=1))):
+        eng.quantize_decoder = quant
+        counts.append(e2e_phase(f"{label} {quant}", eng, 1, 2, seed,
+                                _predict(gemms=0, dtype=torch.float32, **k)))
+    eng.params, eng.quantize_decoder = base, False
+
+    audio = synth_utterance(np.random.default_rng(seed + 31), 5.0)
+    kernels = _reset_traces(eng)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    res = eng.transcribe_samples(audio, TranscribeParams())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    want = _traced_launches(eng, detections=1)
+    print(f"e2e {label} app call: transcribe_samples(TranscribeParams()) on 5 s in "
+          f"{wall:.3f} s: rungs {eng.last_decode_rungs}, steps {eng.last_decode_steps}, "
+          f"language {res.language!r}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    assert all(0 <= tok < eng.cfg.n_vocab for tok in res.tokens)
+    if launches != want:
+        raise AssertionError(f"{label} app call: launch counts {launches} != "
+                             f"predicted {want}")
+    counts.append(launches)
+
+    long_cfg = CONFIGS[LONG_MODEL]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 32)
+    mel = torch.randn((1, long_cfg.n_mels, 2 * long_cfg.n_audio_ctx), generator=gen,
+                      device="cuda")
+    kernels = _zero_counters()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with torch.inference_mode(), full_f32():
+        xa = encode(eng.params, mel, long_cfg)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    want = {fn.__name__: 0 for fn in kernels}
+    want["flash_attention_f32"] = long_cfg.n_audio_layer
+    print(f"e2e {label} long window: encode of one {LONG_CTX // 50} s window at "
+          f"{LONG_CTX} positions in {time.perf_counter() - t1:.3f} s, features "
+          f"{tuple(xa.shape)} {xa.dtype}; launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    if xa.shape != (1, LONG_CTX, long_cfg.n_audio_state) or not torch.isfinite(xa).all():
+        raise AssertionError(f"{label} long window: features {tuple(xa.shape)} not "
+                             "finite or misshapen")
+    if launches != want:
+        raise AssertionError(f"{label} long window: launch counts {launches} != "
+                             f"predicted {want}")
+    counts.append(launches)
+    del eng, base, xa, mel
+    gc.collect()
+    torch.cuda.empty_cache()
+    _f32_gate(seed)
+    return _summed(counts)
 
 
 class _HandedEngine:
@@ -4888,13 +5271,16 @@ def words_phase(label: str, eng, seed: int):
     return launches
 
 
-def _predict(k4=0, k3=0, k6=0, k14=0, form="fullkv", long_kv=False, gemms=6):
+def _predict(k4=0, k3=0, k6=0, k14=0, form="fullkv", long_kv=False, gemms=6,
+             dtype=torch.bfloat16):
     """Launch counts of one path: the encoder-attention form's kernel (K1
     under "fullkv"; K5 under every form when the encoder's K/V is longer
     than 4096, long_kv) once and K2 `gemms` times per encoder layer and
-    batch (6; 4 in a MoE encoder, whose experts are torch products);
-    each cross-attention kernel once per decoder layer for the prefill and
-    for every step; every other kernel 0."""
+    batch (6; 4 in a MoE encoder, whose experts are torch products; 0
+    without the W8A8 encoder); each cross-attention kernel once per
+    decoder layer for the prefill and for every step; every other kernel
+    0. dtype f32 moves the f32 entries of K1, K5, K4, K3 and K6 in place
+    of the bf16 instances."""
     def predict(cfg, steps):
         enc = {fn.__name__: 0 for fn in _kernels()}
         attn = ("flash_attention" if long_kv
@@ -4902,11 +5288,11 @@ def _predict(k4=0, k3=0, k6=0, k14=0, form="fullkv", long_kv=False, gemms=6):
                 else _form_kernels()[form].__name__)
         dec = cfg.n_text_layer * (len(steps) + sum(steps))
         enc.update({
-            attn: len(steps) * cfg.n_audio_layer,
+            kernel_name(attn, dtype): len(steps) * cfg.n_audio_layer,
             "w8a8_gemm": len(steps) * gemms * cfg.n_audio_layer,
-            "decode_cross_attention": dec * k4,
-            "decode_cross_attention_q8": dec * k3,
-            "decode_cross_attention_q4": dec * k6,
+            kernel_name("decode_cross_attention", dtype): dec * k4,
+            kernel_name("decode_cross_attention_q8", dtype): dec * k3,
+            kernel_name("decode_cross_attention_q4", dtype): dec * k6,
             "decode_cross_attention_w8a8": dec * k14,
         })
         return enc
@@ -4959,6 +5345,7 @@ def main() -> int:
 
     from spittle_tpu_torch.device import resolve_device
     from spittle_tpu_torch.ops import _build
+    from spittle_tpu_torch.ops import attention as att
 
     start = time.perf_counter()
     dev = resolve_device("cuda")
@@ -5003,6 +5390,9 @@ def main() -> int:
         CONFIGS["large-v3-turbo"], name=LONG_MODEL, n_audio_ctx=LONG_CTX)
     CONFIGS[MOE_MODEL] = dataclasses.replace(
         CONFIGS["large-v3-turbo"], name=MOE_MODEL, moe_experts=MOE_EXPERTS)
+    CONFIGS[GATE_MODEL] = dataclasses.replace(
+        CONFIGS["large-v3-turbo"], name=GATE_MODEL, n_audio_layer=4)
+    f32_owned = tuple(fn.__name__ for fn in _f32_entries(att).values())
     paths = (  # (label, model, engine options, form, batches, predict,
         #          kernels whose launches this path reports, e2e options;
         #          "run": a phase of its own in place of e2e_phase)
@@ -5021,15 +5411,16 @@ def main() -> int:
          _predict(k4=1), (), dict(seconds=5.0, audio_ctx=256)),
         ("app path", "random:large-v3-turbo", {}, "fullkv", None, None, (),
          dict(run=app_phase)),
-        ("dictation", "random:large-v3-turbo", {}, "fullkv", None, None, (),
+        ("f32", None, None, "fullkv", None, None, f32_owned, dict(run=f32_phase)),
+        ("dictation", "random:large-v3-turbo", APP_OPTS, "fullkv", None, None, (),
          dict(run=dictation_phase)),
-        ("command surface", "random:large-v3-turbo", {}, "fullkv", None, None, (),
-         dict(run=command_surface_phase)),
-        ("rolling", "random:large-v3-turbo", {}, "fullkv", None, None, (),
+        ("command surface", "random:large-v3-turbo", APP_OPTS, "fullkv", None, None,
+         (), dict(run=command_surface_phase)),
+        ("rolling", "random:large-v3-turbo", APP_OPTS, "fullkv", None, None, (),
          dict(run=rolling_phase)),
-        ("desktop", "random:large-v3-turbo", {}, "fullkv", None, None, (),
+        ("desktop", "random:large-v3-turbo", APP_OPTS, "fullkv", None, None, (),
          dict(run=desktop_phase)),
-        ("platforms", "random:large-v3-turbo", {}, "fullkv", None, None, (),
+        ("platforms", "random:large-v3-turbo", APP_OPTS, "fullkv", None, None, (),
          dict(run=platforms_phase)),
         ("turbo beam", "random:large-v3-turbo", {}, "fullkv", None, None, (),
          dict(run=beam_phase)),
@@ -5064,18 +5455,21 @@ def main() -> int:
     eng, loaded = None, None
     for label, model, opts, form, n_batches, predict, owned, e2e in paths:
         t0 = time.perf_counter()
-        if loaded != (model, opts):
-            del eng
-            gc.collect()
-            torch.cuda.empty_cache()
-            eng, loaded = load_engine(model, opts, SEED), (model, opts)
-        eng.encoder_attention = form
         e2e = dict(e2e)
-        if "run" in e2e:
-            counts = e2e.pop("run")(label, eng, SEED)
+        if model is None:  # the phase builds its own engine
+            counts = e2e.pop("run")(label, None, SEED)
         else:
-            counts = e2e_phase(label, eng, n_batches, e2e.pop("batch", BATCH),
-                               SEED, predict, **e2e)
+            if loaded != (model, opts):
+                del eng
+                gc.collect()
+                torch.cuda.empty_cache()
+                eng, loaded = load_engine(model, opts, SEED), (model, opts)
+            eng.encoder_attention = form
+            if "run" in e2e:
+                counts = e2e.pop("run")(label, eng, SEED)
+            else:
+                counts = e2e_phase(label, eng, n_batches, e2e.pop("batch", BATCH),
+                                   SEED, predict, **e2e)
         print(f"phase e2e {label}: {time.perf_counter() - t0:.1f} s")
         by_path[label] = counts
         launches.update({name: counts[name] for name in owned})

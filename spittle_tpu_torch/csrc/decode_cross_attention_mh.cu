@@ -3,8 +3,12 @@
 // over bf16 K/V (entry spt_decode_cross_attention), K3 and K11 over int8
 // K/V with per-position f32 scales (entry spt_decode_cross_attention_q8,
 // which both wrappers call), and K6 over int4 K/V packed two per byte with
-// the same scales (entry spt_decode_cross_attention_q4). One kernel,
-// templated on the element type.
+// the same scales (entry spt_decode_cross_attention_q4), each with a bf16
+// q and output; and at f32, the JAX package's default precision, K4 over
+// f32 K/V (spt_decode_cross_attention_f32) and K3 and K6 with an f32 q and
+// output over the same int8 and int4 codes (spt_decode_cross_attention_
+// q8_f32q, _q4_f32q). One kernel, templated on the element type and on
+// q's (and the output's) type.
 //
 // Replaces the TPU kernels spittle_tpu/ops/attention.py:
 // decode_cross_attention (K4, body _decode_cross_kernel),
@@ -14,13 +18,16 @@
 // _mh_q8_kernel), whose point on the TPU is one large DMA per batch item:
 // K/V viewed as [B, H*64, Tk], all heads of an item in one program. K3
 // and K11 compute the same function (tests/test_torch_probes.py), and
-// here they give the same bits. q arrives bf16, pre-scaled by Dh^-0.5.
-// Per (b, h), with t < kv_len:
+// here they give the same bits. q arrives bf16 or f32, pre-scaled by
+// Dh^-0.5. Per (b, h), with t < kv_len:
 //   s[r, t] = (sum_d q[r, d] * K[d, t]) * ks[t]
 //   m = max_t s, p = exp(s - m), l = sum_t p     (mask before the max)
 //   o[r, d] = sum_t bf16(p * vs[t]) * V[d, t] / l
 // K4 is the same function with ks = vs = 1 (K and V bf16): both products
-// by 1 are exact, so its instance drops them and loads no scales. K6's K
+// by 1 are exact, so its instance drops them and loads no scales. The JAX
+// kernels keep P in V's dtype, so K4 over f32 K/V takes p unrounded
+// (o = sum_t p * V[d, t] / l, all f32), while K3 and K6 with an f32 q still
+// round p * vs to bf16 (the JAX kernels' cast before their PV dot). K6's K
 // and V are 32 stored rows per head: byte t of row d holds dims d (low
 // nibble) and d + 32 (high nibble) of position t, each sign-extended
 // (ops/quant.py:quantize_kv_int4).
@@ -30,7 +37,8 @@
 // 16*20*1500*4 scale bytes (65 MB): 19.5 us at 3.35 TB/s, for 4 * R * 64
 // flops per (b, h, t); K4 at B 8 reads 2 x 8*20*64*1500 bf16 values (61
 // MB, 18.3 us); K6 at B 8 reads 2 x 8*20*32*1500 packed bytes and the same
-// scales (17.3 MB, 5.2 us). Widening each int8 byte or nibble with I2F (16
+// scales (17.3 MB, 5.2 us); K4 at f32 reads twice K4's bytes (122.9 MB,
+// 36.7 us). Widening each int8 byte or nibble with I2F (16
 // per clock per SM) would take ~17 us of its own on 132 SMs at K3's
 // shape, so no byte goes through it.
 //
@@ -43,9 +51,9 @@
 // otherwise.
 //
 // Design:
-//  - Work items (b, pair of heads, one row slice: 128 bytes of int8 or
-//    bf16, 128 int8 or 64 bf16 positions; kInt4Slice bytes of int4, as
-//    many positions): 1920 at the probe's shape and at K4's B 8, in a
+//  - Work items (b, pair of heads, one row slice: 128 bytes of int8, bf16
+//    or f32, 128 int8, 64 bf16 or 32 f32 positions; kInt4Slice bytes of
+//    int4, as many positions): 1920 at the probe's shape and at K4's B 8, in a
 //    persistent grid of one block per SM (min(SMs, items) blocks, block i
 //    taking items i, i + gridDim.x, ...), so every SM has work for the
 //    whole call. A bf16 item thus moves an int8 item's bytes, and every
@@ -66,7 +74,8 @@
 //    (one warp issuing 2,304 copies per item held the card to 0.047 ms
 //    against the TMA path's 0.032 at the probe's shape on an H100 80GB
 //    HBM3 at 700 W). A consumer reads a row at the slice's offset in its
-//    first chunk, which it computes from the row's address.
+//    first chunk, which it computes from the row's address. An f32 item
+//    also moves an int8 item's bytes: its 32 positions are one word a lane.
 //  - Eight consumer warps in four teams of two: team k takes the block's
 //    items k, k + 4, ..., one head per warp, so every warp runs on its
 //    own, with no block barrier. For the scores a lane owns a 32-bit word
@@ -87,13 +96,14 @@
 //    2^23 + 128 in f32: exact for every byte, on the integer and FMA pipes.
 //    An int4 nibble n likewise as 2^23 + (n + 8) (the nibble XOR 8, masked
 //    out with one LOP3 per word and half), less 2^23 + 8. A bf16 is the
-//    high half of its f32: a shift or a mask.
+//    high half of its f32: a shift or a mask; an f32 word is its value.
 //  - Each row of a score sums over d in order (int4: d, d + 32, d + 1, d +
 //    33, ..., the old split-T kernel's order); P rounds to bf16 against
-//    the item's chunk's max, and the chunks are combined by the combine
-//    pass (decode_cross_combine.cuh) from the partial records. K4's last
+//    the item's chunk's max (f32 K/V: P unrounded), and the chunks are
+//    combined by the combine pass (decode_cross_combine.cuh) from the
+//    partial records, in f32, rounded once to the output's type. K4's last
 //    item zeroes the V values past kv_len before PV: an int8 byte is always
-//    finite, a bf16 value there (or a stale stage word) need not be.
+//    finite, a bf16 or f32 value there (or a stale stage word) need not be.
 //
 // The ring's phases: team k takes items k, k + kTeams, ... in stage k, and
 // waits for the full barrier's phase of parity (g / kStages) & 1 of its
@@ -148,26 +158,32 @@ struct Int4x2 {
   uint8_t bits;
 };
 
-// The element type: int8 codes with f32 scales (K3, K11), bf16 (K4) or
-// packed int4 codes with f32 scales (K6). kBytes per position of a stored
-// row, kHeadRows stored rows per head, kSlice bytes of a row per item
-// (kChunk positions), kPer positions per lane in the scores and kPw per
-// 32-bit word.
+// The element type: int8 codes with f32 scales (K3, K11), bf16 (K4), f32
+// (K4 at f32) or packed int4 codes with f32 scales (K6). kBytes per
+// position of a stored row, kHeadRows stored rows per head, kSlice bytes
+// of a row per item (kChunk positions), kPer positions per lane in the
+// scores and kPw per 32-bit word; kRoundP: PV takes bf16(p * vs), as the
+// JAX kernels cast P for their PV dot (f32 K/V keeps P in f32).
 template <typename E>
 struct Elem;
 template <>
 struct Elem<int8_t> {
-  static constexpr bool kQuant = true, kNib = false;
+  static constexpr bool kQuant = true, kNib = false, kRoundP = true;
   static constexpr int kBytes = 1, kHeadRows = kD, kSlice = 128;
 };
 template <>
 struct Elem<__nv_bfloat16> {
-  static constexpr bool kQuant = false, kNib = false;
+  static constexpr bool kQuant = false, kNib = false, kRoundP = true;
   static constexpr int kBytes = 2, kHeadRows = kD, kSlice = 128;
 };
 template <>
+struct Elem<float> {
+  static constexpr bool kQuant = false, kNib = false, kRoundP = false;
+  static constexpr int kBytes = 4, kHeadRows = kD, kSlice = 128;
+};
+template <>
 struct Elem<Int4x2> {
-  static constexpr bool kQuant = true, kNib = true;
+  static constexpr bool kQuant = true, kNib = true, kRoundP = true;
   static constexpr int kBytes = 1, kHeadRows = kD / 2, kSlice = kInt4Slice;
 };
 template <typename E>
@@ -217,8 +233,8 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
                : "memory");
 }
 
-// The kPw values of an int8 or bf16 word -> exact floats: four int8
-// without I2F, or two bf16.
+// The kPw values of an int8, bf16 or f32 word -> exact floats: four int8
+// without I2F, two bf16, or one f32.
 template <typename E>
 __device__ __forceinline__ void widen(uint32_t w, float* f) {
   if constexpr (Elem<E>::kQuant) {
@@ -226,11 +242,17 @@ __device__ __forceinline__ void widen(uint32_t w, float* f) {
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       f[j] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + j)) - 8388736.f;
-  } else {
+  } else if constexpr (Elem<E>::kBytes == 2) {
     f[0] = __uint_as_float(w << 16);
     f[1] = __uint_as_float(w & 0xFFFF0000u);
+  } else {
+    f[0] = __uint_as_float(w);
   }
 }
+
+// q's element (bf16 or f32) as f32.
+__device__ __forceinline__ float q_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float q_float(float x) { return x; }
 
 // A word of packed int4 (four positions) -> exact floats: lo[j] the low
 // nibble of byte j (dim d), hi[j] the high one (dim d + 32), each
@@ -281,11 +303,11 @@ __device__ __forceinline__ void stage_covers(uint8_t* dst, const uint8_t* src,
   }
 }
 
-template <typename E, bool kTma, int R>
+template <typename E, typename Q, bool kTma, int R>
 __global__ void __launch_bounds__(kThreads<kTma>, 1)
     decode_cross_mh_kernel(const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v,
-                           const __nv_bfloat16* __restrict__ q,
+                           const Q* __restrict__ q,
                            const E* __restrict__ qk,
                            const float* __restrict__ ks,
                            const E* __restrict__ qv,
@@ -381,11 +403,11 @@ __global__ void __launch_bounds__(kThreads<kTma>, 1)
           vsc[j] = live[j] ? vs[at] : 0.f;
         }
       }
-      const __nv_bfloat16* qh = q + it.b * qsb + h * qsh;
+      const Q* qh = q + it.b * qsb + h * qsh;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
-        qsw[lane * 8 + r] = __bfloat162float(qh[r * qsr + lane]);
-        qsw[(lane + 32) * 8 + r] = __bfloat162float(qh[r * qsr + lane + 32]);
+        qsw[lane * 8 + r] = q_float(qh[r * qsr + lane]);
+        qsw[(lane + 32) * 8 + r] = q_float(qh[r * qsr + lane + 32]);
       }
       __syncwarp();
     }
@@ -458,7 +480,8 @@ __global__ void __launch_bounds__(kThreads<kTma>, 1)
       }
 
       // Mask before the max; p = exp(s - m_chunk); l sums the f32 p; PV
-      // reads bf16(p * vs), written over the K rows that the scores read.
+      // reads bf16(p * vs) (f32 K/V: p), written over the K rows that the
+      // scores read.
       __syncwarp();
       float* pvw = reinterpret_cast<float*>(base + s * S::kStageBytes +
                                             hh * kHeadRows * S::kRowBytes);
@@ -478,7 +501,8 @@ __global__ void __launch_bounds__(kThreads<kTma>, 1)
         for (int j = 0; j < kPer; ++j) {
           const float p = live[j] ? expf(sc[r][j] - mx) : 0.f;
           ls += p;
-          pw[j] = __bfloat162float(__float2bfloat16_rn(Sh::kQuant ? p * vsc[j] : p));
+          const float pv = Sh::kQuant ? p * vsc[j] : p;
+          pw[j] = Sh::kRoundP ? __bfloat162float(__float2bfloat16_rn(pv)) : pv;
         }
         ls = spt::warp_sum(ls);
         if constexpr (kPer % 4 == 0) {
@@ -486,9 +510,11 @@ __global__ void __launch_bounds__(kThreads<kTma>, 1)
           for (int j = 0; j < kPer; j += 4)
             *reinterpret_cast<float4*>(pvw + r * kChunk + kPer * lane + j) =
                 *reinterpret_cast<const float4*>(pw + j);
-        } else {
+        } else if constexpr (kPer == 2) {
           *reinterpret_cast<float2*>(pvw + r * kChunk + 2 * lane) =
               *reinterpret_cast<const float2*>(pw);
+        } else {
+          pvw[r * kChunk + lane] = pw[0];
         }
         if (lane == 0) {
           rec[r * kRec + kD] = mx;
@@ -498,8 +524,8 @@ __global__ void __launch_bounds__(kThreads<kTma>, 1)
       __syncwarp();
 
       // o[r, d] for d = lane and lane + 32: over the words of the two V
-      // rows (int8, bf16) or of stored row `lane` (int4, whose nibbles are
-      // d and d + 32), word (i + lane) % kRowWords at step i. K4's last
+      // rows (int8, bf16, f32) or of stored row `lane` (int4, whose nibbles
+      // are d and d + 32), word (i + lane) % kRowWords at step i. K4's last
       // item: the words past kv_len (live < kChunk positions) read as zeros.
       float a0[R], a1[R];
 #pragma unroll
@@ -534,9 +560,13 @@ __global__ void __launch_bounds__(kThreads<kTma>, 1)
           uint32_t w1 = row_word<kTma>(vr1, k, sh1);
           if constexpr (!Sh::kQuant) {
             if (nlive < kChunk) {
-              const uint32_t keep = 2 * k + 1 < nlive ? 0xFFFFFFFFu
-                                    : 2 * k < nlive   ? 0x0000FFFFu
-                                                      : 0u;
+              uint32_t keep;
+              if constexpr (kPw == 2)
+                keep = 2 * k + 1 < nlive ? 0xFFFFFFFFu
+                       : 2 * k < nlive   ? 0x0000FFFFu
+                                         : 0u;
+              else
+                keep = k < nlive ? 0xFFFFFFFFu : 0u;
               w0 &= keep;
               w1 &= keep;
             }
@@ -550,8 +580,10 @@ __global__ void __launch_bounds__(kThreads<kTma>, 1)
             float pp[kPw];
             if constexpr (kPw == 4)
               *reinterpret_cast<float4*>(pp) = *reinterpret_cast<const float4*>(pk);
-            else
+            else if constexpr (kPw == 2)
               *reinterpret_cast<float2*>(pp) = *reinterpret_cast<const float2*>(pk);
+            else
+              pp[0] = pk[0];
 #pragma unroll
             for (int j = 0; j < kPw; ++j) a0[r] = fmaf(pp[j], f0[j], a0[r]);
 #pragma unroll
@@ -585,8 +617,9 @@ int encode_slab(CUtensorMap* map, const void* ptr, long long rows, int Tk,
   const cuuint32_t box[2] = {Shape<E>::kChunk, Shape<E>::kRows};
   const cuuint32_t elem[2] = {1, 1};
   const CUresult r = enc(map,
-                         Elem<E>::kQuant ? CU_TENSOR_MAP_DATA_TYPE_UINT8
-                                         : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         Elem<E>::kQuant           ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                         : Elem<E>::kBytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                   : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                          2, const_cast<void*>(ptr), dims, strides, box, elem,
                          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
                          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
@@ -594,7 +627,7 @@ int encode_slab(CUtensorMap* map, const void* ptr, long long rows, int Tk,
   return r == CUDA_SUCCESS ? 0 : sm::kErrEncode + static_cast<int>(r);
 }
 
-template <typename E, bool kTma, int R>
+template <typename E, typename Q, bool kTma, int R>
 int launch_rows(const void* q, const void* qk, const void* ks, const void* qv,
                 const void* vs, void* part, int B, int H, int Tk, int kv_len,
                 int num_sms, long long qsb, long long qsh, long long qsr,
@@ -611,7 +644,7 @@ int launch_rows(const void* q, const void* qk, const void* ks, const void* qv,
   static bool sized = false;
   if (!sized) {
     const cudaError_t e = cudaFuncSetAttribute(
-        decode_cross_mh_kernel<E, kTma, R>,
+        decode_cross_mh_kernel<E, Q, kTma, R>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (e != cudaSuccess) return static_cast<int>(e);
     sized = true;
@@ -620,8 +653,8 @@ int launch_rows(const void* q, const void* qk, const void* ks, const void* qv,
   const long long items = static_cast<long long>(B) * ((H + kHeads - 1) / kHeads) *
                           ((kv_len + kChunk - 1) / kChunk);
   const int grid = static_cast<int>(items < num_sms ? items : num_sms);
-  decode_cross_mh_kernel<E, kTma, R><<<grid, kThreads<kTma>, kSmem, st>>>(
-      mk, mv, static_cast<const __nv_bfloat16*>(q), static_cast<const E*>(qk),
+  decode_cross_mh_kernel<E, Q, kTma, R><<<grid, kThreads<kTma>, kSmem, st>>>(
+      mk, mv, static_cast<const Q*>(q), static_cast<const E*>(qk),
       static_cast<const float*>(ks), static_cast<const E*>(qv),
       static_cast<const float*>(vs), static_cast<float*>(part), B, H, Tk,
       kv_len, qsb, qsh, qsr, ld);
@@ -630,8 +663,9 @@ int launch_rows(const void* q, const void* qk, const void* ks, const void* qv,
 
 // Every entry: ld is the row pitch in positions, checked here against Tk
 // and, on the TMA path, the 16-byte rule; then the rows' instance and the
-// combine pass over ceil(kv_len / kChunk) records per (b, h, r).
-template <typename E>
+// combine pass over ceil(kv_len / kChunk) records per (b, h, r), its
+// output in q's type Q.
+template <typename E, typename Q>
 int launch(const void* q, const void* qk, const void* ks, const void* qv,
            const void* vs, void* part, void* o, int B, int H, int R,
            int Tk, int kv_len, int num_sms, int tma, long long qsb,
@@ -647,7 +681,7 @@ int launch(const void* q, const void* qk, const void* ks, const void* qv,
   switch (R) {
 #define SPT_ROWS(n)                                                           \
   case n:                                                                     \
-    err = (tma ? launch_rows<E, true, n> : launch_rows<E, false, n>)(         \
+    err = (tma ? launch_rows<E, Q, true, n> : launch_rows<E, Q, false, n>)(   \
         q, qk, ks, qv, vs, part, B, H, Tk, kv_len, num_sms, qsb, qsh, qsr, ld, \
         st);                                                                  \
     break;
@@ -657,9 +691,9 @@ int launch(const void* q, const void* qk, const void* ks, const void* qv,
   }
   if (err != 0) return err;
   const int nchunks = (kv_len + Shape<E>::kChunk - 1) / Shape<E>::kChunk;
-  decode_cross_q_combine<<<B * H, kMaxR * kD, 0, st>>>(
-      static_cast<const float*>(part), static_cast<__nv_bfloat16*>(o), H, R,
-      nchunks, osb, osh, osr);
+  decode_cross_q_combine<Q><<<B * H, kMaxR * kD, 0, st>>>(
+      static_cast<const float*>(part), static_cast<Q*>(o), H, R, nchunks, osb,
+      osh, osr);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -680,8 +714,9 @@ SPT_API int spt_decode_cross_attention_q8(
     int kv_len, int num_sms, int tma, long long qsb, long long qsh,
     long long qsr, long long ld, long long osb, long long osh, long long osr,
     void* stream) {
-  return launch<int8_t>(q, qk, ks, qv, vs, part, o, B, H, R, Tk, kv_len,
-                        num_sms, tma, qsb, qsh, qsr, ld, osb, osh, osr, stream);
+  return launch<int8_t, __nv_bfloat16>(q, qk, ks, qv, vs, part, o, B, H, R, Tk,
+                                       kv_len, num_sms, tma, qsb, qsh, qsr, ld,
+                                       osb, osh, osr, stream);
 }
 
 // K6: as K3 with qk, qv the packed int4 codes [B, H, 32, Tk] (int8 bytes,
@@ -693,8 +728,9 @@ SPT_API int spt_decode_cross_attention_q4(
     int kv_len, int num_sms, int tma, long long qsb, long long qsh,
     long long qsr, long long ld, long long osb, long long osh, long long osr,
     void* stream) {
-  return launch<Int4x2>(q, qk, ks, qv, vs, part, o, B, H, R, Tk, kv_len,
-                        num_sms, tma, qsb, qsh, qsr, ld, osb, osh, osr, stream);
+  return launch<Int4x2, __nv_bfloat16>(q, qk, ks, qv, vs, part, o, B, H, R, Tk,
+                                       kv_len, num_sms, tma, qsb, qsh, qsr, ld,
+                                       osb, osh, osr, stream);
 }
 
 // K4: as K3 with k, v bf16 [B, H, 64, Tk], rows ld >= Tk elements apart
@@ -705,7 +741,47 @@ SPT_API int spt_decode_cross_attention(
     int H, int R, int Tk, int kv_len, int num_sms, int tma, long long qsb,
     long long qsh, long long qsr, long long ld, long long osb, long long osh,
     long long osr, void* stream) {
-  return launch<__nv_bfloat16>(q, k, nullptr, v, nullptr, part, o, B, H, R, Tk,
-                               kv_len, num_sms, tma, qsb, qsh, qsr, ld, osb,
-                               osh, osr, stream);
+  return launch<__nv_bfloat16, __nv_bfloat16>(q, k, nullptr, v, nullptr, part, o,
+                                              B, H, R, Tk, kv_len, num_sms, tma,
+                                              qsb, qsh, qsr, ld, osb, osh, osr,
+                                              stream);
+}
+
+// K4 at f32: q [B, H, R, 64] f32, k, v f32 [B, H, 64, Tk], rows ld >= Tk
+// elements apart (TMA needs 4 * ld % 16 == 0), o f32; part: f32 scratch
+// [B*H, ceil(kv_len/32), R, 66]. P is not rounded.
+SPT_API int spt_decode_cross_attention_f32(
+    const void* q, const void* k, const void* v, void* part, void* o, int B,
+    int H, int R, int Tk, int kv_len, int num_sms, int tma, long long qsb,
+    long long qsh, long long qsr, long long ld, long long osb, long long osh,
+    long long osr, void* stream) {
+  return launch<float, float>(q, k, nullptr, v, nullptr, part, o, B, H, R, Tk,
+                              kv_len, num_sms, tma, qsb, qsh, qsr, ld, osb, osh,
+                              osr, stream);
+}
+
+// K3 with an f32 q and output (the operands otherwise as
+// spt_decode_cross_attention_q8's); p * vs still rounds to bf16.
+SPT_API int spt_decode_cross_attention_q8_f32q(
+    const void* q, const void* qk, const void* ks, const void* qv,
+    const void* vs, void* part, void* o, int B, int H, int R, int Tk,
+    int kv_len, int num_sms, int tma, long long qsb, long long qsh,
+    long long qsr, long long ld, long long osb, long long osh, long long osr,
+    void* stream) {
+  return launch<int8_t, float>(q, qk, ks, qv, vs, part, o, B, H, R, Tk, kv_len,
+                               num_sms, tma, qsb, qsh, qsr, ld, osb, osh, osr,
+                               stream);
+}
+
+// K6 with an f32 q and output (the operands otherwise as
+// spt_decode_cross_attention_q4's); p * vs still rounds to bf16.
+SPT_API int spt_decode_cross_attention_q4_f32q(
+    const void* q, const void* qk, const void* ks, const void* qv,
+    const void* vs, void* part, void* o, int B, int H, int R, int Tk,
+    int kv_len, int num_sms, int tma, long long qsb, long long qsh,
+    long long qsr, long long ld, long long osb, long long osh, long long osr,
+    void* stream) {
+  return launch<Int4x2, float>(q, qk, ks, qv, vs, part, o, B, H, R, Tk, kv_len,
+                               num_sms, tma, qsb, qsh, qsr, ld, osb, osh, osr,
+                               stream);
 }

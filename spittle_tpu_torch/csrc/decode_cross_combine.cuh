@@ -16,13 +16,18 @@ constexpr int kD = 64;
 constexpr int kMaxR = 8;
 constexpr int kRec = kD + 2;  // partial record: o[64], m, l
 
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
+
 // One block per (b, h), one thread per (r, d): o = sum_c o_c e^(m_c - m)
-// / sum_c l_c e^(m_c - m), rounded to bf16.
+// / sum_c l_c e^(m_c - m), rounded to O (bf16, or f32 as it is).
+template <typename O>
 static __global__ void __launch_bounds__(kMaxR * kD)
-    decode_cross_q_combine(const float* __restrict__ part,
-                           __nv_bfloat16* __restrict__ o, int H, int R,
-                           int nchunks, long long osb, long long osh,
-                           long long osr) {
+    decode_cross_q_combine(const float* __restrict__ part, O* __restrict__ o,
+                           int H, int R, int nchunks, long long osb,
+                           long long osh, long long osr) {
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int r = threadIdx.x / kD, d = threadIdx.x % kD;
   if (r >= R) return;
@@ -37,7 +42,7 @@ static __global__ void __launch_bounds__(kMaxR * kD)
     acc = fmaf(x[d], w, acc);
     l = fmaf(x[kD + 1], w, l);
   }
-  o[b * osb + h * osh + r * osr + d] = __float2bfloat16_rn(acc / l);
+  store_out(o + b * osb + h * osh + r * osr + d, acc / l);
 }
 
 }  // namespace decode_cross

@@ -42,6 +42,7 @@ SIGNATURES = {
     "spt_fullkv_attention": [_P, _P, _P, _P] + [_I] * 6 + [_L] * 12 + [_P],
     "spt_fullkv_attention_lse": [_P] * 5 + [_I] * 6 + [_L] * 12 + [_P],
     "spt_flash_attention": [_P, _P, _P, _P] + [_I] * 6 + [_L] * 12 + [_P],
+    "spt_fullkv_attention_f32": [_P, _P, _P, _P] + [_I] * 6 + [_L] * 12 + [_P],
     "spt_fullkv_attention_bwd": [_P] * 10 + [_I] * 6 + [_L] * 24 + [_P],
     "spt_fullkv_attention_packed": [_P] * 4 + [_I] * 6 + [_P],
     "spt_fullkv_attention_packed_pair": [_P] * 4 + [_I] * 6 + [_P],
@@ -53,6 +54,9 @@ SIGNATURES = {
     "spt_decode_cross_attention": [_P] * 5 + [_I] * 7 + [_L] * 7 + [_P],
     "spt_decode_cross_attention_q8": [_P] * 7 + [_I] * 7 + [_L] * 7 + [_P],
     "spt_decode_cross_attention_q4": [_P] * 7 + [_I] * 7 + [_L] * 7 + [_P],
+    "spt_decode_cross_attention_f32": [_P] * 5 + [_I] * 7 + [_L] * 7 + [_P],
+    "spt_decode_cross_attention_q8_f32q": [_P] * 7 + [_I] * 7 + [_L] * 7 + [_P],
+    "spt_decode_cross_attention_q4_f32q": [_P] * 7 + [_I] * 7 + [_L] * 7 + [_P],
     "spt_decode_cross_attention_w8a8": [_P] * 6 + [_I] * 12 + [_L] * 9 + [_P],
     "spt_w8a8_smem_bytes": [_I] * 6,
     "spt_cache_col_write": [_P, _P, _P, _L, _I, _P],

@@ -10,6 +10,11 @@ probe's kernel).
 - flash_attention_fullkv (K1, csrc/fullkv_attention.cu): encoder
   self-attention; replaces the Pallas `flash_attention_fullkv`. The
   attention core's SplitRows instance, as K5.
+- flash_attention_fullkv_f32 and flash_attention_f32 (K1 and K5's route
+  at f32, csrc/fullkv_attention_f32.cu): the same functions on f32 q, k, v
+  and output, the JAX package's default precision, one kernel on the CUDA
+  cores (K/V streamed through shared memory, online softmax in f32).
+  flash_attention_fullkv and flash_attention hand an f32 q to them.
 - The encoder-attention forms, each replacing the Pallas kernel of the
   same name: flash_attention_fullkv_packed (K8), K1's instance on the
   packed [B, T, H*Dh] projections (csrc/fullkv_attention.cu), and
@@ -35,6 +40,11 @@ probe's kernel).
   byte, with one f32 scale per position, the int4 instance of that
   kernel, on the decoder's padded rows; replaces the Pallas
   `decode_cross_attention_q4`.
+- decode_cross_attention_f32 (K4 over f32 K/V, P unrounded),
+  decode_cross_attention_q8_f32q and decode_cross_attention_q4_f32q (K3
+  and K6 with an f32 q and output): the f32 instances of the same kernel,
+  the JAX package's default precision. K4's, K3's and K6's wrappers hand
+  an f32 q to them.
 - decode_cross_attention_w8a8 (K14, csrc/decode_cross_attention_w8a8.cu):
   the "w8a8" decoder's cross-attention over int8 K/V with both products
   int8 x int8 -> int32, q and P quantized per row, for any number of
@@ -53,7 +63,10 @@ probe's kernel).
 
 A kernel wrapper takes its plain version for tensors on the CPU only; on a
 CUDA tensor it launches the kernel or raises. Each wrapper counts its
-launches in `<wrapper>.launches`.
+launches in `<wrapper>.launches` (an f32 entry on its own counter, not on
+the bf16 wrapper's that handed it the call). At f32 on the card the forms
+"q8", "packed", "pair" and "pipe" (K7-K10) and K1 under autograd (K15)
+raise: they have no f32 kernel yet.
 """
 
 from __future__ import annotations
@@ -173,10 +186,11 @@ def _head_view_ok(t) -> bool:
             and t.data_ptr() % 16 == 0)
 
 
-def _check_attn_operand(name, t, d):
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"{name} must be bfloat16 on CUDA, got {t.dtype} "
-                        "(the kernel has no other form; run the model in bf16)")
+def _check_attn_operand(name, t, d, dtype=torch.bfloat16):
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype} on CUDA, got {t.dtype} (this "
+                        "kernel's form; f32 goes to the f32 entries, "
+                        "flash_attention_fullkv_f32 and flash_attention_f32)")
     if t.shape[-1] != d or t.stride(-1) != 1:
         raise ValueError(f"{name}: head dim must be {d} and contiguous")
     if not _head_view_ok(t):
@@ -197,10 +211,10 @@ def _check_sm90_groups(name, groups):
                          f"grid's y axis, past CUDA's {_SM90_MAX_GROUPS}")
 
 
-def _check_split_qkv(name, q, k, v, kv_len):
-    """Checks shared by K1, K7 and K10 on CUDA: q [B, H, Tq, 64] and k/v
-    [B, H, Tk, 64], bf16 on one device, head dim contiguous. Returns
-    kv_len (Tk when None)."""
+def _check_split_qkv(name, q, k, v, kv_len, dtype=torch.bfloat16):
+    """Checks shared by K1, K5, K7 and K10 (and K1's f32 form) on CUDA: q
+    [B, H, Tq, 64] and k/v [B, H, Tk, 64] of `dtype` on one device, head
+    dim contiguous. Returns kv_len (Tk when None)."""
     b, h, tq, d = q.shape
     tk = k.shape[2]
     kv_len = tk if kv_len is None else kv_len
@@ -213,7 +227,7 @@ def _check_split_qkv(name, q, k, v, kv_len):
     for label, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name}: operands on different devices")
-        _check_attn_operand(label, t, d)
+        _check_attn_operand(label, t, d, dtype)
     return kv_len
 
 
@@ -251,8 +265,11 @@ def flash_attention_fullkv(q, k, v, causal: bool = False,
     CUDA the result is a view of a [B, Tq, H, 64] buffer, so merging heads
     afterwards copies nothing. The kernel is the attention core's SplitRows
     instance (128 query rows of one head per block, 128-key tiles), K5's
-    policy and tile, so on the same inputs it gives K5's bits; bf16 only,
-    and B * H at most 65535 (the grid's y axis), else it raises."""
+    policy and tile, so on the same inputs it gives K5's bits; bf16, and
+    B * H at most 65535 (the grid's y axis), else it raises. An f32 q goes
+    to flash_attention_fullkv_f32 (K1's f32 form)."""
+    if q.dtype == torch.float32:
+        return flash_attention_fullkv_f32(q, k, v, causal, kv_len)
     if q.device.type == "cpu":
         return flash_attention_fullkv_plain(q, k, v, causal, kv_len)
     return _fullkv_launch(q, k, v, causal, kv_len, with_lse=False)[0]
@@ -270,6 +287,76 @@ def flash_attention_fullkv_lse(q, k, v, causal: bool = False,
 
 
 flash_attention_fullkv.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K1 and K5's route at f32
+# ---------------------------------------------------------------------------
+
+
+def _fullkv_f32_launch(name, q, k, v, causal, kv_len) -> torch.Tensor:
+    """One launch of spt_fullkv_attention_f32 on CUDA tensors: f32 q [B, H,
+    Tq, 64] and k/v [B, H, Tk, 64] (strided views as K1 takes them) ->
+    [B, H, Tq, 64], a view of a [B, Tq, H, 64] buffer."""
+    kv_len = _check_split_qkv(name, q, k, v, kv_len, torch.float32)
+    b, h, tq, d = q.shape
+    _check_sm90_groups(name, b * h)
+    out = torch.empty((b, tq, h, d), dtype=q.dtype, device=q.device)
+    lib = _build.load_library()
+    _build.check(lib.spt_fullkv_attention_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, h, tq, k.shape[2], kv_len, int(causal),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        out.stride(0), out.stride(2), out.stride(1),
+        _build.stream_ptr(q.device),
+    ), "spt_fullkv_attention_f32")
+    return out.permute(0, 2, 1, 3)
+
+
+def flash_attention_fullkv_f32(q, k, v, causal: bool = False,
+                               kv_len: Optional[int] = None) -> torch.Tensor:
+    """K1 at f32 (csrc/fullkv_attention_f32.cu): q [B, H, Tq, 64], k/v
+    [B, H, Tk, 64] f32, q and k pre-scaled (strided views allowed, head
+    dim contiguous) -> [B, H, Tq, 64] f32, on CUDA a view of a [B, Tq, H,
+    64] buffer. Its plain version is K1's (f32 end to end, as the Pallas
+    kernel on f32 inputs). The kernel streams K/V in tiles of 64 keys with
+    an online softmax, all f32 on the CUDA cores (no TF32); B * H at most
+    65535. No backward: under autograd the card raises (K15 has no f32
+    form)."""
+    if q.device.type == "cpu":
+        return flash_attention_fullkv_plain(q, k, v, causal, kv_len)
+    out = _fullkv_f32_launch("flash_attention_fullkv_f32", q, k, v, causal,
+                             kv_len)
+    flash_attention_fullkv_f32.launches += 1
+    return out
+
+
+flash_attention_fullkv_f32.launches = 0
+
+
+def flash_attention_f32(q, k, v, causal: bool = False,
+                        kv_len: Optional[int] = None) -> torch.Tensor:
+    """K5's route at f32 (K/V past 4096 positions): K5's function on f32
+    q, k, v (its plain version, flash_attention_plain, on the CPU), on the
+    card the kernel of flash_attention_fullkv_f32, which streams K/V at any
+    length. Shapes and layout as K1's f32 form."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, kv_len)
+    out = _fullkv_f32_launch("flash_attention_f32", q, k, v, causal, kv_len)
+    flash_attention_f32.launches += 1
+    return out
+
+
+flash_attention_f32.launches = 0
+
+
+def _f32_unported(what: str, q) -> None:
+    """Raise for an f32 CUDA tensor on a route whose kernel has no f32
+    form yet (the CPU's plain versions take f32)."""
+    if q.dtype == torch.float32 and q.device.type != "cpu":
+        raise NotImplementedError(
+            f"{what} is not yet ported at f32: on the card it takes bf16 "
+            "only (an f32 model runs the 'fullkv' form, without gradients)")
 
 
 # ---------------------------------------------------------------------------
@@ -433,9 +520,12 @@ def flash_attention(q, k, v, causal: bool = False,
     Tk, 64], q and k pre-scaled (strided views allowed, head dim
     contiguous) -> [B, H, Tq, 64], on CUDA a view of a [B, Tq, H, 64]
     buffer. Any Tq and Tk: the kernel masks its own ragged tiles where the
-    reference pads to multiples of 128. On CUDA bf16 only, and block_k
-    must be the kernel's 128 (it sets where the running max advances, so
-    the rounding); block_q changes no value and is not used."""
+    reference pads to multiples of 128. On CUDA bf16, and block_k must be
+    the kernel's 128 (it sets where the running max advances, so the
+    rounding); block_q changes no value and is not used. An f32 q goes to
+    flash_attention_f32 (K5's route at f32, any tile)."""
+    if q.dtype == torch.float32:
+        return flash_attention_f32(q, k, v, causal, kv_len)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, kv_len, block_q, block_k)
     if block_k != DEFAULT_BLOCK_K:
@@ -761,12 +851,15 @@ def multihead_attention(q, k, v, causal: bool = False,
     non-causal call under "q8"; K10 for a non-causal call under "pipe"
     whose q block times Tk rounded up to 128 is at most 768 x 2048 (the
     reference's VMEM gate); K1 otherwise. Causal calls never take K7 or
-    K10. A wrapper raises on CUDA for what its kernel does not take (a
-    dtype other than bf16, Dh 128). Inputs [B, H, T, D].
+    K10. A wrapper raises on CUDA for what its kernel does not take (Dh
+    128, a dtype it has no form for). Inputs [B, H, T, D]. f32 (the JAX
+    package's default precision) takes K1's and K5's f32 forms; at f32 on
+    the card the routes to K7 and K10 raise (no f32 form yet).
 
     K1 runs as its autograd Function, whose backward is K15 (with no
     input that requires grad it records no graph); under autograd a route
-    to K5, K7 or K10 raises, since those kernels have no backward."""
+    to K5, K7 or K10 raises, since those kernels have no backward, and so
+    does f32 on the card (K15 has no f32 form)."""
     check_encoder_attention(form)
     tq, d = q.shape[2], q.shape[3]
     if d not in (64, 128) or tq < 128:
@@ -778,10 +871,14 @@ def multihead_attention(q, k, v, causal: bool = False,
     if not causal:
         if form == "q8":
             _no_backward("K7 (the 'q8' form)", q, k, v)
+            _f32_unported("K7 (the 'q8' form)", q)
             return flash_attention_fullkv_q8(q, k, v, kv_len=kv_len)
         if form == "pipe" and _block_q(tq) * -(-tk // 128) * 128 <= 768 * 2048:
             _no_backward("K10 (the 'pipe' form)", q, k, v)
+            _f32_unported("K10 (the 'pipe' form)", q)
             return flash_attention_fullkv_pipe(q, k, v, kv_len=kv_len)
+    if _needs_grad(q, k, v):
+        _f32_unported("K15 (K1's backward, for attention under autograd)", q)
     return _FullKVAttention.apply(q, k, v, causal, kv_len)
 
 
@@ -805,6 +902,7 @@ def multihead_attention_packed(q, k, v, n_head: int, causal: bool = False,
             split_heads(v, n_head), causal=causal, kv_len=kv_len, form=form)
         return merge_heads(o)
     _no_backward(f"K{9 if form == 'pair' else 8} (the {form!r} form)", q, k, v)
+    _f32_unported(f"K{9 if form == 'pair' else 8} (the {form!r} form)", q)
     kernel = (flash_attention_fullkv_packed_pair if form == "pair"
               else flash_attention_fullkv_packed)
     return kernel(q, k, v, n_head, causal=causal, kv_len=kv_len)
@@ -828,12 +926,13 @@ def decode_cross_attention_plain(q, k, v,
     return (o / l).to(q.dtype)
 
 
-def _check_decode_cross(name, q, kv, scales, rows, kv_dtype, kv_len):
-    """Checks shared by K4, K3, K6 and K11 on CUDA: q [B, H, R<=8, 64]
-    bf16 with its head dim contiguous; kv = (k, v), each [B, H, rows, Tk]
-    of kv_dtype, rows of any pitch _slab_pitch takes; scales = (ks, vs),
-    each contiguous f32 [B, H, Tk], or () for bf16 K/V. Returns kv_len
-    (Tk when None)."""
+def _check_decode_cross(name, q, kv, scales, rows, kv_dtype, kv_len,
+                        q_dtype=torch.bfloat16):
+    """Checks shared by K4, K3, K6 and K11 (and their f32 forms) on CUDA:
+    q [B, H, R<=8, 64] of q_dtype with its head dim contiguous; kv = (k,
+    v), each [B, H, rows, Tk] of kv_dtype, rows of any pitch _slab_pitch
+    takes; scales = (ks, vs), each contiguous f32 [B, H, Tk], or () for
+    bf16 or f32 K/V. Returns kv_len (Tk when None)."""
     b, h, r, d = q.shape
     tk = kv[0].shape[3]
     kv_len = tk if kv_len is None else kv_len
@@ -846,15 +945,15 @@ def _check_decode_cross(name, q, kv, scales, rows, kv_dtype, kv_len):
         raise ValueError(f"{name}: scales must be [{b}, {h}, {tk}]")
     if not 1 <= kv_len <= tk:
         raise ValueError(f"{name}: kv_len={kv_len} not in [1, {tk}]")
-    operands = [("q", q, torch.bfloat16)]
+    operands = [("q", q, q_dtype)]
     operands += [(label, t, kv_dtype) for label, t in zip("kv", kv)]
     operands += [(f"{label} scale", t, torch.float32)
                  for label, t in zip("kv", scales)]
     for label, t, dtype in operands:
         if t.dtype != dtype or t.device != q.device:
             raise TypeError(f"{name}: {label} must be {dtype} on {q.device}, "
-                            f"got {t.dtype} on {t.device} (the kernel has no "
-                            "other form; run the model in bf16)")
+                            f"got {t.dtype} on {t.device} (this kernel's form; "
+                            "an f32 q goes to the f32 entries)")
     if q.stride(-1) != 1 or not all(t.is_contiguous() for t in scales):
         raise ValueError(f"{name}: q's head dim and the scales must be contiguous")
     return kv_len
@@ -868,7 +967,10 @@ def decode_cross_attention(q, k, v,
     tma_pitch); any Tk >= 1 -> [B, H, R, 64], on CUDA a view of a
     [B, R, H, 64] buffer. The kernel is K3's bf16 instance: items of
     (batch item, head pair, 64 positions), so P rounds to bf16 against
-    each 64-position chunk's max."""
+    each 64-position chunk's max. An f32 q goes to
+    decode_cross_attention_f32 (K4 at f32)."""
+    if q.dtype == torch.float32:
+        return decode_cross_attention_f32(q, k, v, kv_len)
     if q.device.type == "cpu":
         return decode_cross_attention_plain(q, k, v, kv_len)
     out = _launch_decode_cross("decode_cross_attention",
@@ -880,6 +982,27 @@ def decode_cross_attention(q, k, v,
 decode_cross_attention.launches = 0
 
 
+def decode_cross_attention_f32(q, k, v,
+                               kv_len: Optional[int] = None) -> torch.Tensor:
+    """K4 at f32, the JAX package's default precision: q [B, H, R<=8, 64]
+    f32 pre-scaled by Dh^-0.5; k/v f32 [B, H, 64, Tk], contiguous or with
+    rows of a pitch that is a multiple of 16 bytes (the decoder's layout,
+    tma_pitch(Tk, 4): 1500 for 1500) -> [B, H, R, 64] f32. Its plain
+    version is K4's (f32 end to end). The kernel is K3's f32 instance:
+    items of (batch item, head pair, 32 positions), P kept in f32 (the
+    Pallas kernel keeps P in V's dtype), the combine in f32."""
+    if q.device.type == "cpu":
+        return decode_cross_attention_plain(q, k, v, kv_len)
+    out = _launch_decode_cross("decode_cross_attention_f32",
+                               "spt_decode_cross_attention_f32", q, k, v, (),
+                               kv_len, q_dtype=torch.float32)
+    decode_cross_attention_f32.launches += 1
+    return out
+
+
+decode_cross_attention_f32.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # K3, K6 and K11: decode cross-attention over int8 and packed int4 K/V
 # ---------------------------------------------------------------------------
@@ -887,7 +1010,7 @@ decode_cross_attention.launches = 0
 
 # Bytes of a K/V row per work item and partial record of the decode
 # kernel (kSlice in csrc/decode_cross_attention_mh.cu): 128 of int8 (K3,
-# K11), bf16 (K4) and packed int4 (K6, one position per byte).
+# K11), bf16 and f32 (K4) and packed int4 (K6, one position per byte).
 _ROW_SLICE = 128
 # TMA addresses a row only where its pitch and base are multiples of this
 # many bytes.
@@ -897,14 +1020,14 @@ TMA_ALIGN = 16
 def item_positions(itemsize: int) -> int:
     """Positions per work item and partial record of K3/K4/K6/K11 (kChunk
     in csrc/decode_cross_attention_mh.cu): 128 of int8 or packed int4
-    (itemsize 1), 64 of bf16."""
+    (itemsize 1), 64 of bf16, 32 of f32."""
     return _ROW_SLICE // itemsize
 
 
 def tma_pitch(tk: int, itemsize: int = 1) -> int:
     """The row pitch, in elements of `itemsize` bytes, at which rows of tk
     positions can be addressed by TMA: rows rounded up to a multiple of 16
-    bytes (1504 for 1500, int8 and bf16 alike)."""
+    bytes (1504 for 1500, int8 and bf16 alike; 1500 for f32)."""
     per = TMA_ALIGN // itemsize
     return -(-tk // per) * per
 
@@ -965,19 +1088,21 @@ def decode_cross_attention_q4_plain(q, qk, ks, qv, vs,
                                            unpack_kv_int4(qv), vs, kv_len)
 
 
-def _launch_decode_cross(name, entry, q, k, v, scales, kv_len, packed=False):
-    """Checks and launch shared by K3, K4, K6 and K11, one persistent
-    kernel: K/V [B, H, rows, Tk] of any pitch _slab_pitch takes (rows 64,
-    or 32 of packed int4: packed), one partial record per work item
-    (item_positions), the SM count and the load path passed after kv_len
-    and ld after q's strides. scales: (ks, vs) for int8 and int4 K/V, ()
-    for bf16 (K4). Returns the [B, H, R, 64] result as a view of a [B, R,
-    H, 64] buffer."""
+def _launch_decode_cross(name, entry, q, k, v, scales, kv_len, packed=False,
+                         q_dtype=torch.bfloat16):
+    """Checks and launch shared by K3, K4, K6 and K11 and their f32 forms,
+    one persistent kernel: K/V [B, H, rows, Tk] of any pitch _slab_pitch
+    takes (rows 64, or 32 of packed int4: packed), one partial record per
+    work item (item_positions), the SM count and the load path passed
+    after kv_len and ld after q's strides. scales: (ks, vs) for int8 and
+    int4 K/V, () for bf16 or f32 K/V (K4, of q_dtype). The output is of
+    q_dtype. Returns the [B, H, R, 64] result as a view of a [B, R, H, 64]
+    buffer."""
     b, h, r, d = q.shape
     tk = k.shape[3]
-    kv_dtype = torch.int8 if scales else torch.bfloat16
+    kv_dtype = torch.int8 if scales else q_dtype
     kv_len = _check_decode_cross(name, q, (k, v), scales, d // 2 if packed else d,
-                                 kv_dtype, kv_len)
+                                 kv_dtype, kv_len, q_dtype)
     chunks = -(-kv_len // item_positions(k.element_size()))
     ld = _slab_pitch(name, (k, v))
     path = decode_cross_load_path(ld * k.element_size(), k.data_ptr(), v.data_ptr())
@@ -1004,7 +1129,10 @@ def decode_cross_attention_q8(q, qk, ks, qv, vs,
     tma_pitch); ks/vs f32 [B, H, Tk], contiguous; any Tk -> [B, H, R,
     64]. The kernel is K11's (the same bits on the same inputs): items of
     (batch item, head pair, 128 positions), so P rounds to bf16 against
-    each 128-position chunk's max."""
+    each 128-position chunk's max. An f32 q goes to
+    decode_cross_attention_q8_f32q."""
+    if q.dtype == torch.float32:
+        return decode_cross_attention_q8_f32q(q, qk, ks, qv, vs, kv_len)
     if q.device.type == "cpu":
         return decode_cross_attention_q8_plain(q, qk, ks, qv, vs, kv_len)
     out = _launch_decode_cross(
@@ -1017,6 +1145,25 @@ def decode_cross_attention_q8(q, qk, ks, qv, vs,
 decode_cross_attention_q8.launches = 0
 
 
+def decode_cross_attention_q8_f32q(q, qk, ks, qv, vs,
+                                   kv_len: Optional[int] = None) -> torch.Tensor:
+    """K3 with an f32 q, the JAX package's default precision: operands as
+    K3's but q f32, output f32 [B, H, R, 64]. The function is K3's plain
+    version on an f32 q (f32 scores, p * vs rounded to bf16 as the Pallas
+    kernel casts it for PV, f32 output); the kernel is K3's instance with
+    an f32 q and output."""
+    if q.device.type == "cpu":
+        return decode_cross_attention_q8_plain(q, qk, ks, qv, vs, kv_len)
+    out = _launch_decode_cross(
+        "decode_cross_attention_q8_f32q", "spt_decode_cross_attention_q8_f32q",
+        q, qk, qv, (ks, vs), kv_len, q_dtype=torch.float32)
+    decode_cross_attention_q8_f32q.launches += 1
+    return out
+
+
+decode_cross_attention_q8_f32q.launches = 0
+
+
 def decode_cross_attention_q4(q, qk, ks, qv, vs,
                               kv_len: Optional[int] = None) -> torch.Tensor:
     """K6. As K3 with qk/qv the packed int4 [B, H, 32, Tk] (byte t of row
@@ -1024,7 +1171,9 @@ def decode_cross_attention_q4(q, qk, ks, qv, vs,
     pitch that is a multiple of 16 bytes (the decoder's layout,
     tma_pitch). The kernel is K3's int4 instance: items of (batch item,
     head pair, 128 positions), so P rounds to bf16 against each such
-    chunk's max."""
+    chunk's max. An f32 q goes to decode_cross_attention_q4_f32q."""
+    if q.dtype == torch.float32:
+        return decode_cross_attention_q4_f32q(q, qk, ks, qv, vs, kv_len)
     if q.device.type == "cpu":
         return decode_cross_attention_q4_plain(q, qk, ks, qv, vs, kv_len)
     out = _launch_decode_cross(
@@ -1035,6 +1184,23 @@ def decode_cross_attention_q4(q, qk, ks, qv, vs,
 
 
 decode_cross_attention_q4.launches = 0
+
+
+def decode_cross_attention_q4_f32q(q, qk, ks, qv, vs,
+                                   kv_len: Optional[int] = None) -> torch.Tensor:
+    """K6 with an f32 q: operands as K6's but q f32, output f32. K6's
+    plain version on an f32 q; the kernel is K6's instance with an f32 q
+    and output (p * vs still rounded to bf16)."""
+    if q.device.type == "cpu":
+        return decode_cross_attention_q4_plain(q, qk, ks, qv, vs, kv_len)
+    out = _launch_decode_cross(
+        "decode_cross_attention_q4_f32q", "spt_decode_cross_attention_q4_f32q",
+        q, qk, qv, (ks, vs), kv_len, packed=True, q_dtype=torch.float32)
+    decode_cross_attention_q4_f32q.launches += 1
+    return out
+
+
+decode_cross_attention_q4_f32q.launches = 0
 
 
 def decode_cross_attention_q8_mh(q, qk, ks, qv, vs,

@@ -73,7 +73,7 @@ ITERS, SEED = 60, 0
 ENTRIES = {"int8": "spt_decode_cross_attention_q8",
            "bf16": "spt_decode_cross_attention",
            "int4": "spt_decode_cross_attention_q4"}
-_COMBINE = "decode_cross_q_combine<<<B * H, kMaxR * kD, 0, st>>>("
+_COMBINE = "decode_cross_q_combine<Q><<<B * H, kMaxR * kD, 0, st>>>("
 _HEADS = r"constexpr int kHeads = (\d+);"
 _SLICE = r"constexpr int kInt4Slice = (\d+);"
 

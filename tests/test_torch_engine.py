@@ -163,7 +163,7 @@ def test_default_device_is_the_card():
         WhisperEngine()
     eng = WhisperEngine(device="cpu")
     assert eng.device.type == "cpu"
-    assert eng.dtype == torch.float32  # bf16 is the default on the card only
+    assert eng.dtype == torch.float32  # the JAX engine's default, on every device
 
 
 @pytest.mark.parametrize("kwargs,exc,match", [

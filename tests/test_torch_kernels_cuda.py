@@ -1,4 +1,5 @@
-"""Card-only tests: the port's CUDA kernels (K1-K6, the encoder-attention
+"""Card-only tests: the port's CUDA kernels (K1-K6 and the f32 forms of K1,
+K5's route, K4, K3 and K6, the encoder-attention
 forms K7-K10, the probe kernels K11-K13, K14, the "w8a8" decoder's
 int8 x int8 cross-attention, and K15, K1's backward, with K1's instance
 that writes each row's log-sum-exp) against their plain PyTorch
@@ -294,20 +295,30 @@ def test_fullkv_autograd_launches_k1_and_k15(cuda):
 
 
 def test_f32_at_kernel_shapes_raises(cuda):
-    """On the card a tensor launches the kernel or raises: f32 at shapes
-    that the dispatch sends to K1 or K4 raises and never falls back to
-    plain ops. The engine defaults to bf16 on the card."""
+    """On the card a tensor launches the kernel or raises, never falling
+    back to plain ops. At f32 (the engine's default, as the JAX engine's)
+    K1 and K4 launch their f32 forms; the forms with no f32 kernel yet
+    ("q8" here) and K1 under autograd (K15 has no f32 form) raise."""
     from spittle_tpu_torch.engine.whisper_engine import WhisperEngine
     from spittle_tpu_torch.models.whisper import model as tmod
 
     q = torch.zeros((1, 2, 256, 64), device=cuda)
-    with pytest.raises(TypeError, match="bfloat16"):
-        att.multihead_attention(q, q, q)
+    with pytest.raises(NotImplementedError, match="'q8' form.*not yet ported at f32"):
+        att.multihead_attention(q, q, q, form="q8")
+    qg = q.clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="K15.*not yet ported at f32"):
+        att.multihead_attention(qg, qg, qg)
+    before = att.flash_attention_fullkv_f32.launches
+    assert att.multihead_attention(q, q, q).dtype == torch.float32
+    assert att.flash_attention_fullkv_f32.launches == before + 1
     qd = torch.zeros((1, 2, 1, 64), device=cuda)
     kd = torch.zeros((1, 2, 64, 256), device=cuda)
-    with pytest.raises(TypeError, match="bf16"):
-        tmod._cross_attention(qd, kd, kd, 64)
-    assert WhisperEngine(device="cuda").dtype == torch.bfloat16
+    before = att.decode_cross_attention_f32.launches
+    assert tmod._cross_attention(qd, kd, kd, 64).dtype == torch.float32
+    assert att.decode_cross_attention_f32.launches == before + 1
+    with pytest.raises(TypeError, match="bfloat16"):
+        att._fullkv_launch(q, q, q, False, None, with_lse=False)
+    assert WhisperEngine(device="cuda").dtype == torch.float32
 
 
 @pytest.mark.parametrize("r", [1, 3, 8])
@@ -1460,3 +1471,154 @@ def test_device_trace_names_k4(cuda, tmp_path):
     k4 = [n for n in kernels if "decode_cross_mh_kernel" in n]
     assert att.decode_cross_attention.launches == 3
     assert len(k4) == att.decode_cross_attention.launches, kernels
+
+
+# ---------------------------------------------------------------------------
+# The f32 forms: K1 (and K5's route), K4, K3 and K6 at the JAX package's
+# default precision
+# ---------------------------------------------------------------------------
+
+
+def _f32_close(got, want):
+    """The f32 kernels' rule: max |kernel - plain| <= 1e-5 * max |plain|.
+    Both are f32 end to end; only the order of the f32 sums and the
+    softmax's running max differ (errors of ~1e-7 of the largest output)."""
+    assert got.dtype == want.dtype == torch.float32 and got.shape == want.shape
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("b,tq,tk,kv_len,causal", [
+    (8, 1500, 1500, 1500, False), (1, 1500, 1500, 1500, False),
+    (8, 256, 256, 256, False), (4, 224, 224, 224, True),
+    (8, 1500, 1500, 1300, False), (2, 333, 1500, 1201, True),
+    (1, 130, 4096, 4000, False),
+])
+def test_fullkv_f32_kernel_matches_plain(cuda, b, tq, tk, kv_len, causal):
+    """K1's f32 form at the encoder's shapes (B 8 and the app's B 1 at 1500
+    positions, the reduced context's 256), causal, a ragged kv_len, Tq !=
+    Tk and K/V at the full-KV limit, q, k, v as strided views of packed
+    projections, against K1's plain version."""
+    rng = np.random.default_rng(b + tq + kv_len)
+    h, d = 20, 64
+    q = _randn(rng, (b, tq, h * d), cuda, torch.float32, d ** -0.25)
+    k, v = (_randn(rng, (b, tk, h * d), cuda, torch.float32, d ** -0.25)
+            for _ in range(2))
+    q, k, v = (att.split_heads(x, h) for x in (q, k, v))
+    before = att.flash_attention_fullkv_f32.launches
+    got = att.flash_attention_fullkv(q, k, v, causal=causal, kv_len=kv_len)
+    want = att.flash_attention_fullkv_plain(q, k, v, causal, kv_len)
+    torch.cuda.synchronize()
+    assert att.flash_attention_fullkv_f32.launches == before + 1
+    _f32_close(got, want)
+
+
+@pytest.mark.parametrize("tq,tk,kv_len,causal", [
+    (6000, 6000, 6000, False), (6000, 6000, 5000, False), (6000, 6000, 6000, True),
+    (333, 4301, 4200, True),
+])
+def test_flash_f32_route_matches_plain(cuda, tq, tk, kv_len, causal):
+    """K5's route at f32 ([2, 20, 6000, 64], the long window), through the
+    dispatch, against K5's plain version."""
+    rng = np.random.default_rng(tq + kv_len)
+    b, h, d = 2, 20, 64
+    q = _randn(rng, (b, h, tq, d), cuda, torch.float32, d ** -0.25)
+    k, v = (_randn(rng, (b, h, tk, d), cuda, torch.float32, d ** -0.25)
+            for _ in range(2))
+    before = att.flash_attention_f32.launches
+    got = att.multihead_attention(q, k, v, causal=causal, kv_len=kv_len)
+    want = att.flash_attention_plain(q, k, v, causal, kv_len)
+    torch.cuda.synchronize()
+    assert att.flash_attention_f32.launches == before + 1
+    _f32_close(got, want)
+
+
+@pytest.mark.parametrize("b,r,tk,kv_len,layout", [
+    (8, 1, 1500, 1500, "padded"), (8, 3, 1500, 1500, "padded"),
+    (8, 8, 1500, 1500, "padded"), (1, 1, 1500, 1500, "padded"),
+    (2, 1, 6000, 6000, "padded"), (2, 5, 1500, 1300, "padded"),
+    (2, 3, 255, 201, "contiguous"), (2, 8, 301, 301, "contiguous"),
+])
+def test_decode_cross_f32_kernel_matches_plain(cuda, b, r, tk, kv_len, layout):
+    """K4's f32 instance on the decoder's rows (tma_pitch at 4 bytes: 1500
+    for 1500, TMA) and on contiguous rows of odd length (cp.async covers),
+    the columns from kv_len on and the padding holding NaN and inf, against
+    K4's plain version (P unrounded in both)."""
+    rng = np.random.default_rng(70 + b + r + tk)
+    h = 20
+    pitch = att.tma_pitch(tk, 4) if layout == "padded" else tk
+
+    def kv():
+        buf = torch.full((b, h, 64, pitch), float("nan"), device=cuda)
+        buf[..., :kv_len] = _randn(rng, (b, h, 64, kv_len), cuda, torch.float32)
+        buf[..., kv_len:tk:2] = float("inf")
+        return buf[..., :tk]
+
+    q = _randn(rng, (b, h, r, 64), cuda, torch.float32, 64 ** -0.5)
+    k, v = kv(), kv()
+    before = att.decode_cross_attention_f32.launches
+    got = att.decode_cross_attention(q, k, v, kv_len=kv_len)
+    want = att.decode_cross_attention_plain(q, k[..., :kv_len].contiguous(),
+                                            v[..., :kv_len].contiguous())
+    torch.cuda.synchronize()
+    assert att.decode_cross_attention_f32.launches == before + 1
+    _f32_close(got, want)
+
+
+@pytest.mark.parametrize("bits", [8, 4], ids=["int8", "int4"])
+@pytest.mark.parametrize("b,r,kv_len", [(8, 1, 1500), (8, 5, 1500), (1, 1, 1500),
+                                        (2, 3, 1300)])
+def test_decode_cross_quant_f32q_kernel_matches_plain(cuda, bits, b, r, kv_len):
+    """K3's and K6's instances with an f32 q on the decoder's padded rows
+    (1504 bytes), against their plain versions on the same f32 q: f32
+    output, the bf16 instances' tolerance (P rounds to bf16 against each
+    128-position item's max in the kernel, the row max in the plain
+    version)."""
+    rng = np.random.default_rng(90 + bits + b + r)
+    h, tk = 20, 1500
+    q = _randn(rng, (b, h, r, 64), cuda, torch.float32, 64 ** -0.5)
+    qk, ks = _quant_kv(rng, b, h, tk, kv_len, bits, cuda)
+    qv, vs = _quant_kv(rng, b, h, tk, kv_len, bits, cuda)
+    args = (q, _padded_rows(qk, 1504), ks, _padded_rows(qv, 1504), vs)
+    fn, plain = _QUANT_KERNELS[bits]
+    entry = (att.decode_cross_attention_q8_f32q if bits == 8
+             else att.decode_cross_attention_q4_f32q)
+    before = entry.launches
+    got = fn(*args, kv_len=kv_len)
+    want = plain(*args, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert entry.launches == before + 1
+    assert got.dtype == want.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-2, atol=2e-3)
+
+
+def test_engine_f32_default_runs_the_f32_kernels(cuda):
+    """WhisperEngine(device="cuda") at its default dtype (f32) on a small
+    Dh-64 config: one encode per window batch on K1's f32 form, every
+    decode step on K4's f32 instance, no bf16 instance launched."""
+    from spittle_tpu_torch.engine.base import TranscribeParams
+    from spittle_tpu_torch.engine.whisper_engine import WhisperEngine
+    from spittle_tpu_torch.models.whisper.config import CONFIGS, WhisperConfig
+
+    CONFIGS["test-f32-card"] = WhisperConfig(
+        name="test-f32-card", n_mels=80, n_audio_ctx=200, n_audio_state=256,
+        n_audio_head=4, n_audio_layer=2, n_vocab=51865, n_text_ctx=32,
+        n_text_state=256, n_text_head=4, n_text_layer=2)
+    eng = WhisperEngine(device="cuda")
+    eng.load_model("random:test-f32-card", seed=0)
+    names = ("flash_attention_fullkv", "decode_cross_attention",
+             "flash_attention_fullkv_f32", "decode_cross_attention_f32")
+    for n in names:
+        getattr(att, n).launches = 0
+    rng = np.random.default_rng(3)
+    audio = [(0.3 * rng.standard_normal(16000 * 3)).astype(np.float32)
+             for _ in range(2)]
+    res = eng.transcribe_batch(audio, TranscribeParams(
+        language="en", parallel_windows=True, temperatures=(0.0,),
+        condition_on_previous_text=False))
+    torch.cuda.synchronize()
+    assert len(res) == 2 and eng.dtype == torch.float32
+    assert att.flash_attention_fullkv_f32.launches == 2
+    assert att.decode_cross_attention_f32.launches >= 2
+    assert att.flash_attention_fullkv.launches == 0
+    assert att.decode_cross_attention.launches == 0
